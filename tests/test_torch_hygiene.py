@@ -1,0 +1,68 @@
+"""The PyTorch port stands alone: no module of ``milnce_tpu_torch/`` and
+not ``chip_smoke.py`` imports jax, flax, optax or the JAX package, read
+from the source (AST) and checked by importing every module in a fresh
+interpreter where those imports fail."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "milnce_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "milnce_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_package_exists():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for expected in ("config.py", "models/s3dg.py", "ops/milnce_stream.py",
+                     "losses/milnce_chunked.py", "train/step.py",
+                     "train/cli.py"):
+        assert expected in names
+    assert (PORT / "csrc" / "milnce_stream.cu").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_forbidden_import_in_source(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        modules.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                                else parts))
+    code = "\n".join(
+        ["import sys"]
+        + [f"sys.modules[{name!r}] = None" for name in FORBIDDEN]
+        + ["import importlib, runpy"]
+        + [f"importlib.import_module({m!r})" for m in modules]
+        # chip_smoke must import too (its main() is not run)
+        + [f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
+           "run_name='chip_smoke_import_check')",
+           "bad = [m for m in sys.modules if m.split('.')[0] in "
+           f"{FORBIDDEN!r} and sys.modules[m] is not None]",
+           "assert not bad, bad",
+           "print('ok', len(sys.modules))"])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")

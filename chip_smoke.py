@@ -5,7 +5,8 @@ Phases, each fatal on failure:
 
 1. device   -- the card's name and power limit (nvidia-smi), torch and
                CUDA versions; TF32 off for convolutions and matmuls.
-2. build    -- nvcc builds the port's kernels from ``milnce_tpu_torch/csrc``.
+2. build    -- nvcc builds the port's kernels from ``milnce_tpu_torch/csrc``
+               (``milnce_stream.cu`` and ``softdtw.cu``, side by side).
 3. kernels  -- each MIL-NCE stream kernel against its plain PyTorch
                version on the card, values and all four gradients, at the
                recipe shape (B=128, Bg=8192, K=5, D=512), an uneven shape
@@ -13,14 +14,28 @@ Phases, each fatal on failure:
                run's own shape; then the kernels', the plain versions' and
                the dense PyTorch form's times (median of 20 after warm-up,
                CUDA events) at the recipe shape, beside the card's bound.
-4. reference-- a small model with the chunked loss on the kernels agrees
+4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
+               forward's value and table; the backward's E-matrix and
+               gradient, fed the same table) at the reference presets, past
+               the reference's 1024 cap, at the training shapes and at
+               rectangular and 1x1 ones, for gamma 0.1 and 1e-5; then both
+               kernels' and plain versions' times at the four presets and
+               at a full-width training shape (per call, CUDA events; and
+               the kernel alone on the device, torch.profiler) beside the
+               card's bound.
+5. reference-- a small model with the chunked loss on the kernels agrees
                with the dense loss: one step's gradients, three steps'
                losses.
-5. train    -- ``run_training`` at full width (9 inception blocks,
+6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
+               sdtw_negative, sdtw_3) on the soft-DTW kernels against the
+               plain recurrence: one step's gradients, three steps' losses.
+7. train    -- ``run_training`` at full width (9 inception blocks,
                embedding 512, vocab 66250 x 300, text hidden 2048, 32
-               frames at 224^2, K=5, 20 words), chunked MIL-NCE on the
-               kernels with chunk 8, per-device batch 16, 4 steps: every
-               loss finite, every kernel launched its expected count.
+               frames at 224^2, K=5, 20 words), per-device batch 16, 4
+               steps, twice: chunked MIL-NCE on the stream kernels with
+               chunk 8, then ``sdtw_3`` on the soft-DTW kernels.  Every
+               loss finite, every kernel of each run launched its expected
+               count; one more step of each profiled.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -45,10 +60,41 @@ H100_F32_FLOPS = 67e12
 H100_HBM_BYTES = 3.35e12
 TOL_RTOL, TOL_ATOL = 1e-4, 1e-5     # |kernel - plain| <= atol + rtol*max|plain|
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHUNK = 4, 16, 8
-KERNEL_SOURCE = "milnce_tpu_torch/csrc/milnce_stream.cu"
+SOURCES = {"lse_fwd": "milnce_tpu_torch/csrc/milnce_stream.cu",
+           "lse_bwd_rows": "milnce_tpu_torch/csrc/milnce_stream.cu",
+           "lse_bwd_cols": "milnce_tpu_torch/csrc/milnce_stream.cu",
+           "softdtw_fwd": "milnce_tpu_torch/csrc/softdtw.cu",
+           "softdtw_bwd": "milnce_tpu_torch/csrc/softdtw.cu"}
 REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows": "milnce_tpu/ops/milnce_pallas.py:210",
-            "lse_bwd_cols": "milnce_tpu/ops/milnce_pallas.py:210"}
+            "lse_bwd_cols": "milnce_tpu/ops/milnce_pallas.py:210",
+            "softdtw_fwd": "milnce_tpu/ops/softdtw_pallas.py:282 (B3), "
+                           ":63 (B5), :106 (B7)",
+            "softdtw_bwd": "milnce_tpu/ops/softdtw_pallas.py:340 (B4), "
+                           ":593 (B6), :489 (B8)"}
+# special-function (exp, log) results per clock per SM on Hopper
+H100_SFU_PER_CLOCK_SM = 16
+# (label, B, N, M, features): the soft-DTW presets of
+# milnce_tpu/ops/softdtw_profile.py, the first timed as the kernels' line
+SDTW_PRESETS = [("B3/B4 (1024,32,32)", 1024, 32, 32, 64),
+                ("B3/B4 (128,17,15)", 128, 17, 15, 2),
+                ("B5/B6 (512,64,64)", 512, 64, 64, 2),
+                ("B7/B8 (32,256,256)", 32, 256, 256, 512)]
+# timed besides the presets: the full-width sdtw_3 step's video-text
+# all-pairs call (B^2 = 256 pairs of T' = 4 by K = 5, D = 512)
+SDTW_TRAIN_TIMED = ("train v-t (256,4,5)", 256, 4, 5, 512)
+# (label, B, N, M, features, bandwidth): past the reference's 1024 cap, the
+# full-width sdtw_3 pairs (B^2 = 256, T' = 4 frames, K = 5 captions), and
+# rectangular / 1x1 cases
+SDTW_EXTRA = [("B7/B8 past 1024", 2, 1500, 1300, 64, 0),
+              ("B7/B8 banded", 2, 2048, 2048, 64, 128),
+              ("train v-v", 256, 4, 4, 512, 0),
+              ("train v-t", 256, 4, 5, 512, 0),
+              ("train t-t", 256, 5, 5, 512, 0),
+              ("rect", 5, 7, 3, 8, 0),
+              ("rect-T banded", 5, 3, 7, 8, 4),
+              ("1x1", 3, 1, 1, 8, 0)]
+DTW_LOSSES = ("cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
 
 
 def log(msg: str) -> None:
@@ -74,7 +120,7 @@ def phase_build():
     from milnce_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build(["milnce_stream"])
+    built = cuda_build.build(["milnce_stream", "softdtw"])
     for name, (secs, out) in built.items():
         log(f"built {name}.cu in {secs:.1f} s")
         for line in out.splitlines():
@@ -239,6 +285,156 @@ def phase_timing():
     return out
 
 
+def _sdtw_case(b, n, m, feat, gamma, seed):
+    """A cost from the port's own distance functions: negative_dot (the
+    sdtw_3 default) at gamma 0.1, cosine (the cdtw default) at 1e-5, on
+    features of unit scale."""
+    from milnce_tpu_torch.ops.softdtw import DIST_FUNCS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, n, feat), generator=gen, device="cuda") / feat ** 0.5
+    y = torch.randn((b, m, feat), generator=gen, device="cuda") / feat ** 0.5
+    dist = "negative_dot" if gamma >= 0.1 else "cosine"
+    return DIST_FUNCS[dist](x, y).contiguous()
+
+
+def _table_err(got, want):
+    """Error of a forward table: the BIG sentinel cells must be the same
+    set, hold the same value to 1e-6 relative, and the real cells are held
+    to the usual limit."""
+    from milnce_tpu_torch.ops.softdtw import BIG
+
+    big = want >= BIG / 2
+    if not torch.equal(big, got >= BIG / 2):
+        raise AssertionError("kernel and plain forward tables disagree on "
+                             "which cells hold the BIG sentinel")
+    if bool(big.any()):
+        rel = float(((got - want).abs() / want)[big].max())
+        if rel > 1e-6:
+            raise AssertionError(f"sentinel cells differ by {rel:.2e} rel")
+    return _err(got[~big], want[~big])
+
+
+def phase_softdtw_parity():
+    """Each soft-DTW kernel alone against its plain version: softdtw_fwd
+    on the cost (value and table), softdtw_bwd on the plain forward's
+    table (E-matrix, and the gradient under a random cotangent).  Returns
+    the worst error of each kernel."""
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    cases = [(label, b, n, m, f, 0) for label, b, n, m, f in SDTW_PRESETS]
+    cases += SDTW_EXTRA
+    worst = {name: 0.0 for name in sd.LAUNCHES}
+    seed = 0
+    for label, b, n, m, feat, band in cases:
+        for gamma in (0.1, 1e-5):
+            seed += 1
+            D = _sdtw_case(b, n, m, feat, gamma, seed)
+            g = torch.randn(b, device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(seed))
+            val_k, r_k = sd.softdtw_fwd(D, gamma, band)
+            val_p, r_p = sd.softdtw_fwd_plain(D, gamma, band)
+            e_k = sd.softdtw_bwd(r_p, gamma, band)
+            e_p = sd.softdtw_bwd_plain(r_p, gamma, band)
+            torch.cuda.synchronize()
+            checks = [("softdtw_fwd", "value", _err(val_k, val_p)),
+                      ("softdtw_fwd", "R", _table_err(r_k, r_p)),
+                      ("softdtw_bwd", "E", _err(e_k, e_p)),
+                      ("softdtw_bwd", "grad_D", _err(
+                          g[:, None, None] * sd.grad_from_e(e_k, n, m),
+                          g[:, None, None] * sd.grad_from_e(e_p, n, m)))]
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (val_k, e_k))
+            line = []
+            for kern, what, (err, lim) in checks:
+                worst[kern] = max(worst[kern], err)
+                line.append(f"{what} {err:.2e}/{lim:.2e}")
+                if err > lim or not finite:
+                    raise AssertionError(
+                        f"{label} gamma={gamma}: {kern} {what} disagrees with "
+                        f"its plain version ({err} > {lim}, finite={finite})")
+            log(f"  [{label} B={b} N={n} M={m} band={band} gamma={gamma}] "
+                f"err/limit: {', '.join(line)} ok")
+    return worst
+
+
+def _sfu_rate():
+    """Special-function results per second: per-clock rate x SMs x the
+    card's max SM clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return H100_SFU_PER_CLOCK_SM * sms * mhz * 1e6, mhz, sms
+
+
+def _device_ms(fn, key, reps=20):
+    """Mean device time of the kernels whose name holds ``key`` per call
+    of ``fn``, from torch.profiler: the kernel alone, without the host
+    time of its wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key)
+    return total / 1e3 / reps
+
+
+def phase_softdtw_timing():
+    """Both soft-DTW kernels and their plain versions at the four presets
+    and at a full-width training shape (gamma 0.1), beside the bound of
+    what the function needs, not of what the kernels move: bytes (forward:
+    read D, write the dense (N+1) x (M+1) table R that the backward
+    needs; backward: read that R, write grad_D) at the HBM rate, and
+    special-function operations (forward 3 exp + 1 log per cell; backward
+    the 3 exp of a cell's Cuturi-Blondel weights) at the SFU rate; the
+    larger wins.  Returns the first preset's numbers."""
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    sfu, mhz, sms = _sfu_rate()
+    log(f"  SFU rate {sfu / 1e12:.3f} T/s ({H100_SFU_PER_CLOCK_SM}/clk/SM x "
+        f"{sms} SMs x {mhz:.0f} MHz)")
+    out = {}
+    for label, b, n, m, feat in SDTW_PRESETS + [SDTW_TRAIN_TIMED]:
+        D = _sdtw_case(b, n, m, feat, 0.1, 7)
+        _, r = sd.softdtw_fwd(D, 0.1)
+        cells = b * n * m
+        d_bytes = 4 * cells                 # D, and grad_D of its shape
+        r_bytes = 4 * b * (n + 1) * (m + 1)
+        work = {"softdtw_fwd": (d_bytes + r_bytes, 4 * cells,
+                                lambda: sd.softdtw_fwd(D, 0.1),
+                                lambda: sd.softdtw_fwd_plain(D, 0.1)),
+                "softdtw_bwd": (r_bytes + d_bytes, 3 * cells,
+                                lambda: sd.softdtw_bwd(r, 0.1),
+                                lambda: sd.softdtw_bwd_plain(r, 0.1))}
+        for name, (nbytes, ops, kern, plain) in work.items():
+            t_bytes, t_ops = nbytes / H100_HBM_BYTES, ops / sfu
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            ms_k, ms_p = _time_ms(kern), _time_ms(plain)
+            dev = _device_ms(kern, f"{name}_kernel")
+            log(f"  {name} {label}: kernel {ms_k:.4f} ms per call, "
+                f"{dev:.4f} ms on the device | plain {ms_p:.3f} "
+                f"ms | bound {bound_ms:.5f} ms ({bound_by}: "
+                f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M SFU ops) | "
+                f"{n + m - 1} dependent diagonal steps")
+            if name not in out:
+                out[name] = dict(ms=ms_k, plain_ms=ms_p, library_ms=None,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 device_ms=dev, shape=[b, n, m, feat])
+    return out
+
+
 def _small_cfg(impl, backend):
     from milnce_tpu_torch.config import tiny_preset
 
@@ -309,11 +505,76 @@ def phase_reference():
         raise AssertionError("chunked/cuda training disagrees with dense")
 
 
-def phase_train():
-    from milnce_tpu_torch.config import full_preset
-    from milnce_tpu_torch.ops import milnce_stream as ms
+def phase_dtw_reference():
+    """The small model with each DTW loss, the soft-DTW kernels
+    (sdtw_backend=cuda) against the plain recurrence (scan), cuDNN held
+    deterministic: (1) every parameter's gradient of one step, within
+    1e-5 + 1e-4 * max|scan gradient| per tensor, with non-constant clip
+    start times so that sdtw_cidm's interval terms are live; (2) the
+    losses of three training steps, within rel 2e-4."""
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
     from milnce_tpu_torch.train.loop import run_training
-    from milnce_tpu_torch.train.step import make_video_embed_fn
+    from milnce_tpu_torch.train.step import _sequence_loss
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in DTW_LOSSES:
+            cfg = _small_cfg("dense", "auto")
+            cfg.loss.name = name
+            bsz, d = cfg.train.batch_size, cfg.data
+            model = build_model(cfg.model, seed=3).cuda().train()
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            video = torch.rand((bsz, d.num_frames, d.video_size,
+                                d.video_size, 3), generator=gen,
+                               device="cuda")
+            text = torch.randint(1, cfg.model.vocab_size,
+                                 (bsz * d.num_candidates, d.max_words),
+                                 generator=gen, device="cuda")
+            start = torch.arange(bsz, dtype=torch.float32, device="cuda") * 7
+            grads, runs = {}, {}
+            sd.reset_launches()
+            for backend in ("scan", "cuda"):
+                cfg.loss.sdtw_backend = backend
+                model.zero_grad(set_to_none=True)
+                v_seq, t_embd = model(video, text, mode="sequence")
+                t_seq = t_embd.reshape(bsz, -1, t_embd.shape[-1])
+                _sequence_loss(cfg.loss, v_seq, t_seq, start).backward()
+                grads[backend] = {n: p.grad.clone()
+                                  for n, p in model.named_parameters()
+                                  if p.grad is not None}
+            launched = dict(sd.LAUNCHES)
+            worst = max(float((grads["cuda"][n] - g).abs().max())
+                        / (1e-5 + 1e-4 * float(g.abs().max()))
+                        for n, g in grads["scan"].items())
+            for backend in ("scan", "cuda"):
+                cfg.loss.sdtw_backend = backend
+                losses = []
+                run_training(cfg, log=lambda _m: None,
+                             on_step=lambda _s, _t, loss: losses.append(loss))
+                runs[backend] = losses
+            ls, lc = runs["scan"], runs["cuda"]
+            err = max(abs(a - b) / abs(b) for a, b in zip(lc, ls))
+            log(f"  {name}: {len(grads['scan'])} gradients, worst |cuda - "
+                f"scan| / limit {worst:.3e}; kernel launches {launched}; "
+                f"losses scan {ls} cuda {lc}, max rel diff {err:.2e}")
+            if not (worst <= 1.0 and min(launched.values()) > 0
+                    and len(lc) == len(ls) == 3 and err <= 2e-4
+                    and all(map(math.isfinite, lc))):
+                raise AssertionError(f"{name}: the soft-DTW kernels disagree "
+                                     "with the plain recurrence in training")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _train_full(loss_name, edit, counters, per_step):
+    """``run_training`` at full width with the loss ``edit`` applies,
+    TRAIN_STEPS steps at batch TRAIN_BATCH, every launch counter reset just
+    before and read just after.  Each kernel in ``per_step`` must have
+    launched that many times per step.  Returns (result, config, the
+    launches of the run)."""
+    from milnce_tpu_torch.config import full_preset
+    from milnce_tpu_torch.train.loop import run_training
 
     cfg = full_preset()
     cfg.parallel.platform = "cuda"
@@ -322,18 +583,18 @@ def phase_train():
     cfg.train.batch_size = TRAIN_BATCH
     cfg.train.max_steps = TRAIN_STEPS
     cfg.train.n_display = 1
-    cfg.loss.milnce_impl = "chunked"
-    cfg.loss.milnce_backend = "cuda"
-    cfg.loss.milnce_chunk = TRAIN_CHUNK
+    cfg.loss.name = loss_name
+    edit(cfg.loss)
     steps = []
     torch.cuda.reset_peak_memory_stats()
-    ms.reset_launches()
+    for counter in counters:
+        counter.reset_launches()
     res = run_training(cfg, log=lambda m: log(f"  {m}"),
                        on_step=lambda s, secs, loss: steps.append(
                            (s, secs, loss)))
-    launches = dict(ms.LAUNCHES)
+    launches = {k: v for counter in counters
+                for k, v in counter.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
-    expected = 2 * TRAIN_STEPS
     for s, secs, loss in steps:
         log(f"  step {s}: {secs:.3f} s, loss {loss:.6f}")
     later = [secs for _, secs, _ in steps[1:]]
@@ -342,9 +603,26 @@ def phase_train():
         f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
     if res.steps != TRAIN_STEPS or not all(math.isfinite(x[2]) for x in steps):
         raise AssertionError(f"training failed: {steps}")
-    if any(n != expected for n in launches.values()):
-        raise AssertionError(f"expected {expected} launches of each kernel "
-                             f"in {TRAIN_STEPS} steps, got {launches}")
+    expected = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+    if launches != expected:
+        raise AssertionError(f"expected launches {expected} in "
+                             f"{TRAIN_STEPS} steps, got {launches}")
+    return res, cfg, launches
+
+
+def phase_train():
+    """Chunked MIL-NCE on the stream kernels: each kernel launches twice a
+    step (rows and columns direction)."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.train.step import make_video_embed_fn
+
+    def edit(loss):
+        loss.milnce_impl, loss.milnce_backend = "chunked", "cuda"
+        loss.milnce_chunk = TRAIN_CHUNK
+
+    res, cfg, launches = _train_full("milnce", edit, (ms, sd),
+                                     {k: 2 for k in ms.LAUNCHES})
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     emb = make_video_embed_fn(res.model)(clip)
     if emb.shape != (2, 512) or not bool(torch.isfinite(emb).all()):
@@ -353,8 +631,36 @@ def phase_train():
     return launches
 
 
+def phase_train_sdtw3():
+    """sdtw_3 on the soft-DTW kernels: 3 NCE terms, each one DP over the B
+    positive pairs and one over the B^2 pairs (pair_chunk 0), so 6 forward
+    and 6 backward launches a step."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    def edit(loss):
+        loss.sdtw_backend = "cuda"
+
+    res, cfg, launches = _train_full("sdtw_3", edit, (ms, sd),
+                                     {k: 6 for k in sd.LAUNCHES})
+    clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    text = torch.ones((2 * cfg.data.num_candidates, cfg.data.max_words),
+                      dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        res.model.eval()
+        v_seq, t_embd = res.model(clip.float() / 255.0, text, mode="sequence")
+    if v_seq.shape != (2, 4, 512) or t_embd.shape != (10, 512) or not (
+            bool(torch.isfinite(v_seq).all())):
+        raise AssertionError(f"sequence embeddings {tuple(v_seq.shape)}, "
+                             f"{tuple(t_embd.shape)} not as expected")
+    _profile_step(res.model, cfg)
+    return launches
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "softdtw" in low:
+        return "soft-DTW kernels"
     if "lse_" in low:
         return "milnce stream kernels"
     if "conv" in low or "xmma" in low or "gemm" in low or "cudnn" in low \
@@ -389,12 +695,13 @@ def _profile_step(model, cfg):
     text = torch.randint(1, cfg.model.vocab_size,
                          (TRAIN_BATCH * d.num_candidates, d.max_words),
                          generator=gen, device="cuda")
-    step(video, text)
+    start = torch.arange(TRAIN_BATCH, dtype=torch.float32, device="cuda")
+    step(video, text, start)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(video, text)
+        step(video, text, start)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups: dict = {}
@@ -431,18 +738,28 @@ def main() -> int:
     card = phase_device()
     log("== build")
     phase_build()
-    log("== kernels vs plain")
+    log("== MIL-NCE kernels vs plain")
     worst = phase_parity()
-    log("== kernel timing")
+    log("== MIL-NCE kernel timing")
     times = phase_timing()
+    log("== soft-DTW kernels vs plain")
+    worst.update(phase_softdtw_parity())
+    log("== soft-DTW kernel timing")
+    times.update(phase_softdtw_timing())
     log("== reference (small model, chunked/cuda vs dense)")
     phase_reference()
-    log("== train (full width)")
+    log("== dtw reference (small model, soft-DTW cuda vs scan)")
+    phase_dtw_reference()
+    log("== train (full width, MIL-NCE)")
     launches = phase_train()
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    log("== train (full width, sdtw_3)")
+    sdtw_launches = phase_train_sdtw3()
+    launches.update({k: sdtw_launches[k] for k in ("softdtw_fwd",
+                                                   "softdtw_bwd")})
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=worst[name], **times[name])
-               for name in ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")]
+               for name in SOURCES]
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}; total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 copy of ``milnce_tpu/config.py``; the port imports nothing of the JAX
 package).
 
-Two knobs differ from the JAX copy: ``loss.milnce_backend`` takes
-``auto | scan | cuda`` and ``parallel.platform`` picks the torch device
+Three knobs differ from the JAX copy: ``loss.milnce_backend`` and
+``loss.sdtw_backend`` take ``auto | scan | cuda`` (``parse_cli`` refuses
+anything else) and ``parallel.platform`` picks the torch device
 (``cuda`` by default, ``cpu`` for hermetic runs).  Knobs of subsystems
 the port has not reached yet are kept so that command lines stay the
 same across the two packages; the port's trainer ignores them.
@@ -21,6 +22,11 @@ import argparse
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+# choices of loss.milnce_backend and loss.sdtw_backend (the modules that
+# dispatch on them import these)
+MILNCE_BACKENDS = ("auto", "scan", "cuda")
+SDTW_BACKENDS = ("auto", "scan", "cuda")
 
 
 @dataclass
@@ -177,13 +183,14 @@ class LossConfig:
                                         # auto = the kernels for CUDA
                                         # tensors, the plain stream for
                                         # CPU tensors)
-    sdtw_backend: str = "auto"          # auto | scan | pallas; auto picks the
-                                        # TPU wavefront kernel wherever a
-                                        # measured-winning layout applies
-                                        # (batch-on-lanes or one-block), scan
-                                        # otherwise (BENCH_SOFTDTW.md;
-                                        # reference always ran CUDA,
-                                        # loss.py:26-97)
+    sdtw_backend: str = "auto"          # soft-DTW recurrence: auto | scan |
+                                        # cuda (scan = the plain torch
+                                        # wavefront on any device, cuda =
+                                        # the hand kernels of
+                                        # ops/softdtw_cuda.py, CUDA tensors
+                                        # only; auto = the kernels for CUDA
+                                        # tensors, the plain wavefront for
+                                        # CPU tensors)
     sdtw_gamma: Optional[float] = None  # None = each loss's reference
                                         # default: 1e-5 for cdtw (loss.py:
                                         # 26), 0.1 for the sdtw_* family
@@ -590,6 +597,11 @@ def tiny_preset() -> Config:
 PRESETS = {"full": full_preset, "small": small_preset, "tiny": tiny_preset}
 
 
+# knobs whose values the CLI checks while it parses
+CHOICES = {"loss.milnce_backend": MILNCE_BACKENDS,
+           "loss.sdtw_backend": SDTW_BACKENDS}
+
+
 def _add_dataclass_args(parser: argparse.ArgumentParser, prefix: str, dc) -> None:
     import typing
 
@@ -603,7 +615,8 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, prefix: str, dc) -> Non
             parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
                                 default=None, metavar="BOOL")
         elif typ in (int, float, str):
-            parser.add_argument(name, type=typ, default=None)
+            parser.add_argument(name, type=typ, default=None,
+                                choices=CHOICES.get(name[2:]))
 
 
 def parse_cli(argv: Optional[list[str]] = None,

@@ -18,7 +18,8 @@ from milnce_tpu_torch.config import DataConfig
 
 
 class SyntheticVideoTextSource:
-    """len() + sample(idx, rng) -> {'video': (T,H,W,3) u8, 'text': (K,W) i32}."""
+    """len() + sample(idx, rng) -> {'video': (T,H,W,3) u8, 'text': (K,W)
+    i32, 'start': f32 start time}."""
 
     def __init__(self, cfg: DataConfig, vocab_size: int = 128,
                  num_samples: int | None = None):
@@ -66,7 +67,9 @@ class BatchLoader:
         return host.to(self.device)
 
     def epoch(self, epoch: int) -> Iterator[tuple]:
-        """Yield ``(video_u8 (B,T,H,W,3), text_ids (B*K,W))`` on the device."""
+        """Yield ``(video_u8 (B,T,H,W,3), text_ids (B*K,W), start (B,)
+        f32)`` on the device; ``start`` is each clip's start time, which
+        the CIDM loss reads."""
         n = len(self.source)
         order = np.arange(n)
         np.random.RandomState(self.seed + epoch).shuffle(order)
@@ -78,5 +81,7 @@ class BatchLoader:
                 for i in order[start:start + self.batch_size]]
             video = np.stack([s["video"] for s in samples])
             text = np.stack([s["text"] for s in samples])
+            start = np.array([s["start"] for s in samples], np.float32)
             yield (self._to_device(video),
-                   self._to_device(text.reshape(-1, text.shape[-1])))
+                   self._to_device(text.reshape(-1, text.shape[-1])),
+                   self._to_device(start))

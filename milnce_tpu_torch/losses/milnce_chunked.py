@@ -14,13 +14,13 @@ from __future__ import annotations
 
 import torch
 
+from milnce_tpu_torch.config import MILNCE_BACKENDS
 from milnce_tpu_torch.losses.milnce import check_single_device, milnce_loss
 from milnce_tpu_torch.ops.milnce_stream import (milnce_stream,
                                                 milnce_stream_cuda,
                                                 milnce_stream_plain)
 
 MILNCE_IMPLS = ("dense", "chunked", "auto")
-MILNCE_BACKENDS = ("auto", "scan", "cuda")
 _STREAMS = {"auto": milnce_stream, "scan": milnce_stream_plain,
             "cuda": milnce_stream_cuda}
 

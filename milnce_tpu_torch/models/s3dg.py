@@ -192,7 +192,8 @@ class S3D(nn.Module):
     ``forward(video, text, mode, mixed5c)``: video (B, T, H, W, 3) float
     in [0, 1]; text (B', max_words) int.  mode 'all' -> (video (B, D),
     text (B', D)); 'video' -> video embedding, or the 1024-d pooled
-    mixed_5c features with ``mixed5c=True``; 'text' -> text embedding.
+    mixed_5c features with ``mixed5c=True``; 'text' -> text embedding;
+    'sequence' -> (video sequence (B, T', D), text (B', D)).
     Train or eval behaviour (BatchNorm) follows ``module.train()``."""
 
     def __init__(self, num_classes: int = 512, gating: bool = True,
@@ -249,6 +250,13 @@ class S3D(nn.Module):
         net = self._trunk(video).mean(dim=(2, 3, 4))
         return net if mixed5c else self.fc(net)
 
+    def forward_video_sequence(self, video: torch.Tensor) -> torch.Tensor:
+        """Temporal sequence of frame-group embeddings, the view the
+        soft-DTW losses align: mixed_5c pooled over space only, then
+        ``fc`` -> (B, T', num_classes).  No parameter of its own."""
+        net = self._trunk(video).mean(dim=(3, 4))         # (B, C, T')
+        return self.fc(net.transpose(1, 2))
+
     def forward_text(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text_module(tokens)
 
@@ -261,4 +269,7 @@ class S3D(nn.Module):
             return self.forward_video(video, mixed5c=mixed5c)
         if mode == "text":
             return self.forward_text(text)
+        if mode == "sequence":
+            # (video seq (B, T', D), per-candidate text (B', D))
+            return self.forward_video_sequence(video), self.forward_text(text)
         raise NotImplementedError(mode)

@@ -73,6 +73,20 @@ def build(names) -> dict:
     return done
 
 
+def current_stream(x) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``x``'s device, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize does not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     lib = _LIBS.get(name)

@@ -200,15 +200,6 @@ def _check_smem(name: str, need: int, device) -> None:
                          f"memory, the card allows {limit}")
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(x: torch.Tensor):
-    return _P(torch.cuda.current_stream(x.device).cuda_stream)
-
-
 def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32."""
     _check_operands("lse_fwd", a, b)
@@ -219,8 +210,8 @@ def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     part_s = torch.empty((nsplit, r), device=a.device)
     err = lib.milnce_lse_fwd(a.data_ptr(), b.data_ptr(), part_m.data_ptr(),
                              part_s.data_ptr(), r, c, d, nsplit, tps,
-                             _stream(a))
-    _raise_on("lse_fwd", err)
+                             cuda_build.current_stream(a))
+    cuda_build.check_launch("lse_fwd", err)
     LAUNCHES["lse_fwd"] += 1
     m = part_m.amax(dim=0)
     return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0))
@@ -236,8 +227,8 @@ def lse_bwd_rows(a, b, lse, g) -> torch.Tensor:
     part = torch.empty((nsplit, r, d), device=a.device)
     err = lib.milnce_lse_bwd_rows(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                                   g.data_ptr(), part.data_ptr(), r, c, d,
-                                  nsplit, tps, _stream(a))
-    _raise_on("lse_bwd_rows", err)
+                                  nsplit, tps, cuda_build.current_stream(a))
+    cuda_build.check_launch("lse_bwd_rows", err)
     LAUNCHES["lse_bwd_rows"] += 1
     return part[0] if nsplit == 1 else part.sum(dim=0)
 
@@ -251,8 +242,8 @@ def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
     out = torch.empty((c, d), device=a.device)
     err = lib.milnce_lse_bwd_cols(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                                   g.data_ptr(), out.data_ptr(), r, c, d,
-                                  _stream(a))
-    _raise_on("lse_bwd_cols", err)
+                                  cuda_build.current_stream(a))
+    cuda_build.check_launch("lse_bwd_cols", err)
     LAUNCHES["lse_bwd_cols"] += 1
     return out
 

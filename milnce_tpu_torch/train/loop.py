@@ -94,9 +94,9 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     tick = time.time()
     window_t0 = time.perf_counter()
     for epoch in range(cfg.optim.epochs):
-        for video, text in loader.epoch(epoch):
+        for video, text, start in loader.epoch(epoch):
             t0 = time.perf_counter()
-            out = step_fn(video, text)
+            out = step_fn(video, text, start)
             if cfg.train.finite_guard:
                 last, skip = out
                 skipped += skip

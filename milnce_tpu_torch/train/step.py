@@ -1,13 +1,21 @@
 """The train step and the embedding functions (port of
 ``milnce_tpu/train/step.py``, single device).
 
-A step takes the uint8 ``(B, T, H, W, 3)`` clip and the ``(B*K, W)``
-token ids already on the device, divides the clip by 255 there, runs
-both towers in train mode, the MIL-NCE loss and the backward, then the
-optimizer.  With the finite guard on, a non-finite gradient keeps the
-parameters, the Adam moments and the BatchNorm statistics as they were
-and the schedule does not advance; the caller's step count still does,
-as in the JAX step.  Multi-device data parallelism, FSDP, grad-cache and
+A step takes the uint8 ``(B, T, H, W, 3)`` clip, the ``(B*K, W)`` token
+ids and the ``(B,)`` f32 clip start times already on the device, divides
+the clip by 255 there, runs both towers in train mode, the loss and the
+backward, then the optimizer.  ``loss.name`` picks the loss: ``milnce``
+scores pooled embeddings; the DTW family (``cdtw``, ``sdtw_cidm``,
+``sdtw_negative``, ``sdtw_3``) runs the model with ``mode="sequence"``
+and scores the (B, T', D) video sequences against the (B, K, D)
+candidate-text sequences; only ``sdtw_cidm`` reads ``start``.  On one
+device the JAX step's gather is the identity and its ``pmean`` of the
+replicated DTW loss's gradients too, so the gradients are autograd's.
+
+With the finite guard on, a non-finite gradient keeps the parameters,
+the Adam moments and the BatchNorm statistics as they were and the
+schedule does not advance; the caller's step count still does, as in the
+JAX step.  Multi-device data parallelism, FSDP, grad-cache and
 ``inner_steps`` are not ported yet.
 """
 
@@ -15,7 +23,43 @@ from __future__ import annotations
 
 import torch
 
+from milnce_tpu_torch.losses.dtw_losses import (cdtw_batch_loss, sdtw_3_loss,
+                                                sdtw_cidm_loss,
+                                                sdtw_negative_loss)
 from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
+
+KNOWN_LOSSES = ("milnce", "cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
+
+
+def _check_loss_name(loss_cfg) -> str:
+    """Reject a bad loss name when the step is built, before any model
+    runs."""
+    name = getattr(loss_cfg, "name", "milnce")
+    if name not in KNOWN_LOSSES:
+        raise ValueError(f"unknown loss {name!r} (expected one of "
+                         f"{', '.join(KNOWN_LOSSES)})")
+    return name
+
+
+def _sequence_loss(loss_cfg, v_seq, t_seq, start):
+    """DTW-family losses on the batch's sequence embeddings: v_seq
+    (B, T', D), t_seq (B, K, D), start (B,)."""
+    common = dict(backend=loss_cfg.sdtw_backend, dist=loss_cfg.sdtw_dist,
+                  bandwidth=loss_cfg.sdtw_bandwidth)
+    if loss_cfg.sdtw_gamma is not None:
+        # None = each loss function's own reference-default gamma
+        # (cdtw 1e-5, sdtw_* 0.1 — encoded in their signatures)
+        common["gamma"] = loss_cfg.sdtw_gamma
+    dispatch = {
+        "cdtw": lambda: cdtw_batch_loss(v_seq, t_seq, **common),
+        "sdtw_cidm": lambda: sdtw_cidm_loss(
+            v_seq, t_seq, start, sigma=loss_cfg.cidm_sigma,
+            lam=loss_cfg.cidm_lambda, **common),
+        "sdtw_negative": lambda: sdtw_negative_loss(v_seq, t_seq, **common),
+        "sdtw_3": lambda: sum(sdtw_3_loss(
+            v_seq, t_seq, pair_chunk=loss_cfg.sdtw_pair_chunk, **common)),
+    }
+    return dispatch[loss_cfg.name]()
 
 
 def _normalize(video_u8: torch.Tensor, model) -> torch.Tensor:
@@ -26,23 +70,30 @@ def _normalize(video_u8: torch.Tensor, model) -> torch.Tensor:
 
 def make_train_step(model, optimizer, loss_cfg=None,
                     finite_guard: bool = False, lr_scheduler=None):
-    """-> ``step(video_u8, text_ids)`` returning the loss (a 0-d tensor
-    on the device), or ``(loss, skipped)`` with ``finite_guard``, where
-    ``skipped`` is 1 when the update was dropped."""
-    name = getattr(loss_cfg, "name", "milnce")
-    if name != "milnce":
-        raise NotImplementedError(f"loss {name!r} is not ported yet (the "
-                                  "torch port trains MIL-NCE)")
-    loss_fn = build_milnce_loss(loss_cfg)
+    """-> ``step(video_u8, text_ids, start)`` returning the loss (a 0-d
+    tensor on the device), or ``(loss, skipped)`` with ``finite_guard``,
+    where ``skipped`` is 1 when the update was dropped.  A bad loss name
+    or MIL-NCE knob raises here."""
+    loss_name = _check_loss_name(loss_cfg)
+    milnce_fn = build_milnce_loss(loss_cfg) if loss_name == "milnce" else None
     params = [p for group in optimizer.param_groups for p in group["params"]]
     buffers = list(model.buffers())
 
-    def step(video_u8: torch.Tensor, text_ids: torch.Tensor):
+    def compute_loss(video_u8, text_ids, start):
+        video = _normalize(video_u8, model)
+        if milnce_fn is not None:
+            return milnce_fn(*model(video, text_ids))
+        v_seq, t_embd = model(video, text_ids, mode="sequence")
+        b = video.shape[0]
+        t_seq = t_embd.reshape(b, -1, t_embd.shape[-1])      # (B, K, D)
+        return _sequence_loss(loss_cfg, v_seq, t_seq, start)
+
+    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
+             start: torch.Tensor):
         model.train()
         saved = [b.clone() for b in buffers] if finite_guard else None
         optimizer.zero_grad(set_to_none=True)
-        v_embd, t_embd = model(_normalize(video_u8, model), text_ids)
-        loss = loss_fn(v_embd, t_embd)
+        loss = compute_loss(video_u8, text_ids, start)
         loss.backward()
         if finite_guard:
             finite = torch.stack([torch.isfinite(p.grad).all()

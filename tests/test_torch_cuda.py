@@ -1,11 +1,14 @@
-"""The port's CUDA kernels on the card: each MIL-NCE stream kernel against
-its plain PyTorch version, and a training step on the kernels against the
-dense loss.  Marked ``cuda``; every test skips without a CUDA device
-(the check runs inside a fixture, never at import).  On the card:
-``python -m pytest tests/test_torch_cuda.py -m cuda``.
+"""The port's CUDA kernels on the card: each MIL-NCE stream kernel and
+each soft-DTW kernel against its plain PyTorch version, the chunked loss
+on the kernels against the dense loss, and soft-DTW on the kernels
+against autograd through the plain recurrence.  Marked ``cuda``; every
+test skips without a CUDA device (the check runs inside a fixture, never
+at import).  On the card:
+``python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
-Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| (f32, sums taken
-in another order over up to Bg*K columns).
+Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| (f32; the stream
+sums in another order over up to Bg*K columns, the soft-DTW kernels
+repeat their plain versions' arithmetic).
 """
 
 import numpy as np
@@ -15,6 +18,8 @@ import torch
 from milnce_tpu_torch.losses.milnce import milnce_loss
 from milnce_tpu_torch.losses.milnce_chunked import milnce_loss_chunked
 from milnce_tpu_torch.ops import milnce_stream as ms
+from milnce_tpu_torch.ops import softdtw as tsd
+from milnce_tpu_torch.ops import softdtw_cuda as sd
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +87,51 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         ms.lse_bwd_cols(torch.zeros(2, 4096, device=cuda),
                         torch.zeros(2, 4096, device=cuda),
                         torch.zeros(2, device=cuda), torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("b,n,m,band", [(7, 5, 9, 0), (3, 300, 280, 40),
+                                        (2, 1100, 1030, 0)],
+                         ids=["uneven", "banded", "past-1024"])
+def test_softdtw_kernels_match_plain(cuda, b, n, m, band):
+    rng = np.random.default_rng(n)
+    D = torch.tensor(rng.standard_normal((b, n, m), np.float32) * 0.1,
+                     device=cuda)
+    before = dict(sd.LAUNCHES)
+    value, r = sd.softdtw_fwd(D, 0.1, band)
+    want_value, want_r = sd.softdtw_fwd_plain(D, 0.1, band)
+    e = sd.softdtw_bwd(want_r, 0.1, band)
+    assert all(sd.LAUNCHES[k] == before[k] + 1 for k in before)
+    _close(value, want_value)
+    real = want_r < tsd.BIG / 2
+    assert torch.equal(real, r < tsd.BIG / 2)
+    _close(r[real], want_r[real])
+    _close(e, sd.softdtw_bwd_plain(want_r, 0.1, band))
+
+
+def test_softdtw_on_kernels_matches_scan_autograd(cuda):
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((6, 5, 16), np.float32), device=cuda)
+    y = torch.tensor(rng.standard_normal((6, 7, 16), np.float32), device=cuda)
+
+    def value_and_grads(backend):
+        a, b = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        out = tsd.SoftDTW(gamma=0.1, dist_func="negative_dot",
+                          backend=backend)(a, b)
+        out.sum().backward()
+        return out.detach(), a.grad, b.grad
+
+    for got, want in zip(value_and_grads("cuda"), value_and_grads("scan")):
+        _close(got, want)
+
+
+def test_softdtw_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    D = torch.zeros(2, 4, 3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sd.softdtw_fwd(D.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        sd.softdtw_fwd(torch.zeros(2, 3, 4, device=cuda).transpose(1, 2), 0.1)
+    _, r = sd.softdtw_fwd(D, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        sd.softdtw_bwd(r.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        sd.softdtw_bwd(r.transpose(0, 1), 0.1)

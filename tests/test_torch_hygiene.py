@@ -31,10 +31,12 @@ def _imported_roots(path: pathlib.Path):
 def test_port_package_exists():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for expected in ("config.py", "models/s3dg.py", "ops/milnce_stream.py",
-                     "losses/milnce_chunked.py", "train/step.py",
-                     "train/cli.py"):
+                     "ops/softdtw.py", "ops/softdtw_cuda.py",
+                     "losses/milnce_chunked.py", "losses/dtw_losses.py",
+                     "train/step.py", "train/cli.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
+    assert (PORT / "csrc" / "softdtw.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),

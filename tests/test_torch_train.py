@@ -117,7 +117,7 @@ def _torch_run(loss_cfg, variables, poison_step=None,
                      for p in model.parameters() if p.requires_grad]
         video, text = _batch(i)
         loss, skipped = step(torch.from_numpy(video),
-                             torch.from_numpy(text))
+                             torch.from_numpy(text), torch.zeros(_B))
         for h in hooks:
             h.remove()
         losses.append(float(loss))
@@ -181,7 +181,7 @@ def test_first_warmup_step_uses_lr_zero():
     optimizer, lr = build_optimizer(model, opt_cfg,
                                     build_schedule(opt_cfg, 10))
     step = make_train_step(model, optimizer, lr_scheduler=lr)
-    step(*(torch.from_numpy(x) for x in _batch(0)))
+    step(*(torch.from_numpy(x) for x in _batch(0)), torch.zeros(_B))
     after = model.state_dict()
     for key, val in before.items():
         assert torch.equal(after[key], val), key

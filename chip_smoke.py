@@ -10,10 +10,14 @@ Phases, each fatal on failure:
 3. kernels  -- each MIL-NCE stream kernel against its plain PyTorch
                version on the card, values and all four gradients, at the
                recipe shape (B=128, Bg=8192, K=5, D=512), an uneven shape
-               (Bg=8191, chunk 1000, K=1), a tiny one and the training
-               run's own shape; then the kernels', the plain versions' and
-               the dense PyTorch form's times (median of 20 after warm-up,
-               CUDA events) at the recipe shape, beside the card's bound.
+               (Bg=8191, chunk 1000, K=1), a tiny one, the training run's
+               own shape and three that stress lse_bwd_rows's tiling (R=33
+               with D=13, R=640 against Bg=4097, D=700); then the kernels',
+               the plain versions' and the dense PyTorch form's times
+               (median of 20 after warm-up, CUDA events) at the recipe
+               shape, beside the card's bound, and lse_bwd_rows launch by
+               launch with TFLOP/s, share of the bound, kernel/library
+               ratio and the launch plan its wrapper chose.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's E-matrix and
                gradient, fed the same table) at the reference presets, past
@@ -163,16 +167,23 @@ def _err(got, want):
 
 
 def phase_parity():
-    """Kernel vs plain at four shapes; returns the worst error of each
+    """Kernel vs plain at seven shapes; returns the worst error of each
     kernel.  The lses come from lse_fwd, g_v/g_t from lse_bwd_rows and
     g_v_all/g_t_all from lse_bwd_cols; where v_all is v (one device),
-    g_v and g_t sum the outputs of both backward kernels."""
+    g_v and g_t sum the outputs of both backward kernels.  Beside the
+    recipe, uneven, tiny and training shapes, three stress lse_bwd_rows's
+    tiles: R = 33 rows (not a multiple of its 32-row tile) with D = 13
+    (not a multiple of 4), R = 640 (the columns direction, B*K) against
+    an uneven Bg, and D = 700 near the largest instance."""
     from milnce_tpu_torch.ops import milnce_stream as ms
 
     cases = [("recipe", 128, 8192, 5, 512, 816, False),
              ("uneven", 128, 8191, 1, 512, 1000, False),
              ("tiny", 3, 3, 2, 16, 2, True),
-             ("train", TRAIN_BATCH, TRAIN_BATCH, 5, 512, TRAIN_CHUNK, True)]
+             ("train", TRAIN_BATCH, TRAIN_BATCH, 5, 512, TRAIN_CHUNK, True),
+             ("d13-r33", 33, 8191, 1, 13, 1000, False),
+             ("r640-uneven", 128, 4097, 5, 512, 500, False),
+             ("d700", 33, 2048, 5, 700, 256, False)]
     worst = {name: 0.0 for name in ms.LAUNCHES}
     for i, (label, b, bg, k, d, chunk, shared) in enumerate(cases):
         v, t, v_all, t_all = _case(b, bg, k, d, 100 + i, shared)
@@ -228,7 +239,9 @@ def _bound(flops, nbytes):
 
 def phase_timing():
     """Times of each kernel's pair of launches per step (rows direction +
-    columns direction) at the recipe shape."""
+    columns direction) at the recipe shape, and of lse_bwd_rows's two
+    launches one by one, (R, C) = (128, 40960) and (640, 8192), with its
+    launch plan."""
     from milnce_tpu_torch.losses.milnce_chunked import milnce_default_chunk
     from milnce_tpu_torch.ops import milnce_stream as ms
 
@@ -261,6 +274,22 @@ def phase_timing():
             lambda: [dense_w(a, bm, l, g).T @ a for a, bm, l, g, _ in pairs]),
     }
     out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for a, bm, lse, g, _ in pairs:        # lse_bwd_rows launch by launch
+        r, c = a.shape[0], bm.shape[0]
+        plan = ms.rows_plan(r, c, d, sms)
+        ms_k = _time_ms(lambda: ms.lse_bwd_rows(a, bm, lse, g))
+        ms_l = _time_ms(lambda: dense_w(a, bm, lse, g) @ bm)
+        flops = 4 * r * c * d
+        bound_ms, bound_by = _bound(flops, 4 * (2 * r * d + c * d + 2 * r))
+        log(f"  lse_bwd_rows launch R={r} C={c} D={d}: kernel {ms_k:.4f} ms, "
+            f"{flops / ms_k / 1e9:.2f} TFLOP/s, {bound_ms / ms_k:.3f} of "
+            f"the f32 bound ({bound_ms:.4f} ms, {bound_by}) | library "
+            f"{ms_l:.4f} ms, kernel/library {ms_k / ms_l:.3f} | plan: "
+            f"instance D<={plan.dmax}, BM={plan.bm}, BN={plan.bn}, "
+            f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}, "
+            f"tiles/split {plan.tps}, {plan.smem_bytes} B shared, scratch "
+            f"{plan.scratch}")
     for name, (kern, plain, library) in fns.items():
         flops = nbytes = 0
         for a, bm, *_ in pairs:
@@ -278,8 +307,10 @@ def phase_timing():
         ms_l = _time_ms(library)
         out[name] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"  {name}: kernel {ms_k:.3f} ms | plain {ms_p:.3f} ms | dense "
-            f"torch {ms_l:.3f} ms | bound {bound_ms:.4f} ms ({bound_by}, "
+        log(f"  {name}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
+            f"TFLOP/s, {bound_ms / ms_k:.3f} of the bound) | plain "
+            f"{ms_p:.3f} ms | dense torch {ms_l:.4f} ms (kernel/library "
+            f"{ms_k / ms_l:.3f}) | bound {bound_ms:.4f} ms ({bound_by}, "
             f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) per step's "
             f"pair of launches, B={b} Bg={bg} K={k} D={d}")
     return out

@@ -36,26 +36,28 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines=()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``-D`` ``defines``."""
+    flags = " ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names) -> dict:
+def build(names, defines=()) -> dict:
     """Compile every named source that has no current library, one
-    ``nvcc`` each, all started together.  Returns ``{name: (seconds,
-    compiler output)}`` for the sources it compiled; raises naming the
-    source if one fails."""
+    ``nvcc`` each, all started together; ``defines`` (``NAME=VALUE``)
+    go to nvcc as ``-D``.  Returns ``{name: (seconds, compiler output)}``
+    for the sources it compiled; raises naming the source if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -87,11 +89,13 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``defines``), built
+    if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _LIBS[key] = lib
     return lib

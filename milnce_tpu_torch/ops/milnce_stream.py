@@ -35,6 +35,7 @@ that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -141,19 +142,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("milnce_stream")
+def _lib(defines=()) -> ctypes.CDLL:
+    lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
         lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.milnce_lse_bwd_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _P]
+                                            _I, _I, _I, _I, _P]
         lib.milnce_lse_bwd_cols.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _P]
         for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd_rows,
                    lib.milnce_lse_bwd_cols):
             fn.restype = ctypes.c_int
-        lib.milnce_bwd_smem.argtypes = [_I]
-        lib.milnce_bwd_smem.restype = ctypes.c_size_t
+        for fn in (lib.milnce_bwd_smem, lib.milnce_bwd_rows_smem):
+            fn.argtypes = [_I]
+            fn.restype = ctypes.c_size_t
         lib._milnce_typed = True
     return lib
 
@@ -191,10 +193,57 @@ def _split(r: int, c: int, device) -> tuple:
     return -(-col_tiles // tps), tps
 
 
-def _check_smem(name: str, need: int, device) -> None:
+ROWS_INSTANCES = (256, 512, 768)   # lse_bwd_rows instances: D <= each
+ROWS_BM, ROWS_BN, ROWS_THREADS = 32, 256, 256
+_ROWS_BK, _ROWS_STAGES = 32, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsPlan:
+    """How ``lse_bwd_rows`` launches: instance ``dmax``, a grid of
+    (row_tiles, nsplit) blocks of ``threads``, split y covering column
+    tiles ``tiles(y)``, partial sums in a ``scratch`` tensor."""
+    dmax: int
+    bm: int
+    bn: int
+    threads: int
+    row_tiles: int
+    col_tiles: int
+    nsplit: int
+    tps: int
+    smem_bytes: int
+    scratch: tuple
+
+    def tiles(self, split: int) -> range:
+        return range(split * self.tps,
+                     min(self.col_tiles, (split + 1) * self.tps))
+
+
+def rows_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
+    """The launch plan of ``lse_bwd_rows`` for A (r, d), B (c, d) on a card
+    with ``sms`` SMs: the smallest instance that holds d, and the fewest
+    column tiles per split that keep the grid to one wave of one block per
+    SM (a grid past one wave only when the row tiles alone pass it)."""
+    if d > ROWS_INSTANCES[-1]:
+        raise ValueError(f"lse_bwd_rows: depth {d} is above the largest "
+                         f"kernel instance, D <= {ROWS_INSTANCES[-1]}")
+    dmax = next(x for x in ROWS_INSTANCES if d <= x)
+    row_tiles, col_tiles = -(-r // ROWS_BM), -(-c // ROWS_BN)
+    per_row = min(col_tiles, max(1, sms // row_tiles))
+    tps = -(-col_tiles // per_row)
+    nsplit = -(-col_tiles // tps)
+    nb = 32 if dmax <= 256 else 8          # rows of B in one dA slab
+    stage = max(ROWS_BN * _ROWS_BK, nb * dmax)
+    smem = 4 * (ROWS_BM * (dmax + 4) + 4 * (8 * ROWS_BN + 4)
+                + _ROWS_STAGES * stage + 2 * ROWS_BM)
+    return RowsPlan(dmax, ROWS_BM, ROWS_BN, ROWS_THREADS, row_tiles,
+                    col_tiles, nsplit, tps, smem, (nsplit, r, d))
+
+
+def _check_smem(name: str, need: int, device, static=_STATIC_SMEM) -> None:
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin",
-                    _SM90_SMEM_OPTIN) - _STATIC_SMEM
+                    _SM90_SMEM_OPTIN) - static
     if need > limit:
         raise ValueError(f"{name}: depth needs {need} bytes of shared "
                          f"memory, the card allows {limit}")
@@ -220,17 +269,29 @@ def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def lse_bwd_rows(a, b, lse, g) -> torch.Tensor:
     """Kernel: dA (R, D) = sum_j exp(a_r . b_j - lse_r) g_r b_j."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
-    lib = _lib()
+    out = launch_rows(_lib(), a, b, lse, g)
+    LAUNCHES["lse_bwd_rows"] += 1
+    return out
+
+
+def launch_rows(lib, a, b, lse, g) -> torch.Tensor:
+    """One launch of ``lib``'s lse_bwd_rows kernel on checked operands,
+    with the plan of :func:`rows_plan`, and the sum of its partials."""
     (r, d), c = a.shape, b.shape[0]
-    _check_smem("lse_bwd_rows", lib.milnce_bwd_smem(d), a.device)
-    nsplit, tps = _split(r, c, a.device)
-    part = torch.empty((nsplit, r, d), device=a.device)
+    plan = rows_plan(r, c, d, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
+    if lib.milnce_bwd_rows_smem(plan.dmax) != plan.smem_bytes:
+        raise RuntimeError("lse_bwd_rows: the launch plan's shared memory "
+                           "disagrees with the kernel's")
+    _check_smem("lse_bwd_rows", plan.smem_bytes, a.device, static=0)
+    vec = d % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    part = torch.empty(plan.scratch, device=a.device)
     err = lib.milnce_lse_bwd_rows(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                                   g.data_ptr(), part.data_ptr(), r, c, d,
-                                  nsplit, tps, cuda_build.current_stream(a))
+                                  plan.dmax, plan.nsplit, plan.tps, int(vec),
+                                  cuda_build.current_stream(a))
     cuda_build.check_launch("lse_bwd_rows", err)
-    LAUNCHES["lse_bwd_rows"] += 1
-    return part[0] if nsplit == 1 else part.sum(dim=0)
+    return part[0] if plan.nsplit == 1 else part.sum(dim=0)
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:

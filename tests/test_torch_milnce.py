@@ -153,3 +153,33 @@ def test_build_milnce_loss_knobs():
     assert float(chunked) == pytest.approx(dense, rel=2e-6)
     with pytest.raises(NotImplementedError, match="group"):
         milnce_loss(v, t, group=object())
+
+
+@pytest.mark.parametrize("r", [1, 33, 128, 640])
+@pytest.mark.parametrize("c", [1, 80, 8191, 40960])
+@pytest.mark.parametrize("d", [13, 512, 700])
+def test_rows_launch_plan_covers_every_column_tile_once(r, c, d):
+    plan = ms.rows_plan(r, c, d, sms=132)
+    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    assert (plan.bm, plan.bn, plan.threads) == (32, 256, 256)
+    assert plan.row_tiles == -(-r // 32) and plan.col_tiles == -(-c // 256)
+    covered = [t for s in range(plan.nsplit) for t in plan.tiles(s)]
+    assert sorted(covered) == list(range(plan.col_tiles))
+    assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
+    assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
+    assert plan.scratch == (plan.nsplit, r, d)
+    # one wave of one block per SM unless the row tiles alone pass it
+    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
+    assert plan.smem_bytes <= 232448
+
+
+def test_rows_launch_plan_shapes_and_refusal():
+    recipe = ms.rows_plan(128, 40960, 512, sms=132)
+    assert (recipe.nsplit, recipe.tps, recipe.dmax) == (32, 5, 512)
+    assert ms.rows_plan(640, 8192, 512, sms=132).nsplit == 6
+    assert ms.rows_plan(1, 1, 1, sms=132).nsplit == 1
+    # the row tiles alone fill the card: no split
+    assert ms.rows_plan(32 * 200, 40960, 512, sms=132).nsplit == 1
+    ms.rows_plan(4, 8, 768, sms=132)
+    with pytest.raises(ValueError, match="D <= 768"):
+        ms.rows_plan(4, 8, 769, sms=132)

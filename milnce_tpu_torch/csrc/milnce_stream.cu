@@ -21,37 +21,46 @@
 // per byte at 67 TFLOP/s and 3.35 TB/s).  Every design keeps the logits
 // out of device memory.  The TPU kernel's sequential grid over chunks does
 // not carry over: Hopper blocks run in no order, so a block loops over
-// column tiles itself.  lse_fwd and lse_bwd_rows split the column loop
-// over grid.y to fill the 132 SMs when R is small; each split writes a
-// partial (max, sum) or partial dA and the wrapper combines the splits in
-// a second pass.  lse_bwd_cols owns whole column tiles and loops over
-// every row tile, so it writes dB directly.  No atomics.  Columns past C
-// take the logit -BIG (the JAX stream's finite sentinel) in the forward;
-// rows past R and columns past C get weight 0.
+// tiles itself, and where its own tiles are too few to fill the 132 SMs
+// the loop is split over grid.y; each split writes a partial (max, sum)
+// or a partial gradient and the wrapper combines the splits in a second
+// pass.  No atomics.  Columns past C take the logit -BIG (the JAX
+// stream's finite sentinel) in the forward; rows past R and columns past
+// C get weight 0.
 //
-// lse_fwd and lse_bwd_cols share logits_tile: a 64 x 64 tile from
-// 16-deep shared stages of A and B, transposed on the way in, 4 x 4
-// outputs a thread, two barriers a stage, no prefetch; lse_bwd_cols keeps
-// its (64, D) accumulator in shared memory.
+// lse_fwd runs on logits_tile: a 64 x 64 tile from 16-deep shared stages
+// of A and B, transposed on the way in, 4 x 4 outputs a thread, two
+// barriers a stage, no prefetch.
 //
-// lse_bwd_rows (namespace rows below) is built for the FMA units to set
-// the pace:
-//   - dA in registers, not shared memory: a block owns 32 rows and holds
-//     their (32, D) dA in its 256 threads, 8 rows x 4 DV depths each, with
-//     D a compile-time bound (instances for D <= 256, 512 and 768) and a
+// lse_bwd_rows and lse_bwd_cols are two modes of one kernel (namespace
+// rows below), built for the FMA units to set the pace.  A block owns 32
+// rows of one operand and streams the other: lse_bwd_rows owns rows of A
+// and streams B, lse_bwd_cols owns rows of B (columns of the logits) and
+// streams A.  The logits of an (owned, streamed) pair are the same dot
+// product either way; the gradient is the weighted sum of streamed rows;
+// only the weight's lse and g follow the owned row (rows) or the streamed
+// row (cols).  "rows" names the kernel in both modes: the namespace, the
+// ROWS_* constants and switches, milnce_bwd_rows_smem and ops/rows_probe.py
+// serve lse_bwd_cols too.
+//   - the gradient in registers, not shared memory: the block holds its
+//     (32, D) rows in its 256 threads, 8 rows x 4 DV depths each, with D a
+//     compile-time bound (instances for D <= 256, 512 and 768) and a
 //     runtime tail; no read-modify-write of an accumulator per chunk.
-//   - operands read once per use: the block's (32, D) A tile stays in
-//     shared memory across its whole column loop; each 256-column tile of
-//     B is streamed once per product, in B's own row-major layout (Bt is
-//     read by addressing, never copied transposed).
+//   - operands read once per use: the block's (32, D) owned tile stays in
+//     shared memory for its whole life; each tile of the streamed operand
+//     (SN = 256 rows for lse_bwd_rows, 128 for lse_bwd_cols, whose R = 128
+//     and 640 it covers without padding) is streamed once per product in
+//     its own row-major layout, never copied transposed.
 //   - loads overlap math: 16-byte cp.async.cg copies into a ring of three
 //     stages, commit / wait_group, one barrier per stage.
-//   - 8-row micro-tiles whose rows are uniform over a warp, so A and the
-//     weights are broadcast reads and each 16-byte load of B feeds 16 FMAs
-//     (dA) or 10.7 with the A loads counted (logits); XOR swizzles make
-//     the remaining 16-byte loads and stores conflict-free.
-//   - 256-column tiles give the column loop's split fine enough grain to
-//     put one block on each SM in one wave at R = 128 and R = 640.
+//   - micro-tiles whose rows are uniform over groups of lanes, so the
+//     owned tile and the weights are broadcast reads; each 16-byte load of
+//     the streamed operand feeds 16 FMAs in the gradient product and, with
+//     the owned tile's loads counted, 10.7 (SN = 256) or 8 (SN = 128) in
+//     the logits; XOR swizzles make the remaining 16-byte loads and stores
+//     conflict-free.
+//   - the split of the streamed loop gives the grid one block per SM in one
+//     wave when the owned tiles alone are fewer than the SMs.
 //
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
@@ -64,7 +73,6 @@ namespace {
 constexpr int BM = 64;    // rows of a logits tile
 constexpr int BN = 64;    // columns of a logits tile
 constexpr int BK = 16;    // depth of one shared-memory stage
-constexpr int BD = 64;    // width of one chunk of the output rows
 constexpr int NT = 256;   // threads per block, viewed as 16 x 16
 constexpr int LD = 68;    // row stride of the 64-wide shared tiles: a
                           // multiple of 4 (128-bit loads) that staggers
@@ -177,123 +185,50 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// Weight of logit (4 ty + i, 4 tx + j) of the tile; zero past R and C.
-__device__ __forceinline__ void weights(float acc[4][4],
-                                        const float* __restrict__ lse,
-                                        const float* __restrict__ g, int R,
-                                        int C, int row0, int col0) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + 4 * ty + i;
-    const float l = r < R ? lse[r] : 0.f, gr = r < R ? g[r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + 4 * tx + j;
-      acc[i][j] = (r < R && c < C) ? expf(acc[i][j] - l) * gr : 0.f;
-    }
-  }
-}
-
-// grid (ceil(C / BN)).  Each block owns BN columns of B and loops over
-// every row tile of A.  Dynamic shared memory: the (BN, D) dB
-// accumulator, the weights tile (w[r][c]) and one (BM, BD) chunk of A.
-__global__ void __launch_bounds__(NT)
-lse_bwd_cols_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    const float* __restrict__ lse, const float* __restrict__ g,
-                    float* __restrict__ dB, int R, int C, int D) {
-  __shared__ Stage st;
-  extern __shared__ float4 dyn4[];
-  float* dyn = reinterpret_cast<float*>(dyn4);
-  float (*w)[LD] = reinterpret_cast<float (*)[LD]>(dyn);            // [BM][LD]
-  float (*ac)[LD] = reinterpret_cast<float (*)[LD]>(dyn + BM * LD);  // [BM][LD]
-  float* accs = dyn + 2 * BM * LD;                                   // [BN][D]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int col0 = blockIdx.x * BN;
-  for (int l = tid; l < BN * D; l += NT) accs[l] = 0.f;
-  for (int row0 = 0; row0 < R; row0 += BM) {
-    float acc[4][4];
-    logits_tile(A, B, R, C, D, row0, col0, st, acc);
-    weights(acc, lse, g, R, C, row0, col0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(&w[4 * ty + i][4 * tx]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    for (int d0 = 0; d0 < D; d0 += BD) {
-      for (int l = tid; l < BM * BD; l += NT) {
-        const int r = l / BD, dd = l % BD, gr = row0 + r, gd = d0 + dd;
-        ac[r][dd] = (gr < R && gd < D) ? A[(size_t)gr * D + gd] : 0.f;
-      }
-      __syncthreads();                        // also publishes w
-      // thread owns columns c = 4 ty + i and depths d = 4 tx + j
-      float o[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < BM; ++r)
-        fma4x4(o, ld4(&w[r][4 * ty]), ld4(&ac[r][4 * tx]));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = d0 + 4 * tx + j;
-          if (d < D) accs[(4 * ty + i) * D + d] += o[i][j];
-        }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  for (int l = tid; l < BN * D; l += NT) {
-    const int c = l / D;
-    if (col0 + c < C) dB[(size_t)col0 * D + l] = accs[l];
-  }
-}
-
-// lse_bwd_cols's dynamic shared memory: two 64 x LD tiles and a 64 x D
-// accumulator.
-size_t bwd_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)2 * 64 * LD + (size_t)64 * D);
-}
-
-// ---------------------------------------------------------------- lse_bwd_rows
-// dA (R, D) = sum_j w_rj B_j, w_rj = exp(A_r . B_j - lse_r) g_r.
+// ------------------------------------------------ lse_bwd_rows, lse_bwd_cols
+// One kernel, two modes.  O (NO, D) is the owned operand, S (NS, D) the
+// streamed one; the kernel writes part (nsplit, NO, D):
+//   part[y]_o = sum_s w_os S_s over the streamed tiles of split y,
+//   w_os = exp(O_o . S_s - lse_x) g_x, x = o (OWN_COLS false: lse_bwd_rows,
+//   O = A, S = B) or x = s (OWN_COLS true: lse_bwd_cols, O = B, S = A).
 //
-// grid (ceil(R / RB_M), nsplit), RB_T threads, one block per SM.  A block
-// owns RB_M = 32 rows of A for its whole life: the (32, D) A tile sits in
-// shared memory and the (32, D) dA accumulator in registers, 8 rows by
-// 4 DV depths a thread.  It walks the column tiles [y tps, (y + 1) tps)
-// of its split, RB_N = 256 columns each, and streams each tile of B twice
-// through one ring of RB_STAGES shared-memory stages filled by cp.async:
-// RB_K-deep slabs of all 256 columns for the logits S = A B^T, then
-// NB-row slabs of full depth for dA += W B.  One barrier per stage;
-// the copies of stage s + RB_STAGES - 1 run under the FMAs of stage s.
+// grid (ceil(NO / RB_M), nsplit), RB_T threads, one block per SM.  A block
+// owns RB_M = 32 rows of O for its whole life: the (32, D) O tile sits in
+// shared memory and the (32, D) accumulator in registers, 8 rows by 4 DV
+// depths a thread.  It walks the streamed tiles [y tps, (y + 1) tps) of
+// its split, SN rows of S each, and streams each tile twice through one
+// ring of RB_STAGES shared-memory stages filled by cp.async: RB_K-deep
+// slabs of all SN rows for the logits, then NB-row slabs of full depth for
+// the product with the weights.  One barrier per stage; the copies of
+// stage s + RB_STAGES - 1 run under the FMAs of stage s.
 namespace rows {
 
 // ROWS_SKIP (default 0), a bit mask for timing the kernel's parts
-// (milnce_tpu_torch/ops/rows_probe.py): 1 skips the logits FMAs, 2 the dA
-// FMAs, 4 the copies of B.  Any bit set gives wrong results.
+// (milnce_tpu_torch/ops/rows_probe.py): 1 skips the logits FMAs, 2 the
+// gradient FMAs, 4 the copies of the streamed operand.  Any bit set gives
+// wrong results.
 #ifndef ROWS_SKIP
 #define ROWS_SKIP 0
 #endif
-constexpr int RB_M = 32;       // rows of A a block owns
-constexpr int RB_N = 256;      // columns of one tile of B
+constexpr int RB_M = 32;       // rows of O a block owns
 constexpr int RB_K = 32;       // depth of one logits slab
 constexpr int RB_T = 256;      // threads
 constexpr int RB_STAGES = 3;   // depth of the cp.async ring
-constexpr int W_RG = RB_N * 8 + 4;      // floats per row group of Ws
 
-template <int DMAX>
+// floats per row group of the weights tile of SN streamed rows
+__host__ __device__ constexpr int w_rg(int sn) { return sn * 8 + 4; }
+
+template <int DMAX, int SN>
 struct Inst {
-  static constexpr int DV = DMAX / 256;   // float4s of dA per thread and row
-  static constexpr int LDA = DMAX + 4;    // row stride of the A tile
-  static constexpr int NB = DMAX <= 256 ? 32 : 8;  // rows of B a dA slab
+  static constexpr int DV = DMAX / 256;   // float4s of output per thread and row
+  static constexpr int LDA = DMAX + 4;    // row stride of the O tile
+  static constexpr int NB = DMAX <= 256 ? 32 : 8;  // rows of S a product slab
   static constexpr int STAGE =            // floats in one ring stage
-      RB_N * RB_K > NB * DMAX ? RB_N * RB_K : NB * DMAX;
-  // the A tile, the weights tile, the ring, lse and g of the block's rows
+      SN * RB_K > NB * DMAX ? SN * RB_K : NB * DMAX;
+  // the O tile, the weights tile, the ring, lse and g of the block's rows
+  // (read by lse_bwd_rows only)
   static constexpr size_t SMEM = sizeof(float) *
-      ((size_t)RB_M * LDA + 4 * W_RG + RB_STAGES * STAGE + 2 * RB_M);
+      ((size_t)RB_M * LDA + 4 * w_rg(SN) + RB_STAGES * STAGE + 2 * RB_M);
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -339,68 +274,75 @@ __device__ __forceinline__ void copy4(float* dst, const float* __restrict__ m,
   }
 }
 
-// Offset of float4 ``h`` (0 or 1) of the weights of rows rg + 4 i (i < 8)
-// for tile column ``n``.  Row groups sit W_RG floats apart, so the 4 row
-// groups of a warp read 4 distinct bank groups; an XOR swizzle on bit 2
-// of n spreads the stores of 8 neighbouring columns over 8.
+// Offset of float4 ``h`` (0 or 1) of the weights of owned rows rg + 4 i
+// (i < 8) for streamed row ``n``.  Row groups sit w_rg(SN) floats apart (4
+// banks mod 32), so the 4 row groups of a warp read 4 distinct bank
+// groups; an XOR swizzle on bit 2 of n spreads the stores of 8
+// neighbouring streamed rows over 8.
+template <int SN>
 __device__ __forceinline__ int w_at(int rg, int n, int h) {
-  return rg * W_RG + n * 8 + 4 * (h ^ ((n >> 2) & 1));
+  return rg * w_rg(SN) + n * 8 + 4 * (h ^ ((n >> 2) & 1));
 }
 
-// Offset of float4 ``q`` (< 8) of column c in a logits slab (B's
-// row-major layout, RB_K = 32 floats, one 128-byte line, a column): an
-// XOR swizzle of q with c % 8, so 8 neighbouring columns read at one depth
-// hit 8 distinct bank groups.
+// Offset of float4 ``q`` (< 8) of streamed row c in a logits slab (S's
+// row-major layout, RB_K = 32 floats, one 128-byte line, a row): an XOR
+// swizzle of q with c % 8, so 8 neighbouring rows read at one depth hit 8
+// distinct bank groups.
 __device__ __forceinline__ int s_at(int c, int q) {
-  static_assert(RB_K == 32, "the swizzle assumes 128-byte columns");
+  static_assert(RB_K == 32, "the swizzle assumes 128-byte rows");
   return c * RB_K + 4 * (q ^ (c & 7));
 }
 
-// Lane l of warp w is (rg, x) = (l / 8, l % 8).  In both products the
-// thread owns rows rg + 4 i (i < 8): of the logits, columns 32 w + x + 8 j
-// (j < 4) of the tile; of dA, depths 4 (8 w + x) + 256 v + e (v < DV,
-// e < 4).  A warp's 16-byte loads of A and of the weights then touch 4
-// distinct addresses in 4 bank groups, its loads of B 8 neighbouring
-// float4s: each is one shared-memory wavefront, broadcast over the rest
-// of the warp.  Per 16-byte load, the dA product does 16 FMAs at D = 512
-// (8 rows x 4 depths, 2 weight and 2 B loads per 8 x 8) and the logits
-// product 10.7 (8 x 4 outputs x 4 depths per 12 loads).
-template <int DMAX, bool VEC>
+// Two lane layouts.  The product: lane l of warp w is (rg, x) = (l / 8,
+// l % 8); the thread owns rows rg + 4 i (i < 8) and depths 4 (8 w + x) +
+// 256 v + e (v < DV, e < 4).  The logits: lane l is (lrg, lx) = (l / XL,
+// l % XL), XL = SN / 32, with RG = 32 / XL row groups; the thread owns
+// rows lrg + RG i (i < 32 / RG) and streamed rows (SN / 8) w + lx + XL j
+// (j < 4) of the tile, so SN = 256 gives 8 x 4 logits a thread (12 loads
+// per 128 FMAs) and SN = 128 gives 4 x 4 (8 loads per 64 FMAs).  A warp's
+// 16-byte loads of the O tile and of the weights then touch 4 or 8
+// distinct addresses in distinct bank groups (LDA is 4 mod 32), its loads
+// of S XL neighbouring float4s: each is one shared-memory wavefront,
+// broadcast over the rest of the warp.  The product does 16 FMAs per
+// 16-byte load at D = 512 (8 rows x 4 depths, 2 weight and 2 S loads per
+// 8 x 8).
+template <int DMAX, bool VEC, bool OWN_COLS, int SN>
 __global__ void __launch_bounds__(RB_T, 1)
-lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    const float* __restrict__ lse, const float* __restrict__ g,
-                    float* __restrict__ part_dA, int R, int C, int D,
-                    int tps) {
-  using I = Inst<DMAX>;
+lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
+               const float* __restrict__ lse, const float* __restrict__ g,
+               float* __restrict__ part, int NO, int NS, int D, int tps) {
+  using I = Inst<DMAX, SN>;
   constexpr int DV = I::DV, LDA = I::LDA, NB = I::NB;
+  constexpr int XL = SN / 32, RG = 32 / XL, MI = RB_M / RG;
   extern __shared__ float4 dyn4[];
-  float* As = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA]
-  float* Ws = As + RB_M * LDA;                  // [4][W_RG], w_at
-  float* ring = Ws + 4 * W_RG;                  // [RB_STAGES][STAGE]
+  float* Os = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA]
+  float* Ws = Os + RB_M * LDA;                  // [4][w_rg(SN)], w_at
+  float* ring = Ws + 4 * w_rg(SN);              // [RB_STAGES][STAGE]
   float* ls = ring + RB_STAGES * I::STAGE;      // [RB_M]
   float* gs = ls + RB_M;                        // [RB_M]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = lane >> 3, x = lane & 7;
-  const int cx = 32 * warp + x;                 // first logits column
-  const int dx = 4 * (8 * warp + x);            // first dA depth
+  const int rg = lane >> 3, x = lane & 7;       // the product's layout
+  const int lrg = lane / XL;                    // the logits' layout
+  const int cx = (SN / 8) * warp + lane % XL;   // first logits column
+  const int dx = 4 * (8 * warp + x);            // first output depth
   const int row0 = blockIdx.x * RB_M;
   const int t_first = blockIdx.y * tps;
-  const int ntile = min((C + RB_N - 1) / RB_N, t_first + tps) - t_first;
+  const int ntile = min((NS + SN - 1) / SN, t_first + tps) - t_first;
   const int n_k = (D + RB_K - 1) / RB_K;        // logits slabs a tile
-  const int per_tile = n_k + RB_N / NB;         // and dA slabs a tile
+  const int per_tile = n_k + SN / NB;           // and product slabs a tile
   const int d4 = (D + 3) / 4;
 
-  if (tid < RB_M) {
+  if (!OWN_COLS && tid < RB_M) {
     const int r = row0 + tid;
-    ls[tid] = r < R ? lse[r] : 0.f;
-    gs[tid] = r < R ? g[r] : 0.f;
+    ls[tid] = r < NO ? lse[r] : 0.f;
+    gs[tid] = r < NO ? g[r] : 0.f;
   }
-  // The A tile, zero past R and from D to the last slab's depth; its
+  // The O tile, zero past NO and from D to the last slab's depth; its
   // copies join the first stage's group.
   const int a4 = n_k * (RB_K / 4);
   for (int l = tid; l < RB_M * a4; l += RB_T) {
     const int r = l / a4, q = l - r * a4;
-    copy4<VEC>(As + r * LDA + 4 * q, A, row0 + r, R, 4 * q, D);
+    copy4<VEC>(Os + r * LDA + 4 * q, O, row0 + r, NO, 4 * q, D);
   }
 
   // The next slab to copy: tile it, part ip, ring stage is_.
@@ -408,27 +350,27 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
   auto issue_next = [&]() {
     if (it < ntile && !(ROWS_SKIP & 4)) {
       float* st = ring + is_ * I::STAGE;
-      const int col0 = (t_first + it) * RB_N;
-      // whole 16-byte chunks inside C and D: copies without checks
-      const bool fast = VEC && col0 + RB_N <= C;
-      if (ip < n_k) {         // B[col0 : +256, RB_K ip : +RB_K], swizzled
+      const int col0 = (t_first + it) * SN;
+      // whole 16-byte chunks inside NS and D: copies without checks
+      const bool fast = VEC && col0 + SN <= NS;
+      if (ip < n_k) {         // S[col0 : +SN, RB_K ip : +RB_K], swizzled
         constexpr int Q = RB_K / 4;
         const int k0 = ip * RB_K;
         if (fast && k0 + RB_K <= D) {
           const float* src =
-              B + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
+              S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
 #pragma unroll
-          for (int m = 0; m < RB_N * Q / RB_T; ++m)
+          for (int m = 0; m < SN * Q / RB_T; ++m)
             cp16(st + s_at(tid / Q + m * (RB_T / Q), tid % Q),
                  src + (size_t)m * (RB_T / Q) * D);
         } else {
 #pragma unroll
-          for (int m = 0; m < RB_N * Q / RB_T; ++m) {
+          for (int m = 0; m < SN * Q / RB_T; ++m) {
             const int l = tid + m * RB_T, c = l / Q, q = l % Q;
-            copy4<VEC>(st + s_at(c, q), B, col0 + c, C, k0 + 4 * q, D);
+            copy4<VEC>(st + s_at(c, q), S, col0 + c, NS, k0 + 4 * q, D);
           }
         }
-      } else {                // B[col0 + n0 : +NB, 0 : D], stride DMAX
+      } else {                // S[col0 + n0 : +NB, 0 : D], stride DMAX
         const int n0 = (ip - n_k) * NB;
         constexpr int Q = DMAX / 4;
 #pragma unroll
@@ -437,9 +379,9 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
           if (q < d4) {
             float* dst = st + n * DMAX + 4 * q;
             if (fast)
-              cp16(dst, B + (size_t)(col0 + n0 + n) * D + 4 * q);
+              cp16(dst, S + (size_t)(col0 + n0 + n) * D + 4 * q);
             else
-              copy4<VEC>(dst, B, col0 + n0 + n, C, 4 * q, D);
+              copy4<VEC>(dst, S, col0 + n0 + n, NS, 4 * q, D);
           }
         }
       }
@@ -448,15 +390,12 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
     if (++is_ == RB_STAGES) is_ = 0;
   };
 
-  float acc[8][4];            // logits of the current tile
-  float out[8][4 * DV];       // dA
+  float acc[MI][4];           // logits of the current tile
+  float out[8][4 * DV];       // the gradient
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4 * DV; ++e) out[i][e] = 0.f;
-  }
 
 #pragma unroll
   for (int s = 0; s < RB_STAGES - 1; ++s) {
@@ -473,19 +412,19 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
     if (cp < n_k) {
       if (cp == 0) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
       }
-      const float* a_k = As + rg * LDA + cp * RB_K;
+      const float* a_k = Os + lrg * LDA + cp * RB_K;
 #pragma unroll
       for (int q = 0; q < (ROWS_SKIP & 1 ? 0 : RB_K / 4); ++q) {
         float4 b[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ld4(st + s_at(cx + 8 * j, q));
+        for (int j = 0; j < 4; ++j) b[j] = ld4(st + s_at(cx + XL * j, q));
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 a = ld4(a_k + 4 * i * LDA + 4 * q);
+        for (int i = 0; i < MI; ++i) {
+          const float4 a = ld4(a_k + RG * i * LDA + 4 * q);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
@@ -495,30 +434,44 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
           }
         }
       }
-      if (cp == n_k - 1) {    // the tile's weights, zero past R and C
-        const int col0 = (t_first + ct) * RB_N;
+      if (cp == n_k - 1) {    // the tile's weights, zero past NO and NS
+        const int col0 = (t_first + ct) * SN;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int n = cx + 8 * j;
-          float w[8];
+          const int n = cx + XL * j;
+          const bool n_ok = col0 + n < NS;
+          // lse_bwd_cols: lse and g of the streamed row, 0 past NS
+          float ln = 0.f, gn = 0.f;
+          if (OWN_COLS && n_ok) ln = __ldg(lse + col0 + n), gn = __ldg(g + col0 + n);
+          float w[MI];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int r = rg + 4 * i;
-            w[i] = (row0 + r < R && col0 + n < C)
-                       ? expf(acc[i][j] - ls[r]) * gs[r] : 0.f;
+          for (int i = 0; i < MI; ++i) {
+            const int r = lrg + RG * i;
+            w[i] = (row0 + r < NO && n_ok)
+                       ? (OWN_COLS ? expf(acc[i][j] - ln) * gn
+                                   : expf(acc[i][j] - ls[r]) * gs[r])
+                       : 0.f;
           }
-          *reinterpret_cast<float4*>(Ws + w_at(rg, n, 0)) =
-              make_float4(w[0], w[1], w[2], w[3]);
-          *reinterpret_cast<float4*>(Ws + w_at(rg, n, 1)) =
-              make_float4(w[4], w[5], w[6], w[7]);
+          if constexpr (MI == 8) {   // rows rg + 4 i: the product's own
+            *reinterpret_cast<float4*>(Ws + w_at<SN>(lrg, n, 0)) =
+                make_float4(w[0], w[1], w[2], w[3]);
+            *reinterpret_cast<float4*>(Ws + w_at<SN>(lrg, n, 1)) =
+                make_float4(w[4], w[5], w[6], w[7]);
+          } else {                   // row r is product row (r % 4) + 4 (r / 4)
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+              const int r = lrg + RG * i;
+              Ws[w_at<SN>(r & 3, n, r >> 4) + ((r >> 2) & 3)] = w[i];
+            }
+          }
         }
       }                       // the next stage's barrier publishes Ws
     } else {
       const int n0 = (cp - n_k) * NB;
 #pragma unroll
       for (int n = 0; n < (ROWS_SKIP & 2 ? 0 : NB); ++n) {
-        const float4 w0 = ld4(Ws + w_at(rg, n0 + n, 0));
-        const float4 w1 = ld4(Ws + w_at(rg, n0 + n, 1));
+        const float4 w0 = ld4(Ws + w_at<SN>(rg, n0 + n, 0));
+        const float4 w1 = ld4(Ws + w_at<SN>(rg, n0 + n, 1));
         const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int v = 0; v < DV; ++v) {
@@ -541,8 +494,8 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = row0 + rg + 4 * i;
-    if (r >= R) continue;
-    float* dst = part_dA + ((size_t)blockIdx.y * R + r) * D;
+    if (r >= NO) continue;
+    float* dst = part + ((size_t)blockIdx.y * NO + r) * D;
 #pragma unroll
     for (int v = 0; v < DV; ++v) {
       const int d = dx + 256 * v;
@@ -559,29 +512,54 @@ lse_bwd_rows_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <int DMAX, bool VEC>
-int launch(const float* A, const float* B, const float* lse, const float* g,
-           float* part_dA, int R, int C, int D, int nsplit, int tps,
-           cudaStream_t stream) {
-  const size_t smem = Inst<DMAX>::SMEM;
+struct Launch {
+  const float *O, *S, *lse, *g;
+  float* part;
+  int NO, NS, D, nsplit, tps;
+  cudaStream_t stream;
+};
+
+template <int DMAX, bool VEC, bool OWN_COLS, int SN>
+int launch_inst(const Launch& a) {
+  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN>;
+  const size_t smem = Inst<DMAX, SN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      lse_bwd_rows_kernel<DMAX, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + RB_M - 1) / RB_M, nsplit);
-  lse_bwd_rows_kernel<DMAX, VEC><<<grid, RB_T, smem, stream>>>(
-      A, B, lse, g, part_dA, R, C, D, tps);
+  dim3 grid((a.NO + RB_M - 1) / RB_M, a.nsplit);
+  kernel<<<grid, RB_T, smem, a.stream>>>(a.O, a.S, a.lse, a.g, a.part, a.NO,
+                                         a.NS, a.D, a.tps);
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-int launch(const float* A, const float* B, const float* lse, const float* g,
-           float* part_dA, int R, int C, int D, int nsplit, int tps, int vec,
-           cudaStream_t stream) {
-  return vec ? launch<DMAX, true>(A, B, lse, g, part_dA, R, C, D, nsplit, tps,
-                                  stream)
-             : launch<DMAX, false>(A, B, lse, g, part_dA, R, C, D, nsplit,
-                                   tps, stream);
+// ``dmax`` picks the instance (256, 512 or 768, at least D); ``vec``: D %
+// 4 == 0 and O, S 16-byte aligned.
+template <bool OWN_COLS, int SN>
+int launch(const Launch& a, int dmax, int vec) {
+  if (a.D > dmax) return (int)cudaErrorInvalidValue;
+  switch (dmax) {
+    case 256:
+      return vec ? launch_inst<256, true, OWN_COLS, SN>(a)
+                 : launch_inst<256, false, OWN_COLS, SN>(a);
+    case 512:
+      return vec ? launch_inst<512, true, OWN_COLS, SN>(a)
+                 : launch_inst<512, false, OWN_COLS, SN>(a);
+    case 768:
+      return vec ? launch_inst<768, true, OWN_COLS, SN>(a)
+                 : launch_inst<768, false, OWN_COLS, SN>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int SN>
+size_t smem_bytes(int dmax) {
+  switch (dmax) {
+    case 256: return Inst<256, SN>::SMEM;
+    case 512: return Inst<512, SN>::SMEM;
+    case 768: return Inst<768, SN>::SMEM;
+    default: return 0;
+  }
 }
 
 }  // namespace rows
@@ -589,10 +567,6 @@ int launch(const float* A, const float* B, const float* lse, const float* g,
 }  // namespace
 
 extern "C" {
-
-// Dynamic shared memory lse_bwd_cols needs at depth D (bytes); the
-// wrapper refuses a D whose need passes the card's limit.
-size_t milnce_bwd_smem(int D) { return bwd_smem_bytes(D); }
 
 int milnce_lse_fwd(const float* A, const float* B, float* part_m,
                    float* part_s, int R, int C, int D, int nsplit, int tps,
@@ -603,51 +577,30 @@ int milnce_lse_fwd(const float* A, const float* B, float* part_m,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the lse_bwd_rows instance for depths up to
-// ``dmax`` (bytes), 0 for a dmax that has no instance.
-size_t milnce_bwd_rows_smem(int dmax) {
-  switch (dmax) {
-    case 256: return rows::Inst<256>::SMEM;
-    case 512: return rows::Inst<512>::SMEM;
-    case 768: return rows::Inst<768>::SMEM;
-    default: return 0;
-  }
+// Dynamic shared memory of the backward instance for depths up to ``dmax``
+// and streamed tiles of ``sn`` rows (bytes), 0 for one that has no
+// instance.  Both modes share it.
+size_t milnce_bwd_rows_smem(int dmax, int sn) {
+  return sn == 128 ? rows::smem_bytes<128>(dmax)
+                   : sn == 256 ? rows::smem_bytes<256>(dmax) : 0;
 }
 
-// part_dA (nsplit, R, D); ``dmax`` picks the instance (256, 512 or 768,
-// at least D); ``vec``: D % 4 == 0 and A, B 16-byte aligned.
-int milnce_lse_bwd_rows(const float* A, const float* B, const float* lse,
-                        const float* g, float* part_dA, int R, int C, int D,
-                        int dmax, int nsplit, int tps, int vec, void* stream) {
-  if (D > dmax) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dmax) {
-    case 256:
-      return rows::launch<256>(A, B, lse, g, part_dA, R, C, D, nsplit, tps,
-                               vec, s);
-    case 512:
-      return rows::launch<512>(A, B, lse, g, part_dA, R, C, D, nsplit, tps,
-                               vec, s);
-    case 768:
-      return rows::launch<768>(A, B, lse, g, part_dA, R, C, D, nsplit, tps,
-                               vec, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+// One backward launch for A (R, D), B (C, D): part (nsplit, R, D) of dA
+// (own_cols 0, lse_bwd_rows, sn 256) or part (nsplit, C, D) of dB
+// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R.
+int milnce_lse_bwd(const float* A, const float* B, const float* lse,
+                   const float* g, float* part, int R, int C, int D,
+                   int own_cols, int dmax, int sn, int nsplit, int tps,
+                   int vec, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!own_cols) {
+    if (sn != 256) return (int)cudaErrorInvalidValue;
+    return rows::launch<false, 256>({A, B, lse, g, part, R, C, D, nsplit, tps,
+                                     s}, dmax, vec);
   }
-}
-
-int milnce_lse_bwd_cols(const float* A, const float* B, const float* lse,
-                        const float* g, float* dB, int R, int C, int D,
-                        void* stream) {
-  const size_t smem = bwd_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      lse_bwd_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((C + BN - 1) / BN);
-  lse_bwd_cols_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      A, B, lse, g, dB, R, C, D);
-  return (int)cudaGetLastError();
+  if (sn != 128) return (int)cudaErrorInvalidValue;
+  return rows::launch<true, 128>({B, A, lse, g, part, C, R, D, nsplit, tps,
+                                  s}, dmax, vec);
 }
 
 }  // extern "C"

@@ -137,7 +137,6 @@ def milnce_stream_plain(v, t, v_all, t_all, chunk: int):
 
 # ----------------------------------------------------------------- kernels
 _SM90_SMEM_OPTIN = 232448          # bytes a block may use on an H100
-_STATIC_SMEM = 4 * 2 * 16 * 68    # the kernels' ``Stage`` struct
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -146,16 +145,11 @@ def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
         lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        lib.milnce_lse_bwd_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _I, _I, _I, _I, _P]
-        lib.milnce_lse_bwd_cols.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
-                                            _P]
-        for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd_rows,
-                   lib.milnce_lse_bwd_cols):
+        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, *[_I] * 9, _P]
+        for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd):
             fn.restype = ctypes.c_int
-        for fn in (lib.milnce_bwd_smem, lib.milnce_bwd_rows_smem):
-            fn.argtypes = [_I]
-            fn.restype = ctypes.c_size_t
+        lib.milnce_bwd_rows_smem.argtypes = [_I, _I]
+        lib.milnce_bwd_rows_smem.restype = ctypes.c_size_t
         lib._milnce_typed = True
     return lib
 
@@ -193,16 +187,20 @@ def _split(r: int, c: int, device) -> tuple:
     return -(-col_tiles // tps), tps
 
 
-ROWS_INSTANCES = (256, 512, 768)   # lse_bwd_rows instances: D <= each
-ROWS_BM, ROWS_BN, ROWS_THREADS = 32, 256, 256
+ROWS_INSTANCES = (256, 512, 768)   # backward kernel instances: D <= each
+ROWS_BM, ROWS_THREADS = 32, 256
 _ROWS_BK, _ROWS_STAGES = 32, 3
 
 
 @dataclasses.dataclass(frozen=True)
-class RowsPlan:
-    """How ``lse_bwd_rows`` launches: instance ``dmax``, a grid of
-    (row_tiles, nsplit) blocks of ``threads``, split y covering column
-    tiles ``tiles(y)``, partial sums in a ``scratch`` tensor."""
+class BwdPlan:
+    """How a backward launch runs, in the kernel's terms: it owns ``bm``
+    rows of one operand a block and streams the other in tiles of ``bn``
+    rows.  Instance ``dmax``, a grid of (row_tiles, nsplit) blocks of
+    ``threads``, row_tiles owned tiles, split y covering streamed tiles
+    ``tiles(y)`` of ``col_tiles``, partial sums in a ``scratch`` tensor
+    (nsplit, owned rows, D).  ``lse_bwd_rows`` owns A and streams B,
+    ``lse_bwd_cols`` owns B and streams A."""
     dmax: int
     bm: int
     bn: int
@@ -219,31 +217,45 @@ class RowsPlan:
                      min(self.col_tiles, (split + 1) * self.tps))
 
 
-def rows_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
-    """The launch plan of ``lse_bwd_rows`` for A (r, d), B (c, d) on a card
-    with ``sms`` SMs: the smallest instance that holds d, and the fewest
-    column tiles per split that keep the grid to one wave of one block per
-    SM (a grid past one wave only when the row tiles alone pass it)."""
+def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
+              sn: int) -> BwdPlan:
+    """The smallest instance that holds d, and the fewest streamed tiles
+    per split that keep the grid to one wave of one block per SM (a grid
+    past one wave only when the owned tiles alone pass it)."""
     if d > ROWS_INSTANCES[-1]:
-        raise ValueError(f"lse_bwd_rows: depth {d} is above the largest "
+        raise ValueError(f"{name}: depth {d} is above the largest "
                          f"kernel instance, D <= {ROWS_INSTANCES[-1]}")
     dmax = next(x for x in ROWS_INSTANCES if d <= x)
-    row_tiles, col_tiles = -(-r // ROWS_BM), -(-c // ROWS_BN)
+    row_tiles, col_tiles = -(-owned // ROWS_BM), -(-streamed // sn)
     per_row = min(col_tiles, max(1, sms // row_tiles))
     tps = -(-col_tiles // per_row)
     nsplit = -(-col_tiles // tps)
-    nb = 32 if dmax <= 256 else 8          # rows of B in one dA slab
-    stage = max(ROWS_BN * _ROWS_BK, nb * dmax)
-    smem = 4 * (ROWS_BM * (dmax + 4) + 4 * (8 * ROWS_BN + 4)
+    nb = 32 if dmax <= 256 else 8          # streamed rows of a product slab
+    stage = max(sn * _ROWS_BK, nb * dmax)
+    smem = 4 * (ROWS_BM * (dmax + 4) + 4 * (8 * sn + 4)
                 + _ROWS_STAGES * stage + 2 * ROWS_BM)
-    return RowsPlan(dmax, ROWS_BM, ROWS_BN, ROWS_THREADS, row_tiles,
-                    col_tiles, nsplit, tps, smem, (nsplit, r, d))
+    return BwdPlan(dmax, ROWS_BM, sn, ROWS_THREADS, row_tiles, col_tiles,
+                   nsplit, tps, smem, (nsplit, owned, d))
 
 
-def _check_smem(name: str, need: int, device, static=_STATIC_SMEM) -> None:
+def rows_plan(r: int, c: int, d: int, sms: int) -> BwdPlan:
+    """The launch plan of ``lse_bwd_rows`` for A (r, d), B (c, d) on a card
+    with ``sms`` SMs: blocks own 32 rows of A and stream B in 256-row
+    tiles."""
+    return _bwd_plan("lse_bwd_rows", r, c, d, sms, 256)
+
+
+def cols_plan(r: int, c: int, d: int, sms: int) -> BwdPlan:
+    """The launch plan of ``lse_bwd_cols`` for A (r, d), B (c, d) on a card
+    with ``sms`` SMs: blocks own 32 rows of B and stream A in 128-row
+    tiles (a 256-row tile never pads A less, and pads the step's R = 128
+    launch by half)."""
+    return _bwd_plan("lse_bwd_cols", c, r, d, sms, 128)
+
+
+def _check_smem(name: str, need: int, device) -> None:
     props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin",
-                    _SM90_SMEM_OPTIN) - static
+    limit = getattr(props, "shared_memory_per_block_optin", _SM90_SMEM_OPTIN)
     if need > limit:
         raise ValueError(f"{name}: depth needs {need} bytes of shared "
                          f"memory, the card allows {limit}")
@@ -269,44 +281,40 @@ def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def lse_bwd_rows(a, b, lse, g) -> torch.Tensor:
     """Kernel: dA (R, D) = sum_j exp(a_r . b_j - lse_r) g_r b_j."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
-    out = launch_rows(_lib(), a, b, lse, g)
+    out = launch_bwd(_lib(), a, b, lse, g, cols=False)
     LAUNCHES["lse_bwd_rows"] += 1
     return out
-
-
-def launch_rows(lib, a, b, lse, g) -> torch.Tensor:
-    """One launch of ``lib``'s lse_bwd_rows kernel on checked operands,
-    with the plan of :func:`rows_plan`, and the sum of its partials."""
-    (r, d), c = a.shape, b.shape[0]
-    plan = rows_plan(r, c, d, torch.cuda.get_device_properties(
-        a.device).multi_processor_count)
-    if lib.milnce_bwd_rows_smem(plan.dmax) != plan.smem_bytes:
-        raise RuntimeError("lse_bwd_rows: the launch plan's shared memory "
-                           "disagrees with the kernel's")
-    _check_smem("lse_bwd_rows", plan.smem_bytes, a.device, static=0)
-    vec = d % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    part = torch.empty(plan.scratch, device=a.device)
-    err = lib.milnce_lse_bwd_rows(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
-                                  g.data_ptr(), part.data_ptr(), r, c, d,
-                                  plan.dmax, plan.nsplit, plan.tps, int(vec),
-                                  cuda_build.current_stream(a))
-    cuda_build.check_launch("lse_bwd_rows", err)
-    return part[0] if plan.nsplit == 1 else part.sum(dim=0)
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
     """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r."""
     _check_operands("lse_bwd_cols", a, b, lse, g)
-    lib = _lib()
-    (r, d), c = a.shape, b.shape[0]
-    _check_smem("lse_bwd_cols", lib.milnce_bwd_smem(d), a.device)
-    out = torch.empty((c, d), device=a.device)
-    err = lib.milnce_lse_bwd_cols(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
-                                  g.data_ptr(), out.data_ptr(), r, c, d,
-                                  cuda_build.current_stream(a))
-    cuda_build.check_launch("lse_bwd_cols", err)
+    out = launch_bwd(_lib(), a, b, lse, g, cols=True)
     LAUNCHES["lse_bwd_cols"] += 1
     return out
+
+
+def launch_bwd(lib, a, b, lse, g, cols: bool) -> torch.Tensor:
+    """One launch of ``lib``'s backward kernel on checked operands: dA
+    (R, D) with the plan of :func:`rows_plan`, or dB (C, D) with that of
+    :func:`cols_plan` when ``cols``; then the sum of its partials."""
+    name = "lse_bwd_cols" if cols else "lse_bwd_rows"
+    (r, d), c = a.shape, b.shape[0]
+    plan = (cols_plan if cols else rows_plan)(
+        r, c, d, torch.cuda.get_device_properties(
+            a.device).multi_processor_count)
+    if lib.milnce_bwd_rows_smem(plan.dmax, plan.bn) != plan.smem_bytes:
+        raise RuntimeError(f"{name}: the launch plan's shared memory "
+                           "disagrees with the kernel's")
+    _check_smem(name, plan.smem_bytes, a.device)
+    vec = d % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    part = torch.empty(plan.scratch, device=a.device)
+    err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
+                             g.data_ptr(), part.data_ptr(), r, c, d,
+                             int(cols), plan.dmax, plan.bn, plan.nsplit,
+                             plan.tps, int(vec), cuda_build.current_stream(a))
+    cuda_build.check_launch(name, err)
+    return part[0] if plan.nsplit == 1 else part.sum(dim=0)
 
 
 class _StreamCuda(torch.autograd.Function):

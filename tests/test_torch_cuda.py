@@ -40,9 +40,9 @@ def _close(got, want):
 @pytest.mark.parametrize("b,bg,k,d,chunk", [
     (3, 3, 2, 16, 2), (5, 37, 3, 40, 8), (33, 130, 1, 64, 100),
     (16, 16, 5, 512, 8), (33, 8191, 1, 13, 1000), (33, 8191, 1, 512, 1000),
-    (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64)],
+    (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64), (2048, 40, 1, 512, 40)],
     ids=["tiny", "odd-d", "uneven", "train", "d13-r33", "r33-bg8191",
-         "r640", "d700"])
+         "r640", "d700", "split"])
 def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
     rng = np.random.default_rng(b + bg)
     arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
@@ -88,7 +88,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         ms.lse_fwd(torch.zeros(8, 4, device=cuda).T, a)
     wide = [torch.zeros(2, 4096, device=cuda), torch.zeros(2, 4096, device=cuda),
             torch.zeros(2, device=cuda), torch.zeros(2, device=cuda)]
-    with pytest.raises(ValueError, match="shared"):
+    with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
         ms.lse_bwd_cols(*wide)
     with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
         ms.lse_bwd_rows(*wide)

@@ -183,3 +183,52 @@ def test_rows_launch_plan_shapes_and_refusal():
     ms.rows_plan(4, 8, 768, sms=132)
     with pytest.raises(ValueError, match="D <= 768"):
         ms.rows_plan(4, 8, 769, sms=132)
+
+
+def _pad(r, sn):
+    return -(-r // sn) * sn - r
+
+
+@pytest.mark.parametrize("r", [1, 33, 128, 200, 640, 2048])
+@pytest.mark.parametrize("c", [1, 40, 8191, 40960])
+@pytest.mark.parametrize("d", [13, 512, 700])
+def test_cols_launch_plan_covers_every_streamed_tile_once(r, c, d):
+    plan = ms.cols_plan(r, c, d, sms=132)
+    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    assert (plan.bm, plan.threads) == (32, 256)
+    # 128-row streamed tiles: a 256-row tile never pads A less
+    assert plan.bn == 128
+    assert _pad(r, 128) <= _pad(r, 256)
+    assert plan.row_tiles == -(-c // 32)
+    assert plan.col_tiles == -(-r // plan.bn)
+    covered = [t for s in range(plan.nsplit) for t in plan.tiles(s)]
+    assert sorted(covered) == list(range(plan.col_tiles))
+    assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
+    assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
+    assert plan.scratch == (plan.nsplit, c, d)
+    # one wave of one block per SM unless the owned tiles alone pass it
+    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
+    if plan.row_tiles >= 132:
+        assert plan.nsplit == 1
+    assert plan.smem_bytes <= 232448
+
+
+def test_cols_launch_plan_shapes_and_refusal():
+    # the two launches of a step at the recipe shape: no split, no padding
+    rows_call = ms.cols_plan(128, 40960, 512, sms=132)
+    assert (rows_call.bn, rows_call.row_tiles, rows_call.col_tiles,
+            rows_call.nsplit) == (128, 1280, 1, 1)
+    cols_call = ms.cols_plan(640, 8192, 512, sms=132)
+    assert (cols_call.bn, cols_call.row_tiles, cols_call.col_tiles,
+            cols_call.nsplit) == (128, 256, 5, 1)
+    # few owned tiles: the streamed loop splits, one tile a split
+    split = ms.cols_plan(2048, 40, 512, sms=132)
+    assert (split.bn, split.row_tiles, split.nsplit, split.tps) == (128, 2,
+                                                                     16, 1)
+    assert ms.cols_plan(256, 8, 512, sms=132).bn == 128
+    # 128-row streamed tiles take less shared memory than 256-row ones
+    assert (ms.cols_plan(8, 8, 512, sms=132).smem_bytes
+            < ms.rows_plan(8, 8, 512, sms=132).smem_bytes)
+    ms.cols_plan(4, 8, 768, sms=132)
+    with pytest.raises(ValueError, match="lse_bwd_cols: .*D <= 768"):
+        ms.cols_plan(4, 8, 769, sms=132)

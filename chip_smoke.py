@@ -13,14 +13,16 @@ Phases, each fatal on failure:
                recipe shape (B=128, Bg=8192, K=5, D=512), an uneven shape
                (Bg=8191, chunk 1000, K=1), a tiny one, the training run's
                own shape, three that stress the backward kernel's tiling
-               (R=33 with D=13, R=640 against Bg=4097, D=700) and one that
-               splits lse_bwd_cols's streamed loop (B=2048 against Bg=40);
+               (R=33 with D=13, R=640 against Bg=4097, D=700), one that
+               splits lse_bwd_cols's streamed loop (B=2048 against Bg=40)
+               and one that splits lse_fwd's owned rows and its streamed
+               loop with a ragged last tile (B=200 against Bg=3000, K=3);
                then the kernels', the plain versions' and the dense
                PyTorch form's times (median of 20 after warm-up, CUDA
                events) at the recipe shape, beside the card's bound, and
-               lse_bwd_rows and lse_bwd_cols launch by launch with
-               TFLOP/s, share of the bound, kernel/library ratio and the
-               launch plan their wrapper chose.
+               each kernel launch by launch with TFLOP/s, share of the
+               bound, kernel/library ratio and the launch plan its
+               wrapper chose.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's E-matrix and
                gradient, fed the same table) at the reference presets, past
@@ -81,6 +83,9 @@ REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
                            ":63 (B5), :106 (B7)",
             "softdtw_bwd": "milnce_tpu/ops/softdtw_pallas.py:340 (B4), "
                            ":593 (B6), :489 (B8)"}
+# the name of each MIL-NCE kernel's CUDA function, for its device time
+KERNEL_KEYS = {"lse_fwd": "lse_fwd_kernel", "lse_bwd_rows": "lse_bwd_kernel",
+               "lse_bwd_cols": "lse_bwd_kernel"}
 # special-function (exp, log) results per clock per SM on Hopper
 H100_SFU_PER_CLOCK_SM = 16
 # (label, B, N, M, features): the soft-DTW presets of
@@ -203,7 +208,7 @@ def _err(got, want, scaled=False):
 
 
 def phase_parity():
-    """Kernel vs plain at eight shapes; returns the worst error of each
+    """Kernel vs plain at nine shapes; returns the worst error of each
     kernel.  The lses come from lse_fwd, g_v/g_t from lse_bwd_rows and
     g_v_all/g_t_all from lse_bwd_cols; where v_all is v (one device),
     g_v and g_t sum the outputs of both backward kernels.  Beside the
@@ -212,7 +217,10 @@ def phase_parity():
     D = 13 (not a multiple of 4), R = 640 (the columns direction, B*K)
     against an uneven Bg, and D = 700 near the largest instance; and
     B = 2048 against Bg = 40 gives lse_bwd_cols 2 owned tiles, so its
-    streamed loop splits over 16 blocks.  The cotangents are of unit
+    streamed loop splits over 16 blocks; B = 200 against Bg = 3000 with
+    K = 3 gives lse_fwd's rows launch 4 owned tiles (the last ragged) and
+    splits of 3 streamed tiles, the last split of 2 ending on a ragged
+    tile (its plans are printed).  The cotangents are of unit
     scale and each limit shrinks with its output (``_err(scaled=True)``),
     so that a kernel returning zeros fails."""
     from milnce_tpu_torch.ops import milnce_stream as ms
@@ -224,10 +232,16 @@ def phase_parity():
              ("d13-r33", 33, 8191, 1, 13, 1000, False),
              ("r640-uneven", 128, 4097, 5, 512, 500, False),
              ("d700", 33, 2048, 5, 700, 256, False),
-             ("split", 2048, 40, 1, 512, 40, False)]
+             ("split", 2048, 40, 1, 512, 40, False),
+             ("fwd-split", 200, 3000, 3, 512, 300, False)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {name: 0.0 for name in ms.LAUNCHES}
     for i, (label, b, bg, k, d, chunk, shared) in enumerate(cases):
         v, t, v_all, t_all = _case(b, bg, k, d, 100 + i, shared)
+        if label == "fwd-split":
+            for r, c in ((b, bg * k), (b * k, bg)):
+                log(f"  [{label}] lse_fwd R={r} C={c}: "
+                    f"{_plan_line(ms.fwd_plan(r, c, d, sms))}")
         g = torch.Generator(device="cuda").manual_seed(i)
         g_row = torch.randn(b, device="cuda", generator=g)
         g_col = torch.randn(b * k, device="cuda", generator=g)
@@ -273,6 +287,13 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def _plan_line(plan):
+    return (f"instance D<={plan.dmax}, BM={plan.bm}, SN={plan.bn}, "
+            f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}, "
+            f"streamed tiles/split {plan.tps} of {plan.col_tiles}, "
+            f"{plan.smem_bytes} B shared, scratch {plan.scratch}")
+
+
 def _bound(flops, nbytes):
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -281,9 +302,13 @@ def _bound(flops, nbytes):
 
 def phase_timing():
     """Times of each kernel's pair of launches per step (rows direction +
-    columns direction) at the recipe shape, and of each backward kernel's
-    two launches one by one, (R, C) = (128, 40960) and (640, 8192), with
-    its launch plan."""
+    columns direction) at the recipe shape, and of each kernel's two
+    launches one by one, (R, C) = (128, 40960) and (640, 8192), with its
+    launch plan.  Each is timed per call (CUDA events: the wrapper's host
+    work and the sum of its split partials included) and on the device
+    (torch.profiler: the kernel alone; every kernel of the wrapper's call,
+    the combination of the partials included; and every kernel of the
+    library call, which the whole call is compared with)."""
     from milnce_tpu_torch.losses.milnce_chunked import milnce_default_chunk
     from milnce_tpu_torch.ops import milnce_stream as ms
 
@@ -323,27 +348,37 @@ def phase_timing():
     }
     out = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_launch = {"lse_bwd_rows": (ms.lse_bwd_rows, ms.rows_plan,
-                                   rows_library, False),
-                  "lse_bwd_cols": (ms.lse_bwd_cols, ms.cols_plan,
-                                   cols_library, True)}
-    for name, (kern, plan_of, library, cols) in per_launch.items():
+    # name: (kernel, plan, library call, FLOPs per logit and depth, floats
+    # read and written besides A and B)
+    per_launch = {
+        "lse_fwd": (lambda a, bm, lse, g: ms.lse_fwd(a, bm), ms.fwd_plan,
+                    lambda a, bm, lse, g: torch.logsumexp(a @ bm.T, dim=1),
+                    2, lambda r, c: r),
+        "lse_bwd_rows": (ms.lse_bwd_rows, ms.rows_plan, rows_library, 4,
+                         lambda r, c: 2 * r + r * d),
+        "lse_bwd_cols": (ms.lse_bwd_cols, ms.cols_plan, cols_library, 4,
+                         lambda r, c: 2 * r + c * d)}
+    for name, (kern, plan_of, library, per, extra) in per_launch.items():
         for a, bm, lse, g, _ in pairs:
             r, c = a.shape[0], bm.shape[0]
             plan = plan_of(r, c, d, sms)
             ms_k = _time_ms(lambda: kern(a, bm, lse, g))
             ms_l = _time_ms(lambda: library(a, bm, lse, g))
-            flops = 4 * r * c * d
+            dev_k = _device_ms(lambda: kern(a, bm, lse, g),
+                               KERNEL_KEYS[name])
+            dev_c = _device_ms(lambda: kern(a, bm, lse, g), "")
+            dev_l = _device_ms(lambda: library(a, bm, lse, g), "")
+            flops = per * r * c * d
             bound_ms, bound_by = _bound(
-                flops, 4 * (r * d + c * d + 2 * r + (c if cols else r) * d))
+                flops, 4 * (r * d + c * d + extra(r, c)))
             log(f"  {name} launch R={r} C={c} D={d}: kernel {ms_k:.4f} ms, "
                 f"{flops / ms_k / 1e9:.2f} TFLOP/s, {bound_ms / ms_k:.3f} of "
                 f"the f32 bound ({bound_ms:.4f} ms, {bound_by}) | library "
-                f"{ms_l:.4f} ms, kernel/library {ms_k / ms_l:.3f} | plan: "
-                f"instance D<={plan.dmax}, BM={plan.bm}, SN={plan.bn}, "
-                f"threads={plan.threads}, grid {plan.row_tiles}x"
-                f"{plan.nsplit}, streamed tiles/split {plan.tps}, "
-                f"{plan.smem_bytes} B shared, scratch {plan.scratch}")
+                f"{ms_l:.4f} ms, kernel/library {ms_k / ms_l:.3f} | on the "
+                f"device: kernel alone {dev_k:.4f} ms ({bound_ms / dev_k:.3f} "
+                f"of the bound), whole call {dev_c:.4f} ms, library "
+                f"{dev_l:.4f} ms, call/library {dev_c / dev_l:.3f} | plan: "
+                f"{_plan_line(plan)}")
     for name, (kern, plain, library) in fns.items():
         flops = nbytes = 0
         for a, bm, *_ in pairs:
@@ -359,14 +394,23 @@ def phase_timing():
         ms_k = _time_ms(kern)
         ms_p = _time_ms(plain)
         ms_l = _time_ms(library)
+        dev_k = _device_ms(kern, KERNEL_KEYS[name])
+        dev_c = _device_ms(kern, "")
+        dev_l = _device_ms(library, "")
         out[name] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
-                         bound_ms=bound_ms, bound_by=bound_by)
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         device_ms=dev_k, call_device_ms=dev_c,
+                         library_device_ms=dev_l)
         log(f"  {name}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
             f"TFLOP/s, {bound_ms / ms_k:.3f} of the bound) | plain "
             f"{ms_p:.3f} ms | dense torch {ms_l:.4f} ms (kernel/library "
-            f"{ms_k / ms_l:.3f}) | bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) per step's "
-            f"pair of launches, B={b} Bg={bg} K={k} D={d}")
+            f"{ms_k / ms_l:.3f}) | on the device: kernel alone "
+            f"{dev_k:.4f} ms ({bound_ms / dev_k:.3f} of the bound), whole "
+            f"call {dev_c:.4f} ms, dense torch {dev_l:.4f} ms (call/library "
+            f"{dev_c / dev_l:.3f}) | bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB) per step's pair of launches, B={b} "
+            f"Bg={bg} K={k} D={d}")
     return out
 
 
@@ -457,8 +501,8 @@ def _sfu_rate():
 
 def _device_ms(fn, key, reps=20):
     """Mean device time of the kernels whose name holds ``key`` per call
-    of ``fn``, from torch.profiler: the kernel alone, without the host
-    time of its wrapper."""
+    of ``fn``, from torch.profiler, without the host time of its wrapper:
+    the kernel alone, or with key '' every kernel the call launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -652,14 +696,21 @@ def phase_dtw_reference():
         torch.backends.cudnn.deterministic = False
 
 
-def _train_full(loss_name, edit, counters, per_step):
-    """``run_training`` at full width with the loss ``edit`` applies,
-    TRAIN_STEPS steps at batch TRAIN_BATCH, every launch counter reset just
-    before and read just after.  Each kernel in ``per_step`` must have
-    launched that many times per step.  Returns (result, config, the
-    launches of the run)."""
+def _stream_loss(loss):
+    """Chunked MIL-NCE on the stream kernels."""
+    loss.milnce_impl, loss.milnce_backend = "chunked", "cuda"
+    loss.milnce_chunk = TRAIN_CHUNK
+
+
+def _sdtw_loss(loss):
+    """The soft-DTW losses on their kernels."""
+    loss.sdtw_backend = "cuda"
+
+
+def _full_cfg(loss_name, edit):
+    """The full-width training configuration with the loss ``edit``
+    applies: TRAIN_STEPS steps at batch TRAIN_BATCH on synthetic data."""
     from milnce_tpu_torch.config import full_preset
-    from milnce_tpu_torch.train.loop import run_training
 
     cfg = full_preset()
     cfg.parallel.platform = "cuda"
@@ -670,6 +721,17 @@ def _train_full(loss_name, edit, counters, per_step):
     cfg.train.n_display = 1
     cfg.loss.name = loss_name
     edit(cfg.loss)
+    return cfg
+
+
+def _train_full(loss_name, edit, counters, per_step):
+    """``run_training`` on ``_full_cfg(loss_name, edit)``, every launch
+    counter reset just before and read just after.  Each kernel in
+    ``per_step`` must have launched that many times per step.  Returns
+    (result, config, the launches of the run)."""
+    from milnce_tpu_torch.train.loop import run_training
+
+    cfg = _full_cfg(loss_name, edit)
     steps = []
     torch.cuda.reset_peak_memory_stats()
     for counter in counters:
@@ -702,11 +764,7 @@ def phase_train():
     from milnce_tpu_torch.ops import softdtw_cuda as sd
     from milnce_tpu_torch.train.step import make_video_embed_fn
 
-    def edit(loss):
-        loss.milnce_impl, loss.milnce_backend = "chunked", "cuda"
-        loss.milnce_chunk = TRAIN_CHUNK
-
-    res, cfg, launches = _train_full("milnce", edit, (ms, sd),
+    res, cfg, launches = _train_full("milnce", _stream_loss, (ms, sd),
                                      {k: 2 for k in ms.LAUNCHES})
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     emb = make_video_embed_fn(res.model)(clip)
@@ -723,10 +781,7 @@ def phase_train_sdtw3():
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.ops import softdtw_cuda as sd
 
-    def edit(loss):
-        loss.sdtw_backend = "cuda"
-
-    res, cfg, launches = _train_full("sdtw_3", edit, (ms, sd),
+    res, cfg, launches = _train_full("sdtw_3", _sdtw_loss, (ms, sd),
                                      {k: 6 for k in sd.LAUNCHES})
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     text = torch.ones((2 * cfg.data.num_candidates, cfg.data.max_words),

@@ -7,7 +7,9 @@ Three knobs differ from the JAX copy: ``loss.milnce_backend`` and
 anything else) and ``parallel.platform`` picks the torch device
 (``cuda`` by default, ``cpu`` for hermetic runs).  Knobs of subsystems
 the port has not reached yet are kept so that command lines stay the
-same across the two packages; the port's trainer ignores them.
+same across the two packages; the port's trainer refuses those listed in
+``train/loop.py::UNPORTED_KNOBS`` when they are set and ignores the
+rest.
 
 Replaces the reference's two near-duplicate argparse files (args.py:3-52,
 args_small.py:3-52) with one dataclass tree + presets.  Every knob of the

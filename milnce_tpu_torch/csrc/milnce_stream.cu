@@ -24,43 +24,54 @@
 // tiles itself, and where its own tiles are too few to fill the 132 SMs
 // the loop is split over grid.y; each split writes a partial (max, sum)
 // or a partial gradient and the wrapper combines the splits in a second
-// pass.  No atomics.  Columns past C take the logit -BIG (the JAX
-// stream's finite sentinel) in the forward; rows past R and columns past
-// C get weight 0.
+// pass.  No atomics.  The forward skips columns past C by a branch (the
+// JAX stream gives them the logit -BIG, which adds exp(-BIG - m) = 0);
+// in the backward rows past R and columns past C get weight 0.
 //
-// lse_fwd runs on logits_tile: a 64 x 64 tile from 16-deep shared stages
-// of A and B, transposed on the way in, 4 x 4 outputs a thread, two
-// barriers a stage, no prefetch.
+// All three are modes of one kernel family (namespace rows below), built
+// for the FMA units to set the pace.  A block owns rows of one operand and
+// streams the other: lse_fwd and lse_bwd_rows own rows of A and stream B,
+// lse_bwd_cols owns rows of B (columns of the logits) and streams A.  The
+// logits of an (owned, streamed) pair are the same dot product either way.
+// The forward keeps a running (max, sum) per owned row; the backward turns
+// the logits into weights and adds a second product, the weighted sum of
+// streamed rows, where only the weight's lse and g follow the owned row
+// (rows) or the streamed row (cols).  "rows" names the family in every
+// mode: the namespace, the ROWS_* constants and switches and
+// ops/rows_probe.py serve lse_fwd and lse_bwd_cols too.
+//   - operands read once per use: the block's owned tile stays in shared
+//     memory for its whole life; each tile of the streamed operand is
+//     streamed once per product in its own row-major layout, never copied
+//     transposed.
+//   - loads overlap math: 16-byte cp.async.cg copies into a ring of three
+//     stages, commit / wait_group, one barrier per stage.
+//   - micro-tiles whose rows are uniform over groups of lanes, so the owned
+//     tile (and the backward's weights) are broadcast reads; XOR swizzles
+//     make the remaining 16-byte loads and stores conflict-free.
+//   - the split of the streamed loop gives the grid one block per SM in one
+//     wave when the owned tiles alone are fewer than the SMs.
 //
-// lse_bwd_rows and lse_bwd_cols are two modes of one kernel (namespace
-// rows below), built for the FMA units to set the pace.  A block owns 32
-// rows of one operand and streams the other: lse_bwd_rows owns rows of A
-// and streams B, lse_bwd_cols owns rows of B (columns of the logits) and
-// streams A.  The logits of an (owned, streamed) pair are the same dot
-// product either way; the gradient is the weighted sum of streamed rows;
-// only the weight's lse and g follow the owned row (rows) or the streamed
-// row (cols).  "rows" names the kernel in both modes: the namespace, the
-// ROWS_* constants and switches, milnce_bwd_rows_smem and ops/rows_probe.py
-// serve lse_bwd_cols too.
+// lse_fwd (lse_fwd_kernel) has no gradient to hold: 256 threads each
+// keep an 8 x 4 logits micro-tile (10.7 FMAs a 16-byte shared load) and an
+// online (max, sum) for each of its 8 owned rows over the streamed rows it
+// sees, one rescale exp a row and one exp a logit per tile.  Lanes and
+// warps combine their pairs once, when the block ends.  A block owns 64
+// rows of A and streams 128-row tiles of B (32 rows and 256-row tiles at
+// D <= 768, whose A tile leaves less room).  An 8 x 8 micro-tile (64 x 256,
+// 16 FMAs a load) is faster per tile but fills the card less evenly: a
+// step's launches are 320 such tiles, 3 a block on 108 or 110 SMs, against
+// 640 of 64 x 128, 5 a block on 128 or 130 (PERF.md has the times).
+//
+// lse_bwd_rows and lse_bwd_cols (lse_bwd_kernel):
 //   - the gradient in registers, not shared memory: the block holds its
 //     (32, D) rows in its 256 threads, 8 rows x 4 DV depths each, with D a
 //     compile-time bound (instances for D <= 256, 512 and 768) and a
 //     runtime tail; no read-modify-write of an accumulator per chunk.
-//   - operands read once per use: the block's (32, D) owned tile stays in
-//     shared memory for its whole life; each tile of the streamed operand
-//     (SN = 256 rows for lse_bwd_rows, 128 for lse_bwd_cols, whose R = 128
-//     and 640 it covers without padding) is streamed once per product in
-//     its own row-major layout, never copied transposed.
-//   - loads overlap math: 16-byte cp.async.cg copies into a ring of three
-//     stages, commit / wait_group, one barrier per stage.
-//   - micro-tiles whose rows are uniform over groups of lanes, so the
-//     owned tile and the weights are broadcast reads; each 16-byte load of
-//     the streamed operand feeds 16 FMAs in the gradient product and, with
-//     the owned tile's loads counted, 10.7 (SN = 256) or 8 (SN = 128) in
-//     the logits; XOR swizzles make the remaining 16-byte loads and stores
-//     conflict-free.
-//   - the split of the streamed loop gives the grid one block per SM in one
-//     wave when the owned tiles alone are fewer than the SMs.
+//   - the streamed tile is SN = 256 rows for lse_bwd_rows, 128 for
+//     lse_bwd_cols, whose R = 128 and 640 it covers without padding.
+//   - each 16-byte load of the streamed operand feeds 16 FMAs in the
+//     gradient product and, with the owned tile's loads counted, 10.7 (SN
+//     = 256) or 8 (SN = 128) in the logits.
 //
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
@@ -70,123 +81,12 @@
 
 namespace {
 
-constexpr int BM = 64;    // rows of a logits tile
-constexpr int BN = 64;    // columns of a logits tile
-constexpr int BK = 16;    // depth of one shared-memory stage
-constexpr int NT = 256;   // threads per block, viewed as 16 x 16
-constexpr int LD = 68;    // row stride of the 64-wide shared tiles: a
-                          // multiple of 4 (128-bit loads) that staggers
-                          // the transposing stores over the banks
-constexpr float BIG = 1e30f;
-
-struct __align__(16) Stage {
-  float a[BK][LD];        // A tile, transposed (depth-major)
-  float b[BK][LD];        // B tile, transposed
-};
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void fma4x4(float acc[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
-
-// S = A[row0 : row0 + 64] . B[col0 : col0 + 64]^T.  Thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows 4 ty + i and columns 4 tx + j (i, j < 4).
-// Rows past R, columns past C and depth past D read zeros.
-__device__ __forceinline__ void logits_tile(const float* __restrict__ A,
-                                            const float* __restrict__ B,
-                                            int R, int C, int D, int row0,
-                                            int col0, Stage& st,
-                                            float acc[4][4]) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < D; k0 += BK) {
-#pragma unroll
-    for (int l = tid; l < BM * BK; l += NT) {
-      const int r = l / BK, k = l % BK, gr = row0 + r, gk = k0 + k;
-      st.a[k][r] = (gr < R && gk < D) ? A[(size_t)gr * D + gk] : 0.f;
-      const int gc = col0 + r;
-      st.b[k][r] = (gc < C && gk < D) ? B[(size_t)gc * D + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k)
-      fma4x4(acc, ld4(&st.a[k][4 * ty]), ld4(&st.b[k][4 * tx]));
-    __syncthreads();
-  }
-}
-
-// Reductions over the 16 lanes that share a row group (half a warp).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// grid (ceil(R / BM), nsplit); split y covers column tiles
-// [y * tps, min((y + 1) * tps, ceil(C / BN))).
-__global__ void __launch_bounds__(NT)
-lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
-               float* __restrict__ part_m, float* __restrict__ part_s,
-               int R, int C, int D, int tps) {
-  __shared__ Stage st;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int row0 = blockIdx.x * BM, split = blockIdx.y;
-  const int ntiles = (C + BN - 1) / BN;
-  const int t_end = min(ntiles, (split + 1) * tps);
-  float m[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, s[i] = 0.f;
-  for (int t = split * tps; t < t_end; ++t) {
-    const int col0 = t * BN;
-    float acc[4][4];
-    logits_tile(A, B, R, C, D, row0, col0, st, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (col0 + 4 * tx + j >= C) acc[i][j] = -BIG;
-        mx = fmaxf(mx, acc[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));
-      float ts = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts += expf(acc[i][j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + row_sum(ts);
-      m[i] = mn;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + 4 * ty + i;
-      if (r < R) {
-        part_m[(size_t)split * R + r] = m[i];
-        part_s[(size_t)split * R + r] = s[i];
-      }
-    }
-  }
-}
-
 // ------------------------------------------------ lse_bwd_rows, lse_bwd_cols
-// One kernel, two modes.  O (NO, D) is the owned operand, S (NS, D) the
+// One kernel, two modes (the forward's kernel follows it).  O (NO, D) is the owned operand, S (NS, D) the
 // streamed one; the kernel writes part (nsplit, NO, D):
 //   part[y]_o = sum_s w_os S_s over the streamed tiles of split y,
 //   w_os = exp(O_o . S_s - lse_x) g_x, x = o (OWN_COLS false: lse_bwd_rows,
@@ -205,8 +105,9 @@ namespace rows {
 
 // ROWS_SKIP (default 0), a bit mask for timing the kernel's parts
 // (milnce_tpu_torch/ops/rows_probe.py): 1 skips the logits FMAs, 2 the
-// gradient FMAs, 4 the copies of the streamed operand.  Any bit set gives
-// wrong results.
+// gradient FMAs (in lse_fwd: the running (max, sum) update, whose place a
+// plain sum of the logits takes so that their FMAs stay live), 4 the
+// copies of the streamed operand.  Any bit set gives wrong results.
 #ifndef ROWS_SKIP
 #define ROWS_SKIP 0
 #endif
@@ -293,6 +194,44 @@ __device__ __forceinline__ int s_at(int c, int q) {
   return c * RB_K + 4 * (q ^ (c & 7));
 }
 
+// The block's owned tile: rows row0 .. row0 + M - 1 of O into Os (row
+// stride LDA), zero past NO and from D to the last slab's depth n_k RB_K.
+template <bool VEC, int M>
+__device__ __forceinline__ void load_owned(float* Os, int LDA,
+                                           const float* __restrict__ O,
+                                           int row0, int NO, int n_k, int D) {
+  const int a4 = n_k * (RB_K / 4);
+  for (int l = threadIdx.x; l < M * a4; l += RB_T) {
+    const int r = l / a4, q = l - r * a4;
+    copy4<VEC>(Os + r * LDA + 4 * q, O, row0 + r, NO, 4 * q, D);
+  }
+}
+
+// One logits slab: S[col0 : +SN, k0 : +RB_K] into ring stage st, swizzled
+// (s_at).  ``fast``: the SN rows lie inside NS and VEC holds, so whole
+// 16-byte chunks inside D go without checks.
+template <bool VEC, int SN>
+__device__ __forceinline__ void copy_logits_slab(float* st,
+                                                 const float* __restrict__ S,
+                                                 int col0, int NS, int k0,
+                                                 int D, bool fast) {
+  constexpr int Q = RB_K / 4;
+  const int tid = threadIdx.x;
+  if (fast && k0 + RB_K <= D) {
+    const float* src = S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
+#pragma unroll
+    for (int m = 0; m < SN * Q / RB_T; ++m)
+      cp16(st + s_at(tid / Q + m * (RB_T / Q), tid % Q),
+           src + (size_t)m * (RB_T / Q) * D);
+  } else {
+#pragma unroll
+    for (int m = 0; m < SN * Q / RB_T; ++m) {
+      const int l = tid + m * RB_T, c = l / Q, q = l % Q;
+      copy4<VEC>(st + s_at(c, q), S, col0 + c, NS, k0 + 4 * q, D);
+    }
+  }
+}
+
 // Two lane layouts.  The product: lane l of warp w is (rg, x) = (l / 8,
 // l % 8); the thread owns rows rg + 4 i (i < 8) and depths 4 (8 w + x) +
 // 256 v + e (v < DV, e < 4).  The logits: lane l is (lrg, lx) = (l / XL,
@@ -337,13 +276,8 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     ls[tid] = r < NO ? lse[r] : 0.f;
     gs[tid] = r < NO ? g[r] : 0.f;
   }
-  // The O tile, zero past NO and from D to the last slab's depth; its
-  // copies join the first stage's group.
-  const int a4 = n_k * (RB_K / 4);
-  for (int l = tid; l < RB_M * a4; l += RB_T) {
-    const int r = l / a4, q = l - r * a4;
-    copy4<VEC>(Os + r * LDA + 4 * q, O, row0 + r, NO, 4 * q, D);
-  }
+  // The O tile; its copies join the first stage's group.
+  load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D);
 
   // The next slab to copy: tile it, part ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
@@ -353,23 +287,8 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
       const int col0 = (t_first + it) * SN;
       // whole 16-byte chunks inside NS and D: copies without checks
       const bool fast = VEC && col0 + SN <= NS;
-      if (ip < n_k) {         // S[col0 : +SN, RB_K ip : +RB_K], swizzled
-        constexpr int Q = RB_K / 4;
-        const int k0 = ip * RB_K;
-        if (fast && k0 + RB_K <= D) {
-          const float* src =
-              S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
-#pragma unroll
-          for (int m = 0; m < SN * Q / RB_T; ++m)
-            cp16(st + s_at(tid / Q + m * (RB_T / Q), tid % Q),
-                 src + (size_t)m * (RB_T / Q) * D);
-        } else {
-#pragma unroll
-          for (int m = 0; m < SN * Q / RB_T; ++m) {
-            const int l = tid + m * RB_T, c = l / Q, q = l % Q;
-            copy4<VEC>(st + s_at(c, q), S, col0 + c, NS, k0 + 4 * q, D);
-          }
-        }
+      if (ip < n_k) {
+        copy_logits_slab<VEC, SN>(st, S, col0, NS, ip * RB_K, D, fast);
       } else {                // S[col0 + n0 : +NB, 0 : D], stride DMAX
         const int n0 = (ip - n_k) * NB;
         constexpr int Q = DMAX / 4;
@@ -512,6 +431,205 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   }
 }
 
+// ------------------------------------------------------------------ lse_fwd
+// The forward mode: A (R, D) owned, B (C, D) streamed; the kernel writes
+// part_m, part_s (nsplit, R), the (max, sum) of exp(A_r . B_j - max) over
+// the streamed tiles of split y.
+//
+// grid (ceil(R / FM), nsplit), RB_T threads, one block per SM.  The block's
+// (FM, D) A tile sits in shared memory for its whole life; it walks the
+// streamed tiles [y tps, (y + 1) tps) of its split, SN rows of B each,
+// through the backward's ring of RB_STAGES stages of RB_K-deep slabs, one
+// barrier per stage.  Lane l of warp w is (lrg, lx) = (l / 8, l % 8), and
+// the warps form (FM / 32) x WC: warp (wr, wc) = (w / WC, w % WC) owns rows
+// 32 wr + lrg + 4 i (i < 8) and streamed rows 8 TN wc + lx + 8 j (j < TN)
+// of each tile.  A warp's 16-byte loads touch 4 rows of the A tile (LDA is
+// 4 mod 32: 4 distinct bank groups) and 8 neighbouring rows of B (s_at: 8
+// distinct bank groups), each one wavefront broadcast over the warp.
+template <int DMAX, int FM, int SN>
+struct FwdInst {
+  static constexpr int LDA = DMAX + 4;            // row stride of the A tile
+  static constexpr int TN = FM * SN / (8 * RB_T); // logits columns a thread
+  static constexpr int WC = SN / (8 * TN);        // warps across a tile
+  static_assert(FM % 32 == 0 && (FM / 32) * WC * 32 == RB_T,
+                "the warps must tile the block's logits");
+  // the A tile and the ring; the warps' partials reuse the ring at the end
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)FM * LDA + RB_STAGES * SN * RB_K);
+  static_assert(2 * WC * FM <= RB_STAGES * SN * RB_K, "partials fit the ring");
+};
+
+// Merges the pair (mo, so) into (m, s): both are (max, sum of exp(x - max))
+// over disjoint sets; (-inf, 0) is the empty set.
+__device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
+                                          float so) {
+  const float mn = fmaxf(m, mo);
+  if (mn == -INFINITY) {      // a NaN sum stays NaN
+    s += so;
+    return;
+  }
+  s = s * expf(m - mn) + so * expf(mo - mn);
+  m = mn;
+}
+
+template <int DMAX, bool VEC, int FM, int SN>
+__global__ void __launch_bounds__(RB_T, 1)
+lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
+               float* __restrict__ part_m, float* __restrict__ part_s, int R,
+               int C, int D, int tps) {
+  using I = FwdInst<DMAX, FM, SN>;
+  constexpr int LDA = I::LDA, TN = I::TN, WC = I::WC;
+  constexpr int STAGE = SN * RB_K;
+  extern __shared__ float4 dyn4[];
+  float* As = reinterpret_cast<float*>(dyn4);   // [FM][LDA]
+  float* ring = As + FM * LDA;                  // [RB_STAGES][STAGE]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lrg = lane >> 3, lx = lane & 7;
+  const int wc = warp % WC;
+  const int ar = 32 * (warp / WC) + lrg;        // first owned row
+  const int cx = 8 * TN * wc + lx;              // first streamed row
+  const int row0 = blockIdx.x * FM;
+  const int t_first = blockIdx.y * tps;
+  const int ntile = min((C + SN - 1) / SN, t_first + tps) - t_first;
+  const int n_k = (D + RB_K - 1) / RB_K;        // slabs a tile
+
+  // The A tile; its copies join the first stage's group.
+  load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D);
+
+  // The next slab to copy: tile it, slab ip, ring stage is_.
+  int it = 0, ip = 0, is_ = 0;
+  auto issue_next = [&]() {
+    if (it < ntile && !(ROWS_SKIP & 4)) {
+      const int col0 = (t_first + it) * SN;
+      copy_logits_slab<VEC, SN>(ring + is_ * STAGE, B, col0, C, ip * RB_K, D,
+                                VEC && col0 + SN <= C);
+    }
+    if (++ip == n_k) ip = 0, ++it;
+    if (++is_ == RB_STAGES) is_ = 0;
+  };
+
+  float acc[8][TN];           // logits of the current tile
+  float m[8], s[8];           // running (max, sum) of the thread's rows
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m[i] = -INFINITY, s[i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < RB_STAGES - 1; ++st) {
+    issue_next();
+    cp_commit();
+  }
+  // The slab to compute: tile ct, slab cp, ring stage cs.
+  for (int ct = 0, cp = 0, cs = 0; ct < ntile;) {
+    cp_wait<RB_STAGES - 2>();
+    __syncthreads();          // stage cs has landed, the one before is free
+    issue_next();
+    cp_commit();
+    const float* st = ring + cs * STAGE;
+    if (cp == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    }
+    const float* a_k = As + ar * LDA + cp * RB_K;
+#pragma unroll
+    for (int q = 0; q < (ROWS_SKIP & 1 ? 0 : RB_K / 4); ++q) {
+      float4 b[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ld4(st + s_at(cx + 8 * j, q));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = ld4(a_k + 4 * i * LDA + 4 * q);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+    if (cp == n_k - 1 && (ROWS_SKIP & 2)) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[i] += acc[i][j];
+    } else if (cp == n_k - 1) {
+      // The tile's logits into each row's (max, sum); columns past C are
+      // skipped, and a thread may have none left in the last tile.  fmaxf
+      // drops a NaN logit from the max, so it reaches the sum through its
+      // exp; while every logit is -inf the exps are taken about 0.
+      const int n0 = (t_first + ct) * SN + cx;
+      if (n0 < C) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            if (n0 + 8 * j < C) mx = fmaxf(mx, acc[i][j]);
+          const float mn = fmaxf(m[i], mx);
+          const float base = mn == -INFINITY ? 0.f : mn;
+          float t = 0.f;
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            if (n0 + 8 * j < C) t += expf(acc[i][j] - base);
+          s[i] = s[i] * expf(m[i] - base) + t;
+          m[i] = mn;
+        }
+      }
+    }
+    if (++cp == n_k) cp = 0, ++ct;
+    if (++cs == RB_STAGES) cs = 0;
+  }
+  cp_wait<0>();
+
+  // Combine once: the 8 lanes of a row group, then the WC warps of a row.
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+      lse_merge(m[i], s[i], __shfl_xor_sync(0xffffffffu, m[i], o),
+                __shfl_xor_sync(0xffffffffu, s[i], o));
+  __syncthreads();            // every warp is done with the ring
+  float* red_m = ring;        // [WC][FM]
+  float* red_s = ring + WC * FM;
+  if (lx == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      red_m[wc * FM + ar + 4 * i] = m[i];
+      red_s[wc * FM + ar + 4 * i] = s[i];
+    }
+  }
+  __syncthreads();
+  if (tid < FM && row0 + tid < R) {
+    float mm = -INFINITY, ss = 0.f;
+#pragma unroll
+    for (int w = 0; w < WC; ++w)
+      lse_merge(mm, ss, red_m[w * FM + tid], red_s[w * FM + tid]);
+    part_m[(size_t)blockIdx.y * R + row0 + tid] = mm;
+    part_s[(size_t)blockIdx.y * R + row0 + tid] = ss;
+  }
+}
+
+template <int DMAX, bool VEC, int FM, int SN>
+int launch_fwd_inst(const float* A, const float* B, float* part_m,
+                    float* part_s, int R, int C, int D, int nsplit, int tps,
+                    cudaStream_t stream) {
+  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN>;
+  const size_t smem = FwdInst<DMAX, FM, SN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((R + FM - 1) / FM, nsplit);
+  kernel<<<grid, RB_T, smem, stream>>>(A, B, part_m, part_s, R, C, D, tps);
+  return (int)cudaGetLastError();
+}
+
+// The forward's instances, (DMAX, FM, SN) for each depth bound: 64 owned
+// rows by 128-row tiles (8 x 4 logits a thread), 32 by 256 at D <= 768.
+#define ROWS_FWD_INSTANCES(X) \
+  X(256, 64, 128) X(512, 64, 128) X(768, 32, 256)
+
 struct Launch {
   const float *O, *S, *lse, *g;
   float* part;
@@ -568,13 +686,33 @@ size_t smem_bytes(int dmax) {
 
 extern "C" {
 
+// Dynamic shared memory of the forward instance (dmax, fm, sn) (bytes), 0
+// for one that has no instance.
+size_t milnce_fwd_smem(int dmax, int fm, int sn) {
+#define ROWS_FWD_SMEM(DM, M, N) \
+  if (dmax == DM && fm == M && sn == N) return rows::FwdInst<DM, M, N>::SMEM;
+  ROWS_FWD_INSTANCES(ROWS_FWD_SMEM)
+#undef ROWS_FWD_SMEM
+  return 0;
+}
+
+// One forward launch for A (R, D), B (C, D): part_m, part_s (nsplit, R) on
+// the instance (dmax, fm, sn), D <= dmax; ``vec``: D % 4 == 0 and A, B
+// 16-byte aligned.
 int milnce_lse_fwd(const float* A, const float* B, float* part_m,
-                   float* part_s, int R, int C, int D, int nsplit, int tps,
-                   void* stream) {
-  dim3 grid((R + BM - 1) / BM, nsplit);
-  lse_fwd_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(A, B, part_m, part_s,
-                                                       R, C, D, tps);
-  return (int)cudaGetLastError();
+                   float* part_s, int R, int C, int D, int dmax, int fm,
+                   int sn, int nsplit, int tps, int vec, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D > dmax) return (int)cudaErrorInvalidValue;
+#define ROWS_FWD_LAUNCH(DM, M, N)                                         \
+  if (dmax == DM && fm == M && sn == N)                                  \
+    return vec ? rows::launch_fwd_inst<DM, true, M, N>(                  \
+                     A, B, part_m, part_s, R, C, D, nsplit, tps, s)      \
+               : rows::launch_fwd_inst<DM, false, M, N>(                 \
+                     A, B, part_m, part_s, R, C, D, nsplit, tps, s);
+  ROWS_FWD_INSTANCES(ROWS_FWD_LAUNCH)
+#undef ROWS_FWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of the backward instance for depths up to ``dmax``

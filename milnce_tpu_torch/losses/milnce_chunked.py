@@ -47,6 +47,25 @@ def prefers_chunked(b_local: int, b_global: int, k: int) -> bool:
     return 4 * b_local * b_global * k * 4 > DENSE_CUBE_BUDGET_BYTES
 
 
+def resolve_impl(impl: str, b: int, k: int) -> str:
+    """impl 'auto' -> 'chunked' or 'dense' by :func:`prefers_chunked` for a
+    batch of ``b`` clips of ``k`` captions; any other impl as it is."""
+    if impl == "auto":
+        return "chunked" if prefers_chunked(b, b, k) else "dense"
+    return impl
+
+
+def stream_on_kernels(loss_cfg, batch: int, k: int, device_type: str) -> bool:
+    """Whether MIL-NCE under ``loss_cfg``, on batches of ``batch`` clips of
+    ``k`` captions each held on a ``device_type`` device, streams on the
+    CUDA kernels: impl ``chunked`` (or ``auto`` past the dense budget) with
+    backend ``cuda``, or ``auto`` on a CUDA device."""
+    impl = getattr(loss_cfg, "milnce_impl", "dense") or "dense"
+    backend = getattr(loss_cfg, "milnce_backend", "auto") or "auto"
+    return resolve_impl(impl, batch, k) == "chunked" and (
+        backend == "cuda" or (backend == "auto" and device_type == "cuda"))
+
+
 def milnce_loss_chunked(video_embd: torch.Tensor, text_embd: torch.Tensor,
                         group=None, chunk: int = 0,
                         backend: str = "auto") -> torch.Tensor:
@@ -93,12 +112,8 @@ def build_milnce_loss(loss_cfg):
                          f"(expected one of {', '.join(MILNCE_BACKENDS)})")
 
     def loss_fn(video_embd, text_embd):
-        use = impl
-        if use == "auto":
-            b = video_embd.shape[0]
-            k = text_embd.shape[0] // b
-            use = "chunked" if prefers_chunked(b, b, k) else "dense"
-        if use == "dense":
+        b = video_embd.shape[0]
+        if resolve_impl(impl, b, text_embd.shape[0] // b) == "dense":
             return milnce_loss(video_embd, text_embd)
         return milnce_loss_chunked(video_embd, text_embd, chunk=chunk,
                                    backend=backend)

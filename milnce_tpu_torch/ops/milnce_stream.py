@@ -144,12 +144,14 @@ _I = ctypes.c_int
 def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
-        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
         lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, *[_I] * 9, _P]
         for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd):
             fn.restype = ctypes.c_int
         lib.milnce_bwd_rows_smem.argtypes = [_I, _I]
-        lib.milnce_bwd_rows_smem.restype = ctypes.c_size_t
+        lib.milnce_fwd_smem.argtypes = [_I, _I, _I]
+        for fn in (lib.milnce_bwd_rows_smem, lib.milnce_fwd_smem):
+            fn.restype = ctypes.c_size_t
         lib._milnce_typed = True
     return lib
 
@@ -177,30 +179,25 @@ def _check_operands(name: str, a, b, *rows) -> None:
         raise ValueError(f"{name}: operands on different devices")
 
 
-def _split(r: int, c: int, device) -> tuple:
-    """(nsplit, tiles per split) of the column loop: enough blocks for
-    two per SM when the row tiles alone are too few."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles, col_tiles = -(-r // 64), -(-c // 64)
-    nsplit = min(col_tiles, max(1, -(-2 * sms // row_tiles)))
-    tps = -(-col_tiles // nsplit)
-    return -(-col_tiles // tps), tps
-
-
-ROWS_INSTANCES = (256, 512, 768)   # backward kernel instances: D <= each
+ROWS_INSTANCES = (256, 512, 768)   # kernel instances of every mode: D <= each
+STREAM_DMAX = ROWS_INSTANCES[-1]   # the largest depth the stream kernels take
 ROWS_BM, ROWS_THREADS = 32, 256
 _ROWS_BK, _ROWS_STAGES = 32, 3
+# the forward's (owned rows, streamed tile) for each instance
+FWD_TILES = {256: (64, 128), 512: (64, 128), 768: (32, 256)}
 
 
 @dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """How a backward launch runs, in the kernel's terms: it owns ``bm``
+class RowsPlan:
+    """How a launch of the ``rows::`` kernel family runs: it owns ``bm``
     rows of one operand a block and streams the other in tiles of ``bn``
     rows.  Instance ``dmax``, a grid of (row_tiles, nsplit) blocks of
     ``threads``, row_tiles owned tiles, split y covering streamed tiles
-    ``tiles(y)`` of ``col_tiles``, partial sums in a ``scratch`` tensor
-    (nsplit, owned rows, D).  ``lse_bwd_rows`` owns A and streams B,
-    ``lse_bwd_cols`` owns B and streams A."""
+    ``tiles(y)`` of ``col_tiles``, partials in a ``scratch`` tensor:
+    (nsplit, owned rows, D) of gradient in the backward, (nsplit, R) of
+    maxima and as many of sums in the forward.  ``lse_fwd`` and
+    ``lse_bwd_rows`` own A and stream B, ``lse_bwd_cols`` owns B and
+    streams A."""
     dmax: int
     bm: int
     bn: int
@@ -217,35 +214,58 @@ class BwdPlan:
                      min(self.col_tiles, (split + 1) * self.tps))
 
 
-def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
-              sn: int) -> BwdPlan:
-    """The smallest instance that holds d, and the fewest streamed tiles
-    per split that keep the grid to one wave of one block per SM (a grid
-    past one wave only when the owned tiles alone pass it)."""
-    if d > ROWS_INSTANCES[-1]:
-        raise ValueError(f"{name}: depth {d} is above the largest "
-                         f"kernel instance, D <= {ROWS_INSTANCES[-1]}")
-    dmax = next(x for x in ROWS_INSTANCES if d <= x)
-    row_tiles, col_tiles = -(-owned // ROWS_BM), -(-streamed // sn)
+def check_depth(name: str, d: int) -> int:
+    """The smallest kernel instance that holds depth ``d``; raises past
+    :data:`STREAM_DMAX`."""
+    if d > STREAM_DMAX:
+        raise ValueError(f"{name}: depth {d} is above the largest kernel "
+                         f"instance, D <= {STREAM_DMAX}")
+    return next(x for x in ROWS_INSTANCES if d <= x)
+
+
+def _plan(dmax: int, owned: int, streamed: int, sms: int, bm: int, sn: int,
+          smem: int, scratch: tuple) -> RowsPlan:
+    """The fewest streamed tiles per split that keep the grid to one wave
+    of one block per SM (a grid past one wave only when the owned tiles
+    alone pass it)."""
+    row_tiles, col_tiles = -(-owned // bm), -(-streamed // sn)
     per_row = min(col_tiles, max(1, sms // row_tiles))
     tps = -(-col_tiles // per_row)
     nsplit = -(-col_tiles // tps)
+    return RowsPlan(dmax, bm, sn, ROWS_THREADS, row_tiles, col_tiles, nsplit,
+                    tps, smem, (nsplit, *scratch))
+
+
+def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
+              sn: int) -> RowsPlan:
+    """The smallest instance that holds d; 32 owned rows a block."""
+    dmax = check_depth(name, d)
     nb = 32 if dmax <= 256 else 8          # streamed rows of a product slab
     stage = max(sn * _ROWS_BK, nb * dmax)
     smem = 4 * (ROWS_BM * (dmax + 4) + 4 * (8 * sn + 4)
                 + _ROWS_STAGES * stage + 2 * ROWS_BM)
-    return BwdPlan(dmax, ROWS_BM, sn, ROWS_THREADS, row_tiles, col_tiles,
-                   nsplit, tps, smem, (nsplit, owned, d))
+    return _plan(dmax, owned, streamed, sms, ROWS_BM, sn, smem, (owned, d))
 
 
-def rows_plan(r: int, c: int, d: int, sms: int) -> BwdPlan:
+def fwd_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
+    """The launch plan of ``lse_fwd`` for A (r, d), B (c, d) on a card with
+    ``sms`` SMs: blocks own 64 rows of A and stream B in 128-row tiles (32
+    rows and 256-row tiles at D <= 768, where 64 rows of A would leave no
+    room for the ring)."""
+    dmax = check_depth("lse_fwd", d)
+    bm, sn = FWD_TILES[dmax]
+    smem = 4 * (bm * (dmax + 4) + _ROWS_STAGES * sn * _ROWS_BK)
+    return _plan(dmax, r, c, sms, bm, sn, smem, (r,))
+
+
+def rows_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
     """The launch plan of ``lse_bwd_rows`` for A (r, d), B (c, d) on a card
     with ``sms`` SMs: blocks own 32 rows of A and stream B in 256-row
     tiles."""
     return _bwd_plan("lse_bwd_rows", r, c, d, sms, 256)
 
 
-def cols_plan(r: int, c: int, d: int, sms: int) -> BwdPlan:
+def cols_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
     """The launch plan of ``lse_bwd_cols`` for A (r, d), B (c, d) on a card
     with ``sms`` SMs: blocks own 32 rows of B and stream A in 128-row
     tiles (a 256-row tile never pads A less, and pads the step's R = 128
@@ -253,7 +273,16 @@ def cols_plan(r: int, c: int, d: int, sms: int) -> BwdPlan:
     return _bwd_plan("lse_bwd_cols", c, r, d, sms, 128)
 
 
-def _check_smem(name: str, need: int, device) -> None:
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_smem(name: str, query, need: int, device) -> None:
+    """Raise unless the library's instance takes ``need`` bytes of shared
+    memory, as the plan says (``query()``), and the card allows them."""
+    if query() != need:
+        raise RuntimeError(f"{name}: the launch plan's shared memory "
+                           "disagrees with the kernel's")
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", _SM90_SMEM_OPTIN)
     if need > limit:
@@ -261,19 +290,34 @@ def _check_smem(name: str, need: int, device) -> None:
                          f"memory, the card allows {limit}")
 
 
+def _vec(a, b) -> bool:
+    """Whether the kernel may copy both operands in 16-byte chunks."""
+    return (a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
+
+
 def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32."""
     _check_operands("lse_fwd", a, b)
-    lib = _lib()
+    out = launch_fwd(_lib(), a, b)
+    LAUNCHES["lse_fwd"] += 1
+    return out
+
+
+def launch_fwd(lib, a, b) -> torch.Tensor:
+    """One launch of ``lib``'s forward kernel on checked operands, with
+    the plan of :func:`fwd_plan`; then the combination of its partial
+    (max, sum) pairs."""
     (r, d), c = a.shape, b.shape[0]
-    nsplit, tps = _split(r, c, a.device)
-    part_m = torch.empty((nsplit, r), device=a.device)
-    part_s = torch.empty((nsplit, r), device=a.device)
+    plan = fwd_plan(r, c, d, _sms(a.device))
+    _check_smem("lse_fwd", lambda: lib.milnce_fwd_smem(
+        plan.dmax, plan.bm, plan.bn), plan.smem_bytes, a.device)
+    part_m, part_s = torch.empty((2, *plan.scratch), device=a.device)
     err = lib.milnce_lse_fwd(a.data_ptr(), b.data_ptr(), part_m.data_ptr(),
-                             part_s.data_ptr(), r, c, d, nsplit, tps,
+                             part_s.data_ptr(), r, c, d, plan.dmax, plan.bm,
+                             plan.bn, plan.nsplit, plan.tps, int(_vec(a, b)),
                              cuda_build.current_stream(a))
     cuda_build.check_launch("lse_fwd", err)
-    LAUNCHES["lse_fwd"] += 1
     m = part_m.amax(dim=0)
     return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0))
 
@@ -300,19 +344,15 @@ def launch_bwd(lib, a, b, lse, g, cols: bool) -> torch.Tensor:
     :func:`cols_plan` when ``cols``; then the sum of its partials."""
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
     (r, d), c = a.shape, b.shape[0]
-    plan = (cols_plan if cols else rows_plan)(
-        r, c, d, torch.cuda.get_device_properties(
-            a.device).multi_processor_count)
-    if lib.milnce_bwd_rows_smem(plan.dmax, plan.bn) != plan.smem_bytes:
-        raise RuntimeError(f"{name}: the launch plan's shared memory "
-                           "disagrees with the kernel's")
-    _check_smem(name, plan.smem_bytes, a.device)
-    vec = d % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    plan = (cols_plan if cols else rows_plan)(r, c, d, _sms(a.device))
+    _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn),
+                plan.smem_bytes, a.device)
     part = torch.empty(plan.scratch, device=a.device)
     err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                              g.data_ptr(), part.data_ptr(), r, c, d,
                              int(cols), plan.dmax, plan.bn, plan.nsplit,
-                             plan.tps, int(vec), cuda_build.current_stream(a))
+                             plan.tps, int(_vec(a, b)),
+                             cuda_build.current_stream(a))
     cuda_build.check_launch(name, err)
     return part[0] if plan.nsplit == 1 else part.sum(dim=0)
 
@@ -340,8 +380,11 @@ class _StreamCuda(torch.autograd.Function):
 def milnce_stream_cuda(v, t, v_all, t_all, chunk: int):
     """(row_lse (B,), col_lse (B*K,)) on the CUDA kernels.  ``chunk`` is
     the plain stream's block size, kept for the same signature; the
-    kernels tile columns their own way."""
+    kernels tile columns their own way.  A depth past
+    :data:`STREAM_DMAX` is refused before the first launch, so that no
+    forward runs only for its backward to fail."""
     del chunk
+    check_depth("milnce_stream_cuda", v.shape[-1])
     return _StreamCuda.apply(v, t, v_all, t_all)
 
 

@@ -12,6 +12,7 @@ cuDNN convolutions and CUDA matmuls before anything runs.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -20,10 +21,51 @@ import torch
 
 from milnce_tpu_torch.config import Config
 from milnce_tpu_torch.data.synthetic import BatchLoader, SyntheticVideoTextSource
+from milnce_tpu_torch.losses.milnce_chunked import stream_on_kernels
 from milnce_tpu_torch.models.build import build_model
+from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
 from milnce_tpu_torch.train.schedule import build_schedule_total
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.train.step import make_train_step
+
+
+# Knobs of the reference loop that this loop does not read yet, as dotted
+# names; a run that sets one away from its dataclass default is refused.
+# A name leaves the table in the change that ports it.  Not here:
+# train.skip_rollback_after, whose breaker is on by default in the
+# reference; without a checkpoint to roll back to it halts, as here.
+UNPORTED_KNOBS = (
+    "train.resume", "train.checkpoint_dir", "train.pretrain_ckpt",
+    "train.evaluate", "train.grad_accum", "train.faults",
+    "train.curriculum", "train.trace_dir", "train.obs_dir",
+    "train.capture_dir", "train.drain_signal_file", "parallel.model_axis",
+    "parallel.model_parallel_size", "parallel.coordinator_address",
+    "parallel.num_processes", "parallel.process_id")
+
+
+def check_config(cfg: Config, device_type: str) -> None:
+    """Refuse, before anything is built, what a run on ``device_type``
+    would not honour: every knob of :data:`UNPORTED_KNOBS` set away from
+    its default, and an embedding wider than the MIL-NCE stream kernels
+    take when the loss would stream on them."""
+    default = Config()
+    unported = [name for name in UNPORTED_KNOBS
+                if _knob(cfg, name) != _knob(default, name)]
+    if unported:
+        raise ValueError(f"not ported yet: {', '.join(unported)} (leave "
+                         "them at their defaults)")
+    if (cfg.loss.name == "milnce" and cfg.model.embedding_dim > STREAM_DMAX
+            and stream_on_kernels(cfg.loss, cfg.train.batch_size,
+                                  cfg.data.num_candidates, device_type)):
+        raise ValueError(
+            f"model.embedding_dim={cfg.model.embedding_dim}: the MIL-NCE "
+            f"stream kernels take D <= {STREAM_DMAX}; use loss.milnce_impl "
+            "dense")
+
+
+def _knob(cfg: Config, name: str):
+    section, field = name.split(".")
+    return getattr(getattr(cfg, section), field)
 
 
 @dataclass
@@ -65,6 +107,7 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     ``on_step(step, seconds, loss)`` is called after each step with the
     host time the step took, synchronized with the device, and its loss."""
     log(disable_tf32())
+    check_config(cfg, cfg.parallel.platform)
     device = resolve_device(cfg.parallel.platform)
     if not cfg.data.synthetic:
         raise NotImplementedError("the torch port trains on the synthetic "
@@ -88,7 +131,12 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     log(f"device: {device} | global batch: {cfg.train.batch_size} | "
         f"steps: {max_steps}")
 
-    steps = skipped = window = 0
+    # The finite guard's display window, as the JAX loop keeps it: a
+    # skipped step's loss stays out of the sum and the count, a window
+    # with no applied update has a NaN mean, and ``consec`` counts the
+    # skipped steps since the last applied one, across windows.
+    guard_on = cfg.train.finite_guard
+    steps = skipped = window = valid = consec = 0
     running = torch.zeros((), device=device)
     last = torch.zeros((), device=device)
     tick = time.time()
@@ -97,12 +145,14 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
         for video, text, start in loader.epoch(epoch):
             t0 = time.perf_counter()
             out = step_fn(video, text, start)
-            if cfg.train.finite_guard:
-                last, skip = out
-                skipped += skip
+            last, skip = out if guard_on else (out, 0)
+            skipped += skip
+            if skip:
+                consec += 1
             else:
-                last = out
-            running += last
+                running += last
+                valid += 1
+                consec = 0
             steps += 1
             window += 1
             if on_step is not None:
@@ -110,7 +160,7 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                     torch.cuda.synchronize(device)
                 on_step(steps, time.perf_counter() - t0, float(last))
             if window == cfg.train.n_display or steps == max_steps:
-                mean_loss = float(running) / window
+                mean_loss = float(running) / valid if valid else math.nan
                 elapsed = time.perf_counter() - window_t0
                 progress = ((steps - 1) % steps_per_epoch + 1) / steps_per_epoch
                 log(f"Epoch {epoch + 1}, Elapsed Time: "
@@ -118,11 +168,28 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                     f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
                     f"Learning rate: {schedule(steps):.6f}, Throughput: "
                     f"{window * cfg.train.batch_size / elapsed:.1f} clips/s")
-                if cfg.train.halt_on_nan and mean_loss != mean_loss:
-                    log(f"halting: non-finite loss at step {steps}")
-                    return TrainResult(steps, float(last), skipped, model)
+                # A guarded window with no applied update is NaN by
+                # construction: that is the breaker's case, not the
+                # divergence halt's.  The reference also saves a
+                # post-mortem checkpoint before it halts; that waits for
+                # checkpointing.
+                if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
+                        and not (guard_on and math.isnan(mean_loss))):
+                    log(f"halting: non-finite training loss at step {steps}")
+                    raise FloatingPointError(
+                        f"training loss became non-finite ({mean_loss}) at "
+                        f"step {steps}")
+                # The breaker: the reference rolls the weights back to its
+                # last rotation checkpoint, and halts when there is none.
+                # The port keeps no checkpoint yet, so it always halts.
+                if (guard_on and cfg.train.skip_rollback_after
+                        and consec >= cfg.train.skip_rollback_after):
+                    raise FloatingPointError(
+                        f"{consec} consecutive non-finite updates at step "
+                        f"{steps} and no rotation checkpoint to roll back "
+                        "to - halting")
                 running.zero_()
-                window = 0
+                window = valid = 0
                 window_t0 = time.perf_counter()
             if steps >= max_steps:
                 return TrainResult(steps, float(last), skipped, model)

@@ -40,9 +40,10 @@ def _close(got, want):
 @pytest.mark.parametrize("b,bg,k,d,chunk", [
     (3, 3, 2, 16, 2), (5, 37, 3, 40, 8), (33, 130, 1, 64, 100),
     (16, 16, 5, 512, 8), (33, 8191, 1, 13, 1000), (33, 8191, 1, 512, 1000),
-    (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64), (2048, 40, 1, 512, 40)],
+    (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64), (2048, 40, 1, 512, 40),
+    (200, 3000, 3, 512, 300)],
     ids=["tiny", "odd-d", "uneven", "train", "d13-r33", "r33-bg8191",
-         "r640", "d700", "split"])
+         "r640", "d700", "split", "fwd-split"])
 def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
     rng = np.random.default_rng(b + bg)
     arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
@@ -61,6 +62,30 @@ def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
     assert all(ms.LAUNCHES[n] == before[n] + 2 for n in before)
     for a, w in zip(got, run(ms.milnce_stream_plain)):
         _close(a, w)
+
+
+@pytest.mark.parametrize("r,c,where", [
+    (33, 3000, "b-tile"), (33, 3000, "b-tail"), (33, 3000, "a-row"),
+    (640, 8192, "b-tile"), (640, 8192, "a-row")])
+def test_lse_fwd_propagates_nan(cuda, r, c, where):
+    """A NaN logit makes its row's lse NaN, as in ``lse_plain``: a block of
+    B's rows as wide as a streamed tile, B's last rows (the ragged tile),
+    or one row of A."""
+    rng = np.random.default_rng(r + c)
+    a = torch.tensor(rng.standard_normal((r, 512), np.float32), device=cuda)
+    b = torch.tensor(rng.standard_normal((c, 512), np.float32), device=cuda)
+    if where == "b-tile":
+        b[128:384] = float("nan")
+    elif where == "b-tail":
+        b[-5:] = float("nan")
+    else:
+        a[7] = float("nan")
+    got, want = ms.lse_fwd(a, b), ms.lse_plain(a, b, 4096)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(want.isnan().any())
+    ok = ~want.isnan()
+    if bool(ok.any()):
+        _close(got[ok], want[ok])
 
 
 def test_chunked_loss_on_kernels_matches_dense(cuda):
@@ -88,6 +113,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         ms.lse_fwd(torch.zeros(8, 4, device=cuda).T, a)
     wide = [torch.zeros(2, 4096, device=cuda), torch.zeros(2, 4096, device=cuda),
             torch.zeros(2, device=cuda), torch.zeros(2, device=cuda)]
+    with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
+        ms.lse_fwd(*wide[:2])
     with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
         ms.lse_bwd_cols(*wide)
     with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):

@@ -232,3 +232,64 @@ def test_cols_launch_plan_shapes_and_refusal():
     ms.cols_plan(4, 8, 768, sms=132)
     with pytest.raises(ValueError, match="lse_bwd_cols: .*D <= 768"):
         ms.cols_plan(4, 8, 769, sms=132)
+
+
+@pytest.mark.parametrize("r", [1, 33, 64, 128, 200, 640, 2048])
+@pytest.mark.parametrize("c", [1, 40, 257, 8191, 40960])
+@pytest.mark.parametrize("d", [13, 512, 700, 768])
+def test_fwd_launch_plan_covers_every_tile_once(r, c, d):
+    plan = ms.fwd_plan(r, c, d, sms=132)
+    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    assert (plan.bm, plan.bn) == ms.FWD_TILES[plan.dmax]
+    assert plan.threads == 256
+    # 256 threads, each 8 owned rows by 4 streamed rows
+    assert plan.bm * plan.bn // plan.threads == 32
+    # every owned row once: the last owned tile holds the last row
+    assert plan.row_tiles == -(-r // plan.bm)
+    assert (plan.row_tiles - 1) * plan.bm < r <= plan.row_tiles * plan.bm
+    # every streamed tile once, in non-empty splits
+    assert plan.col_tiles == -(-c // plan.bn)
+    covered = [t for s in range(plan.nsplit) for t in plan.tiles(s)]
+    assert sorted(covered) == list(range(plan.col_tiles))
+    assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
+    assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
+    assert plan.scratch == (plan.nsplit, r)
+    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
+    assert plan.smem_bytes <= 232448
+
+
+def test_fwd_launch_plan_shapes_and_refusal():
+    # the two launches of a step at the recipe shape
+    # (64 x 128 tiles: 640 of them in each, 5 a block on 128 and 130 SMs)
+    rows_call = ms.fwd_plan(128, 40960, 512, sms=132)
+    assert (rows_call.dmax, rows_call.bm, rows_call.bn, rows_call.row_tiles,
+            rows_call.col_tiles, rows_call.nsplit, rows_call.tps,
+            rows_call.smem_bytes) == (512, 64, 128, 2, 320, 64, 5, 181248)
+    cols_call = ms.fwd_plan(640, 8192, 512, sms=132)
+    assert (cols_call.row_tiles, cols_call.col_tiles, cols_call.nsplit,
+            cols_call.tps, cols_call.scratch) == (10, 64, 13, 5, (13, 640))
+    # chip_smoke's fwd-split case: split owned rows, splits of three
+    # tiles, the last of two ending on a ragged tile
+    split = ms.fwd_plan(200, 9000, 512, sms=132)
+    assert (split.row_tiles, split.col_tiles, split.nsplit, split.tps) == (
+        4, 71, 24, 3)
+    assert 9000 % 128 and list(split.tiles(23)) == [69, 70]
+    # D <= 768 owns 32 rows: 64 would leave no room for the ring
+    deep = ms.fwd_plan(33, 2048, 700, sms=132)
+    assert (deep.dmax, deep.bm, deep.bn, deep.smem_bytes) == (768, 32, 256,
+                                                              197120)
+    assert 4 * (64 * 772 + 3 * 128 * 32) > 232448
+    ms.fwd_plan(4, 8, ms.STREAM_DMAX, sms=132)
+    with pytest.raises(ValueError, match="lse_fwd: .*D <= 768"):
+        ms.fwd_plan(4, 8, ms.STREAM_DMAX + 1, sms=132)
+
+
+def test_stream_refuses_the_depth_before_any_launch():
+    """The depth check comes first: past the largest instance the stream
+    refuses whatever the device, before a forward could launch."""
+    ms.reset_launches()
+    for d, match in ((769, "D <= 768"), (768, "CUDA tensors")):
+        v, t = torch.zeros(2, d), torch.zeros(4, d)
+        with pytest.raises(ValueError, match=match):
+            ms.milnce_stream_cuda(v, t, v, t, 2)
+    assert all(n == 0 for n in ms.LAUNCHES.values())

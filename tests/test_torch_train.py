@@ -6,15 +6,21 @@ Losses and every parameter and BatchNorm statistic are compared leaf by
 leaf with ``rtol=2e-4, atol=2e-5`` (the JAX chunked-loss file's train
 tolerance: three Adam steps amplify f32 summation-order differences).
 Also pinned: the schedule's pre-increment count (the first warmup step
-runs at lr 0 in both), the frozen word table, the finite-guard skip, and
-the ``milnce-train-torch`` entry point on the CPU.
+runs at lr 0 in both), the frozen word table, the finite-guard skip, the
+finite guard's display window against the JAX loop's helpers, the
+refusal of knobs and depths the port does not honour, and the
+``milnce-train-torch`` entry point on the CPU.
 """
 
 import contextlib
+import dataclasses
+import importlib.util
 import os
 import pathlib
+import re
 import subprocess
 import sys
+import typing
 
 import numpy as np
 import pytest
@@ -31,9 +37,14 @@ from milnce_tpu.resilience import faults
 from milnce_tpu.train.schedule import build_schedule as jax_build_schedule
 from milnce_tpu.train.state import build_optimizer as jax_build_optimizer
 from milnce_tpu.train.state import create_train_state
+from milnce_tpu.train.loop import (_fetch_guard_window, _guard_acc,
+                                   _guard_restart)
 from milnce_tpu.train.step import make_train_step as jax_make_train_step
-from milnce_tpu_torch.config import LossConfig, OptimConfig
+from milnce_tpu_torch.config import (PRESETS, Config, LossConfig, OptimConfig,
+                                     full_preset, tiny_preset)
 from milnce_tpu_torch.models.s3dg import S3D
+from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
+from milnce_tpu_torch.train import loop
 from milnce_tpu_torch.train.schedule import build_schedule, cosine_with_warmup
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.train.step import make_train_step
@@ -197,3 +208,246 @@ def test_cli_trains_two_steps_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("Training loss:") == 2
     assert "done: 2 steps" in proc.stdout
+
+
+# ------------------------------------------- the finite guard's display window
+def _tiny_run_cfg(steps, n_display):
+    cfg = tiny_preset()
+    cfg.parallel.platform = "cpu"
+    cfg.train.max_steps, cfg.train.n_display = steps, n_display
+    return cfg
+
+
+def _poison_steps(monkeypatch, poisoned, record):
+    """Make ``loop.run_training``'s step NaN in its loss and gradients on
+    the calls numbered in ``poisoned`` (from 1), by a forward hook on the
+    model; ``record`` gets each call's (loss, skipped), skipped 0 when
+    the guard is off."""
+    real = loop.make_train_step
+
+    def factory(model, optimizer, loss_cfg, **kwargs):
+        step = real(model, optimizer, loss_cfg, **kwargs)
+
+        def run(video, text, start):
+            hook = None
+            if len(record) + 1 in poisoned:
+                hook = model.register_forward_hook(
+                    lambda _m, _i, out: tuple(x * float("nan") for x in out))
+            try:
+                out = step(video, text, start)
+            finally:
+                if hook is not None:
+                    hook.remove()
+            loss, skipped = out if kwargs["finite_guard"] else (out, 0)
+            record.append((float(loss), skipped))
+            return out
+
+        return run
+
+    monkeypatch.setattr(loop, "make_train_step", factory)
+
+
+def _jax_windows(record, n_display):
+    """The JAX loop's display fetches, (mean, consecutive skips), for the
+    same (loss, skipped) steps."""
+    windows, acc = [], None
+    for i, (loss, skipped) in enumerate(record):
+        args = (jnp.float32(loss), jnp.int32(skipped))
+        if i % n_display == 0:
+            consec = acc[2] if acc is not None else jnp.int32(0)
+            total = acc[3] if acc is not None else jnp.int32(0)
+            acc = _guard_restart(*args, consec, total)
+        else:
+            acc = _guard_acc(*acc, *args)
+        if (i + 1) % n_display == 0 or i + 1 == len(record):
+            windows.append(_fetch_guard_window(*acc)[:2])
+    return windows
+
+
+def _shown_means(lines):
+    return [float(m) for m in re.findall(r"Training loss: (\S+),",
+                                         "\n".join(lines))]
+
+
+def _same_means(shown, want):
+    return [f"{m:.4f}" for m in shown] == [f"{m:.4f}" for m in want]
+
+
+def test_skipped_step_stays_out_of_the_display_window(monkeypatch):
+    """One non-finite step: the guard skips it, the run goes on to
+    max_steps, and each displayed window mean is the JAX loop's, over the
+    window's valid steps only."""
+    record, lines = [], []
+    _poison_steps(monkeypatch, {2}, record)
+    res = loop.run_training(_tiny_run_cfg(4, 2), log=lines.append)
+    assert res.steps == 4 and res.skipped_steps == 1
+    assert [s for _, s in record] == [0, 1, 0, 0]
+    assert not np.isfinite(record[1][0])     # the skipped step's loss is NaN
+    shown = _shown_means(lines)
+    want = [m for m, _ in _jax_windows(record, 2)]
+    assert len(shown) == len(want) == 2
+    assert all(np.isfinite(shown))
+    assert _same_means(shown, want)
+
+
+def test_all_skipped_window_runs_on_below_the_breaker(monkeypatch):
+    """A window with no applied update shows a NaN mean, as the JAX loop's
+    does, and the run goes on: that window is the breaker's case, and one
+    skipped step is below its count."""
+    record, lines = [], []
+    _poison_steps(monkeypatch, {2}, record)
+    res = loop.run_training(_tiny_run_cfg(4, 1), log=lines.append)
+    assert res.steps == 4 and res.skipped_steps == 1
+    assert [s for _, s in record] == [0, 1, 0, 0]
+    shown = _shown_means(lines)
+    want = [m for m, _ in _jax_windows(record, 1)]
+    assert np.isnan(shown[1]) and np.isnan(want[1])
+    assert _same_means(shown, want)
+
+
+@pytest.mark.parametrize("after,poisoned,halts_at", [
+    (2, {2, 3}, 3),        # two consecutive skips trip a breaker of 2
+    (3, {2, 3}, None),     # ... but not one of 3
+    (2, {2, 4}, None),     # an applied step in between resets the count
+    (0, {2, 3}, None),     # 0 turns the breaker off
+])
+def test_consecutive_skips_trip_the_breaker(monkeypatch, after, poisoned,
+                                            halts_at):
+    """``train.skip_rollback_after`` consecutive skips halt the run, as the
+    JAX loop's breaker does when it has no checkpoint to roll back to; the
+    count is the JAX loop's own at every display."""
+    record = []
+    _poison_steps(monkeypatch, poisoned, record)
+    cfg = _tiny_run_cfg(5, 1)
+    cfg.train.skip_rollback_after = after
+    if halts_at is None:
+        res = loop.run_training(cfg, log=lambda _m: None)
+        assert res.steps == 5 and res.skipped_steps == len(poisoned)
+    else:
+        with pytest.raises(FloatingPointError,
+                           match=f"{after} consecutive .* at step "
+                                 f"{halts_at} "):
+            loop.run_training(cfg, log=lambda _m: None)
+        assert len(record) == halts_at
+    consec = [c for _, c in _jax_windows(record, 1)]
+    tripped = [after and c >= after for c in consec]
+    assert any(tripped) == (halts_at is not None)
+    if halts_at is not None:
+        assert tripped.index(True) + 1 == halts_at
+
+
+def test_unguarded_non_finite_window_halts(monkeypatch):
+    """With the guard off a non-finite window mean halts the run, naming
+    the step, as the JAX loop's divergence check does."""
+    record = []
+    _poison_steps(monkeypatch, {2}, record)
+    cfg = _tiny_run_cfg(4, 1)
+    cfg.train.finite_guard = False
+    with pytest.raises(FloatingPointError, match="non-finite .* at step 2"):
+        loop.run_training(cfg, log=lambda _m: None)
+    assert len(record) == 2
+
+
+# ---------------------------------------------- knobs the port does not honour
+def _other_value(cfg, knob):
+    section, field = knob.split(".")
+    obj = getattr(cfg, section)
+    default = getattr(obj, field)
+    typ = typing.get_type_hints(type(obj))[field]
+    if typing.get_origin(typ) is typing.Union:
+        typ = next(a for a in typing.get_args(typ) if a is not type(None))
+    value = {bool: lambda: not default, int: lambda: (default or 0) + 1,
+             str: lambda: "set"}[typ]()
+    return obj, field, value
+
+
+def _no_model(*_args, **_kwargs):
+    raise AssertionError("the model was built before the refusal")
+
+
+@pytest.mark.parametrize("knob", loop.UNPORTED_KNOBS)
+def test_unported_knob_is_refused_before_the_model_is_built(knob,
+                                                            monkeypatch):
+    cfg = _tiny_run_cfg(1, 1)
+    obj, field, value = _other_value(cfg, knob)
+    setattr(obj, field, value)
+    monkeypatch.setattr(loop, "build_model", _no_model)
+    with pytest.raises(ValueError, match=re.escape(knob)):
+        loop.run_training(cfg, log=lambda _m: None)
+
+
+def test_unported_knobs_are_config_fields():
+    cfg = Config()
+    for knob in loop.UNPORTED_KNOBS:
+        section, field = knob.split(".")
+        assert field in {f.name for f in
+                         dataclasses.fields(getattr(cfg, section))}, knob
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_presets_pass_the_config_check(preset, device):
+    loop.check_config(PRESETS[preset](), device)
+
+
+def test_chip_smoke_configurations_pass_the_config_check():
+    smoke = _chip_smoke()
+    cfgs = [smoke._small_cfg("chunked", "cuda"),
+            smoke._small_cfg("dense", "auto"),
+            smoke._full_cfg("milnce", smoke._stream_loss),
+            smoke._full_cfg("sdtw_3", smoke._sdtw_loss)]
+    for name in smoke.DTW_LOSSES:
+        cfgs.append(smoke._small_cfg("dense", "auto"))
+        cfgs[-1].loss.name = name
+    for cfg in cfgs:
+        loop.check_config(cfg, "cuda")
+
+
+# ------------------------------------------- depths the stream kernels refuse
+@pytest.mark.parametrize("impl,backend,device,batch,refused", [
+    ("chunked", "cuda", "cpu", 16, True),
+    ("chunked", "cuda", "cuda", 16, True),
+    ("chunked", "auto", "cuda", 16, True),
+    ("chunked", "auto", "cpu", 16, False),
+    ("chunked", "scan", "cuda", 16, False),
+    ("dense", "cuda", "cuda", 16, False),
+    ("auto", "auto", "cuda", 1024, True),     # past the dense budget
+    ("auto", "auto", "cuda", 16, False),      # dense
+    ("auto", "cuda", "cpu", 1024, True),
+])
+def test_stream_depth_is_checked_at_build_time(impl, backend, device, batch,
+                                               refused):
+    cfg = full_preset()
+    cfg.loss.milnce_impl, cfg.loss.milnce_backend = impl, backend
+    cfg.train.batch_size = batch
+    cfg.model.embedding_dim = STREAM_DMAX
+    loop.check_config(cfg, device)
+    cfg.model.embedding_dim = STREAM_DMAX + 1
+    if refused:
+        with pytest.raises(ValueError, match=r"model\.embedding_dim=769.*"
+                                             r"loss\.milnce_impl dense"):
+            loop.check_config(cfg, device)
+    else:
+        loop.check_config(cfg, device)
+    cfg.loss.name = "sdtw_3"                   # no MIL-NCE stream at all
+    loop.check_config(cfg, device)
+
+
+def test_run_training_refuses_the_depth_before_anything_runs(monkeypatch):
+    """On a host without a card: the refusal comes before the device is
+    resolved and before the model is built."""
+    cfg = _tiny_run_cfg(1, 1)
+    cfg.parallel.platform = "cuda"
+    cfg.loss.milnce_impl, cfg.loss.milnce_backend = "chunked", "auto"
+    cfg.model.embedding_dim = 1024
+    monkeypatch.setattr(loop, "build_model", _no_model)
+    with pytest.raises(ValueError, match="embedding_dim=1024"):
+        loop.run_training(cfg, log=lambda _m: None)

@@ -24,14 +24,19 @@ Phases, each fatal on failure:
                bound, kernel/library ratio and the launch plan its
                wrapper chose.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
-               forward's value and table; the backward's E-matrix and
-               gradient, fed the same table) at the reference presets, past
-               the reference's 1024 cap, at the training shapes and at
-               rectangular and 1x1 ones, for gamma 0.1 and 1e-5; then both
-               kernels' and plain versions' times at the four presets and
-               at a full-width training shape (per call, CUDA events; and
-               the kernel alone on the device, torch.profiler) beside the
-               card's bound.
+               forward's value and table; the backward's grad_D, fed the
+               same table, under a random cotangent and under a stride-0
+               expanded one) at the reference presets, past the
+               reference's 1024 cap, past the backward's shared-memory
+               ring, at the training shapes and at rectangular and 1x1
+               ones, for gamma 0.1 and 1e-5, counting the cases that agree
+               bit for bit; then both kernels' and plain versions' times at
+               the four presets and at a full-width training shape (per
+               call, CUDA events; the kernel alone on the device,
+               torch.profiler; for the backward also every kernel of the
+               autograd backward's call on the device, and that call)
+               beside the card's bound and the previous backward's
+               figures.
 5. reference-- a small model with the chunked loss on the kernels agrees
                with the dense loss: one step's gradients, three steps'
                losses.
@@ -98,8 +103,10 @@ SDTW_PRESETS = [("B3/B4 (1024,32,32)", 1024, 32, 32, 64),
 # all-pairs call (B^2 = 256 pairs of T' = 4 by K = 5, D = 512)
 SDTW_TRAIN_TIMED = ("train v-t (256,4,5)", 256, 4, 5, 512)
 # (label, B, N, M, features, bandwidth): past the reference's 1024 cap, the
-# full-width sdtw_3 pairs (B^2 = 256, T' = 4 frames, K = 5 captions), and
-# rectangular / 1x1 cases
+# full-width sdtw_3 pairs (B^2 = 256, T' = 4 frames, K = 5 captions),
+# rectangular / 1x1 cases, and a length past the backward's shared-memory
+# ring (N > bwd_shared_max_n(), 1208 on an H100), with M small so that the
+# plain versions take seconds
 SDTW_EXTRA = [("B7/B8 past 1024", 2, 1500, 1300, 64, 0),
               ("B7/B8 banded", 2, 2048, 2048, 64, 128),
               ("train v-v", 256, 4, 4, 512, 0),
@@ -107,7 +114,16 @@ SDTW_EXTRA = [("B7/B8 past 1024", 2, 1500, 1300, 64, 0),
               ("train t-t", 256, 5, 5, 512, 0),
               ("rect", 5, 7, 3, 8, 0),
               ("rect-T banded", 5, 3, 7, 8, 4),
-              ("1x1", 3, 1, 1, 8, 0)]
+              ("1x1", 3, 1, 1, 8, 0),
+              ("past the ring", 1, 2600, 24, 64, 0)]
+# softdtw_bwd before its redesign, on an H100 80GB HBM3 at 700 W (the
+# E-writing kernel that read R from global memory each step): ms a call
+# and on the device, at the timed shapes
+SDTW_BWD_BEFORE = {(1024, 32, 32): (0.1214, 0.0752),
+                (128, 17, 15): (0.0661, 0.0325),
+                (512, 64, 64): (0.2028, 0.1719),
+                (32, 256, 256): (0.5523, 0.5341),
+                (256, 4, 5): (0.0631, 0.0077)}
 DTW_LOSSES = ("cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
 
 
@@ -447,44 +463,56 @@ def _table_err(got, want):
 def phase_softdtw_parity():
     """Each soft-DTW kernel alone against its plain version: softdtw_fwd
     on the cost (value and table), softdtw_bwd on the plain forward's
-    table (E-matrix, and the gradient under a random cotangent).  Returns
+    table (grad_D under a random cotangent and under ones(1).expand(B),
+    the stride-0 cotangent autograd hands in for ``out.sum()``).  Returns
     the worst error of each kernel."""
     from milnce_tpu_torch.ops import softdtw_cuda as sd
 
     cases = [(label, b, n, m, f, 0) for label, b, n, m, f in SDTW_PRESETS]
     cases += SDTW_EXTRA
     worst = {name: 0.0 for name in sd.LAUNCHES}
-    seed = 0
+    seed = bitwise = grads = 0
     for label, b, n, m, feat, band in cases:
+        plan = sd.bwd_plan(b, n, m)
+        log(f"  [{label}] softdtw_bwd plan: {plan}")
+        if label == "past the ring" and plan.ring != "global":
+            raise AssertionError(f"{label}: N={n} does not pass the shared "
+                                 f"ring (largest N {sd.bwd_shared_max_n()})")
         for gamma in (0.1, 1e-5):
             seed += 1
             D = _sdtw_case(b, n, m, feat, gamma, seed)
-            g = torch.randn(b, device="cuda",
-                            generator=torch.Generator(device="cuda")
-                            .manual_seed(seed))
+            cotangents = {
+                "random": torch.randn(b, device="cuda", generator=torch
+                                      .Generator(device="cuda")
+                                      .manual_seed(seed)),
+                "expanded": torch.ones(1, device="cuda").expand(b)}
             val_k, r_k = sd.softdtw_fwd(D, gamma, band)
             val_p, r_p = sd.softdtw_fwd_plain(D, gamma, band)
-            e_k = sd.softdtw_bwd(r_p, gamma, band)
-            e_p = sd.softdtw_bwd_plain(r_p, gamma, band)
-            torch.cuda.synchronize()
-            checks = [("softdtw_fwd", "value", _err(val_k, val_p)),
-                      ("softdtw_fwd", "R", _table_err(r_k, r_p)),
-                      ("softdtw_bwd", "E", _err(e_k, e_p)),
-                      ("softdtw_bwd", "grad_D", _err(
-                          g[:, None, None] * sd.grad_from_e(e_k, n, m),
-                          g[:, None, None] * sd.grad_from_e(e_p, n, m)))]
-            finite = all(bool(torch.isfinite(x).all())
-                         for x in (val_k, e_k))
+            checks = [("softdtw_fwd", "value", val_k, _err(val_k, val_p)),
+                      ("softdtw_fwd", "R", r_k, _table_err(r_k, r_p))]
+            for what, g in cotangents.items():
+                got = sd.softdtw_bwd(r_p, g, gamma, band)
+                want = sd.softdtw_bwd_plain(r_p, g, gamma, band)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                bitwise += same
+                grads += 1
+                checks.append(("softdtw_bwd",
+                               f"grad_D[{what}{', bitwise' if same else ''}]",
+                               got, _err(got, want)))
             line = []
-            for kern, what, (err, lim) in checks:
+            for kern, what, out, (err, lim) in checks:
                 worst[kern] = max(worst[kern], err)
                 line.append(f"{what} {err:.2e}/{lim:.2e}")
+                finite = bool(torch.isfinite(out).all())
                 if err > lim or not finite:
                     raise AssertionError(
                         f"{label} gamma={gamma}: {kern} {what} disagrees with "
                         f"its plain version ({err} > {lim}, finite={finite})")
             log(f"  [{label} B={b} N={n} M={m} band={band} gamma={gamma}] "
                 f"err/limit: {', '.join(line)} ok")
+    log(f"  softdtw_bwd: grad_D bit for bit equal to the plain version's in "
+        f"{bitwise} of {grads} cases")
     return worst
 
 
@@ -527,7 +555,11 @@ def phase_softdtw_timing():
     needs; backward: read that R, write grad_D) at the HBM rate, and
     special-function operations (forward 3 exp + 1 log per cell; backward
     the 3 exp of a cell's Cuturi-Blondel weights) at the SFU rate; the
-    larger wins.  Returns the first preset's numbers."""
+    larger wins.  The backward is timed three ways: the kernel alone on
+    the device, every kernel of the autograd backward's call on the
+    device, and a call (of ``softdtw_bwd``, and of the autograd backward),
+    beside the previous backward's figures.  Returns the first preset's
+    numbers."""
     from milnce_tpu_torch.ops import softdtw_cuda as sd
 
     sfu, mhz, sms = _sfu_rate()
@@ -537,6 +569,13 @@ def phase_softdtw_timing():
     for label, b, n, m, feat in SDTW_PRESETS + [SDTW_TRAIN_TIMED]:
         D = _sdtw_case(b, n, m, feat, 0.1, 7)
         _, r = sd.softdtw_fwd(D, 0.1)
+        g = torch.ones(1, device="cuda").expand(b)
+        leaf = D.clone().requires_grad_(True)
+        value = sd.softdtw_cuda(leaf, 0.1)
+
+        def autograd_bwd():
+            return torch.autograd.grad(value, leaf, g, retain_graph=True)
+
         cells = b * n * m
         d_bytes = 4 * cells                 # D, and grad_D of its shape
         r_bytes = 4 * b * (n + 1) * (m + 1)
@@ -544,23 +583,36 @@ def phase_softdtw_timing():
                                 lambda: sd.softdtw_fwd(D, 0.1),
                                 lambda: sd.softdtw_fwd_plain(D, 0.1)),
                 "softdtw_bwd": (r_bytes + d_bytes, 3 * cells,
-                                lambda: sd.softdtw_bwd(r, 0.1),
-                                lambda: sd.softdtw_bwd_plain(r, 0.1))}
+                                lambda: sd.softdtw_bwd(r, g, 0.1),
+                                lambda: sd.softdtw_bwd_plain(r, g, 0.1))}
         for name, (nbytes, ops, kern, plain) in work.items():
             t_bytes, t_ops = nbytes / H100_HBM_BYTES, ops / sfu
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
             ms_k, ms_p = _time_ms(kern), _time_ms(plain)
             dev = _device_ms(kern, f"{name}_kernel")
-            log(f"  {name} {label}: kernel {ms_k:.4f} ms per call, "
-                f"{dev:.4f} ms on the device | plain {ms_p:.3f} "
-                f"ms | bound {bound_ms:.5f} ms ({bound_by}: "
-                f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M SFU ops) | "
-                f"{n + m - 1} dependent diagonal steps")
+            extra = {}
+            line = (f"  {name} {label}: kernel {ms_k:.4f} ms per call, "
+                    f"{dev:.4f} ms on the device")
+            if name == "softdtw_bwd":
+                extra = dict(autograd_ms=_time_ms(autograd_bwd),
+                             autograd_device_ms=_device_ms(autograd_bwd, ""))
+                old_call, old_dev = SDTW_BWD_BEFORE[(b, n, m)]
+                line += (f" (before: {old_call:.4f} per call, {old_dev:.4f} "
+                         f"on the device; {old_dev / dev:.2f}x) | autograd "
+                         f"backward {extra['autograd_ms']:.4f} ms per call, "
+                         f"every kernel of it "
+                         f"{extra['autograd_device_ms']:.4f} ms on the "
+                         f"device | plan {sd.bwd_plan(b, n, m)}")
+            log(f"{line} | plain {ms_p:.3f} ms | bound {bound_ms:.5f} ms "
+                f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} M SFU "
+                f"ops) | {n + m - 1} dependent diagonal steps, "
+                f"{dev / (n + m - 1) * 1e3:.4f} us each on the device")
             if name not in out:
                 out[name] = dict(ms=ms_k, plain_ms=ms_p, library_ms=None,
                                  bound_ms=bound_ms, bound_by=bound_by,
-                                 device_ms=dev, shape=[b, n, m, feat])
+                                 device_ms=dev, shape=[b, n, m, feat],
+                                 **extra)
     return out
 
 

@@ -136,7 +136,6 @@ def milnce_stream_plain(v, t, v_all, t_all, chunk: int):
 
 
 # ----------------------------------------------------------------- kernels
-_SM90_SMEM_OPTIN = 232448          # bytes a block may use on an H100
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -284,7 +283,8 @@ def _check_smem(name: str, query, need: int, device) -> None:
         raise RuntimeError(f"{name}: the launch plan's shared memory "
                            "disagrees with the kernel's")
     props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin", _SM90_SMEM_OPTIN)
+    limit = getattr(props, "shared_memory_per_block_optin",
+                    cuda_build.SM90_SMEM_OPTIN)
     if need > limit:
         raise ValueError(f"{name}: depth needs {need} bytes of shared "
                          f"memory, the card allows {limit}")

@@ -26,11 +26,13 @@ can be held alone against its plain twin on the same inputs:
   order, ``R[b, p, i] = R_b[i, p - i]`` (the JAX ``r_skew``);
 - ``E`` (B, N+M+3, N+2), the Cuturi-Blondel E-matrix over the extended
   coordinates 0..N+1 x 0..M+1, skewed the same way, ``E[b, q, i] =
-  E_b[i, q - i]``; ``grad_D[b, i-1, j-1] = g_b * E_b[i, j]``.
+  E_b[i, q - i]`` (:func:`softdtw_e_plain`; the kernel keeps it on chip);
+- ``grad_D`` (B, N, M), what the backward returns: ``grad_D[b, i-1, j-1]
+  = g_b * E_b[i, j]``.
 
-The backward needs R alone: it recomputes each successor's softmin
-weights from R (:func:`softdtw_bwd_plain` says why), so D is neither read
-nor saved for it.
+The backward needs R and the cotangent alone: it recomputes each
+successor's softmin weights from R (:func:`softdtw_e_plain` says why), so
+D is neither read nor saved for it.  :func:`bwd_plan` chooses its launch.
 
 The plain versions run in the input's dtype; the kernels take f32.  As in
 the JAX package, the autograd function casts D to f32 for the kernels and
@@ -41,6 +43,8 @@ per launch, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -74,10 +78,10 @@ def _pred_max_sum(R: torch.Tensor, inv_gamma: float):
     return max_sum3(neg[:, :-2, :-1], neg[:, 1:-1, :-1], neg[:, 1:-1, 1:])
 
 
-def softdtw_bwd_plain(R: torch.Tensor, gamma: float,
-                      bandwidth: int = 0) -> torch.Tensor:
-    """Plain backward: the reverse wavefront over the extended table,
-    ``E (B, N+M+3, N+2)``, from the forward table alone.
+def softdtw_e_plain(R: torch.Tensor, gamma: float,
+                    bandwidth: int = 0) -> torch.Tensor:
+    """The reverse wavefront over the extended table, ``E (B, N+M+3,
+    N+2)``, from the forward table alone.
 
     ``E(N+1, M+1) = 1`` and, for every cell inside the alignment and the
     band and reached (R < BIG/2), ``E(i, j) = sum_s E(s) w(i, j -> s)``
@@ -135,21 +139,111 @@ def grad_from_e(E: torch.Tensor, n: int, m: int) -> torch.Tensor:
     return E[:, i_idx + j_idx + 2, i_idx + 1]
 
 
+def softdtw_bwd_plain(R: torch.Tensor, g: torch.Tensor, gamma: float,
+                      bandwidth: int = 0) -> torch.Tensor:
+    """Plain backward: ``grad_D (B, N, M) = g_b * E_b(i, j)`` over the
+    interior cells, from the forward table R and the cotangent g (B,) (any
+    stride), in R's dtype.  Every cell is multiplied, so a NaN ``g_b``
+    gives a NaN gradient for pair b."""
+    n1 = R.shape[2]
+    e = softdtw_e_plain(R, gamma, bandwidth)
+    return g[:, None, None] * grad_from_e(e, n1 - 1, R.shape[1] - n1)
+
+
 # ----------------------------------------------------------------- kernels
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+# The backward's layout (csrc/softdtw.cu, whose launch checks the plan):
+# for each row of a pair one chain thread and BWD_BATCH workers, which run a
+# period of BWD_BATCH diagonals ahead of the chain, one diagonal each; a
+# ring of three periods' diagonals of N + 2 cells of four floats (the three
+# weights a cell receives, and E).
+BWD_BATCH = 4
+BWD_SLOTS = 3 * BWD_BATCH
+BWD_ROLES = 1 + BWD_BATCH
+BWD_MAX_ROWS = 128                  # chain threads a pair; rows loop past it
+BWD_MAX_THREADS = BWD_ROLES * BWD_MAX_ROWS
+
+
+def bwd_ring_floats(n: int) -> int:
+    """Floats of one pair's ring in the backward kernel."""
+    return 4 * BWD_SLOTS * (n + 2)
+
+
+def bwd_shared_max_n(smem_limit: int = cuda_build.SM90_SMEM_OPTIN) -> int:
+    """The largest N whose ring fits ``smem_limit`` bytes of shared
+    memory (one pair a block)."""
+    return smem_limit // (4 * 4 * BWD_SLOTS) - 2
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How a ``softdtw_bwd`` launch runs: ``rows`` chain threads a pair,
+    one for each row of the diagonal (a power of two where N <= 32, so
+    that a pair's chain lies in one warp; else N rounded up to whole warps,
+    at most BWD_MAX_ROWS, a thread looping over rows past it), and
+    BWD_BATCH workers for each; ``pairs_per_block`` pairs in each of
+    ``blocks`` blocks of ``threads``, the chains first; the ring in
+    ``smem_bytes`` of shared memory, or in a global scratch buffer of
+    ``scratch_floats`` where the block's rings exceed the card's opt-in
+    limit."""
+    rows: int
+    pairs_per_block: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    scratch_floats: int
+
+    @property
+    def ring(self) -> str:
+        return "global" if self.scratch_floats else "shared"
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, n: int, m: int,
+             smem_limit: int = cuda_build.SM90_SMEM_OPTIN) -> BwdPlan:
+    """The launch plan of ``softdtw_bwd`` for B pairs of N x M.  Where
+    N <= 32 a pair's chain is one warp or part of one, and a block takes
+    the pairs of one chain warp, or two pairs where that is one and
+    N + 2 <= 32; longer pairs take a block each.  Small blocks leave the
+    most pairs resident on an SM.  ``m`` sets nothing: the diagonal is at
+    most N rows."""
+    if n <= 32:
+        rows = 1 << (n - 1).bit_length()
+        per_warp = 32 // rows
+        least = 2 if n + 2 <= 32 else 1
+        per_block = per_warp * -(-least // per_warp)
+    else:
+        rows = min(BWD_MAX_ROWS, -(-n // 32) * 32)
+        per_block = 1
+    threads = BWD_ROLES * rows * per_block
+    blocks = -(-b // per_block)
+    ring = bwd_ring_floats(n) * per_block
+    if 4 * ring <= smem_limit:
+        return BwdPlan(rows, per_block, threads, blocks, 4 * ring, 0)
+    return BwdPlan(rows, per_block, threads, blocks, 0, ring * blocks)
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("softdtw")
     if not getattr(lib, "_softdtw_typed", False):
         lib.softdtw_fwd.argtypes = [_P, _P, _I, _I, _I, _F, _F, _I, _P]
-        lib.softdtw_bwd.argtypes = [_P, _P, _I, _I, _I, _F, _I, _P]
+        lib.softdtw_bwd.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _F, _I,
+                                    _I, _I, _I, _I, _P]
         lib.softdtw_fwd.restype = ctypes.c_int
         lib.softdtw_bwd.restype = ctypes.c_int
         lib._softdtw_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    """Opt-in shared bytes a block of CUDA device ``index`` may use."""
+    props = torch.cuda.get_device_properties(index)
+    return getattr(props, "shared_memory_per_block_optin",
+                   cuda_build.SM90_SMEM_OPTIN)
 
 
 def _check_table(name: str, x: torch.Tensor) -> None:
@@ -181,10 +275,30 @@ def softdtw_fwd(D: torch.Tensor, gamma: float, bandwidth: int = 0):
     return r[:, n + m, n].clone(), r
 
 
-def softdtw_bwd(R: torch.Tensor, gamma: float,
+def _launch_bwd(r: torch.Tensor, g: torch.Tensor, gamma: float,
+                bandwidth: int) -> torch.Tensor:
+    """One launch of the backward kernel, without the operand checks."""
+    bsz, n_diag, n1 = r.shape
+    n, m = n1 - 1, n_diag - n1
+    plan = bwd_plan(bsz, n, m, _smem_optin(r.device.index))
+    grad = torch.empty((bsz, n, m), dtype=torch.float32, device=r.device)
+    scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32,
+                           device=r.device) if plan.ring == "global" else None)
+    err = _lib().softdtw_bwd(
+        r.data_ptr(), g.data_ptr(), g.stride(0), grad.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), bsz, n, m,
+        1.0 / gamma, bandwidth, plan.rows, plan.threads, plan.blocks,
+        plan.smem_bytes, cuda_build.current_stream(r))
+    cuda_build.check_launch("softdtw_bwd", err)
+    LAUNCHES["softdtw_bwd"] += 1
+    return grad
+
+
+def softdtw_bwd(R: torch.Tensor, g: torch.Tensor, gamma: float,
                 bandwidth: int = 0) -> torch.Tensor:
-    """Kernel: E (B, N+M+3, N+2) from the f32 forward table R
-    (B, N+M+1, N+1), as :func:`softdtw_bwd_plain` computes it."""
+    """Kernel: grad_D (B, N, M), f32, from the f32 forward table R
+    (B, N+M+1, N+1) and the f32 cotangent g (B,) of any stride, as
+    :func:`softdtw_bwd_plain` computes it."""
     _check_table("softdtw_bwd", R)
     bsz, n_diag, n1 = R.shape
     n, m = n1 - 1, n_diag - n1
@@ -192,14 +306,16 @@ def softdtw_bwd(R: torch.Tensor, gamma: float,
         raise ValueError(f"softdtw_bwd: R of shape {tuple(R.shape)} is no "
                          "forward table (B, N+M+1, N+1) with N, M >= 1")
     check_bandwidth(n, m, bandwidth)
-    e = torch.empty((bsz, n_diag + 2, n + 2), dtype=torch.float32,
-                    device=R.device)
-    err = _lib().softdtw_bwd(R.data_ptr(), e.data_ptr(), bsz, n, m,
-                             1.0 / gamma, bandwidth,
-                             cuda_build.current_stream(R))
-    cuda_build.check_launch("softdtw_bwd", err)
-    LAUNCHES["softdtw_bwd"] += 1
-    return e
+    if not g.is_cuda or g.device != R.device:
+        raise ValueError(f"softdtw_bwd: the cotangent must lie on R's CUDA "
+                         f"device {R.device}, got one on {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"softdtw_bwd: the kernel takes a float32 "
+                        f"cotangent, got {g.dtype}")
+    if g.shape != (bsz,):
+        raise ValueError(f"softdtw_bwd: the cotangent must have shape "
+                         f"({bsz},), got {tuple(g.shape)}")
+    return _launch_bwd(R, g, gamma, bandwidth)
 
 
 class _SoftDTWCuda(torch.autograd.Function):
@@ -214,10 +330,12 @@ class _SoftDTWCuda(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (r,) = ctx.saved_tensors
-        n1 = r.shape[2]
-        e = softdtw_bwd(r, ctx.gamma, ctx.bandwidth)
-        grad = grad_from_e(e, n1 - 1, r.shape[1] - n1)
-        return g[:, None, None] * grad.to(ctx.dtype), None, None
+        # the table is the forward's own; g is the f32 value's cotangent,
+        # often a stride-0 expand, which the kernel reads at its stride
+        grad = _launch_bwd(r, g, ctx.gamma, ctx.bandwidth)
+        if ctx.dtype != torch.float32:
+            grad = grad.to(ctx.dtype)
+        return grad, None, None
 
 
 def softdtw_cuda(D: torch.Tensor, gamma: float,

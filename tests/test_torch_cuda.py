@@ -121,23 +121,61 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         ms.lse_bwd_rows(*wide)
 
 
-@pytest.mark.parametrize("b,n,m,band", [(7, 5, 9, 0), (3, 300, 280, 40),
-                                        (2, 1100, 1030, 0)],
-                         ids=["uneven", "banded", "past-1024"])
+@pytest.mark.parametrize("b,n,m,band", [
+    (7, 5, 9, 0), (3, 300, 280, 40), (2, 1100, 1030, 0), (256, 4, 4, 0),
+    (256, 4, 5, 0), (256, 5, 5, 0), (1, 2600, 20, 0)],
+    ids=["uneven", "banded", "past-1024", "train-vv", "train-vt", "train-tt",
+         "past-ring"])
 def test_softdtw_kernels_match_plain(cuda, b, n, m, band):
+    """Each kernel against its plain twin; the backward's grad_D under a
+    random cotangent and under ones(1).expand(B).  The training shapes put
+    several pairs in a block; N = 2600 puts the backward's ring in global
+    scratch."""
     rng = np.random.default_rng(n)
     D = torch.tensor(rng.standard_normal((b, n, m), np.float32) * 0.1,
                      device=cuda)
+    plan = sd.bwd_plan(b, n, m)
+    assert (plan.pairs_per_block > 1) == (n + 2 <= 32)
+    assert (plan.ring == "global") == (n == 2600)
+    g = torch.tensor(rng.standard_normal(b, np.float32), device=cuda)
+    want_value, want_r = sd.softdtw_fwd_plain(D, 0.1, band)
     before = dict(sd.LAUNCHES)
     value, r = sd.softdtw_fwd(D, 0.1, band)
-    want_value, want_r = sd.softdtw_fwd_plain(D, 0.1, band)
-    e = sd.softdtw_bwd(want_r, 0.1, band)
+    grad = sd.softdtw_bwd(want_r, g, 0.1, band)
     assert all(sd.LAUNCHES[k] == before[k] + 1 for k in before)
     _close(value, want_value)
     real = want_r < tsd.BIG / 2
     assert torch.equal(real, r < tsd.BIG / 2)
     _close(r[real], want_r[real])
-    _close(e, sd.softdtw_bwd_plain(want_r, 0.1, band))
+    assert grad.shape == (b, n, m) and grad.dtype == torch.float32
+    _close(grad, sd.softdtw_bwd_plain(want_r, g, 0.1, band))
+    ones = torch.ones(1, device=cuda).expand(b)
+    _close(sd.softdtw_bwd(want_r, ones, 0.1, band),
+           sd.softdtw_bwd_plain(want_r, ones, 0.1, band))
+
+
+@pytest.mark.parametrize("b,n,m", [(256, 4, 5), (3, 40, 37)],
+                         ids=["pairs-a-warp", "block-a-pair"])
+def test_softdtw_bwd_nan_and_inf_cells_match_plain(cuda, b, n, m):
+    """A NaN block and an inf block in D: their cells and what they cut
+    off are dead in R, and a NaN cotangent entry makes its pair NaN.  The
+    zero and NaN cells of grad_D are the same sets as the twin's, and the
+    rest agrees."""
+    rng = np.random.default_rng(b + n)
+    D = torch.tensor(rng.standard_normal((b, n, m), np.float32) * 0.1,
+                     device=cuda)
+    D[0, 1:3, 1:3] = float("nan")
+    D[1, 0:2, 2:4] = float("inf")
+    g = torch.tensor(rng.standard_normal(b, np.float32), device=cuda)
+    g[2] = float("nan")
+    _, r = sd.softdtw_fwd_plain(D, 0.1)
+    got = sd.softdtw_bwd(r, g, 0.1)
+    want = sd.softdtw_bwd_plain(r, g, 0.1)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got == 0, want == 0)
+    assert bool(want.isnan().any()) and bool((want == 0).any())
+    ok = ~want.isnan()
+    _close(got[ok], want[ok])
 
 
 def test_softdtw_on_kernels_matches_scan_autograd(cuda):
@@ -163,7 +201,16 @@ def test_softdtw_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         sd.softdtw_fwd(torch.zeros(2, 3, 4, device=cuda).transpose(1, 2), 0.1)
     _, r = sd.softdtw_fwd(D, 0.1)
+    g = torch.ones(2, device=cuda)
     with pytest.raises(TypeError, match="float32"):
-        sd.softdtw_bwd(r.double(), 0.1)
+        sd.softdtw_bwd(r.double(), g, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
-        sd.softdtw_bwd(r.transpose(0, 1), 0.1)
+        sd.softdtw_bwd(r.transpose(0, 1), g, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        sd.softdtw_bwd(r, torch.ones(3, device=cuda), 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        sd.softdtw_bwd(r, torch.ones(2, 1, device=cuda), 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        sd.softdtw_bwd(r, g.double(), 0.1)
+    with pytest.raises(ValueError, match="device"):
+        sd.softdtw_bwd(r, torch.ones(2), 0.1)

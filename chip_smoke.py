@@ -30,13 +30,15 @@ Phases, each fatal on failure:
                reference's 1024 cap, past the backward's shared-memory
                ring, at the training shapes and at rectangular and 1x1
                ones, for gamma 0.1 and 1e-5, counting the cases that agree
-               bit for bit; then both kernels' and plain versions' times at
+               bit for bit (the forward's value and R, the backward's
+               grad_D); then both kernels' and plain versions' times at
                the four presets and at a full-width training shape (per
                call, CUDA events; the kernel alone on the device,
-               torch.profiler; for the backward also every kernel of the
-               autograd backward's call on the device, and that call)
-               beside the card's bound and the previous backward's
-               figures.
+               torch.profiler; for the forward also its whole call on the
+               device, which must be that one kernel, and its launch plan;
+               for the backward every kernel of the autograd backward's
+               call on the device, and that call) beside the card's bound
+               and each kernel's figures before its redesign.
 5. reference-- a small model with the chunked loss on the kernels agrees
                with the dense loss: one step's gradients, three steps'
                losses.
@@ -124,6 +126,14 @@ SDTW_BWD_BEFORE = {(1024, 32, 32): (0.1214, 0.0752),
                 (512, 64, 64): (0.2028, 0.1719),
                 (32, 256, 256): (0.5523, 0.5341),
                 (256, 4, 5): (0.0631, 0.0077)}
+# softdtw_fwd before its redesign, on an H100 80GB HBM3 at 700 W (a block
+# a pair, the diagonals read back from global memory, the value copied out
+# by a second launch): ms a call and on the device
+SDTW_FWD_BEFORE = {(1024, 32, 32): (0.0996, 0.0296),
+                   (128, 17, 15): (0.1187, 0.0105),
+                   (512, 64, 64): (0.0876, 0.0487),
+                   (32, 256, 256): (0.2386, 0.2028),
+                   (256, 4, 5): (0.0836, 0.0035)}
 DTW_LOSSES = ("cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
 
 
@@ -471,9 +481,10 @@ def phase_softdtw_parity():
     cases = [(label, b, n, m, f, 0) for label, b, n, m, f in SDTW_PRESETS]
     cases += SDTW_EXTRA
     worst = {name: 0.0 for name in sd.LAUNCHES}
-    seed = bitwise = grads = 0
+    seed = bitwise = grads = fwd_bitwise = fwds = 0
     for label, b, n, m, feat, band in cases:
         plan = sd.bwd_plan(b, n, m)
+        log(f"  [{label}] softdtw_fwd plan: {sd.fwd_plan(b, n, m)}")
         log(f"  [{label}] softdtw_bwd plan: {plan}")
         if label == "past the ring" and plan.ring != "global":
             raise AssertionError(f"{label}: N={n} does not pass the shared "
@@ -488,7 +499,12 @@ def phase_softdtw_parity():
                 "expanded": torch.ones(1, device="cuda").expand(b)}
             val_k, r_k = sd.softdtw_fwd(D, gamma, band)
             val_p, r_p = sd.softdtw_fwd_plain(D, gamma, band)
-            checks = [("softdtw_fwd", "value", val_k, _err(val_k, val_p)),
+            torch.cuda.synchronize()
+            same = torch.equal(val_k, val_p) and torch.equal(r_k, r_p)
+            fwd_bitwise += same
+            fwds += 1
+            checks = [("softdtw_fwd", f"value{', bitwise' if same else ''}",
+                       val_k, _err(val_k, val_p)),
                       ("softdtw_fwd", "R", r_k, _table_err(r_k, r_p))]
             for what, g in cotangents.items():
                 got = sd.softdtw_bwd(r_p, g, gamma, band)
@@ -511,6 +527,8 @@ def phase_softdtw_parity():
                         f"its plain version ({err} > {lim}, finite={finite})")
             log(f"  [{label} B={b} N={n} M={m} band={band} gamma={gamma}] "
                 f"err/limit: {', '.join(line)} ok")
+    log(f"  softdtw_fwd: value and R bit for bit in {fwd_bitwise} of {fwds} "
+        f"cases")
     log(f"  softdtw_bwd: grad_D bit for bit equal to the plain version's in "
         f"{bitwise} of {grads} cases")
     return worst
@@ -527,24 +545,45 @@ def _sfu_rate():
     return H100_SFU_PER_CLOCK_SM * sms * mhz * 1e6, mhz, sms
 
 
-def _device_ms(fn, key, reps=20):
-    """Mean device time of the kernels whose name holds ``key`` per call
-    of ``fn``, from torch.profiler, without the host time of its wrapper:
-    the kernel alone, or with key '' every kernel the call launches."""
+def _device_kernels(fn, key, reps=20):
+    """Mean device time (ms) per call of ``fn`` of the kernels whose name
+    holds ``key``, from torch.profiler, without the host time of its
+    wrapper (the kernel alone, or with key '' every kernel the call
+    launches), and those kernels' names.  Each kernel counts its mean time
+    a launch times its launches a call, rounded, so that a launch the
+    profiler did not record (it can miss one of 20) does not read as a
+    faster call.  A session that recorded no matching kernel (the
+    profiler has dropped a whole session's events on the card) is run
+    again, up to three sessions; then it raises, so that a renamed kernel
+    cannot read as 0 ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and key in e.key]
+        if events:
+            break
+        log(f"  (profiler session {session + 1}: no CUDA kernel whose name "
+            f"holds {key!r}; profiling again)")
+    else:
+        raise AssertionError(f"no CUDA kernel whose name holds {key!r} ran "
+                             "under the profiler in three sessions")
     total = sum(getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and key in e.key)
-    return total / 1e3 / reps
+                / e.count * max(1, round(e.count / reps)) for e in events)
+    return total / 1e3, sorted(e.key for e in events)
+
+
+def _device_ms(fn, key, reps=20):
+    """The device time of :func:`_device_kernels`."""
+    return _device_kernels(fn, key, reps)[0]
 
 
 def phase_softdtw_timing():
@@ -594,6 +633,17 @@ def phase_softdtw_timing():
             extra = {}
             line = (f"  {name} {label}: kernel {ms_k:.4f} ms per call, "
                     f"{dev:.4f} ms on the device")
+            if name == "softdtw_fwd":
+                call_dev, launched = _device_kernels(kern, "")
+                if len(launched) != 1 or name not in launched[0]:
+                    raise AssertionError(f"a softdtw_fwd call launched "
+                                         f"{launched}, not its one kernel")
+                extra = dict(call_device_ms=call_dev)
+                old_call, old_dev = SDTW_FWD_BEFORE[(b, n, m)]
+                line += (f", whole call {call_dev:.4f} ms on the device "
+                         f"(one kernel) (before: {old_call:.4f} per call, "
+                         f"{old_dev:.4f} on the device; {old_dev / dev:.2f}x)"
+                         f" | plan {sd.fwd_plan(b, n, m)}")
             if name == "softdtw_bwd":
                 extra = dict(autograd_ms=_time_ms(autograd_bwd),
                              autograd_device_ms=_device_ms(autograd_bwd, ""))

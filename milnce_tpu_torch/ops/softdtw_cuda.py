@@ -30,6 +30,17 @@ can be held alone against its plain twin on the same inputs:
 - ``grad_D`` (B, N, M), what the backward returns: ``grad_D[b, i-1, j-1]
   = g_b * E_b[i, j]``.
 
+The forward is one launch that writes R and the value R_b(N, M).  A
+thread owns a row and keeps its R on the last diagonal in a register,
+taking its upper neighbour's by warp shuffle, so no barrier and no memory
+access sit on a diagonal step inside a warp; :func:`fwd_plan` places the
+rows.  Where N <= 32 a pair is a segment of a warp, several pairs a warp;
+longer pairs take a block each, their warps passing the boundary row
+through two slots a warp in shared memory, one barrier a diagonal; past
+FWD_MAX_THREADS (512) rows the rows go in stripes, one after another.
+Each warp copies its rows' costs two groups of FWD_K diagonals ahead into
+shared memory by ``cp.async``, so no step waits on a load of D.
+
 The backward needs R and the cotangent alone: it recomputes each
 successor's softmin weights from R (:func:`softdtw_e_plain` says why), so
 D is neither read nor saved for it.  :func:`bwd_plan` chooses its launch.
@@ -155,6 +166,65 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# The forward's layout (csrc/softdtw.cu keeps the same constants and
+# refuses a plan that disagrees): a thread a row; a block of
+# FWD_SHORT_WARPS warps of short pairs, or a long pair a block of at most
+# FWD_MAX_THREADS rows at a time.  Each warp has FWD_TILES tiles of 32 x
+# (FWD_K + 1) floats for the costs of the groups of FWD_K diagonals it
+# steps and copies; a long pair's warps also have two 4-byte exchange
+# slots each.
+FWD_MAX_THREADS = 512
+FWD_SHORT_WARPS = 4
+FWD_K = 8
+FWD_TILES = 3
+FWD_SHORT_MAX_M = 2**31 // 32
+
+
+def fwd_smem_bytes(threads: int, long_pairs: bool) -> int:
+    """Shared bytes of a forward block of ``threads``."""
+    warps = threads // 32
+    ring = 4 * 2 * warps if long_pairs else 0
+    return ring + 4 * FWD_TILES * 32 * (FWD_K + 1) * warps
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How a ``softdtw_fwd`` launch runs: ``rows`` threads a pair, one
+    for each row (a power of two >= N where N <= 32, so that a pair is a
+    segment of a warp; else the block, whole warps, the rows in
+    ``stripes`` of that many); ``pairs_per_block`` pairs in each of
+    ``blocks`` blocks of ``threads``; the cost tiles (and a long pair's
+    exchange ring) in ``smem_bytes`` of shared memory."""
+    rows: int
+    pairs_per_block: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    stripes: int
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(b: int, n: int, m: int) -> FwdPlan:
+    """The launch plan of ``softdtw_fwd`` for B pairs of N x M.  Where
+    N <= 32 a warp holds 32 / rows pairs and a block up to
+    FWD_SHORT_WARPS such warps (fewer where B is small, so that the
+    pairs spread over more SMs); longer pairs take a block each, one
+    thread a row, in as few stripes of at most FWD_MAX_THREADS rows as
+    cover N, each as even as whole warps allow.  A warp of short pairs
+    addresses its 32 rows of costs by 32-bit offsets, so rows of
+    FWD_SHORT_MAX_M costs or more go as long pairs."""
+    if n <= 32 and m < FWD_SHORT_MAX_M:
+        rows = 1 << (n - 1).bit_length()
+        per_warp = 32 // rows
+        warps = min(FWD_SHORT_WARPS, -(-b // per_warp))
+        per_block = per_warp * warps
+        return FwdPlan(rows, per_block, 32 * warps, -(-b // per_block),
+                       fwd_smem_bytes(32 * warps, False), 1)
+    threads = -(-n // (32 * -(-n // FWD_MAX_THREADS))) * 32
+    return FwdPlan(threads, 1, threads, b, fwd_smem_bytes(threads, True),
+                   -(-n // threads))
+
+
 # The backward's layout (csrc/softdtw.cu, whose launch checks the plan):
 # for each row of a pair one chain thread and BWD_BATCH workers, which run a
 # period of BWD_BATCH diagonals ahead of the chain, one diagonal each; a
@@ -229,7 +299,8 @@ def bwd_plan(b: int, n: int, m: int,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("softdtw")
     if not getattr(lib, "_softdtw_typed", False):
-        lib.softdtw_fwd.argtypes = [_P, _P, _I, _I, _I, _F, _F, _I, _P]
+        lib.softdtw_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
+                                    _I, _I, _I, _P]
         lib.softdtw_bwd.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _F, _I,
                                     _I, _I, _I, _I, _P]
         lib.softdtw_fwd.restype = ctypes.c_int
@@ -260,19 +331,29 @@ def _check_table(name: str, x: torch.Tensor) -> None:
                          f"tensor, got {tuple(x.shape)}")
 
 
-def softdtw_fwd(D: torch.Tensor, gamma: float, bandwidth: int = 0):
-    """Kernel: ``(value (B,), R (B, N+M+1, N+1))`` of an f32 cost."""
-    _check_table("softdtw_fwd", D)
+def _launch_fwd(D: torch.Tensor, gamma: float, bandwidth: int):
+    """One launch of the forward kernel, without the operand checks:
+    ``(value (B,), R)``."""
     bsz, n, m = D.shape
-    check_bandwidth(n, m, bandwidth)
+    plan = fwd_plan(bsz, n, m)
     r = torch.empty((bsz, n + m + 1, n + 1), dtype=torch.float32,
                     device=D.device)
-    err = _lib().softdtw_fwd(D.data_ptr(), r.data_ptr(), bsz, n, m,
-                             gamma, 1.0 / gamma, bandwidth,
-                             cuda_build.current_stream(D))
+    value = torch.empty(bsz, dtype=torch.float32, device=D.device)
+    err = _lib().softdtw_fwd(D.data_ptr(), r.data_ptr(), value.data_ptr(),
+                             bsz, n, m, gamma, 1.0 / gamma, bandwidth,
+                             plan.rows, plan.threads, plan.blocks,
+                             plan.smem_bytes, cuda_build.current_stream(D))
     cuda_build.check_launch("softdtw_fwd", err)
     LAUNCHES["softdtw_fwd"] += 1
-    return r[:, n + m, n].clone(), r
+    return value, r
+
+
+def softdtw_fwd(D: torch.Tensor, gamma: float, bandwidth: int = 0):
+    """Kernel: ``(value (B,), R (B, N+M+1, N+1))`` of an f32 cost, as
+    :func:`softdtw_fwd_plain` computes them, in one launch."""
+    _check_table("softdtw_fwd", D)
+    check_bandwidth(D.shape[1], D.shape[2], bandwidth)
+    return _launch_fwd(D, gamma, bandwidth)
 
 
 def _launch_bwd(r: torch.Tensor, g: torch.Tensor, gamma: float,
@@ -321,7 +402,9 @@ def softdtw_bwd(R: torch.Tensor, g: torch.Tensor, gamma: float,
 class _SoftDTWCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, D, gamma, bandwidth):
-        value, r = softdtw_fwd(D.detach().float().contiguous(), gamma,
+        # softdtw_cuda checked D once; the cast and copy make it the
+        # kernel's f32 contiguous operand
+        value, r = _launch_fwd(D.detach().float().contiguous(), gamma,
                                bandwidth)
         ctx.save_for_backward(r)
         ctx.gamma, ctx.bandwidth, ctx.dtype = gamma, bandwidth, D.dtype
@@ -341,7 +424,11 @@ class _SoftDTWCuda(torch.autograd.Function):
 def softdtw_cuda(D: torch.Tensor, gamma: float,
                  bandwidth: int = 0) -> torch.Tensor:
     """Soft-DTW values (B,) of D (B, N, M) on the kernels, f32; raises for
-    a CPU tensor and for a band that cannot reach the terminal cell."""
+    a CPU tensor, an empty or non-3-D one and a band that cannot reach the
+    terminal cell.  These are the call's only operand checks."""
+    if D.dim() != 3 or min(D.shape) == 0:
+        raise ValueError(f"softdtw_fwd: expected a non-empty (B, N, M) cost, "
+                         f"got {tuple(D.shape)}")
     check_bandwidth(D.shape[1], D.shape[2], int(bandwidth))
     if not D.is_cuda:
         raise ValueError("soft-DTW backend 'cuda' takes CUDA tensors, got "

@@ -11,6 +11,8 @@ sums in another order over up to Bg*K columns, the soft-DTW kernels
 repeat their plain versions' arithmetic).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -129,20 +131,24 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
 def test_softdtw_kernels_match_plain(cuda, b, n, m, band):
     """Each kernel against its plain twin; the backward's grad_D under a
     random cotangent and under ones(1).expand(B).  The training shapes put
-    several pairs in a block; N = 2600 puts the backward's ring in global
-    scratch."""
+    several pairs in a block (and in a warp, in the forward); N = 2600
+    puts the backward's ring in global scratch, and past 1024 rows the
+    forward goes in stripes.  The forward's value and R are its twin's bit
+    for bit."""
     rng = np.random.default_rng(n)
     D = torch.tensor(rng.standard_normal((b, n, m), np.float32) * 0.1,
                      device=cuda)
     plan = sd.bwd_plan(b, n, m)
     assert (plan.pairs_per_block > 1) == (n + 2 <= 32)
     assert (plan.ring == "global") == (n == 2600)
+    assert sd.fwd_plan(b, n, m).stripes == -(-n // sd.FWD_MAX_THREADS)
     g = torch.tensor(rng.standard_normal(b, np.float32), device=cuda)
     want_value, want_r = sd.softdtw_fwd_plain(D, 0.1, band)
     before = dict(sd.LAUNCHES)
     value, r = sd.softdtw_fwd(D, 0.1, band)
     grad = sd.softdtw_bwd(want_r, g, 0.1, band)
     assert all(sd.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert torch.equal(value, want_value) and torch.equal(r, want_r)
     _close(value, want_value)
     real = want_r < tsd.BIG / 2
     assert torch.equal(real, r < tsd.BIG / 2)
@@ -176,6 +182,69 @@ def test_softdtw_bwd_nan_and_inf_cells_match_plain(cuda, b, n, m):
     assert bool(want.isnan().any()) and bool((want == 0).any())
     ok = ~want.isnan()
     _close(got[ok], want[ok])
+
+
+@pytest.mark.parametrize("b,n,m", [(256, 4, 5), (3, 40, 37)],
+                         ids=["pairs-a-warp", "block-a-pair"])
+def test_softdtw_fwd_nan_and_inf_costs_match_plain(cuda, b, n, m):
+    """A NaN block and a +inf block in D: the NaN cells and the BIG cells
+    of R are the same sets as the twin's, and the rest agrees.  The kernel
+    takes the max by fmaxf, which drops a NaN where torch.maximum keeps
+    it; the NaN still reaches the cell through its exp, so a rewrite that
+    changed what the max sees would show here."""
+    rng = np.random.default_rng(b + n)
+    D = torch.tensor(rng.standard_normal((b, n, m), np.float32) * 0.1,
+                     device=cuda)
+    D[0, 1:3, 1:3] = float("nan")
+    D[1, 0:2, 2:4] = float("inf")
+    value, r = sd.softdtw_fwd(D, 0.1)
+    want_value, want_r = sd.softdtw_fwd_plain(D, 0.1)
+    assert torch.equal(r.isnan(), want_r.isnan())
+    assert torch.equal(r >= tsd.BIG / 2, want_r >= tsd.BIG / 2)
+    assert torch.equal(value.isnan(), want_value.isnan())
+    assert bool(want_r.isnan().any()) and bool(want_r.isinf().any())
+    assert torch.equal(r.isinf(), want_r.isinf())
+    ok = ~(want_r.isnan() | want_r.isinf() | (want_r >= tsd.BIG / 2))
+    _close(r[ok], want_r[ok])
+    ok = ~want_value.isnan()
+    _close(value[ok], want_value[ok])
+
+
+def test_softdtw_fwd_refuses_a_plan_it_cannot_run(cuda, monkeypatch):
+    """The C entry checks the launch plan and returns an error for one it
+    cannot run; the wrapper raises, launching nothing."""
+    D = torch.zeros(4, 40, 7, device=cuda)
+    plan = sd.fwd_plan(4, 40, 7)
+    monkeypatch.setattr(sd, "fwd_plan", lambda *a: dataclasses.replace(
+        plan, smem_bytes=plan.smem_bytes + 8))
+    before = sd.LAUNCHES["softdtw_fwd"]
+    with pytest.raises(RuntimeError, match="softdtw_fwd"):
+        sd.softdtw_fwd(D, 0.1)
+    assert sd.LAUNCHES["softdtw_fwd"] == before
+
+
+@pytest.mark.parametrize("b,n,m,packed", [
+    (4, 32, 1 << 24, True), (1, 512, 4294967, False), (1, 2, 1 << 26, False)],
+    ids=["pairs-a-warp", "block-a-pair", "long-rows"])
+def test_softdtw_fwd_takes_costs_past_2_31(cuda, b, n, m, packed):
+    """Costs past 2^31 floats: a block of four 32-row pairs whose costs
+    span 2^31 floats (9 GB of D, 9 GB of R); one pair whose rows from 501
+    on start past 2^31 (the same); and rows of 2^26 costs, which go as a
+    long pair.  R(i, j) for j <= 40 depends on D[:, :, :40] alone, so
+    there it is the twin's table of those costs, bit for bit."""
+    plan = sd.fwd_plan(b, n, m)
+    assert (plan.pairs_per_block > 1) == packed
+    assert max(plan.pairs_per_block * n, n - 1, 32) * m >= 2**31
+    torch.manual_seed(n)
+    D = torch.rand((b, n, m), device=cuda)
+    value, r = sd.softdtw_fwd(D, 0.1)
+    j0 = 40
+    _, want_r = sd.softdtw_fwd_plain(D[:, :, :j0].contiguous(), 0.1)
+    i = torch.arange(n + 1, device=cuda)[:, None]
+    j = torch.arange(j0 + 1, device=cuda)[None, :]
+    assert torch.equal(r[:, i + j, i], want_r[:, i + j, i])
+    assert torch.equal(value, r[:, n + m, n])
+    assert bool(value.isfinite().all())
 
 
 def test_softdtw_on_kernels_matches_scan_autograd(cuda):

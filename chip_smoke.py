@@ -48,10 +48,27 @@ Phases, each fatal on failure:
 7. train    -- ``run_training`` at full width (9 inception blocks,
                embedding 512, vocab 66250 x 300, text hidden 2048, 32
                frames at 224^2, K=5, 20 words), per-device batch 16, 4
-               steps, twice: chunked MIL-NCE on the stream kernels with
-               chunk 8, then ``sdtw_3`` on the soft-DTW kernels.  Every
-               loss finite, every kernel of each run launched its expected
-               count; one more step of each profiled.
+               steps, its synthetic batches read through ``ShardedLoader``
+               (20 reader threads) and ``device_prefetch`` (depth 2):
+               chunked MIL-NCE on the stream kernels with chunk 8.  Each
+               step's seconds and data wait, the displayed clips/s beside
+               steps/s x batch; every loss finite, every kernel launched
+               its expected count; one more step profiled.
+8. data     -- the loader and the prefetch alone at train-full's batch:
+               batches/s with 20 reader threads and with 1, the synthetic
+               source's samples/s on 1 and 20 threads, every batch on the
+               card equal to the host's.
+9. resume   -- train-full stopped at step 2 and resumed to step 4 against
+               the uninterrupted run (cuDNN deterministic): steps 3-4's
+               losses within rel 2e-4, the batch cursor.
+10. eval    -- ``eval.cli msrvtt`` on that checkpoint at full width (fake
+               decoder, 4 windows of 32 frames at 224^2, the first 256
+               rows): R@1/5/10, MedR, videos/s; the metrics against the
+               embeddings, the first batch against ``make_video_embed_fn``.
+11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
+               beside phase 7's (measured only; the default stays off).
+12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
+               kernel's launch count checked; one more step profiled.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -67,7 +84,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -78,6 +97,8 @@ H100_F32_FLOPS = 67e12
 H100_HBM_BYTES = 3.35e12
 TOL_RTOL, TOL_ATOL = 1e-4, 1e-5     # |kernel - plain| <= atol + rtol*max|plain|
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHUNK = 4, 16, 8
+DATA_BATCHES = 12         # batches the data-alone phase reads, each pass
+EVAL_ROWS = 256           # rows of csv/msrvtt_test.csv the eval phase scores
 SOURCES = {"lse_fwd": "milnce_tpu_torch/csrc/milnce_stream.cu",
            "lse_bwd_rows": "milnce_tpu_torch/csrc/milnce_stream.cu",
            "lse_bwd_cols": "milnce_tpu_torch/csrc/milnce_stream.cu",
@@ -694,7 +715,6 @@ def phase_reference():
     a near-zero gradient into a visible part of an lr-sized step."""
     from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
     from milnce_tpu_torch.models.build import build_model
-    from milnce_tpu_torch.train.loop import run_training
 
     torch.backends.cudnn.deterministic = True
     try:
@@ -723,8 +743,8 @@ def phase_reference():
         runs = {}
         for impl, backend in (("dense", "auto"), ("chunked", "cuda")):
             losses = []
-            run_training(_small_cfg(impl, backend), log=lambda _m: None,
-                         on_step=lambda _s, _t, loss: losses.append(loss))
+            _run_training(_small_cfg(impl, backend), log=lambda _m: None,
+                          on_step=lambda _s, _t, loss, _w: losses.append(loss))
             runs[impl] = losses
     finally:
         torch.backends.cudnn.deterministic = False
@@ -745,7 +765,6 @@ def phase_dtw_reference():
     losses of three training steps, within rel 2e-4."""
     from milnce_tpu_torch.models.build import build_model
     from milnce_tpu_torch.ops import softdtw_cuda as sd
-    from milnce_tpu_torch.train.loop import run_training
     from milnce_tpu_torch.train.step import _sequence_loss
 
     torch.backends.cudnn.deterministic = True
@@ -781,8 +800,9 @@ def phase_dtw_reference():
             for backend in ("scan", "cuda"):
                 cfg.loss.sdtw_backend = backend
                 losses = []
-                run_training(cfg, log=lambda _m: None,
-                             on_step=lambda _s, _t, loss: losses.append(loss))
+                _run_training(cfg, log=lambda _m: None,
+                              on_step=lambda _s, _t, loss, _w:
+                              losses.append(loss))
                 runs[backend] = losses
             ls, lc = runs["scan"], runs["cuda"]
             err = max(abs(a - b) / abs(b) for a, b in zip(lc, ls))
@@ -809,9 +829,24 @@ def _sdtw_loss(loss):
     loss.sdtw_backend = "cuda"
 
 
+def _run_training(cfg, root=None, **kwargs):
+    """``run_training`` checkpointing under ``root``, or under a temporary
+    directory removed after the run."""
+    from milnce_tpu_torch.train.loop import run_training
+
+    if root is not None:
+        cfg.train.checkpoint_root = root
+        return run_training(cfg, **kwargs)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.train.checkpoint_root = tmp
+        return run_training(cfg, **kwargs)
+
+
 def _full_cfg(loss_name, edit):
     """The full-width training configuration with the loss ``edit``
-    applies: TRAIN_STEPS steps at batch TRAIN_BATCH on synthetic data."""
+    applies: TRAIN_STEPS steps at batch TRAIN_BATCH on synthetic data,
+    read through ``ShardedLoader`` and ``device_prefetch`` with the data
+    knobs' defaults (``num_reader_threads`` 20, ``prefetch_depth`` 2)."""
     from milnce_tpu_torch.config import full_preset
 
     cfg = full_preset()
@@ -828,52 +863,236 @@ def _full_cfg(loss_name, edit):
 
 def _train_full(loss_name, edit, counters, per_step):
     """``run_training`` on ``_full_cfg(loss_name, edit)``, every launch
-    counter reset just before and read just after.  Each kernel in
-    ``per_step`` must have launched that many times per step.  Returns
-    (result, config, the launches of the run)."""
-    from milnce_tpu_torch.train.loop import run_training
-
+    counter reset just before and read just after.
+    Each kernel in ``per_step`` must have launched that many times per
+    step.  Prints each step's seconds and the seconds the loop waited for
+    its batch, and the displayed clips/s beside steps/s x batch.  Returns
+    (result, config, the launches of the run, steps/s after the first)."""
     cfg = _full_cfg(loss_name, edit)
-    steps = []
+    steps, shown = [], []
+
+    def show(msg):
+        log(f"  {msg}")
+        m = re.search(r"Throughput: (\S+) clips/s", msg)
+        if m:
+            shown.append(float(m.group(1)))
+
     torch.cuda.reset_peak_memory_stats()
     for counter in counters:
         counter.reset_launches()
-    res = run_training(cfg, log=lambda m: log(f"  {m}"),
-                       on_step=lambda s, secs, loss: steps.append(
-                           (s, secs, loss)))
+    res = _run_training(cfg, log=show, on_step=lambda s, secs, loss, wait:
+                        steps.append((s, secs, loss, wait)))
     launches = {k: v for counter in counters
                 for k, v in counter.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
-    for s, secs, loss in steps:
-        log(f"  step {s}: {secs:.3f} s, loss {loss:.6f}")
-    later = [secs for _, secs, _ in steps[1:]]
-    log(f"  steps/s after the first step: {len(later) / sum(later):.4f} "
-        f"(first step {steps[0][1]:.3f} s); peak memory allocated "
-        f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
+    for s, secs, loss, wait in steps:
+        log(f"  step {s}: {secs:.3f} s, waited {wait:.4f} s for data, "
+            f"loss {loss:.6f}")
+    later = [secs for _, secs, _, _ in steps[1:]]
+    sps = len(later) / sum(later)
+    log(f"  steps/s after the first step: {sps:.4f} (first step "
+        f"{steps[0][1]:.3f} s); data wait after the first step "
+        f"{statistics.mean(w for *_, w in steps[1:]):.4f} s a step; peak "
+        f"memory allocated {peak / 2 ** 30:.3f} GiB; launches {launches}")
+    log(f"  displayed clips/s after the first step "
+        f"{statistics.mean(shown[1:]):.2f} against steps/s x batch "
+        f"{sps * cfg.train.batch_size:.2f}")
     if res.steps != TRAIN_STEPS or not all(math.isfinite(x[2]) for x in steps):
         raise AssertionError(f"training failed: {steps}")
     expected = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
     if launches != expected:
         raise AssertionError(f"expected launches {expected} in "
                              f"{TRAIN_STEPS} steps, got {launches}")
-    return res, cfg, launches
+    return res, cfg, launches, sps
 
 
 def phase_train():
     """Chunked MIL-NCE on the stream kernels: each kernel launches twice a
-    step (rows and columns direction)."""
+    step (rows and columns direction).  Returns the launches and steps/s."""
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.ops import softdtw_cuda as sd
     from milnce_tpu_torch.train.step import make_video_embed_fn
 
-    res, cfg, launches = _train_full("milnce", _stream_loss, (ms, sd),
-                                     {k: 2 for k in ms.LAUNCHES})
+    res, cfg, launches, sps = _train_full("milnce", _stream_loss, (ms, sd),
+                                          {k: 2 for k in ms.LAUNCHES})
+    if (cfg.data.prefetch_depth, cfg.data.num_reader_threads) != (2, 20):
+        raise AssertionError("train-full reads through the default loader")
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     emb = make_video_embed_fn(res.model)(clip)
     if emb.shape != (2, 512) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"video embedding {tuple(emb.shape)} not finite")
     _profile_step(res.model, cfg)
-    return launches
+    return launches, sps
+
+
+def phase_data_alone():
+    """The loader and the prefetch with no step, at train-full's batch:
+    batches/s with the configured reader threads and with one, the
+    synthetic source's samples/s on 1 and on N threads (its ``randint``
+    must scale for the threads to help), and every batch that reached the
+    card equal, byte for byte, to the same batch stacked on the host."""
+    import concurrent.futures as cf
+
+    from milnce_tpu_torch.data.pipeline import (ShardedLoader,
+                                                device_prefetch, stack_batch)
+    from milnce_tpu_torch.train.loop import build_source
+
+    cfg = _full_cfg("milnce", _stream_loss)
+    cfg.data.synthetic_num_samples = TRAIN_BATCH * DATA_BATCHES
+    source = build_source(cfg)
+    threads = cfg.data.num_reader_threads
+    for n in (1, threads):
+        with cf.ThreadPoolExecutor(n) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda i: source.sample(i, None), range(64)))
+            dt = time.perf_counter() - t0
+        log(f"  synthetic source, {n} thread(s): {64 / dt:.1f} samples/s")
+    for n in (threads, 1):
+        loader = ShardedLoader(source, TRAIN_BATCH, seed=cfg.train.seed,
+                               num_threads=n,
+                               lookahead_batches=cfg.data.decode_lookahead)
+        t0 = time.perf_counter()
+        got = list(device_prefetch(loader.epoch(0), "cuda",
+                                   depth=cfg.data.prefetch_depth))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"  {n} reader thread(s), prefetch depth "
+            f"{cfg.data.prefetch_depth}: {len(got)} batches of "
+            f"{TRAIN_BATCH} x {cfg.data.num_frames} x {cfg.data.video_size}"
+            f"^2 x 3 uint8 in {dt:.3f} s, "
+            f"{len(got) / dt:.3f} batches/s ({len(got) * TRAIN_BATCH / dt:.1f}"
+            " clips/s)")
+        want = [stack_batch(b) for b in loader.epoch(0)]
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if any(not np.array_equal(g[k].cpu().numpy(), w[k]) for k in w)]
+        if len(got) != DATA_BATCHES or len(want) != DATA_BATCHES or bad:
+            raise AssertionError(f"batches {bad} on the card differ from "
+                                 "the host's")
+    log(f"  all {DATA_BATCHES} batches on the card equal the host's, twice")
+
+
+def phase_resume(root):
+    """train-full stopped at step 2 (a forced save of label 0) and resumed
+    to step 4 under ``root``, against the same run uninterrupted: steps
+    3-4's losses within rel 2e-4, the dtw-ref phase's limit.  cuDNN is
+    held deterministic for all three runs, so that the two step-3 and
+    step-4 computations run the same algorithms.  Checks the resumed
+    batch cursor against ``resume_batch_offset`` and the kernels' launch
+    counts (2 + 2 + 2 a step).  Returns the checkpoint directory."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train.checkpoint import CheckpointManager
+    from milnce_tpu_torch.train.loop import resume_batch_offset
+
+    torch.backends.cudnn.deterministic = True
+    log("  cudnn.deterministic = True for the three runs of this phase")
+    try:
+        ms.reset_launches()
+        runs, lines = {}, []
+        for name, steps, resume, where in (
+                ("whole", TRAIN_STEPS, False, None),
+                ("stopped", 2, False, root),
+                ("resumed", TRAIN_STEPS - 2, True, root)):
+            cfg = _full_cfg("milnce", _stream_loss)
+            cfg.train.max_steps, cfg.train.resume = steps, resume
+            losses = {}
+            _run_training(cfg, where, log=lines.append,
+                          on_step=lambda s, _t, loss, _w:
+                          losses.__setitem__(s, loss))
+            runs[name] = losses
+            if name == "stopped":
+                ckpt = CheckpointManager(f"{root}/run", create=False)
+                stopped_at = ckpt.restore(ckpt.latest_epoch())["step"]
+        launches = dict(ms.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = resume_batch_offset(stopped_at, TRAIN_STEPS)
+    shown = [m for m in lines if m.startswith("resumed from")]
+    log(f"  losses {runs}; {shown}; launches {launches}")
+    err = max(abs(runs["resumed"][s] - runs["whole"][s]) / abs(runs["whole"][s])
+              for s in (3, 4))
+    log(f"  steps 3-4 resumed against uninterrupted: max rel diff {err:.3e}")
+    if not (sorted(runs["resumed"]) == [3, 4] and err <= 2e-4
+            and shown == [f"resumed from epoch 0 at batch {want}"]
+            and want == 2 and launches == {k: 2 * 8 for k in launches}):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    return f"{root}/run"
+
+
+def phase_eval(ckpt_dir, workdir):
+    """``eval.cli msrvtt`` on the resumed checkpoint at full width with the
+    fake decoder, 4 windows of 32 frames at 224^2, on the first
+    EVAL_ROWS rows of ``csv/msrvtt_test.csv`` (cut for time).  Checks: the
+    metrics equal ``compute_retrieval_metrics`` of the returned
+    embeddings, recomputed here; the first batch's video embeddings equal
+    ``make_video_embed_fn`` on the same clips within 1e-5 + 1e-4 max|e|.
+    No MIL-NCE kernel launches in eval."""
+    from milnce_tpu_torch.eval import cli, retrieval
+    from milnce_tpu_torch.eval.metrics import compute_retrieval_metrics
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train.step import make_video_embed_fn
+
+    with open(Path(__file__).resolve().parent / "csv" / "msrvtt_test.csv") as f:
+        rows = f.read().splitlines()[:EVAL_ROWS + 1]
+    csv_path = f"{workdir}/msrvtt_{EVAL_ROWS}.csv"
+    with open(csv_path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    log(f"  eval cut to the first {EVAL_ROWS} of 1000 rows of "
+        "csv/msrvtt_test.csv, for time")
+    seen = {}
+    real = retrieval.extract_retrieval_embeddings
+
+    def spy(model, source, device, batch_size=16):
+        seen.update(model=model, source=source, batch=batch_size)
+        seen["out"] = real(model, source, device, batch_size)
+        return seen["out"]
+
+    ms.reset_launches()
+    retrieval.extract_retrieval_embeddings = spy
+    try:
+        t0 = time.perf_counter()
+        metrics = cli.main(["msrvtt", "--ckpt", ckpt_dir, "--csv", csv_path,
+                            "--video_root", "videos", "--fake_decoder",
+                            "--num_windows", "4", "--num_frames", "32",
+                            "--video_size", "224"])
+        dt = time.perf_counter() - t0
+    finally:
+        retrieval.extract_retrieval_embeddings = real
+    t, v = seen["out"]
+    recomputed = compute_retrieval_metrics(t @ v.T)
+    source, bsz = seen["source"], seen["batch"]
+    clips = torch.from_numpy(np.stack(
+        [source.sample(i)["video"] for i in range(bsz)])).cuda()
+    emb = make_video_embed_fn(seen["model"])(clips.flatten(0, 1))
+    ref = emb.reshape(bsz, 4, -1).mean(1).cpu().numpy()
+    err = float(np.abs(v[:bsz] - ref).max())
+    limit = 1e-5 + 1e-4 * float(np.abs(ref).max())
+    log(f"  R@1 {metrics['R1']:.4f} R@5 {metrics['R5']:.4f} R@10 "
+        f"{metrics['R10']:.4f} MedR {metrics['MR']}; {EVAL_ROWS} videos "
+        f"({EVAL_ROWS * 4} clips) in {dt:.3f} s: {EVAL_ROWS / dt:.2f} "
+        "videos/s, load and decode included")
+    log(f"  metrics recomputed from the embeddings {recomputed}; first "
+        f"batch's {bsz} video embeddings against make_video_embed_fn: max "
+        f"|diff| {err:.3e} (limit {limit:.3e}); launches {dict(ms.LAUNCHES)}")
+    if not (recomputed == metrics and t.shape == v.shape == (EVAL_ROWS, 512)
+            and err <= limit and not any(ms.LAUNCHES.values())):
+        raise AssertionError("eval disagrees with its own embeddings")
+
+
+def phase_cudnn_benchmark(default_sps):
+    """One more train-full run with ``torch.backends.cudnn.benchmark =
+    True``, measured only (the default stays off)."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    torch.backends.cudnn.benchmark = True
+    try:
+        _, _, _, sps = _train_full("milnce", _stream_loss, (ms, sd),
+                                   {k: 2 for k in ms.LAUNCHES})
+    finally:
+        torch.backends.cudnn.benchmark = False
+    log(f"  cudnn.benchmark=True: {sps:.4f} steps/s after the first step, "
+        f"against {default_sps:.4f} with it off (train phase, same call)")
 
 
 def phase_train_sdtw3():
@@ -883,8 +1102,8 @@ def phase_train_sdtw3():
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.ops import softdtw_cuda as sd
 
-    res, cfg, launches = _train_full("sdtw_3", _sdtw_loss, (ms, sd),
-                                     {k: 6 for k in sd.LAUNCHES})
+    res, cfg, launches, _ = _train_full("sdtw_3", _sdtw_loss, (ms, sd),
+                                        {k: 6 for k in sd.LAUNCHES})
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     text = torch.ones((2 * cfg.data.num_candidates, cfg.data.max_words),
                       dtype=torch.int64, device="cuda")
@@ -993,7 +1212,16 @@ def main() -> int:
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
     log("== train (full width, MIL-NCE)")
-    launches = phase_train()
+    launches, train_sps = phase_train()
+    log("== data alone (loader + prefetch, no step)")
+    phase_data_alone()
+    with tempfile.TemporaryDirectory() as work:
+        log("== resume (full width, stopped at step 2, resumed to step 4)")
+        ckpt_dir = phase_resume(work)
+        log("== eval (msrvtt, full width, on the resumed checkpoint)")
+        phase_eval(ckpt_dir, work)
+    log("== cuDNN autotuning (measured only)")
+    phase_cudnn_benchmark(train_sps)
     log("== train (full width, sdtw_3)")
     sdtw_launches = phase_train_sdtw3()
     launches.update({k: sdtw_launches[k] for k in ("softdtw_fwd",

@@ -1,10 +1,16 @@
 """Training loop (a slim port of ``milnce_tpu/train/loop.py``).
 
-Builds the model from the seed, draws synthetic batches, runs
-``train.max_steps`` optimizer steps (or all epochs) and prints the JAX
-loop's display line every ``n_display`` steps.  Checkpointing, resume,
-goodput, curriculum, elastic drain, observability and real-video data
-are not ported yet.
+Builds the model from the seed (or loads ``train.pretrain_ckpt``), resumes
+from the newest checkpoint of ``checkpoint_root/checkpoint_dir`` with
+``train.resume``, draws batches through ``ShardedLoader`` and
+``device_prefetch``, runs ``train.max_steps`` optimizer steps (or all
+epochs) and prints the JAX loop's display line every ``n_display``
+steps.  It saves a checkpoint at each epoch boundary (label ``epoch +
+1``) and at ``max_steps``, and keeps the JAX loop's finite-guard window,
+circuit breaker (roll back to the newest checkpoint) and divergence halt
+(with a post-mortem save).  With ``train.evaluate`` it scores
+``train.eval_task`` every ``max(1, batch_size // 512)`` epochs.
+Goodput, curriculum, elastic drain and observability are not ported yet.
 
 Precision: the JAX towers run in f32, so TF32 is switched off for both
 cuDNN convolutions and CUDA matmuls before anything runs.
@@ -13,6 +19,7 @@ cuDNN convolutions and CUDA matmuls before anything runs.
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -20,40 +27,50 @@ from typing import Callable, Optional
 import torch
 
 from milnce_tpu_torch.config import Config
-from milnce_tpu_torch.data.synthetic import BatchLoader, SyntheticVideoTextSource
+from milnce_tpu_torch.data.datasets import HowTo100MSource, build_tokenizer
+from milnce_tpu_torch.data.pipeline import (ShardedLoader, device_prefetch,
+                                            flatten_text)
+from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
+from milnce_tpu_torch.data.video import FakeDecoder
+from milnce_tpu_torch.eval.metrics import format_metrics
+from milnce_tpu_torch.eval.runner import EVAL_TASKS, evaluate_task
 from milnce_tpu_torch.losses.milnce_chunked import stream_on_kernels
 from milnce_tpu_torch.models.build import build_model
 from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
+from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
+                                               load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.train.step import make_train_step
-
+from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 
 # Knobs of the reference loop that this loop does not read yet, as dotted
 # names; a run that sets one away from its dataclass default is refused.
-# A name leaves the table in the change that ports it.  Not here:
-# train.skip_rollback_after, whose breaker is on by default in the
-# reference; without a checkpoint to roll back to it halts, as here.
+# A name leaves the table in the change that ports it.
 UNPORTED_KNOBS = (
-    "train.resume", "train.checkpoint_dir", "train.pretrain_ckpt",
-    "train.evaluate", "train.grad_accum", "train.faults",
-    "train.curriculum", "train.trace_dir", "train.obs_dir",
-    "train.capture_dir", "train.drain_signal_file", "parallel.model_axis",
-    "parallel.model_parallel_size", "parallel.coordinator_address",
-    "parallel.num_processes", "parallel.process_id")
+    "train.grad_accum", "train.faults", "train.curriculum",
+    "train.trace_dir", "train.obs_dir", "train.capture_dir",
+    "train.drain_signal_file", "data.use_native_reader",
+    "parallel.model_axis", "parallel.model_parallel_size",
+    "parallel.coordinator_address", "parallel.num_processes",
+    "parallel.process_id")
 
 
 def check_config(cfg: Config, device_type: str) -> None:
     """Refuse, before anything is built, what a run on ``device_type``
     would not honour: every knob of :data:`UNPORTED_KNOBS` set away from
-    its default, and an embedding wider than the MIL-NCE stream kernels
-    take when the loss would stream on them."""
+    its default, an unknown ``train.eval_task`` when evaluating, and an
+    embedding wider than the MIL-NCE stream kernels take when the loss
+    would stream on them."""
     default = Config()
     unported = [name for name in UNPORTED_KNOBS
                 if _knob(cfg, name) != _knob(default, name)]
     if unported:
         raise ValueError(f"not ported yet: {', '.join(unported)} (leave "
                          "them at their defaults)")
+    if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
+        raise ValueError(f"unknown train.eval_task {cfg.train.eval_task!r}; "
+                         f"expected one of {'|'.join(EVAL_TASKS)}")
     if (cfg.loss.name == "milnce" and cfg.model.embedding_dim > STREAM_DMAX
             and stream_on_kernels(cfg.loss, cfg.train.batch_size,
                                   cfg.data.num_candidates, device_type)):
@@ -74,6 +91,7 @@ class TrainResult:
     last_loss: float
     skipped_steps: int = 0      # finite-guard: updates dropped on
                                 # non-finite gradients
+    rollbacks: int = 0          # circuit-breaker checkpoint restores
     model: Optional[torch.nn.Module] = None
 
 
@@ -100,51 +118,134 @@ def resolve_device(platform: str) -> torch.device:
                      "(expected cuda | cpu)")
 
 
+def build_source(cfg: Config, log_fn=None):
+    if cfg.data.synthetic:
+        return SyntheticVideoTextSource(cfg.data,
+                                        vocab_size=cfg.model.vocab_size)
+    return HowTo100MSource(cfg.data, cfg.model, log_fn=log_fn)
+
+
+def resume_batch_offset(restored_step: int, steps_per_epoch: int) -> int:
+    """Mid-epoch resume position: how many global batches of the current
+    epoch the restored step counter has already consumed (an end-of-epoch
+    save lands on the boundary -> 0)."""
+    return int(restored_step) % steps_per_epoch
+
+
+def stop_save_label(epoch: int, opt_step: int,
+                    steps_per_epoch: int) -> tuple:
+    """(checkpoint label, force) for a stop at ``opt_step``.  A stop ON
+    the epoch's last batch labels epoch+1; any other labels the CURRENT
+    epoch and must FORCE the save, since the previous epoch's boundary
+    save holds the same label."""
+    done = opt_step % steps_per_epoch == 0
+    return (epoch + 1 if done else epoch), (not done)
+
+
+def _in_training_eval(cfg: Config, model, device, log) -> None:
+    """Periodic downstream eval during training, dispatched through the
+    eval CLI's runner; hermetic (synthetic) runs decode with the fake
+    decoder."""
+    decoder = FakeDecoder() if cfg.data.synthetic else None
+    task = cfg.train.eval_task
+    tokenizer = (None if task == "hmdb" else
+                 build_tokenizer(cfg.model, cfg.data.eval_max_words))
+    metrics = evaluate_task(
+        task, model, device, data_cfg=cfg.data, csv_path=cfg.data.eval_csv,
+        video_root=cfg.data.eval_video_root, tokenizer=tokenizer,
+        num_clip=cfg.train.num_windows_test,
+        batch_size=cfg.train.batch_size_val, decoder=decoder,
+        max_words=cfg.data.eval_max_words)
+    if task == "hmdb":
+        log(f"HMDB linear probe: {metrics}")
+    else:
+        log(f"{task} retrieval: {format_metrics(metrics)}")
+
+
 def run_training(cfg: Config, log: Callable[[str], None] = print,
-                 on_step: Optional[Callable[[int, float, float], None]] = None
-                 ) -> TrainResult:
-    """Train for ``cfg.train.max_steps`` steps (None = every epoch).
-    ``on_step(step, seconds, loss)`` is called after each step with the
-    host time the step took, synchronized with the device, and its loss."""
+                 on_step: Optional[Callable[[int, float, float, float],
+                                            None]] = None) -> TrainResult:
+    """Train for ``cfg.train.max_steps`` steps of this run (None = to the
+    last epoch).  ``on_step(step, seconds, loss, data_wait)`` is called
+    after each step with its global step number, the host time the step
+    took, synchronized with the device, its loss, and the host time the
+    loop was blocked waiting for the step's batch."""
     log(disable_tf32())
     check_config(cfg, cfg.parallel.platform)
     device = resolve_device(cfg.parallel.platform)
-    if not cfg.data.synthetic:
-        raise NotImplementedError("the torch port trains on the synthetic "
-                                  "source only (--data.synthetic true)")
-    model = build_model(cfg.model, seed=cfg.train.seed).to(device)
-    source = SyntheticVideoTextSource(cfg.data,
-                                      vocab_size=cfg.model.vocab_size)
-    loader = BatchLoader(source, cfg.train.batch_size, device,
-                         seed=cfg.train.seed)
+    model = build_model(cfg.model, seed=cfg.train.seed)
+    if cfg.train.pretrain_ckpt:
+        # reference weights (main_distributed.py:81-83)
+        load_reference_checkpoint(model, cfg.train.pretrain_ckpt)
+        log(f"loaded pretrained weights from {cfg.train.pretrain_ckpt}")
+    model.to(device)
+    source = build_source(cfg, log_fn=log)
+    loader = ShardedLoader(source, cfg.train.batch_size, seed=cfg.train.seed,
+                           num_threads=cfg.data.num_reader_threads,
+                           lookahead_batches=cfg.data.decode_lookahead,
+                           sample_timeout=cfg.data.sample_timeout,
+                           timeout_retries=cfg.data.sample_timeout_retries,
+                           log_fn=log)
     steps_per_epoch = loader.steps_per_epoch()
     if steps_per_epoch == 0:
         raise ValueError(f"{len(source)} samples give no batch of "
                          f"{cfg.train.batch_size}")
-    total = steps_per_epoch * cfg.optim.epochs
-    schedule = build_schedule_total(cfg.optim, total)
+    schedule = build_schedule_total(cfg.optim,
+                                    steps_per_epoch * cfg.optim.epochs)
     optimizer, lr_scheduler = build_optimizer(model, cfg.optim, schedule)
     step_fn = make_train_step(model, optimizer, cfg.loss,
                               finite_guard=cfg.train.finite_guard,
                               lr_scheduler=lr_scheduler)
-    max_steps = cfg.train.max_steps or total
+
+    ckpt_dir = os.path.join(cfg.train.checkpoint_root,
+                            cfg.train.checkpoint_dir or "run")
+    manager = CheckpointManager(ckpt_dir, keep=cfg.train.checkpoint_keep,
+                                save_retries=cfg.train.checkpoint_save_retries)
+    start_epoch = resume_step = 0
+    if cfg.train.resume:
+        start_epoch, state = manager.restore_latest(map_location=device)
+        if state is not None:
+            resume_step = load_train_state(state, model, optimizer,
+                                           lr_scheduler)
+            log(f"resumed from epoch {start_epoch} at batch "
+                f"{resume_batch_offset(resume_step, steps_per_epoch)}")
+    max_steps = cfg.train.max_steps
     log(f"device: {device} | global batch: {cfg.train.batch_size} | "
-        f"steps: {max_steps}")
+        f"steps: {max_steps or steps_per_epoch * cfg.optim.epochs}")
+
+    def snapshot(epoch_label: int) -> dict:
+        return train_state(model, optimizer, lr_scheduler, opt_step,
+                           epoch_label)
 
     # The finite guard's display window, as the JAX loop keeps it: a
     # skipped step's loss stays out of the sum and the count, a window
     # with no applied update has a NaN mean, and ``consec`` counts the
     # skipped steps since the last applied one, across windows.
     guard_on = cfg.train.finite_guard
-    steps = skipped = window = valid = consec = 0
+    steps = skipped = window = valid = consec = rollbacks = 0
+    opt_step = resume_step          # batches consumed, restored ones too
+    last_rollback = None            # (steps, skipped) at the last rollback
     running = torch.zeros((), device=device)
     last = torch.zeros((), device=device)
+    eval_every = max(1, cfg.train.batch_size // 512)
+    offset = resume_batch_offset(resume_step, steps_per_epoch)
     tick = time.time()
     window_t0 = time.perf_counter()
-    for epoch in range(cfg.optim.epochs):
-        for video, text, start in loader.epoch(epoch):
+    for epoch in range(start_epoch, cfg.optim.epochs):
+        if (cfg.train.evaluate and cfg.data.eval_video_root
+                and epoch % eval_every == 0):
+            _in_training_eval(cfg, model, device, log)
+        prefetch = device_prefetch(loader.epoch(epoch, skip_batches=offset),
+                                   device, depth=cfg.data.prefetch_depth)
+        offset = 0                  # a resume's offset applies once
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(prefetch, None)
             t0 = time.perf_counter()
-            out = step_fn(video, text, start)
+            if batch is None:
+                break
+            video, text = flatten_text(batch)
+            out = step_fn(video, text, batch["start"])
             last, skip = out if guard_on else (out, 0)
             skipped += skip
             if skip:
@@ -154,43 +255,83 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                 valid += 1
                 consec = 0
             steps += 1
+            opt_step += 1
             window += 1
             if on_step is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
-                on_step(steps, time.perf_counter() - t0, float(last))
+                on_step(opt_step, time.perf_counter() - t0, float(last),
+                        t0 - t_wait)
             if window == cfg.train.n_display or steps == max_steps:
                 mean_loss = float(running) / valid if valid else math.nan
                 elapsed = time.perf_counter() - window_t0
-                progress = ((steps - 1) % steps_per_epoch + 1) / steps_per_epoch
+                progress = ((opt_step - 1) % steps_per_epoch + 1) / steps_per_epoch
                 log(f"Epoch {epoch + 1}, Elapsed Time: "
                     f"{time.time() - tick:.3f}, Epoch status: "
                     f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
-                    f"Learning rate: {schedule(steps):.6f}, Throughput: "
+                    f"Learning rate: {schedule(opt_step):.6f}, Throughput: "
                     f"{window * cfg.train.batch_size / elapsed:.1f} clips/s")
                 # A guarded window with no applied update is NaN by
                 # construction: that is the breaker's case, not the
-                # divergence halt's.  The reference also saves a
-                # post-mortem checkpoint before it halts; that waits for
-                # checkpointing.
+                # divergence halt's.  The halt saves the state apart from
+                # the rotation (``nan_postmortem/``), which a resume would
+                # otherwise hand the poisoned weights back from.
                 if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
                         and not (guard_on and math.isnan(mean_loss))):
-                    log(f"halting: non-finite training loss at step {steps}")
+                    CheckpointManager(os.path.join(ckpt_dir, "nan_postmortem"),
+                                      keep=1).save(opt_step, snapshot(epoch))
+                    log(f"non-finite training loss ({mean_loss}) — "
+                        "post-mortem state saved under "
+                        f"nan_postmortem/{opt_step}; halting")
                     raise FloatingPointError(
                         f"training loss became non-finite ({mean_loss}) at "
-                        f"step {steps}")
-                # The breaker: the reference rolls the weights back to its
-                # last rotation checkpoint, and halts when there is none.
-                # The port keeps no checkpoint yet, so it always halts.
+                        f"step {opt_step}")
                 if (guard_on and cfg.train.skip_rollback_after
                         and consec >= cfg.train.skip_rollback_after):
-                    raise FloatingPointError(
-                        f"{consec} consecutive non-finite updates at step "
-                        f"{steps} and no rotation checkpoint to roll back "
-                        "to - halting")
+                    _roll_back(manager, consec, opt_step, steps, skipped,
+                               last_rollback, model, optimizer, lr_scheduler,
+                               device)
+                    last_rollback = (steps, skipped)
+                    rollbacks += 1
+                    log(f"circuit breaker: {consec} consecutive non-finite "
+                        f"updates — restored rotation checkpoint "
+                        f"{manager.latest_epoch()}, resuming at step "
+                        f"{opt_step} past the poisoned data window")
+                    consec = 0
                 running.zero_()
                 window = valid = 0
                 window_t0 = time.perf_counter()
-            if steps >= max_steps:
-                return TrainResult(steps, float(last), skipped, model)
-    return TrainResult(steps, float(last), skipped, model)
+            if steps == max_steps:
+                prefetch.close()
+                label, force = stop_save_label(epoch, opt_step,
+                                               steps_per_epoch)
+                manager.save(label, snapshot(label), force=force)
+                return TrainResult(steps, float(last), skipped, rollbacks,
+                                   model)
+        manager.save(epoch + 1, snapshot(epoch + 1))
+    return TrainResult(steps, float(last), skipped, rollbacks, model)
+
+
+def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
+               model, optimizer, lr_scheduler, device) -> None:
+    """The circuit breaker: K consecutive non-finite updates restore the
+    newest rotation checkpoint's weights, optimizer and schedule; the
+    caller keeps its step counter and data cursor, so the run goes on
+    PAST the poisoned window.  Halts when there is no checkpoint, or when
+    no update applied since the previous rollback (a persistent failure
+    would otherwise loop rollback-skip-rollback)."""
+    latest = manager.latest_epoch()
+    if latest is None:
+        raise FloatingPointError(
+            f"{consec} consecutive non-finite updates at step {opt_step} "
+            "and no rotation checkpoint to roll back to — halting")
+    if last_rollback is not None:
+        applied = (steps - last_rollback[0]) - (skipped - last_rollback[1])
+        if applied <= 0:
+            raise FloatingPointError(
+                f"circuit breaker: {consec} consecutive non-finite updates "
+                "with ZERO applied updates since the previous rollback — "
+                "the failure is persistent, halting instead of rolling back "
+                "in a loop")
+    load_train_state(manager.restore(latest, map_location=device), model,
+                     optimizer, lr_scheduler)

@@ -1,7 +1,8 @@
 """Convert between torch S3D state dicts and Flax S3D variables (the
-port's own copy of ``milnce_tpu/utils/torch_convert.py``, plus
+port's own copy of ``milnce_tpu/utils/torch_convert.py``), plus
 :func:`load_jax_variables`, which carries the JAX package's weights into
-the port's model).
+the port's model, and :func:`load_reference_checkpoint`, which loads a
+reference ``.pth`` straight into it.
 
 Handles both checkpoint flavors the reference eval scripts accept
 (eval_msrvtt.py:21-32):
@@ -10,8 +11,7 @@ Handles both checkpoint flavors the reference eval scripts accept
 - upstream flat S3D_HowTo100M format: ``{'<name>': tensor}`` (used with
   ``space_to_depth=True``).
 
-The converters work on ``Mapping[str, np.ndarray]``; only
-:func:`load_jax_variables` and :func:`load_torch_checkpoint_as_flax`
+The converters work on ``Mapping[str, np.ndarray]``; only the loaders
 touch torch.
 
 Layout rules:
@@ -172,9 +172,32 @@ def load_torch_checkpoint_as_flax(path: str) -> dict:
     upstream flat table — and convert to Flax variables.  The one place
     the library imports torch (train resume, eval CLI and the assets
     converter all route through here)."""
+    sd = _read_reference_state_dict(path)
+    return torch_state_dict_to_flax({k: v.numpy() for k, v in sd.items()})
+
+
+def _read_reference_state_dict(path: str) -> dict:
+    """torch.load a reference checkpoint file — either flavor
+    (eval_msrvtt.py:21-32): the DDP ``{'state_dict': ...}`` wrapper or the
+    upstream flat table — as a flat dict of tensors without the DDP
+    ``module.`` prefix."""
     import torch
 
     raw = torch.load(path, map_location="cpu", weights_only=False)
     sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
-    sd = {k: v.numpy() for k, v in sd.items() if hasattr(v, "numpy")}
-    return torch_state_dict_to_flax(sd)
+    return strip_ddp_prefix({k: v for k, v in sd.items()
+                             if isinstance(v, torch.Tensor)})
+
+
+def load_reference_checkpoint(model, path: str):
+    """Load a reference ``.pth``/``.pth.tar`` into the port's ``model``,
+    whose parameters keep the reference's names and layouts, with a
+    strict ``load_state_dict``; returns the model.  BatchNorm update
+    counters the file lacks (the upstream flat flavor) keep their
+    values."""
+    sd = _read_reference_state_dict(path)
+    for key, val in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            sd.setdefault(key, val)
+    model.load_state_dict(sd, strict=True)
+    return model

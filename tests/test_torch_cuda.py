@@ -283,3 +283,28 @@ def test_softdtw_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         sd.softdtw_bwd(r, g.double(), 0.1)
     with pytest.raises(ValueError, match="device"):
         sd.softdtw_bwd(r, torch.ones(2), 0.1)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+def test_device_prefetch_on_the_card_matches_the_host(cuda, depth):
+    """Every batch copied through the pinned ring on the side stream is
+    the host's, byte for byte, while the consumer's stream works on each
+    batch before pulling the next (a slot overwritten while its copy is in
+    flight, or a tensor reused by the allocator, would show here)."""
+    from milnce_tpu_torch.config import DataConfig
+    from milnce_tpu_torch.data.pipeline import (ShardedLoader,
+                                                device_prefetch, stack_batch)
+    from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
+
+    source = SyntheticVideoTextSource(DataConfig(
+        num_frames=8, video_size=64, synthetic_num_samples=40))
+    loader = ShardedLoader(source, 4, seed=2, num_threads=4)
+    want = [stack_batch(b) for b in loader.epoch(1)]
+    copies = []
+    for batch in device_prefetch(loader.epoch(1), cuda, depth=depth):
+        assert all(t.device.type == "cuda" for t in batch.values())
+        copies.append({k: t.clone() for k, t in batch.items()})
+    assert len(copies) == len(want) == 10
+    for got, host in zip(copies, want):
+        for k, arr in host.items():
+            assert np.array_equal(got[k].cpu().numpy(), arr), k

@@ -43,8 +43,9 @@ from milnce_tpu.train.step import _check_loss_name as jax_check_loss_name
 from milnce_tpu.train.step import make_train_step as jax_make_train_step
 from milnce_tpu_torch.config import (DataConfig, LossConfig, OptimConfig,
                                      parse_cli, tiny_preset)
-from milnce_tpu_torch.data.synthetic import (BatchLoader,
-                                             SyntheticVideoTextSource)
+from milnce_tpu_torch.data.pipeline import (ShardedLoader, device_prefetch,
+                                            flatten_text)
+from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
 from milnce_tpu_torch.models.s3dg import S3D
 from milnce_tpu_torch.train.loop import run_training
 from milnce_tpu_torch.train.schedule import build_schedule
@@ -175,12 +176,13 @@ def test_loader_yields_start_times():
     cfg = DataConfig(num_frames=2, video_size=8, max_words=4,
                      num_candidates=2, synthetic_num_samples=6)
     source = SyntheticVideoTextSource(cfg, vocab_size=16)
-    loader = BatchLoader(source, 3, "cpu", seed=1)
+    loader = ShardedLoader(source, 3, seed=1, num_threads=2)
     order = np.arange(6)
     np.random.RandomState(1).shuffle(order)
-    batches = list(loader.epoch(0))
+    batches = list(device_prefetch(loader.epoch(0), "cpu"))
     assert len(batches) == 2
-    for k, (video, text, start) in enumerate(batches):
+    for k, batch in enumerate(batches):
+        (video, text), start = flatten_text(batch), batch["start"]
         assert video.shape == (3, 2, 8, 8, 3) and text.shape == (6, 4)
         assert start.dtype == torch.float32
         np.testing.assert_array_equal(
@@ -196,12 +198,13 @@ def test_sdtw_backend_knob_takes_cuda_choices():
         parse_cli(["--loss.sdtw_backend", "pallas"])
 
 
-def test_cli_trains_sdtw3_on_cpu():
+def test_cli_trains_sdtw3_on_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
          "tiny", "--parallel.platform", "cpu", "--loss.name", "sdtw_3",
-         "--train.max_steps", "2"],
+         "--train.max_steps", "2", "--train.checkpoint_root",
+         str(tmp_path)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("Training loss:") == 2

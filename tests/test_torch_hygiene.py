@@ -33,7 +33,14 @@ def test_port_package_exists():
     for expected in ("config.py", "models/s3dg.py", "ops/milnce_stream.py",
                      "ops/softdtw.py", "ops/softdtw_cuda.py",
                      "losses/milnce_chunked.py", "losses/dtw_losses.py",
-                     "train/step.py", "train/cli.py"):
+                     "train/step.py", "train/cli.py", "train/checkpoint.py",
+                     "train/loop.py", "data/tokenizer.py",
+                     "data/captions.py", "data/video.py", "data/datasets.py",
+                     "data/manifest.py", "data/pipeline.py",
+                     "data/synthetic.py", "eval/metrics.py",
+                     "eval/retrieval.py", "eval/linear_probe.py",
+                     "eval/runner.py", "eval/cli.py",
+                     "utils/torch_convert.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

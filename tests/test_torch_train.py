@@ -199,11 +199,12 @@ def test_first_warmup_step_uses_lr_zero():
     assert optimizer.param_groups[0]["lr"] == pytest.approx(5e-4)
 
 
-def test_cli_trains_two_steps_on_cpu():
+def test_cli_trains_two_steps_on_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
-         "tiny", "--parallel.platform", "cpu", "--train.max_steps", "2"],
+         "tiny", "--parallel.platform", "cpu", "--train.max_steps", "2",
+         "--train.checkpoint_root", str(tmp_path)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("Training loss:") == 2
@@ -211,9 +212,11 @@ def test_cli_trains_two_steps_on_cpu():
 
 
 # ------------------------------------------- the finite guard's display window
-def _tiny_run_cfg(steps, n_display):
+def _tiny_run_cfg(steps, n_display, root):
+    """The tiny preset on the CPU, checkpointing under ``root``."""
     cfg = tiny_preset()
     cfg.parallel.platform = "cpu"
+    cfg.train.checkpoint_root = str(root)
     cfg.train.max_steps, cfg.train.n_display = steps, n_display
     return cfg
 
@@ -273,13 +276,13 @@ def _same_means(shown, want):
     return [f"{m:.4f}" for m in shown] == [f"{m:.4f}" for m in want]
 
 
-def test_skipped_step_stays_out_of_the_display_window(monkeypatch):
+def test_skipped_step_stays_out_of_the_display_window(monkeypatch, tmp_path):
     """One non-finite step: the guard skips it, the run goes on to
     max_steps, and each displayed window mean is the JAX loop's, over the
     window's valid steps only."""
     record, lines = [], []
     _poison_steps(monkeypatch, {2}, record)
-    res = loop.run_training(_tiny_run_cfg(4, 2), log=lines.append)
+    res = loop.run_training(_tiny_run_cfg(4, 2, tmp_path), log=lines.append)
     assert res.steps == 4 and res.skipped_steps == 1
     assert [s for _, s in record] == [0, 1, 0, 0]
     assert not np.isfinite(record[1][0])     # the skipped step's loss is NaN
@@ -290,13 +293,13 @@ def test_skipped_step_stays_out_of_the_display_window(monkeypatch):
     assert _same_means(shown, want)
 
 
-def test_all_skipped_window_runs_on_below_the_breaker(monkeypatch):
+def test_all_skipped_window_runs_on_below_the_breaker(monkeypatch, tmp_path):
     """A window with no applied update shows a NaN mean, as the JAX loop's
     does, and the run goes on: that window is the breaker's case, and one
     skipped step is below its count."""
     record, lines = [], []
     _poison_steps(monkeypatch, {2}, record)
-    res = loop.run_training(_tiny_run_cfg(4, 1), log=lines.append)
+    res = loop.run_training(_tiny_run_cfg(4, 1, tmp_path), log=lines.append)
     assert res.steps == 4 and res.skipped_steps == 1
     assert [s for _, s in record] == [0, 1, 0, 0]
     shown = _shown_means(lines)
@@ -312,13 +315,14 @@ def test_all_skipped_window_runs_on_below_the_breaker(monkeypatch):
     (0, {2, 3}, None),     # 0 turns the breaker off
 ])
 def test_consecutive_skips_trip_the_breaker(monkeypatch, after, poisoned,
-                                            halts_at):
+                                            halts_at, tmp_path):
     """``train.skip_rollback_after`` consecutive skips halt the run, as the
-    JAX loop's breaker does when it has no checkpoint to roll back to; the
-    count is the JAX loop's own at every display."""
+    JAX loop's breaker does when it has no checkpoint to roll back to (the
+    checkpoint root is empty and no epoch ends before step 5); the count
+    is the JAX loop's own at every display."""
     record = []
     _poison_steps(monkeypatch, poisoned, record)
-    cfg = _tiny_run_cfg(5, 1)
+    cfg = _tiny_run_cfg(5, 1, tmp_path)
     cfg.train.skip_rollback_after = after
     if halts_at is None:
         res = loop.run_training(cfg, log=lambda _m: None)
@@ -336,12 +340,12 @@ def test_consecutive_skips_trip_the_breaker(monkeypatch, after, poisoned,
         assert tripped.index(True) + 1 == halts_at
 
 
-def test_unguarded_non_finite_window_halts(monkeypatch):
+def test_unguarded_non_finite_window_halts(monkeypatch, tmp_path):
     """With the guard off a non-finite window mean halts the run, naming
     the step, as the JAX loop's divergence check does."""
     record = []
     _poison_steps(monkeypatch, {2}, record)
-    cfg = _tiny_run_cfg(4, 1)
+    cfg = _tiny_run_cfg(4, 1, tmp_path)
     cfg.train.finite_guard = False
     with pytest.raises(FloatingPointError, match="non-finite .* at step 2"):
         loop.run_training(cfg, log=lambda _m: None)
@@ -367,13 +371,79 @@ def _no_model(*_args, **_kwargs):
 
 @pytest.mark.parametrize("knob", loop.UNPORTED_KNOBS)
 def test_unported_knob_is_refused_before_the_model_is_built(knob,
-                                                            monkeypatch):
-    cfg = _tiny_run_cfg(1, 1)
+                                                            monkeypatch,
+                                                            tmp_path):
+    cfg = _tiny_run_cfg(1, 1, tmp_path)
     obj, field, value = _other_value(cfg, knob)
     setattr(obj, field, value)
     monkeypatch.setattr(loop, "build_model", _no_model)
     with pytest.raises(ValueError, match=re.escape(knob)):
         loop.run_training(cfg, log=lambda _m: None)
+
+
+def _resume_is_honoured(cfg, root):
+    loop.run_training(cfg, log=lambda _m: None)
+    cfg.train.resume = True
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert "resumed from epoch 0 at batch 1" in lines and res.steps == 1
+    assert "Epoch status: 0.5000" in "\n".join(lines)    # step 2 of 4
+
+
+def _checkpoint_dir_is_honoured(cfg, root):
+    cfg.train.checkpoint_dir = "mine"
+    loop.run_training(cfg, log=lambda _m: None)
+    assert sorted(os.listdir(root)) == ["mine"]
+    assert os.listdir(root / "mine") == ["0"]
+
+
+def _pretrain_ckpt_is_honoured(cfg, root):
+    """A reference-layout .pth (the DDP wrapper) seeds the weights: the
+    first warmup step runs at lr 0, so the trained parameters are the
+    file's."""
+    ref = loop.build_model(cfg.model, seed=cfg.train.seed + 5)
+    path = root / "ref.pth.tar"
+    torch.save({"state_dict": {"module." + k: v
+                               for k, v in ref.state_dict().items()}}, path)
+    cfg.train.pretrain_ckpt = str(path)
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert f"loaded pretrained weights from {path}" in lines
+    for name, param in res.model.named_parameters():
+        assert torch.equal(param, ref.get_parameter(name)), name
+
+
+def _evaluate_is_honoured(cfg, root):
+    """In-training retrieval eval on synthetic clips at epoch 0."""
+    csv = root / "eval.csv"
+    csv.write_text("key,vid_key,video_id,sentence\n" + "".join(
+        f"r{i},m{i},video{i},word{i} word{i + 1}\n" for i in range(3)))
+    cfg.train.evaluate, cfg.train.eval_task = True, "msrvtt"
+    cfg.data.eval_csv, cfg.data.eval_video_root = str(csv), str(root)
+    lines = []
+    loop.run_training(cfg, log=lines.append)
+    shown = [m for m in lines if m.startswith("msrvtt retrieval: R@1: ")]
+    assert len(shown) == 1
+    cfg.train.eval_task = "kinetics"
+    with pytest.raises(ValueError, match="unknown train.eval_task"):
+        loop.run_training(cfg, log=lambda _m: None)
+
+
+_PORTED_KNOBS = {"train.resume": _resume_is_honoured,
+                 "train.checkpoint_dir": _checkpoint_dir_is_honoured,
+                 "train.pretrain_ckpt": _pretrain_ckpt_is_honoured,
+                 "train.evaluate": _evaluate_is_honoured}
+
+
+@pytest.mark.parametrize("knob", list(_PORTED_KNOBS))
+def test_ported_knob_is_honoured(knob, tmp_path):
+    """Each knob that left ``UNPORTED_KNOBS`` does what the JAX loop does
+    with it (one step of a 4-step epoch, at a cut depth)."""
+    assert knob not in loop.UNPORTED_KNOBS
+    cfg = _tiny_run_cfg(1, 1, tmp_path)
+    cfg.model.inception_blocks = 2
+    cfg.data.synthetic_num_samples = 16
+    _PORTED_KNOBS[knob](cfg, tmp_path)
 
 
 def test_unported_knobs_are_config_fields():
@@ -441,10 +511,11 @@ def test_stream_depth_is_checked_at_build_time(impl, backend, device, batch,
     loop.check_config(cfg, device)
 
 
-def test_run_training_refuses_the_depth_before_anything_runs(monkeypatch):
+def test_run_training_refuses_the_depth_before_anything_runs(monkeypatch,
+                                                              tmp_path):
     """On a host without a card: the refusal comes before the device is
     resolved and before the model is built."""
-    cfg = _tiny_run_cfg(1, 1)
+    cfg = _tiny_run_cfg(1, 1, tmp_path)
     cfg.parallel.platform = "cuda"
     cfg.loss.milnce_impl, cfg.loss.milnce_backend = "chunked", "auto"
     cfg.model.embedding_dim = 1024

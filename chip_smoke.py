@@ -14,9 +14,12 @@ Phases, each fatal on failure:
                (Bg=8191, chunk 1000, K=1), a tiny one, the training run's
                own shape, three that stress the backward kernel's tiling
                (R=33 with D=13, R=640 against Bg=4097, D=700), one that
-               splits lse_bwd_cols's streamed loop (B=2048 against Bg=40)
-               and one that splits lse_fwd's owned rows and its streamed
-               loop with a ragged last tile (B=200 against Bg=3000, K=3);
+               splits lse_bwd_cols's streamed loop (B=2048 against Bg=40),
+               one that splits lse_fwd's owned rows and its streamed
+               loop with a ragged last tile (B=200 against Bg=3000, K=3),
+               and the two distributed phases' own (train-full's with
+               the gathered copies apart from the local rows, and ddp-2's
+               B_local=4 against Bg=8, K=3);
                then the kernels', the plain versions' and the dense
                PyTorch form's times (median of 20 after warm-up, CUDA
                events) at the recipe shape, beside the card's bound, and
@@ -58,6 +61,23 @@ Phases, each fatal on failure:
                batches/s with 20 reader threads and with 1, the synthetic
                source's samples/s on 1 and 20 threads, every batch on the
                card equal to the host's.
+   ddp-1    -- train-full (phase 7's config, seed and steps) through the
+               distributed path: an NCCL group of one rank from a
+               FileStore rendezvous, the gathers, the all-reduce of the
+               gradients, the BatchNorm merge; losses within rel 2e-4 of
+               phase 7's, the kernels' launches, steps/s at least 0.95x
+               phase 7's, idle share and peak memory beside it.
+   ddp-2    -- two rank processes on the one card over gloo with CUDA
+               tensors: the small model with sync BatchNorm and chunked
+               MIL-NCE on the kernels at Bg = 2 B_local, two steps,
+               against one process on the concatenated batch: losses
+               within rel 2e-4; the last step's reduced gradients and
+               Adam's exp_avg within 1e-2 in norm, exp_avg_sq within
+               2e-2 (beside one process with cuDNN off as a yardstick);
+               each BatchNorm running mean and variance, and each
+               parameter (vacuous at step 2's lr of 1e-6), within
+               1e-5 + 1e-4 max; the kernels' launch counts.  Over NCCL
+               too, a rank a card, when there are two cards.
 9. resume   -- train-full stopped at step 2 and resumed to step 4 against
                the uninterrupted run (cuDNN deterministic): steps 3-4's
                losses within rel 2e-4, the batch cursor.
@@ -73,6 +93,10 @@ Phases, each fatal on failure:
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
+
+``python3 chip_smoke.py --ddp-2``, on a machine with two cards or more,
+runs only the device, build and ddp-2 phases: ddp-2's comparison over
+NCCL with a rank a card beside its gloo one.  It prints no kernels line.
 """
 
 from __future__ import annotations
@@ -255,7 +279,7 @@ def _err(got, want, scaled=False):
 
 
 def phase_parity():
-    """Kernel vs plain at nine shapes; returns the worst error of each
+    """Kernel vs plain at eleven shapes; returns the worst error of each
     kernel.  The lses come from lse_fwd, g_v/g_t from lse_bwd_rows and
     g_v_all/g_t_all from lse_bwd_cols; where v_all is v (one device),
     g_v and g_t sum the outputs of both backward kernels.  Beside the
@@ -267,7 +291,8 @@ def phase_parity():
     streamed loop splits over 16 blocks; B = 200 against Bg = 3000 with
     K = 3 gives lse_fwd's rows launch 4 owned tiles (the last ragged) and
     splits of 3 streamed tiles, the last split of 2 ending on a ragged
-    tile (its plans are printed).  The cotangents are of unit
+    tile (its plans are printed); ddp-1 and ddp-2 are the distributed
+    phases' shapes.  The cotangents are of unit
     scale and each limit shrinks with its output (``_err(scaled=True)``),
     so that a kernel returning zeros fails."""
     from milnce_tpu_torch.ops import milnce_stream as ms
@@ -280,7 +305,9 @@ def phase_parity():
              ("r640-uneven", 128, 4097, 5, 512, 500, False),
              ("d700", 33, 2048, 5, 700, 256, False),
              ("split", 2048, 40, 1, 512, 40, False),
-             ("fwd-split", 200, 3000, 3, 512, 300, False)]
+             ("fwd-split", 200, 3000, 3, 512, 300, False),
+             ("ddp-1", TRAIN_BATCH, TRAIN_BATCH, 5, 512, TRAIN_CHUNK, False),
+             ("ddp-2", 4, 8, 3, 512, 3, False)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {name: 0.0 for name in ms.LAUNCHES}
     for i, (label, b, bg, k, d, chunk, shared) in enumerate(cases):
@@ -830,15 +857,17 @@ def _sdtw_loss(loss):
 
 
 def _run_training(cfg, root=None, **kwargs):
-    """``run_training`` checkpointing under ``root``, or under a temporary
-    directory removed after the run."""
+    """``run_training`` checkpointing and logging under ``root``, or under
+    a temporary directory removed after the run."""
     from milnce_tpu_torch.train.loop import run_training
 
     if root is not None:
         cfg.train.checkpoint_root = root
+        cfg.train.log_root = f"{root}/log"
         return run_training(cfg, **kwargs)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg.train.checkpoint_root = tmp
+        cfg.train.checkpoint_root = f"{tmp}/checkpoints"
+        cfg.train.log_root = f"{tmp}/log"
         return run_training(cfg, **kwargs)
 
 
@@ -861,14 +890,20 @@ def _full_cfg(loss_name, edit):
     return cfg
 
 
-def _train_full(loss_name, edit, counters, per_step):
+def _train_full(loss_name, edit, counters, per_step, store=None):
     """``run_training`` on ``_full_cfg(loss_name, edit)``, every launch
-    counter reset just before and read just after.
+    counter reset just before and read just after; with ``store``, through
+    the distributed path: a group of one rank that meets at that
+    ``file://`` rendezvous (NCCL on the card).
     Each kernel in ``per_step`` must have launched that many times per
     step.  Prints each step's seconds and the seconds the loop waited for
     its batch, and the displayed clips/s beside steps/s x batch.  Returns
-    (result, config, the launches of the run, steps/s after the first)."""
+    the result, the config, the launches of the run, steps/s after the
+    first step, each step's loss and the peak memory allocated (bytes)."""
     cfg = _full_cfg(loss_name, edit)
+    if store is not None:
+        cfg.parallel.coordinator_address = f"file://{store}"
+        cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
     steps, shown = [], []
 
     def show(msg):
@@ -903,7 +938,8 @@ def _train_full(loss_name, edit, counters, per_step):
     if launches != expected:
         raise AssertionError(f"expected launches {expected} in "
                              f"{TRAIN_STEPS} steps, got {launches}")
-    return res, cfg, launches, sps
+    return dict(res=res, cfg=cfg, launches=launches, sps=sps,
+                losses=[loss for _, _, loss, _ in steps], peak=peak)
 
 
 def phase_train():
@@ -913,16 +949,18 @@ def phase_train():
     from milnce_tpu_torch.ops import softdtw_cuda as sd
     from milnce_tpu_torch.train.step import make_video_embed_fn
 
-    res, cfg, launches, sps = _train_full("milnce", _stream_loss, (ms, sd),
-                                          {k: 2 for k in ms.LAUNCHES})
+    run = _train_full("milnce", _stream_loss, (ms, sd),
+                      {k: 2 for k in ms.LAUNCHES})
+    res, cfg = run["res"], run["cfg"]
     if (cfg.data.prefetch_depth, cfg.data.num_reader_threads) != (2, 20):
         raise AssertionError("train-full reads through the default loader")
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     emb = make_video_embed_fn(res.model)(clip)
     if emb.shape != (2, 512) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"video embedding {tuple(emb.shape)} not finite")
-    _profile_step(res.model, cfg)
-    return launches, sps
+    run["idle"] = _profile_step(res.model, cfg)
+    del run["res"]      # the later phases' peak memory holds no stale model
+    return run
 
 
 def phase_data_alone():
@@ -1087,8 +1125,8 @@ def phase_cudnn_benchmark(default_sps):
 
     torch.backends.cudnn.benchmark = True
     try:
-        _, _, _, sps = _train_full("milnce", _stream_loss, (ms, sd),
-                                   {k: 2 for k in ms.LAUNCHES})
+        sps = _train_full("milnce", _stream_loss, (ms, sd),
+                          {k: 2 for k in ms.LAUNCHES})["sps"]
     finally:
         torch.backends.cudnn.benchmark = False
     log(f"  cudnn.benchmark=True: {sps:.4f} steps/s after the first step, "
@@ -1102,8 +1140,9 @@ def phase_train_sdtw3():
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.ops import softdtw_cuda as sd
 
-    res, cfg, launches, _ = _train_full("sdtw_3", _sdtw_loss, (ms, sd),
-                                        {k: 6 for k in sd.LAUNCHES})
+    run = _train_full("sdtw_3", _sdtw_loss, (ms, sd),
+                      {k: 6 for k in sd.LAUNCHES})
+    res, cfg, launches = run["res"], run["cfg"], run["launches"]
     clip = torch.zeros((2, 32, 224, 224, 3), dtype=torch.uint8, device="cuda")
     text = torch.ones((2 * cfg.data.num_candidates, cfg.data.max_words),
                       dtype=torch.int64, device="cuda")
@@ -1118,12 +1157,271 @@ def phase_train_sdtw3():
     return launches
 
 
+def phase_ddp1(train, work):
+    """train-full through the distributed path: an NCCL group of one rank
+    made in this process from a ``FileStore`` rendezvous, the gathers,
+    the all-reduce of the gradients and the BatchNorm merge.  Every loss
+    within rel 2e-4 of phase 7's (its train run is not cuDNN
+    deterministic), each MIL-NCE kernel twice a step, steps/s at least
+    0.95x phase 7's; steps/s, idle share and peak memory beside phase
+    7's.  One more step profiled in a group of its own.  The run's model
+    is dropped on return, so that no later phase's peak memory holds it."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.parallel.dist import initialize_distributed
+
+    run = _train_full("milnce", _stream_loss, (ms, sd),
+                      {k: 2 for k in ms.LAUNCHES}, store=f"{work}/ddp1-train")
+    cfg = run["cfg"]
+    cfg.parallel.coordinator_address = f"file://{work}/ddp1-profile"
+    ranks = initialize_distributed(cfg.parallel)
+    try:
+        run["idle"] = _profile_step(run["res"].model, cfg, ranks.group)
+    finally:
+        ranks.close()
+    err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   train["losses"]))
+    ratio = run["sps"] / train["sps"]
+    log(f"  losses {run['losses']} against phase 7's {train['losses']}: "
+        f"max rel diff {err:.3e} (limit 2e-4)")
+    log(f"  ddp-1 against phase 7: steps/s {run['sps']:.4f} / "
+        f"{train['sps']:.4f} ({ratio:.4f}x, limit 0.95x); idle share "
+        f"{run['idle']:.3f} / {train['idle']:.3f}; peak memory "
+        f"{run['peak'] / 2 ** 30:.3f} / {train['peak'] / 2 ** 30:.3f} GiB")
+    if not (len(run["losses"]) == len(train["losses"]) == TRAIN_STEPS
+            and err <= 2e-4 and ratio >= 0.95):
+        raise AssertionError("train-full through the distributed path "
+                             "differs from phase 7's run")
+
+
+DDP2_WORLD, DDP2_STEPS = 2, 2
+
+
+def _ddp2_cfg():
+    """The reference phase's small model with sync BatchNorm and chunked
+    MIL-NCE on the kernels; warmup 1000, so that step 1 runs at lr 0 and
+    step 2 at 1e-6.  Adam turns last-bit noise in a near-zero gradient
+    into an lr-sized step, so at a real lr the parameters of two correct
+    runs part by about 2 lr; at 1e-6 they cannot part by more than the
+    parameters' limit, which therefore proves nothing about the
+    reduction.  What does: the gradients, and Adam's moments, which
+    Adam keeps whatever the lr (``exp_avg`` is linear in the gradients
+    of both steps, ``exp_avg_sq`` quadratic)."""
+    cfg = _small_cfg("chunked", "cuda")
+    cfg.model.sync_batchnorm = True
+    cfg.optim.warmup_steps = 1000
+    return cfg
+
+
+def _ddp2_steps(group, rank, world, device="cuda"):
+    """DDP2_STEPS steps of ``_ddp2_cfg`` on this rank's rows of the global
+    batches (every row without a group): the losses, the parameters and
+    the reduced gradients after the last step, and the kernels' launches
+    (counted from 0 just before the steps)."""
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train.loop import disable_tf32
+    from milnce_tpu_torch.train.schedule import build_schedule_total
+    from milnce_tpu_torch.train.state import build_optimizer
+    from milnce_tpu_torch.train.step import make_train_step
+
+    disable_tf32()
+    cfg = _ddp2_cfg()
+    model = build_model(cfg.model, seed=3, group=group).to(device)
+    optimizer, lr = build_optimizer(model, cfg.optim,
+                                    build_schedule_total(cfg.optim, 100))
+    step = make_train_step(model, optimizer, cfg.loss, finite_guard=True,
+                           lr_scheduler=lr, group=group)
+    b = cfg.train.batch_size // world
+    losses = []
+    ms.reset_launches()
+    torch.backends.cudnn.deterministic = True
+    try:
+        _ddp2_loop(step, cfg, rank, b, device, losses)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = dict(ms.LAUNCHES)
+    named = list(model.named_parameters())
+    params = {n: p.detach().cpu() for n, p in named}
+    grads = {n: p.grad.detach().cpu() for n, p in named if p.grad is not None}
+    moments = {key: {n: optimizer.state[p][key].detach().cpu()
+                     for n, p in named if p in optimizer.state}
+               for key in ("exp_avg", "exp_avg_sq")}
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return dict(losses=losses, params=params, grads=grads,
+                launches=launches, stats=stats, **moments)
+
+
+def _ddp2_loop(step, cfg, rank, b, device, losses):
+    d, bg, k = cfg.data, cfg.train.batch_size, cfg.data.num_candidates
+    for i in range(DDP2_STEPS):
+        gen = torch.Generator(device=device).manual_seed(7 + i)
+        video = torch.randint(0, 255, (bg, d.num_frames, d.video_size,
+                                       d.video_size, 3), generator=gen,
+                              dtype=torch.uint8, device=device)
+        text = torch.randint(1, cfg.model.vocab_size, (bg * k, d.max_words),
+                             generator=gen, device=device)
+        loss, skipped = step(video[rank * b:(rank + 1) * b],
+                             text[rank * b * k:(rank + 1) * b * k],
+                             torch.zeros(b, device=device))
+        if skipped:
+            raise AssertionError(f"rank {rank}: step {i + 1} skipped")
+        losses.append(float(loss))
+
+
+def _ddp2_rank(rank, world, backend, store, out):
+    """One rank of the ddp-2 phase, in a process of its own."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    device = 0 if backend == "gloo" else rank
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=180))
+    try:
+        result = _ddp2_steps(dist.group.WORLD, rank, world)
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def _ddp2_spawn(backend, work):
+    """DDP2_WORLD rank processes of ``_ddp2_rank``, joined within 600 s
+    (killed past it); their results in rank order."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outs = [f"{work}/ddp2-{backend}-{r}.pt" for r in range(DDP2_WORLD)]
+    procs = [ctx.Process(target=_ddp2_rank,
+                         args=(r, DDP2_WORLD, backend,
+                               f"{work}/ddp2-{backend}-store", outs[r]))
+             for r in range(DDP2_WORLD)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + 600
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * DDP2_WORLD:
+        raise AssertionError(f"ddp-2 ranks over {backend} exited {codes}")
+    return [torch.load(out, weights_only=True) for out in outs]
+
+
+def _grad_gap(got, want):
+    """|got - want| / |want| over every tensor of ``want`` (gradients or
+    Adam moments), flattened together; and the three tensors whose
+    largest difference is the largest share of their largest
+    element."""
+    num = sum(float((got[n] - w).double().square().sum()) for n, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    worst = sorted(((float((got[n] - w).abs().max()) / float(w.abs().max()),
+                     n) for n, w in want.items()), reverse=True)[:3]
+    return (num / den) ** 0.5, worst
+
+
+def _ddp2_compare(label, ranks, one, yardstick):
+    """Each rank's losses within rel 2e-4 of the one-process run's; the
+    ranks' parameters, moments and BatchNorm statistics equal.  Against
+    the one-process run: the last step's reduced gradients and Adam's
+    ``exp_avg`` within 1e-2, |x - x_one| / |x_one| over all of them, and
+    ``exp_avg_sq`` within 2e-2 (quadratic in the gradients, so twice
+    their relative error).  The gradients are ill-conditioned in f32
+    here (a tensor's largest element moves by per cents between two
+    correct one-process runs, cuDNN on and off, ``yardstick``, printed
+    beside), while a MEAN where MIL-NCE needs the SUM moves the
+    gradients and ``exp_avg`` by 0.5 and ``exp_avg_sq`` by 0.75, and a
+    gradient left unreduced moves them by about 0.7.  Each BatchNorm
+    running mean and variance within 1e-5 + 1e-4 max|x| (sync BN makes
+    them the concatenated batch's; local BN parts the variances by the
+    spread between the shards' means).  The parameters within
+    1e-5 + 1e-4 max|p|, which at lr 1e-6 no run can miss (see
+    ``_ddp2_cfg``)."""
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], one["losses"]))
+    params = sorted(((float((ranks[0]["params"][n] - w).abs().max())
+                      / (1e-5 + 1e-4 * float(w.abs().max())), n)
+                     for n, w in one["params"].items()), reverse=True)
+    stats = sorted(((float((ranks[0]["stats"][n] - w).abs().max())
+                     / (1e-5 + 1e-4 * float(w.abs().max())), n)
+                    for n, w in one["stats"].items()), reverse=True)
+    same = all(torch.equal(r[key][n], ranks[0][key][n])
+               for r in ranks[1:]
+               for key in ("params", "stats", "exp_avg", "exp_avg_sq")
+               for n in one[key])
+    gaps = {key: (_grad_gap(ranks[0][key], one[key]),
+                  _grad_gap(yardstick[key], one[key]))
+            for key in ("grads", "exp_avg", "exp_avg_sq")}
+    limits = {"grads": 1e-2, "exp_avg": 1e-2, "exp_avg_sq": 2e-2}
+    log(f"  [{label}] losses {[r['losses'] for r in ranks]} against one "
+        f"process {one['losses']}: max rel diff {loss_err:.3e} (limit "
+        f"2e-4); ranks' parameters, moments and BN statistics equal: "
+        f"{same}")
+    log(f"  [{label}] BN running mean/var, worst |x - one| / limit "
+        f"{stats[0][0]:.3e} ({stats[0][1]}, {len(stats)} tensors); "
+        f"parameters {params[0][0]:.3e} ({params[0][1]}; vacuous at lr "
+        "1e-6)")
+    for key, ((gap, worst), (ygap, yworst)) in gaps.items():
+        log(f"  [{label}] {key}: |x - x_one| / |x_one| {gap:.3e} (limit "
+            f"{limits[key]:g}), worst tensors "
+            + ", ".join(f"{n} {e:.3e} of its max" for e, n in worst)
+            + f"; yardstick, one process with cuDNN off against on: "
+            f"{ygap:.3e}, worst "
+            + ", ".join(f"{n} {e:.3e}" for e, n in yworst))
+    if not (loss_err <= 2e-4 and params[0][0] <= 1.0 and stats[0][0] <= 1.0
+            and same and stats
+            and all(gaps[k][0][0] <= limits[k] for k in limits)
+            and all(set(one[k]) == set(ranks[0][k]) and one[k]
+                    for k in limits)):
+        raise AssertionError(f"ddp-2 over {label} differs from one process "
+                             "on the concatenated batch")
+
+
+def phase_ddp2(work):
+    """Two ranks on the one card over gloo with CUDA tensors (NCCL takes
+    one rank a device): the small model with sync BatchNorm and chunked
+    MIL-NCE on the kernels, DDP2_STEPS steps at Bg = 2 B_local, against
+    one process stepping the rank-order concatenation of the shards.
+    With two cards or more the same comparison runs over NCCL, one rank
+    a card."""
+    one = _ddp2_steps(None, 0, 1)
+    torch.backends.cudnn.enabled = False
+    try:
+        yardstick = _ddp2_steps(None, 0, 1)
+    finally:
+        torch.backends.cudnn.enabled = True
+    ranks = _ddp2_spawn("gloo", work)
+    cfg = _ddp2_cfg()
+    b = cfg.train.batch_size
+    log(f"  MIL-NCE kernels' launches in {DDP2_STEPS} steps at B_local "
+        f"{b // DDP2_WORLD}, Bg {b}: "
+        f"{[r['launches'] for r in ranks]} (one process, B = Bg = {b}: "
+        f"{one['launches']})")
+    if any(r["launches"] != {k: 2 * DDP2_STEPS for k in r["launches"]}
+           for r in ranks):
+        raise AssertionError("a MIL-NCE kernel missed its launches")
+    _ddp2_compare("gloo, 2 ranks on one card", ranks, one, yardstick)
+    if torch.cuda.device_count() >= DDP2_WORLD:
+        _ddp2_compare("nccl, a rank a card", _ddp2_spawn("nccl", work), one,
+                      yardstick)
+    else:
+        log(f"  nccl, a rank a card: not run ({torch.cuda.device_count()} "
+            "card visible)")
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "softdtw" in low:
         return "soft-DTW kernels"
     if "lse_" in low:
         return "milnce stream kernels"
+    if "nccl" in low:
+        return "collectives"
     if "conv" in low or "xmma" in low or "gemm" in low or "cudnn" in low \
             or "implicit" in low or "wgrad" in low or "dgrad" in low:
         return "convolution / matmul"
@@ -1134,10 +1432,11 @@ def _kernel_group(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def _profile_step(model, cfg):
+def _profile_step(model, cfg, group=None):
     """One more full-width train step under torch.profiler, after the
-    counted run (its launches are not in the counts): device time by
-    kernel group and the device's idle share of the step."""
+    counted run (its launches are not in the counts), over ``group``'s
+    ranks when given: device time by kernel group and the device's idle
+    share of the step, which it returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1147,7 +1446,8 @@ def _profile_step(model, cfg):
 
     optimizer, lr = build_optimizer(model, cfg.optim,
                                     build_schedule_total(cfg.optim, 100))
-    step = make_train_step(model, optimizer, cfg.loss, lr_scheduler=lr)
+    step = make_train_step(model, optimizer, cfg.loss, lr_scheduler=lr,
+                           group=group)
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = cfg.data
     video = torch.randint(0, 255, (TRAIN_BATCH, d.num_frames, d.video_size,
@@ -1176,12 +1476,14 @@ def _profile_step(model, cfg):
         grp = _kernel_group(evt.key)
         groups[grp] = groups.get(grp, 0.0) + dev
     busy = sum(groups.values())
+    idle = max(0.0, 1 - busy / (wall * 1e3))
     log(f"  profiled step: wall {wall * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+        f"{busy:.1f} ms, idle share {idle:.3f}")
     for grp, ms_ in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"    {grp:32s} {ms_:9.2f} ms  {ms_ / busy:.3f}")
     for dev, key, count in sorted(rows, reverse=True)[:12]:
         log(f"    top: {dev:9.2f} ms x{count:<4d} {key[:100]}")
+    return idle
 
 
 def main() -> int:
@@ -1199,6 +1501,13 @@ def main() -> int:
     card = phase_device()
     log("== build")
     phase_build()
+    if sys.argv[1:] == ["--ddp-2"]:
+        if torch.cuda.device_count() < DDP2_WORLD:
+            raise SystemExit(f"--ddp-2 needs {DDP2_WORLD} cards")
+        with tempfile.TemporaryDirectory() as work:
+            log("== ddp-2 (gloo on one card, nccl a rank a card)")
+            phase_ddp2(work)
+        return _finish(card, t0)
     log("== MIL-NCE kernels vs plain")
     worst = phase_parity()
     log("== MIL-NCE kernel timing")
@@ -1212,16 +1521,21 @@ def main() -> int:
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
     log("== train (full width, MIL-NCE)")
-    launches, train_sps = phase_train()
+    train = phase_train()
+    launches = train["launches"]
     log("== data alone (loader + prefetch, no step)")
     phase_data_alone()
     with tempfile.TemporaryDirectory() as work:
+        log("== ddp-1 (train-full through the distributed path, one rank)")
+        phase_ddp1(train, work)
+        log("== ddp-2 (two ranks on one card, sync BN, Bg = 2 B_local)")
+        phase_ddp2(work)
         log("== resume (full width, stopped at step 2, resumed to step 4)")
         ckpt_dir = phase_resume(work)
         log("== eval (msrvtt, full width, on the resumed checkpoint)")
         phase_eval(ckpt_dir, work)
     log("== cuDNN autotuning (measured only)")
-    phase_cudnn_benchmark(train_sps)
+    phase_cudnn_benchmark(train["sps"])
     log("== train (full width, sdtw_3)")
     sdtw_launches = phase_train_sdtw3()
     launches.update({k: sdtw_launches[k] for k in ("softdtw_fwd",
@@ -1231,6 +1545,10 @@ def main() -> int:
                     max_abs_err=worst[name], **times[name])
                for name in SOURCES]
     log(json.dumps({"kernels": kernels}))
+    return _finish(card, t0)
+
+
+def _finish(card, t0) -> int:
     log(f"card: {card}; total {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

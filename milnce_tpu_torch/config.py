@@ -93,7 +93,8 @@ class ModelConfig:
     word2vec_path: str = ""             # .npy/.npz table; '' = trainable-from-scratch table
     token_dict_path: str = ""           # dict.npy vocab for the tokenizer
     sync_batchnorm: bool = False        # cross-replica BN (original TPU run); False = local
-                                        # BN for parity with the GPU reference (README.md:13)
+                                        # BN for parity with the GPU reference (README.md:13);
+                                        # the port syncs over its ranks' group
     dtype: str = "float32"              # activation dtype ('bfloat16' for MXU speed)
     conv_impl: str = "native"           # 'native' 3D convs | 'fold2d' (same
                                         # math as 2D convs — layout XLA:TPU's
@@ -229,8 +230,11 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Mesh layout. Replaces NCCL/TCP rendezvous + mp.spawn (main_distributed.py:50-75)
-    with `jax.distributed.initialize` + one GSPMD program over a named mesh."""
+    """Mesh layout in the JAX package.  The port reads platform, the
+    coordinator knobs, num_devices and its own group_timeout_s: one
+    process a rank, joined in a torch.distributed group
+    (parallel/dist.py), as the reference's NCCL/TCP rendezvous
+    (main_distributed.py:50-75) did."""
 
     data_axis: str = "data"             # batch-sharded axis (DP + global negatives)
     model_axis: Optional[str] = None    # FSDP/model axis: set (with
@@ -258,23 +262,34 @@ class ParallelConfig:
                                         # backward) instead of one fused
                                         # terminal psum; the 1-D step keeps
                                         # its pinned fused reduction
-    coordinator_address: Optional[str] = None   # multi-host bootstrap (None = single host)
+    coordinator_address: Optional[str] = None   # the port's process-group
+                                        # rendezvous: 'host:port' (TCP) or a
+                                        # tcp:// or file:// URL, with
+                                        # num_processes (world size) and
+                                        # process_id (rank).  None = the
+                                        # torchrun environment (RANK,
+                                        # WORLD_SIZE, LOCAL_RANK) if set,
+                                        # else one process, no group
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
     platform: str = "cuda"              # torch device the trainer runs on:
-                                        # 'cuda' (default) | 'cpu' (hermetic
-                                        # runs and tests)
-    num_devices: int = 0                # build the mesh over the FIRST N
-                                        # local devices only (0 = all) —
-                                        # how an elastic resume boots a
-                                        # SMALLER mesh on the same host
-                                        # (8-way -> 4-way; MIGRATING.md
-                                        # "Checkpoint resharding") and how
-                                        # tests shape-change in one
-                                        # process.  Multi-host capacity
-                                        # changes use num_processes
-                                        # instead; both reshard through
-                                        # the same restore-template path.
+                                        # 'cuda' (default; NCCL between
+                                        # ranks, rank r on cuda:LOCAL_RANK)
+                                        # | 'cpu' (gloo; hermetic runs and
+                                        # tests)
+    num_devices: int = 0                # 0 = every rank of the run; else
+                                        # the port refuses a count past the
+                                        # visible devices (CUDA: the cards;
+                                        # CPU: the ranks) or other than its
+                                        # world size (one rank a device).
+                                        # The JAX package builds its mesh
+                                        # over the FIRST N local devices.
+    group_timeout_s: float = 7200.0     # the port's process group: how
+                                        # long a collective or barrier
+                                        # waits before the run fails.  Rank
+                                        # 0's in-training eval runs while
+                                        # the other ranks wait at a
+                                        # barrier, so it must fit in here
 
 
 @dataclass

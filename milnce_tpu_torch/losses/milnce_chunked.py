@@ -6,19 +6,25 @@ The loss needs only per-row and per-column logsumexps of the cube.
 a backward that recomputes the logits, so nothing O(B * Bg * K) is held.
 ``loss.milnce_backend`` picks the stream: ``scan`` the plain PyTorch
 twin, ``cuda`` the hand kernels, ``auto`` the kernels for CUDA tensors
-and the plain twin for CPU tensors.  Semantics are identical to
-:func:`milnce_tpu_torch.losses.milnce.milnce_loss`.
+and the plain twin for CPU tensors.  The kernels take D <=
+``STREAM_DMAX``; past it a run on the card is refused when it is built
+(``train/loop.py::check_config``).  Semantics are identical to
+:func:`milnce_tpu_torch.losses.milnce.milnce_loss`, across ranks too:
+the stream runs the local rows and columns against the gathered arrays.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from milnce_tpu_torch.config import MILNCE_BACKENDS
-from milnce_tpu_torch.losses.milnce import check_single_device, milnce_loss
+from milnce_tpu_torch.losses.milnce import milnce_loss
 from milnce_tpu_torch.ops.milnce_stream import (milnce_stream,
                                                 milnce_stream_cuda,
                                                 milnce_stream_plain)
+from milnce_tpu_torch.parallel.dist import (all_gather_tiled,
+                                            psum_identity_grad)
 
 MILNCE_IMPLS = ("dense", "chunked", "auto")
 _STREAMS = {"auto": milnce_stream, "scan": milnce_stream_plain,
@@ -47,32 +53,39 @@ def prefers_chunked(b_local: int, b_global: int, k: int) -> bool:
     return 4 * b_local * b_global * k * 4 > DENSE_CUBE_BUDGET_BYTES
 
 
-def resolve_impl(impl: str, b: int, k: int) -> str:
-    """impl 'auto' -> 'chunked' or 'dense' by :func:`prefers_chunked` for a
-    batch of ``b`` clips of ``k`` captions; any other impl as it is."""
+def resolve_impl(impl: str, b_local: int, b_global: int, k: int) -> str:
+    """impl 'auto' -> 'chunked' or 'dense' by :func:`prefers_chunked` for
+    ``b_local`` clips of ``k`` captions a rank scored against
+    ``b_global`` gathered ones; any other impl as it is."""
     if impl == "auto":
-        return "chunked" if prefers_chunked(b, b, k) else "dense"
+        return ("chunked" if prefers_chunked(b_local, b_global, k)
+                else "dense")
     return impl
 
 
-def stream_on_kernels(loss_cfg, batch: int, k: int, device_type: str) -> bool:
-    """Whether MIL-NCE under ``loss_cfg``, on batches of ``batch`` clips of
-    ``k`` captions each held on a ``device_type`` device, streams on the
-    CUDA kernels: impl ``chunked`` (or ``auto`` past the dense budget) with
-    backend ``cuda``, or ``auto`` on a CUDA device."""
+def milnce_route(loss_cfg, b_local: int, b_global: int, k: int,
+                 device_type: str) -> str:
+    """Where MIL-NCE under ``loss_cfg`` runs for ``b_local`` clips of
+    ``k`` captions against ``b_global`` gathered clips held on a
+    ``device_type`` device: 'dense', or the stream it takes, 'cuda' (the
+    kernels) or 'scan' (the plain twin).  Backend ``auto`` takes the
+    kernels on a CUDA device, the plain twin elsewhere."""
     impl = getattr(loss_cfg, "milnce_impl", "dense") or "dense"
     backend = getattr(loss_cfg, "milnce_backend", "auto") or "auto"
-    return resolve_impl(impl, batch, k) == "chunked" and (
-        backend == "cuda" or (backend == "auto" and device_type == "cuda"))
+    if resolve_impl(impl, b_local, b_global, k) == "dense":
+        return "dense"
+    if backend == "auto":
+        return "cuda" if device_type == "cuda" else "scan"
+    return backend
 
 
 def milnce_loss_chunked(video_embd: torch.Tensor, text_embd: torch.Tensor,
                         group=None, chunk: int = 0,
                         backend: str = "auto") -> torch.Tensor:
     """MIL-NCE with the cube streamed.  video_embd (B, D), text_embd
-    (B*K, D) sample-major; ``chunk`` global samples per block of the
-    plain stream (0 = :func:`milnce_default_chunk`)."""
-    check_single_device(group)
+    (B*K, D) sample-major; ``group`` the ranks to gather negatives over
+    (None = this process alone); ``chunk`` global samples per block of
+    the plain stream (0 = :func:`milnce_default_chunk`)."""
     if backend not in MILNCE_BACKENDS:
         raise ValueError(f"unknown milnce backend {backend!r} (expected "
                          f"one of {', '.join(MILNCE_BACKENDS)})")
@@ -81,7 +94,11 @@ def milnce_loss_chunked(video_embd: torch.Tensor, text_embd: torch.Tensor,
         raise ValueError(f"text rows {text_embd.shape[0]} are not a multiple "
                          f"of the video batch {b}")
     k = text_embd.shape[0] // b
-    v_all, t_all = video_embd, text_embd
+    if group is None:
+        v_all, t_all = video_embd, text_embd
+    else:
+        v_all = all_gather_tiled(video_embd, group)
+        t_all = all_gather_tiled(text_embd, group)
     b_global = v_all.shape[0]
     if chunk <= 0:
         chunk = milnce_default_chunk(b, k, b_global)
@@ -95,12 +112,16 @@ def milnce_loss_chunked(video_embd: torch.Tensor, text_embd: torch.Tensor,
     # column half: lse over (Bg, K) = lse over K of the per-(i, k) lse
     col_lse = torch.logsumexp(col_flat.reshape(b, k), dim=1)
     denominator = torch.logaddexp(row_lse, col_lse)
-    return (denominator - numerator).sum() / b_global
+    local_sum = (denominator - numerator).sum()
+    if group is not None:
+        local_sum = psum_identity_grad(local_sum, group)
+    return local_sum / b_global
 
 
-def build_milnce_loss(loss_cfg):
-    """LossConfig -> ``fn(video_embd, text_embd)``; bad knob values fail
-    here, before any model runs."""
+def build_milnce_loss(loss_cfg, group=None):
+    """LossConfig -> ``fn(video_embd, text_embd)`` over the ranks of
+    ``group`` (None = this process alone); bad knob values fail here,
+    before any model runs."""
     impl = getattr(loss_cfg, "milnce_impl", "dense") or "dense"
     chunk = int(getattr(loss_cfg, "milnce_chunk", 0) or 0)
     backend = getattr(loss_cfg, "milnce_backend", "auto") or "auto"
@@ -110,12 +131,14 @@ def build_milnce_loss(loss_cfg):
     if backend not in MILNCE_BACKENDS:
         raise ValueError(f"unknown loss.milnce_backend {backend!r} "
                          f"(expected one of {', '.join(MILNCE_BACKENDS)})")
+    world = 1 if group is None else dist.get_world_size(group)
 
     def loss_fn(video_embd, text_embd):
         b = video_embd.shape[0]
-        if resolve_impl(impl, b, text_embd.shape[0] // b) == "dense":
-            return milnce_loss(video_embd, text_embd)
-        return milnce_loss_chunked(video_embd, text_embd, chunk=chunk,
+        k = text_embd.shape[0] // b
+        if resolve_impl(impl, b, b * world, k) == "dense":
+            return milnce_loss(video_embd, text_embd, group)
+        return milnce_loss_chunked(video_embd, text_embd, group, chunk=chunk,
                                    backend=backend)
 
     return loss_fn

@@ -3,7 +3,9 @@
 
 A ``.npy``/``.npz`` word table is loaded only when its path exists, as
 in the JAX package; otherwise the table is random at the configured
-vocabulary size.
+vocabulary size.  ``model.sync_batchnorm`` syncs every BatchNorm's
+train-mode statistics over the ranks of the run's group, as the JAX
+factory's ``bn_axis_name`` does; without a group it changes nothing.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from milnce_tpu_torch.config import ModelConfig
 from milnce_tpu_torch.models.initializers import init_weights
-from milnce_tpu_torch.models.s3dg import S3D
+from milnce_tpu_torch.models.s3dg import S3D, BatchNorm3d
 
 
 def load_word2vec_table(path: str) -> np.ndarray:
@@ -29,9 +31,10 @@ def load_word2vec_table(path: str) -> np.ndarray:
     return np.load(path)
 
 
-def build_model(cfg: ModelConfig, seed: int = 0) -> S3D:
+def build_model(cfg: ModelConfig, seed: int = 0, group=None) -> S3D:
     """Build the S3D on the CPU with weights drawn from ``seed``; the
-    caller moves it to its device."""
+    caller moves it to its device.  ``group``: the ranks that sync
+    BatchNorm under ``cfg.sync_batchnorm``."""
     if cfg.dtype != "float32":
         raise ValueError(f"model.dtype={cfg.dtype!r}: the torch port runs "
                          "float32 only")
@@ -56,4 +59,14 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> S3D:
         with torch.no_grad():
             model.text_module.word_embd.weight.copy_(
                 torch.from_numpy(np.asarray(table, np.float32)))
+    if cfg.sync_batchnorm:
+        sync_batchnorm(model, group)
     return model
+
+
+def sync_batchnorm(model: S3D, group) -> None:
+    """Take every BatchNorm's train-mode statistics over ``group``'s
+    ranks (None = this process's batch alone)."""
+    for module in model.modules():
+        if isinstance(module, BatchNorm3d):
+            module.group = group

@@ -27,11 +27,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from milnce_tpu_torch.models.conv3d import Conv3D
 from milnce_tpu_torch.models.text import SentenceEmbedding
+from milnce_tpu_torch.parallel.dist import all_reduce_sum
 
 
 def _triple(v) -> tuple:
@@ -47,22 +49,49 @@ class BatchNorm3d(nn.BatchNorm3d):
 
     Train mode normalizes with the batch's biased statistics (as torch
     does) and folds the *biased* variance into ``running_var`` (torch
-    folds the unbiased one).  Eval mode is torch's."""
+    folds the unbiased one).  Eval mode is torch's.
+
+    ``group`` (set by ``models/build.py`` under ``model.sync_batchnorm``)
+    takes the train-mode statistics over the batches of every rank, as
+    the JAX model's ``bn_axis_name`` does: two-pass, the global mean
+    first, then the global centred sum of squares, each an all-reduce
+    whose backward sums the cotangents.  ``nn.SyncBatchNorm`` is not
+    used: it folds the unbiased variance."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._forward_synced(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias,
                            training=True, eps=self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._fold(mean, var)
         return out
+
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        dims = (0, 2, 3, 4)
+        count = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        mean = all_reduce_sum(x.sum(dim=dims), self.group) / count
+        centred = x - mean[None, :, None, None, None]
+        var = all_reduce_sum((centred * centred).sum(dim=dims),
+                             self.group) / count
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (centred * scale[None, :, None, None, None]
+               + self.bias[None, :, None, None, None])
+        with torch.no_grad():
+            self._fold(mean, var)
+        return out
+
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 class SelfGating(nn.Module):

@@ -26,7 +26,8 @@ the JAX stream's chunk layout (blocks of ``chunk`` gathered samples,
 zero-padded to whole chunks, padded logits masked to ``-BIG``); the
 kernels tile columns their own way, so the two agree up to summation
 order.  :func:`milnce_stream` takes the plain version only for CPU
-tensors; for CUDA tensors it launches the kernels or raises.
+tensors; for CUDA tensors it launches the kernels or raises (a depth
+past :data:`STREAM_DMAX` is refused before any launch).
 
 ``LAUNCHES`` counts kernel launches, one per launch, so a run can show
 that it went through the kernels.

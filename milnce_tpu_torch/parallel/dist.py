@@ -1,0 +1,224 @@
+"""Process groups and the differentiable collectives of data parallelism
+(port of ``milnce_tpu/parallel/mesh.py::initialize_distributed``,
+``parallel/compat.py::psum_with_identity_grad`` and the
+``lax.all_gather(..., tiled=True)`` of the losses).
+
+One process a rank, as ``torchrun`` launches them.  The JAX package runs
+one SPMD program over a mesh axis; here every rank runs the same step on
+its shard of the global batch, and the collectives below stand where the
+JAX step has its mesh-axis collectives.  Their backward passes are the
+transposes JAX takes:
+
+- :func:`all_gather_tiled` -- forward: the ranks' tensors concatenated
+  along dim 0 in rank order.  Backward: the cotangent SUMMED over the
+  ranks, then this rank's slice (a reduce-scatter, the transpose of
+  ``lax.all_gather``).  Every rank's loss reads every rank's embeddings,
+  so a backward that kept only the local slice of the local cotangent
+  would drop the cross-rank terms.
+- :func:`psum_identity_grad` -- forward: the sum over the ranks.
+  Backward: the identity, so each rank differentiates its own term.
+- :func:`all_reduce_sum` -- forward: the sum over the ranks; backward:
+  the sum of the cotangents (sync BatchNorm's statistics).
+
+Each collective is ``all_gather`` or ``all_reduce``, which every backend
+takes on CPU and CUDA tensors alike (gloo included).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from datetime import timedelta
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place in the run: ``group`` is None on the
+    single-process path, where every collective is skipped."""
+    group: Optional[object] = None
+    rank: int = 0
+    world: int = 1
+    local_rank: int = 0
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def close(self) -> None:
+        """Destroy the group this run created."""
+        if self.group is not None:
+            dist.destroy_process_group(self.group)
+
+
+def _init_method(address: str) -> str:
+    """``parallel.coordinator_address`` -> an ``init_method``: a bare
+    ``host:port`` is TCP; a URL (``tcp://`` or ``file://``) is taken as
+    it is."""
+    return address if "://" in address else f"tcp://{address}"
+
+
+def _source(cfg) -> Optional[tuple]:
+    """(init_method, world, rank, local_rank) from the config's
+    coordinator knobs or the ``torchrun`` environment; None when neither
+    names a group."""
+    if cfg.coordinator_address:
+        if cfg.num_processes is None or cfg.process_id is None:
+            raise ValueError("parallel.coordinator_address needs "
+                             "parallel.num_processes and parallel.process_id")
+        world, rank = int(cfg.num_processes), int(cfg.process_id)
+        if not 0 <= rank < world:
+            raise ValueError(f"parallel.process_id={rank} outside the "
+                             f"{world} processes")
+        local = os.environ.get("LOCAL_RANK")
+        if local is not None:
+            local_rank = int(local)
+        elif cfg.platform == "cuda" and torch.cuda.is_available():
+            local_rank = rank % torch.cuda.device_count()
+        else:
+            local_rank = 0
+        return _init_method(cfg.coordinator_address), world, rank, local_rank
+    if all(name in os.environ for name in _TORCHRUN_ENV):
+        return ("env://", int(os.environ["WORLD_SIZE"]),
+                int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"]))
+    return None
+
+
+def _check_num_devices(cfg, world: int) -> None:
+    """``parallel.num_devices`` (0 = every rank of the run) must not pass
+    the devices there are (CUDA: the visible cards; CPU: the ranks) and
+    must equal the run's world size: the port has one rank a device."""
+    n = int(cfg.num_devices or 0)
+    if not n:
+        return
+    visible = torch.cuda.device_count() if cfg.platform == "cuda" else world
+    if n > visible:
+        raise ValueError(f"parallel.num_devices={n} exceeds the {visible} "
+                         "visible devices")
+    if n != world:
+        raise ValueError(f"parallel.num_devices={n} differs from the run's "
+                         f"{world} ranks (one rank a device)")
+
+
+def initialize_distributed(cfg) -> Ranks:
+    """Join the process group that ``cfg`` (a ParallelConfig) or the
+    ``torchrun`` environment names, on NCCL for ``platform cuda`` and gloo
+    for ``cpu``; with neither source, no group (:class:`Ranks` of one
+    process).  A CUDA rank takes the device ``cuda:<local rank>``.  NCCL
+    that does not come up raises: there is no fallback to gloo or the
+    CPU.  ``parallel.num_devices`` is checked before any group forms.
+    A collective or barrier of the group fails after
+    ``parallel.group_timeout_s``: long enough for rank 0's in-training
+    eval, which the other ranks wait out at a barrier."""
+    source = _source(cfg)
+    _check_num_devices(cfg, source[1] if source else 1)
+    if source is None:
+        return Ranks()
+    init_method, world, rank, local_rank = source
+    if cfg.platform == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("parallel.platform=cuda but no CUDA device is "
+                               "visible (use --parallel.platform cpu)")
+        torch.cuda.set_device(local_rank)
+        backend = "nccl"
+    elif cfg.platform == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"unknown parallel.platform {cfg.platform!r} "
+                         "(expected cuda | cpu)")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=cfg.group_timeout_s))
+    return Ranks(dist.group.WORLD, rank, world, local_rank)
+
+
+# ------------------------------------------------ differentiable collectives
+def _gather_cat(x: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.rows = x.shape[0]
+        return _gather_cat(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.rows
+        return grad[start:start + ctx.rows], None
+
+
+def all_gather_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, ...) on every rank -> (W*B, ...) in rank order; the backward
+    sums the cotangent over the ranks and returns this rank's slice."""
+    return _AllGatherTiled.apply(x, group)
+
+
+class _PsumIdentityGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum_identity_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks, whose gradient is that of the local term."""
+    return _PsumIdentityGrad.apply(x, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ranks; the backward sums the cotangents, since
+    every rank's term reads the sum."""
+    return _AllReduceSum.apply(x, group)
+
+
+# ------------------------------------------------------ the step's reductions
+def all_reduce_flat(tensors: list, group, mean: bool = False) -> None:
+    """Sum (or average) ``tensors`` over the ranks in place, through one
+    flat buffer: one collective, as the JAX 1-D step's fused psum."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat /= dist.get_world_size(group)
+    offset = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n

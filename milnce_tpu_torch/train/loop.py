@@ -1,15 +1,24 @@
 """Training loop (a slim port of ``milnce_tpu/train/loop.py``).
 
-Builds the model from the seed (or loads ``train.pretrain_ckpt``), resumes
-from the newest checkpoint of ``checkpoint_root/checkpoint_dir`` with
-``train.resume``, draws batches through ``ShardedLoader`` and
-``device_prefetch``, runs ``train.max_steps`` optimizer steps (or all
-epochs) and prints the JAX loop's display line every ``n_display``
-steps.  It saves a checkpoint at each epoch boundary (label ``epoch +
-1``) and at ``max_steps``, and keeps the JAX loop's finite-guard window,
-circuit breaker (roll back to the newest checkpoint) and divergence halt
-(with a post-mortem save).  With ``train.evaluate`` it scores
-``train.eval_task`` every ``max(1, batch_size // 512)`` epochs.
+Joins the run's process group (``parallel.coordinator_address`` or the
+``torchrun`` environment; none for a single process), builds the model
+from the seed (or loads ``train.pretrain_ckpt``), resumes from the
+newest checkpoint of ``checkpoint_root/checkpoint_dir`` with
+``train.resume``, draws this rank's shard of every global batch through
+``ShardedLoader`` and ``device_prefetch``, runs ``train.max_steps``
+optimizer steps (or all epochs) and prints the JAX loop's display line
+every ``n_display`` steps.  It saves a checkpoint at each epoch boundary
+(label ``epoch + 1``) and at ``max_steps``, and keeps the JAX loop's
+finite-guard window, circuit breaker (roll back to the newest
+checkpoint) and divergence halt (with a post-mortem save).  With
+``train.evaluate`` it scores ``train.eval_task`` every ``max(1,
+batch_size // 512)`` epochs.  With ``train.verbose`` the messages also
+go to ``<log_root>/<checkpoint_dir>.log``, the display windows to its
+``.jsonl`` twin.
+
+Across ranks, rank 0 logs, saves the checkpoints and runs the eval while
+the others wait at a barrier; every rank restores on resume and on a
+rollback.  Losses, skips and the displayed clips/s are global.
 Goodput, curriculum, elastic drain and observability are not ported yet.
 
 Precision: the JAX towers run in f32, so TF32 is switched off for both
@@ -25,6 +34,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from milnce_tpu_torch.config import Config
 from milnce_tpu_torch.data.datasets import HowTo100MSource, build_tokenizer
@@ -34,14 +44,16 @@ from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
 from milnce_tpu_torch.data.video import FakeDecoder
 from milnce_tpu_torch.eval.metrics import format_metrics
 from milnce_tpu_torch.eval.runner import EVAL_TASKS, evaluate_task
-from milnce_tpu_torch.losses.milnce_chunked import stream_on_kernels
+from milnce_tpu_torch.losses.milnce_chunked import milnce_route
 from milnce_tpu_torch.models.build import build_model
 from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
+from milnce_tpu_torch.parallel.dist import Ranks, initialize_distributed
 from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
                                                load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.train.step import make_train_step
+from milnce_tpu_torch.utils.logging import RunLogger
 from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 
 # Knobs of the reference loop that this loop does not read yet, as dotted
@@ -51,33 +63,41 @@ UNPORTED_KNOBS = (
     "train.grad_accum", "train.faults", "train.curriculum",
     "train.trace_dir", "train.obs_dir", "train.capture_dir",
     "train.drain_signal_file", "data.use_native_reader",
-    "parallel.model_axis", "parallel.model_parallel_size",
-    "parallel.coordinator_address", "parallel.num_processes",
-    "parallel.process_id")
+    "parallel.model_axis", "parallel.model_parallel_size")
 
 
-def check_config(cfg: Config, device_type: str) -> None:
-    """Refuse, before anything is built, what a run on ``device_type``
-    would not honour: every knob of :data:`UNPORTED_KNOBS` set away from
-    its default, an unknown ``train.eval_task`` when evaluating, and an
-    embedding wider than the MIL-NCE stream kernels take when the loss
-    would stream on them."""
+def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
+    """Refuse, before anything is built, what a run of ``world`` ranks on
+    ``device_type`` would not honour: every knob of
+    :data:`UNPORTED_KNOBS` set away from its default, a global batch that
+    does not split over the ranks, an unknown ``train.eval_task`` when
+    evaluating, and an embedding wider than the MIL-NCE stream kernels
+    take when the loss would stream on them (backend ``cuda``, or
+    ``auto`` on a CUDA device: the kernels do not tile D yet)."""
     default = Config()
     unported = [name for name in UNPORTED_KNOBS
                 if _knob(cfg, name) != _knob(default, name)]
     if unported:
         raise ValueError(f"not ported yet: {', '.join(unported)} (leave "
                          "them at their defaults)")
+    b_global = cfg.train.batch_size
+    if b_global % world:
+        raise ValueError(f"train.batch_size={b_global} does not split over "
+                         f"{world} ranks")
     if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
         raise ValueError(f"unknown train.eval_task {cfg.train.eval_task!r}; "
                          f"expected one of {'|'.join(EVAL_TASKS)}")
     if (cfg.loss.name == "milnce" and cfg.model.embedding_dim > STREAM_DMAX
-            and stream_on_kernels(cfg.loss, cfg.train.batch_size,
-                                  cfg.data.num_candidates, device_type)):
+            and milnce_route(cfg.loss, b_global // world, b_global,
+                             cfg.data.num_candidates, device_type) == "cuda"):
         raise ValueError(
             f"model.embedding_dim={cfg.model.embedding_dim}: the MIL-NCE "
-            f"stream kernels take D <= {STREAM_DMAX}; use loss.milnce_impl "
-            "dense")
+            f"stream kernels take D <= {STREAM_DMAX}; use "
+            "loss.milnce_impl dense")
+
+
+_ROUTES = {"dense": "dense cubes", "cuda": "streamed on the CUDA kernels",
+           "scan": "streamed on the plain PyTorch stream"}
 
 
 def _knob(cfg: Config, name: str):
@@ -93,6 +113,7 @@ class TrainResult:
                                 # non-finite gradients
     rollbacks: int = 0          # circuit-breaker checkpoint restores
     model: Optional[torch.nn.Module] = None
+    rank: int = 0               # this process's rank in the run
 
 
 def disable_tf32() -> str:
@@ -104,15 +125,18 @@ def disable_tf32() -> str:
             f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
 
-def resolve_device(platform: str) -> torch.device:
+def resolve_device(platform: str, ranks: Ranks = Ranks()) -> torch.device:
     """``parallel.platform`` -> torch device; 'cuda' refuses to run
-    without a card instead of falling back to the CPU."""
+    without a card instead of falling back to the CPU.  A rank of a
+    group runs on ``cuda:<local rank>``."""
     if platform == "cpu":
         return torch.device("cpu")
     if platform == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("parallel.platform=cuda but no CUDA device is "
                                "visible (use --parallel.platform cpu)")
+        if ranks.group is not None:
+            return torch.device("cuda", ranks.local_rank)
         return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown parallel.platform {platform!r} "
                      "(expected cuda | cpu)")
@@ -168,20 +192,66 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     """Train for ``cfg.train.max_steps`` steps of this run (None = to the
     last epoch).  ``on_step(step, seconds, loss, data_wait)`` is called
     after each step with its global step number, the host time the step
-    took, synchronized with the device, its loss, and the host time the
-    loop was blocked waiting for the step's batch."""
+    took, synchronized with the device, its (global) loss, and the host
+    time the loop was blocked waiting for the step's batch.  ``log`` gets
+    rank 0's messages.  A group this call joins is left before it
+    returns."""
+    ranks = initialize_distributed(cfg.parallel)
+    try:
+        check_config(cfg, cfg.parallel.platform, ranks.world)
+        runlog = RunLogger(cfg.train.log_root, cfg.train.checkpoint_dir,
+                           enabled=ranks.is_main and cfg.train.verbose,
+                           echo=log)
+        try:
+            say = (runlog.log if runlog.enabled
+                   else log if ranks.is_main else _quiet)
+            return _train(cfg, ranks, say, runlog, on_step)
+        finally:
+            runlog.close()
+    finally:
+        ranks.close()
+
+
+def _quiet(_message: str) -> None:
+    """The log of a rank other than 0."""
+
+
+def _open_checkpoints(ckpt_dir: str, cfg: Config,
+                      ranks: Ranks) -> CheckpointManager:
+    """Rank 0 opens (and makes) the directory it alone writes; the other
+    ranks open it read-only once it exists, to restore from it."""
+    manager = (CheckpointManager(ckpt_dir, keep=cfg.train.checkpoint_keep,
+                                 save_retries=cfg.train.checkpoint_save_retries)
+               if ranks.is_main else None)
+    ranks.barrier()
+    return manager or CheckpointManager(ckpt_dir, create=False)
+
+
+def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
+           on_step) -> TrainResult:
     log(disable_tf32())
-    check_config(cfg, cfg.parallel.platform)
-    device = resolve_device(cfg.parallel.platform)
-    model = build_model(cfg.model, seed=cfg.train.seed)
+    device = resolve_device(cfg.parallel.platform, ranks)
+    if ranks.group is not None:
+        log(f"process group: {ranks.world} ranks on "
+            f"{dist.get_backend(ranks.group)}")
+    b_global = cfg.train.batch_size
+    b_local = b_global // ranks.world
+    if cfg.loss.name == "milnce":
+        k, d = cfg.data.num_candidates, cfg.model.embedding_dim
+        route = milnce_route(cfg.loss, b_local, b_global, k, device.type)
+        log(f"MIL-NCE: {_ROUTES[route]} (B_local {b_local}, Bg {b_global}, "
+            f"K {k}, D {d})")
+    model = build_model(cfg.model, seed=cfg.train.seed, group=ranks.group)
     if cfg.train.pretrain_ckpt:
         # reference weights (main_distributed.py:81-83)
         load_reference_checkpoint(model, cfg.train.pretrain_ckpt)
         log(f"loaded pretrained weights from {cfg.train.pretrain_ckpt}")
     model.to(device)
     source = build_source(cfg, log_fn=log)
-    loader = ShardedLoader(source, cfg.train.batch_size, seed=cfg.train.seed,
+    loader = ShardedLoader(source, b_global, seed=cfg.train.seed,
                            num_threads=cfg.data.num_reader_threads,
+                           process_index=ranks.rank,
+                           process_count=ranks.world,
                            lookahead_batches=cfg.data.decode_lookahead,
                            sample_timeout=cfg.data.sample_timeout,
                            timeout_retries=cfg.data.sample_timeout_retries,
@@ -195,12 +265,11 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     optimizer, lr_scheduler = build_optimizer(model, cfg.optim, schedule)
     step_fn = make_train_step(model, optimizer, cfg.loss,
                               finite_guard=cfg.train.finite_guard,
-                              lr_scheduler=lr_scheduler)
+                              lr_scheduler=lr_scheduler, group=ranks.group)
 
     ckpt_dir = os.path.join(cfg.train.checkpoint_root,
                             cfg.train.checkpoint_dir or "run")
-    manager = CheckpointManager(ckpt_dir, keep=cfg.train.checkpoint_keep,
-                                save_retries=cfg.train.checkpoint_save_retries)
+    manager = _open_checkpoints(ckpt_dir, cfg, ranks)
     start_epoch = resume_step = 0
     if cfg.train.resume:
         start_epoch, state = manager.restore_latest(map_location=device)
@@ -216,6 +285,11 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     def snapshot(epoch_label: int) -> dict:
         return train_state(model, optimizer, lr_scheduler, opt_step,
                            epoch_label)
+
+    def save(label: int, force: bool = False) -> None:
+        if ranks.is_main:
+            manager.save(label, snapshot(label), force=force)
+        ranks.barrier()
 
     # The finite guard's display window, as the JAX loop keeps it: a
     # skipped step's loss stays out of the sum and the count, a window
@@ -234,7 +308,9 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     for epoch in range(start_epoch, cfg.optim.epochs):
         if (cfg.train.evaluate and cfg.data.eval_video_root
                 and epoch % eval_every == 0):
-            _in_training_eval(cfg, model, device, log)
+            if ranks.is_main:
+                _in_training_eval(cfg, model, device, log)
+            ranks.barrier()
         prefetch = device_prefetch(loader.epoch(epoch, skip_batches=offset),
                                    device, depth=cfg.data.prefetch_depth)
         offset = 0                  # a resume's offset applies once
@@ -266,11 +342,17 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                 mean_loss = float(running) / valid if valid else math.nan
                 elapsed = time.perf_counter() - window_t0
                 progress = ((opt_step - 1) % steps_per_epoch + 1) / steps_per_epoch
+                clips_per_s = window * b_global / elapsed
                 log(f"Epoch {epoch + 1}, Elapsed Time: "
                     f"{time.time() - tick:.3f}, Epoch status: "
                     f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
                     f"Learning rate: {schedule(opt_step):.6f}, Throughput: "
-                    f"{window * cfg.train.batch_size / elapsed:.1f} clips/s")
+                    f"{clips_per_s:.1f} clips/s")
+                runlog.log_event({"event": "display", "epoch": epoch + 1,
+                                  "step": opt_step, "loss": mean_loss,
+                                  "lr": schedule(opt_step),
+                                  "clips_per_s": clips_per_s,
+                                  "skipped": skipped})
                 # A guarded window with no applied update is NaN by
                 # construction: that is the breaker's case, not the
                 # divergence halt's.  The halt saves the state apart from
@@ -278,8 +360,10 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                 # otherwise hand the poisoned weights back from.
                 if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
                         and not (guard_on and math.isnan(mean_loss))):
-                    CheckpointManager(os.path.join(ckpt_dir, "nan_postmortem"),
-                                      keep=1).save(opt_step, snapshot(epoch))
+                    if ranks.is_main:
+                        CheckpointManager(
+                            os.path.join(ckpt_dir, "nan_postmortem"),
+                            keep=1).save(opt_step, snapshot(epoch))
                     log(f"non-finite training loss ({mean_loss}) — "
                         "post-mortem state saved under "
                         f"nan_postmortem/{opt_step}; halting")
@@ -305,11 +389,12 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
                 prefetch.close()
                 label, force = stop_save_label(epoch, opt_step,
                                                steps_per_epoch)
-                manager.save(label, snapshot(label), force=force)
+                save(label, force=force)
                 return TrainResult(steps, float(last), skipped, rollbacks,
-                                   model)
-        manager.save(epoch + 1, snapshot(epoch + 1))
-    return TrainResult(steps, float(last), skipped, rollbacks, model)
+                                   model, ranks.rank)
+        save(epoch + 1)
+    return TrainResult(steps, float(last), skipped, rollbacks, model,
+                       ranks.rank)
 
 
 def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,

@@ -1,5 +1,5 @@
 """The train step and the embedding functions (port of
-``milnce_tpu/train/step.py``, single device).
+``milnce_tpu/train/step.py``, the 1-D data-parallel step).
 
 A step takes the uint8 ``(B, T, H, W, 3)`` clip, the ``(B*K, W)`` token
 ids and the ``(B,)`` f32 clip start times already on the device, divides
@@ -8,15 +8,29 @@ backward, then the optimizer.  ``loss.name`` picks the loss: ``milnce``
 scores pooled embeddings; the DTW family (``cdtw``, ``sdtw_cidm``,
 ``sdtw_negative``, ``sdtw_3``) runs the model with ``mode="sequence"``
 and scores the (B, T', D) video sequences against the (B, K, D)
-candidate-text sequences; only ``sdtw_cidm`` reads ``start``.  On one
-device the JAX step's gather is the identity and its ``pmean`` of the
-replicated DTW loss's gradients too, so the gradients are autograd's.
+candidate-text sequences; only ``sdtw_cidm`` reads ``start``.
 
-With the finite guard on, a non-finite gradient keeps the parameters,
-the Adam moments and the BatchNorm statistics as they were and the
-schedule does not advance; the caller's step count still does, as in the
-JAX step.  Multi-device data parallelism, FSDP, grad-cache and
-``inner_steps`` are not ported yet.
+Across the ranks of a ``group`` each rank steps its shard of the global
+batch, as the JAX step's ``shard_map`` body does:
+
+- MIL-NCE gathers the embeddings and scores the local rows and columns;
+  its value is the sum over the ranks with the gradient of the local
+  term, so the gradients are SUMMED over the ranks (JAX ``psum``).  The
+  DTW family gathers the sequences and start times and scores the whole
+  gathered batch on every rank, a replicated loss whose gradient reaches
+  each rank once from every rank's copy, so the gradients are AVERAGED
+  (JAX ``pmean``).  Either is one all-reduce of the flattened gradients
+  after the backward, the JAX 1-D step's single fused reduction.
+- After the update every BatchNorm's running mean and variance are
+  averaged over the ranks (JAX ``pmean`` of ``batch_stats``).
+- The finite guard judges the reduced gradients, so every rank skips
+  together.  The returned loss is the global value on every rank.
+
+With no group, nothing of that runs: the gradients are autograd's.  With
+the finite guard on, a non-finite gradient keeps the parameters, the
+Adam moments and the BatchNorm statistics as they were and the schedule
+does not advance; the caller's step count still does, as in the JAX
+step.  FSDP, grad-cache and ``inner_steps`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from milnce_tpu_torch.losses.dtw_losses import (cdtw_batch_loss, sdtw_3_loss,
                                                 sdtw_cidm_loss,
                                                 sdtw_negative_loss)
 from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
+from milnce_tpu_torch.parallel.dist import all_gather_tiled, all_reduce_flat
 
 KNOWN_LOSSES = ("milnce", "cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
 
@@ -41,9 +56,14 @@ def _check_loss_name(loss_cfg) -> str:
     return name
 
 
-def _sequence_loss(loss_cfg, v_seq, t_seq, start):
-    """DTW-family losses on the batch's sequence embeddings: v_seq
-    (B, T', D), t_seq (B, K, D), start (B,)."""
+def _sequence_loss(loss_cfg, v_seq, t_seq, start, group=None):
+    """DTW-family losses on the sequence embeddings: v_seq (B, T', D),
+    t_seq (B, K, D), start (B,), gathered over the ranks of ``group``
+    first (the fork's losses score the whole gathered batch)."""
+    if group is not None:
+        v_seq = all_gather_tiled(v_seq, group)
+        t_seq = all_gather_tiled(t_seq, group)
+        start = all_gather_tiled(start, group)
     common = dict(backend=loss_cfg.sdtw_backend, dist=loss_cfg.sdtw_dist,
                   bandwidth=loss_cfg.sdtw_bandwidth)
     if loss_cfg.sdtw_gamma is not None:
@@ -68,16 +88,25 @@ def _normalize(video_u8: torch.Tensor, model) -> torch.Tensor:
     return video_u8.to(dtype) / 255.0
 
 
+def _running_stats(model) -> list:
+    return [buf for name, buf in model.named_buffers()
+            if name.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
+
+
 def make_train_step(model, optimizer, loss_cfg=None,
-                    finite_guard: bool = False, lr_scheduler=None):
+                    finite_guard: bool = False, lr_scheduler=None,
+                    group=None):
     """-> ``step(video_u8, text_ids, start)`` returning the loss (a 0-d
     tensor on the device), or ``(loss, skipped)`` with ``finite_guard``,
-    where ``skipped`` is 1 when the update was dropped.  A bad loss name
-    or MIL-NCE knob raises here."""
+    where ``skipped`` is 1 when the update was dropped.  ``group``: the
+    ranks stepping the global batch together (None = this process
+    alone).  A bad loss name or MIL-NCE knob raises here."""
     loss_name = _check_loss_name(loss_cfg)
-    milnce_fn = build_milnce_loss(loss_cfg) if loss_name == "milnce" else None
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
+                 else None)
+    params = [p for group_ in optimizer.param_groups for p in group_["params"]]
     buffers = list(model.buffers())
+    running = _running_stats(model)
 
     def compute_loss(video_u8, text_ids, start):
         video = _normalize(video_u8, model)
@@ -86,7 +115,7 @@ def make_train_step(model, optimizer, loss_cfg=None,
         v_seq, t_embd = model(video, text_ids, mode="sequence")
         b = video.shape[0]
         t_seq = t_embd.reshape(b, -1, t_embd.shape[-1])      # (B, K, D)
-        return _sequence_loss(loss_cfg, v_seq, t_seq, start)
+        return _sequence_loss(loss_cfg, v_seq, t_seq, start, group)
 
     def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
              start: torch.Tensor):
@@ -95,6 +124,9 @@ def make_train_step(model, optimizer, loss_cfg=None,
         optimizer.zero_grad(set_to_none=True)
         loss = compute_loss(video_u8, text_ids, start)
         loss.backward()
+        if group is not None:
+            all_reduce_flat([p.grad for p in params if p.grad is not None],
+                            group, mean=milnce_fn is None)
         if finite_guard:
             finite = torch.stack([torch.isfinite(p.grad).all()
                                   for p in params if p.grad is not None])
@@ -106,6 +138,9 @@ def make_train_step(model, optimizer, loss_cfg=None,
         optimizer.step()
         if lr_scheduler is not None:
             lr_scheduler.step()
+        if group is not None:
+            with torch.no_grad():
+                all_reduce_flat(running, group, mean=True)
         return (loss.detach(), 0) if finite_guard else loss.detach()
 
     return step

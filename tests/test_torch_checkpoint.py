@@ -153,6 +153,7 @@ def _cfg(root, steps, samples=16, epochs=2):
     cfg.optim.epochs = epochs
     cfg.train.max_steps = steps
     cfg.train.checkpoint_root = str(root)
+    cfg.train.log_root = f"{root}-log"
     return cfg
 
 

@@ -107,6 +107,26 @@ def test_chunked_loss_on_kernels_matches_dense(cuda):
         _close(x, y)
 
 
+@pytest.mark.parametrize("d", [768, 1024])
+def test_auto_stream_launches_the_kernels_or_refuses_the_depth(cuda, d):
+    """``milnce_stream`` (backend ``auto``) on CUDA tensors launches the
+    kernels up to their depth and refuses past it, before any launch: it
+    never takes the plain stream on the card."""
+    rng = np.random.default_rng(d)
+    arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
+                           device=cuda) for n in (4, 8, 12, 24)]
+    ms.reset_launches()
+    if d > ms.STREAM_DMAX:
+        with pytest.raises(ValueError, match="D <= 768"):
+            ms.milnce_stream(*arrays, 5)
+        assert ms.LAUNCHES["lse_fwd"] == 0
+        return
+    row, col = ms.milnce_stream(*arrays, 5)
+    assert ms.LAUNCHES["lse_fwd"] == 2
+    _close(row, ms.milnce_stream_plain(*arrays, 5)[0])
+    _close(col, ms.milnce_stream_plain(*arrays, 5)[1])
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     a = torch.zeros(4, 8, device=cuda)
     with pytest.raises(TypeError, match="float32"):

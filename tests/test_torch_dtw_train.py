@@ -204,19 +204,20 @@ def test_cli_trains_sdtw3_on_cpu(tmp_path):
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
          "tiny", "--parallel.platform", "cpu", "--loss.name", "sdtw_3",
          "--train.max_steps", "2", "--train.checkpoint_root",
-         str(tmp_path)],
+         str(tmp_path), "--train.log_root", str(tmp_path / "log")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("Training loss:") == 2
     assert "done: 2 steps" in proc.stdout
 
 
-def test_trainer_runs_on_the_card_by_default(monkeypatch):
+def test_trainer_runs_on_the_card_by_default(monkeypatch, tmp_path):
     """Without a card, a run that did not ask for the CPU refuses to
     start instead of falling back to it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_preset()
     cfg.loss.name = "sdtw_3"
+    cfg.train.log_root = str(tmp_path / "log")
     assert cfg.parallel.platform == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training(cfg, log=lambda _m: None)

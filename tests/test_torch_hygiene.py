@@ -40,7 +40,8 @@ def test_port_package_exists():
                      "data/synthetic.py", "eval/metrics.py",
                      "eval/retrieval.py", "eval/linear_probe.py",
                      "eval/runner.py", "eval/cli.py",
-                     "utils/torch_convert.py"):
+                     "utils/torch_convert.py", "utils/logging.py",
+                     "parallel/dist.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

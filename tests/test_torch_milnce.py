@@ -151,8 +151,9 @@ def test_build_milnce_loss_knobs():
     chunked = build_milnce_loss(LossConfig(milnce_impl="chunked",
                                            milnce_chunk=3))(v, t)
     assert float(chunked) == pytest.approx(dense, rel=2e-6)
-    with pytest.raises(NotImplementedError, match="group"):
-        milnce_loss(v, t, group=object())
+    # no group is the one-process loss exactly (ranks: test_torch_dist.py)
+    assert torch.equal(build_milnce_loss(None, group=None)(v, t),
+                       milnce_loss(v, t))
 
 
 @pytest.mark.parametrize("r", [1, 33, 128, 640])

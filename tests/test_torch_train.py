@@ -14,6 +14,7 @@ refusal of knobs and depths the port does not honour, and the
 
 import contextlib
 import dataclasses
+import datetime
 import importlib.util
 import os
 import pathlib
@@ -42,7 +43,7 @@ from milnce_tpu.train.loop import (_fetch_guard_window, _guard_acc,
 from milnce_tpu.train.step import make_train_step as jax_make_train_step
 from milnce_tpu_torch.config import (PRESETS, Config, LossConfig, OptimConfig,
                                      full_preset, tiny_preset)
-from milnce_tpu_torch.models.s3dg import S3D
+from milnce_tpu_torch.models.s3dg import S3D, BatchNorm3d
 from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
 from milnce_tpu_torch.train import loop
 from milnce_tpu_torch.train.schedule import build_schedule, cosine_with_warmup
@@ -204,7 +205,8 @@ def test_cli_trains_two_steps_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
          "tiny", "--parallel.platform", "cpu", "--train.max_steps", "2",
-         "--train.checkpoint_root", str(tmp_path)],
+         "--train.checkpoint_root", str(tmp_path),
+         "--train.log_root", str(tmp_path / "log")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("Training loss:") == 2
@@ -213,10 +215,12 @@ def test_cli_trains_two_steps_on_cpu(tmp_path):
 
 # ------------------------------------------- the finite guard's display window
 def _tiny_run_cfg(steps, n_display, root):
-    """The tiny preset on the CPU, checkpointing under ``root``."""
+    """The tiny preset on the CPU, checkpointing under ``root`` and
+    logging beside it."""
     cfg = tiny_preset()
     cfg.parallel.platform = "cpu"
     cfg.train.checkpoint_root = str(root)
+    cfg.train.log_root = f"{root}-log"
     cfg.train.max_steps, cfg.train.n_display = steps, n_display
     return cfg
 
@@ -429,10 +433,63 @@ def _evaluate_is_honoured(cfg, root):
         loop.run_training(cfg, log=lambda _m: None)
 
 
+def _coordinator_address_is_honoured(cfg, root):
+    """A one-rank gloo group from a ``file://`` rendezvous: the run trains
+    through the group's path and leaves the group when it returns (the
+    multi-rank runs: tests/test_torch_dist.py)."""
+    cfg.parallel.coordinator_address = f"file://{root}/store"
+    cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert "process group: 1 ranks on gloo" in lines and res.steps == 1
+    assert not torch.distributed.is_initialized()
+    cfg.parallel.process_id = 1
+    with pytest.raises(ValueError, match="process_id=1 outside"):
+        loop.run_training(cfg, log=lambda _m: None)
+
+
+def _num_devices_is_honoured(cfg, root):
+    """One rank on the CPU: 1 is the run's world size; 2 passes the
+    devices there are and is refused, as the JAX loop refuses it."""
+    cfg.parallel.num_devices = 1
+    assert loop.run_training(cfg, log=lambda _m: None).steps == 1
+    cfg.parallel.num_devices = 2
+    with pytest.raises(ValueError, match="num_devices=2 exceeds the 1 "
+                                         "visible devices"):
+        loop.run_training(cfg, log=lambda _m: None)
+
+
+def _log_root_is_honoured(cfg, root):
+    """The JAX loop's ``<log_root>/<checkpoint_dir>.log`` and ``.jsonl``:
+    every message, time-stamped, and one record a display window."""
+    cfg.train.log_root, cfg.train.checkpoint_dir = str(root / "logs"), "mine"
+    lines = []
+    loop.run_training(cfg, log=lines.append)
+    assert sorted(os.listdir(root / "logs")) == ["mine.jsonl", "mine.log"]
+    logged = (root / "logs" / "mine.log").read_text().splitlines()
+    assert [re.sub(r"^\[\d\d:\d\d:\d\d\] ", "", m) for m in logged] == lines
+    events = (root / "logs" / "mine.jsonl").read_text().splitlines()
+    assert len(events) == 1 and '"step": 1' in events[0]
+
+
+def _verbose_is_honoured(cfg, root):
+    """``train.verbose false`` writes no log file; the messages still
+    reach the caller's ``log``."""
+    cfg.train.log_root, cfg.train.verbose = str(root / "logs"), False
+    lines = []
+    loop.run_training(cfg, log=lines.append)
+    assert not (root / "logs").exists() and lines
+
+
 _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.checkpoint_dir": _checkpoint_dir_is_honoured,
                  "train.pretrain_ckpt": _pretrain_ckpt_is_honoured,
-                 "train.evaluate": _evaluate_is_honoured}
+                 "train.evaluate": _evaluate_is_honoured,
+                 "parallel.coordinator_address":
+                     _coordinator_address_is_honoured,
+                 "parallel.num_devices": _num_devices_is_honoured,
+                 "train.log_root": _log_root_is_honoured,
+                 "train.verbose": _verbose_is_honoured}
 
 
 @pytest.mark.parametrize("knob", list(_PORTED_KNOBS))
@@ -444,6 +501,56 @@ def test_ported_knob_is_honoured(knob, tmp_path):
     cfg.model.inception_blocks = 2
     cfg.data.synthetic_num_samples = 16
     _PORTED_KNOBS[knob](cfg, tmp_path)
+
+
+@pytest.mark.parametrize("platform", ["cpu", "cuda"])
+def test_num_devices_past_the_devices_is_refused_before_the_model_is_built(
+        platform, monkeypatch, tmp_path):
+    cfg = _tiny_run_cfg(1, 1, tmp_path)
+    cfg.parallel.platform = platform
+    visible = torch.cuda.device_count() if platform == "cuda" else 1
+    cfg.parallel.num_devices = visible + 1
+    monkeypatch.setattr(loop, "build_model", _no_model)
+    with pytest.raises(ValueError, match=f"exceeds the {visible} visible"):
+        loop.run_training(cfg, log=lambda _m: None)
+
+
+def test_group_timeout_reaches_the_process_group(monkeypatch, tmp_path):
+    """``parallel.group_timeout_s`` is the group's collective timeout, the
+    time rank 0's in-training eval has while the other ranks wait."""
+    import torch.distributed as dist
+
+    seen = []
+    real = dist.init_process_group
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("timeout"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(dist, "init_process_group", spy)
+    cfg = _tiny_run_cfg(1, 1, tmp_path)
+    cfg.model.inception_blocks = 2
+    cfg.parallel.coordinator_address = f"file://{tmp_path}-store"
+    cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
+    cfg.parallel.group_timeout_s = 1234.5
+    assert loop.run_training(cfg, log=lambda _m: None).steps == 1
+    assert seen == [datetime.timedelta(seconds=1234.5)]
+    assert Config().parallel.group_timeout_s == 7200.0
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_sync_batchnorm_knob_reaches_every_batchnorm(sync):
+    """``model.sync_batchnorm`` hands the run's group to every BatchNorm
+    (what that does across ranks: tests/test_torch_dist.py); off, or with
+    no group, each normalizes its own batch."""
+    cfg = tiny_preset().model
+    cfg.inception_blocks, cfg.sync_batchnorm = 1, sync
+    group = object()
+    model = loop.build_model(cfg, group=group)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm3d)]
+    assert bns and all(m.group is (group if sync else None) for m in bns)
+    assert all(m.group is None for m in loop.build_model(cfg).modules()
+               if isinstance(m, BatchNorm3d))
 
 
 def test_unported_knobs_are_config_fields():
@@ -485,7 +592,7 @@ def test_chip_smoke_configurations_pass_the_config_check():
 @pytest.mark.parametrize("impl,backend,device,batch,refused", [
     ("chunked", "cuda", "cpu", 16, True),
     ("chunked", "cuda", "cuda", 16, True),
-    ("chunked", "auto", "cuda", 16, True),
+    ("chunked", "auto", "cuda", 16, True),    # auto streams on the kernels
     ("chunked", "auto", "cpu", 16, False),
     ("chunked", "scan", "cuda", 16, False),
     ("dense", "cuda", "cuda", 16, False),
@@ -495,6 +602,9 @@ def test_chip_smoke_configurations_pass_the_config_check():
 ])
 def test_stream_depth_is_checked_at_build_time(impl, backend, device, batch,
                                                refused):
+    """Past the kernels' depth a run whose MIL-NCE would stream on them
+    (backend ``cuda``, or ``auto`` on a CUDA device) is refused when it
+    is built; the card never falls back to the plain stream."""
     cfg = full_preset()
     cfg.loss.milnce_impl, cfg.loss.milnce_backend = impl, backend
     cfg.train.batch_size = batch
@@ -509,6 +619,25 @@ def test_stream_depth_is_checked_at_build_time(impl, backend, device, batch,
         loop.check_config(cfg, device)
     cfg.loss.name = "sdtw_3"                   # no MIL-NCE stream at all
     loop.check_config(cfg, device)
+
+
+@pytest.mark.parametrize("device,route", [("cuda", "cuda"), ("cpu", "scan")])
+def test_milnce_route_follows_the_device_and_the_global_batch(device, route):
+    """``auto`` streams on the kernels on a CUDA device and on the plain
+    twin on the CPU; the global batch decides ``auto``'s impl (B_local
+    128 against Bg 8192 streams, B 128 alone stays dense)."""
+    cfg = full_preset()
+    cfg.loss.milnce_impl = "auto"
+    assert loop.milnce_route(cfg.loss, 128, 8192, 5, device) == route
+    assert loop.milnce_route(cfg.loss, 128, 128, 5, device) == "dense"
+    cfg.train.batch_size = 8192
+    loop.check_config(cfg, device, world=64)
+    cfg.model.embedding_dim = 1024
+    if route == "cuda":
+        with pytest.raises(ValueError, match="embedding_dim=1024"):
+            loop.check_config(cfg, device, world=64)
+    else:
+        loop.check_config(cfg, device, world=64)
 
 
 def test_run_training_refuses_the_depth_before_anything_runs(monkeypatch,

@@ -1,0 +1,209 @@
+"""Rank processes for ``tests/test_torch_dist.py``: imports torch and the
+port only, never jax, so that each rank starts light.
+
+:func:`spawn` starts ``world`` processes (``spawn`` start method), each
+running ``fn(rank, world, group, *args)`` inside a gloo group that meets
+at a ``FileStore`` under the test's directory (no port to collide with
+other test workers), with a 60 s collective timeout; the parent joins
+them against its own deadline and kills what is left, so a hung rank
+fails its test instead of the suite's clock.  Each rank's result comes
+back through a ``torch.save`` file; a rank that raises leaves its
+traceback beside it.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import traceback
+import uuid
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from milnce_tpu_torch.config import LossConfig, OptimConfig
+from milnce_tpu_torch.losses.milnce import milnce_loss
+from milnce_tpu_torch.losses.milnce_chunked import milnce_loss_chunked
+from milnce_tpu_torch.models.build import sync_batchnorm
+from milnce_tpu_torch.models.s3dg import S3D
+from milnce_tpu_torch.parallel.dist import all_gather_tiled
+from milnce_tpu_torch.train.schedule import build_schedule
+from milnce_tpu_torch.train.state import build_optimizer
+from milnce_tpu_torch.train.step import _sequence_loss, make_train_step
+from milnce_tpu_torch.utils.torch_convert import load_jax_variables
+
+COLLECTIVE_TIMEOUT = timedelta(seconds=60)
+
+
+def _entry(fn, rank, world, store, workdir, tag, args, join_group):
+    torch.set_num_threads(1)
+    out = os.path.join(workdir, f"{tag}-rank{rank}")
+    try:
+        if join_group:
+            dist.init_process_group(
+                "gloo", store=dist.FileStore(store, world), rank=rank,
+                world_size=world, timeout=COLLECTIVE_TIMEOUT)
+            try:
+                result = fn(rank, world, dist.group.WORLD, *args)
+            finally:
+                dist.destroy_process_group()
+        else:
+            result = fn(rank, world, None, *args)
+        torch.save(result, out + ".pt")
+    except BaseException:
+        with open(out + ".err", "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def spawn(fn, world: int, workdir, *args, join_group: bool = True,
+          timeout: float = 300.0) -> list:
+    """Run ``fn`` on ``world`` ranks; returns their results in rank
+    order.  ``join_group=False`` hands ``fn`` no group (it joins its
+    own, as ``run_training`` does)."""
+    workdir = str(workdir)
+    tag = uuid.uuid4().hex[:8]
+    store = os.path.join(workdir, f"store-{tag}")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(fn, rank, world, store,
+                                              workdir, tag, args,
+                                              join_group))
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    if hung:
+        raise TimeoutError(f"ranks {hung} of {world} still ran after "
+                           f"{timeout} s")
+    errors = []
+    for rank, proc in enumerate(procs):
+        if proc.exitcode != 0:
+            path = os.path.join(workdir, f"{tag}-rank{rank}.err")
+            text = open(path).read() if os.path.exists(path) else ""
+            errors.append(f"rank {rank} exited {proc.exitcode}:\n{text}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [torch.load(os.path.join(workdir, f"{tag}-rank{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def _shard(x: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """Rows ``rank * B .. (rank + 1) * B`` of a global array."""
+    b = x.shape[0] // world
+    return x[rank * b:(rank + 1) * b]
+
+
+def _value_and_grads(fn, *arrays):
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+    loss = fn(*leaves)
+    loss.backward()
+    return (float(loss.detach()),) + tuple(x.grad.numpy() for x in leaves)
+
+
+# ------------------------------------------------------------ loss ranks
+def loss_cases(rank, world, group, gather, milnce, dtw):
+    """Every loss-level case of one world size on this rank:
+
+    - ``gather`` (x (W*B, D), cotangents (W, W*B, D)): the gathered value
+      and this rank's gradient under its own cotangent;
+    - ``milnce`` {name: (v, t, chunk)} global arrays: dense and chunked
+      (plain stream) value and local gradients;
+    - ``dtw`` {name: (v_seq, t_seq, start)} global arrays: the DTW loss
+      named on the gathered batch, value and local gradients."""
+    out = {}
+    x, cots = gather
+    local = torch.tensor(_shard(x, rank, world), requires_grad=True)
+    gathered = all_gather_tiled(local, group)
+    gathered.backward(torch.from_numpy(cots[rank]))
+    out["gather"] = (gathered.detach().numpy(), local.grad.numpy())
+    for name, (v, t, chunk) in milnce.items():
+        vl, tl = _shard(v, rank, world), _shard(t, rank, world)
+        out["dense", name] = _value_and_grads(
+            lambda a, b: milnce_loss(a, b, group), vl, tl)
+        out["chunked", name] = _value_and_grads(
+            lambda a, b: milnce_loss_chunked(a, b, group, chunk=chunk,
+                                             backend="scan"), vl, tl)
+    for name, (v, t, start) in dtw.items():
+        start_l = torch.from_numpy(_shard(start, rank, world))
+        out["dtw", name] = _value_and_grads(
+            lambda a, b: _sequence_loss(LossConfig(name=name), a, b, start_l,
+                                        group),
+            _shard(v, rank, world), _shard(t, rank, world))
+    return out
+
+
+# ------------------------------------------------------------ step ranks
+def _state(model) -> dict:
+    return {k: v.detach().clone().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def step_run(rank, world, group, dims, variables, batches, sync_bn=False,
+             poison=None, loss="milnce"):
+    """Steps of the float64 port trainer from the JAX ``variables``, the
+    loss named (MIL-NCE dense) with the finite guard, warmup 2 over 10
+    steps.  ``batches``:
+    global (video, text) pairs, of which this rank steps its rows (all of
+    them without a group).  ``poison`` (rank, step index) NaNs that
+    rank's gradients at that step.  Returns the losses, the skips, the
+    state after each step and the last step's reduced gradients."""
+    model = load_jax_variables(S3D(**dims).to(torch.float64), variables)
+    if sync_bn:
+        sync_batchnorm(model, group)
+    opt_cfg = OptimConfig(warmup_steps=2)
+    optimizer, sched = build_optimizer(model, opt_cfg,
+                                       build_schedule(opt_cfg, 10))
+    step = make_train_step(model, optimizer,
+                           LossConfig(name=loss, milnce_impl="dense"),
+                           finite_guard=True, lr_scheduler=sched, group=group)
+    losses, skips, states = [], [], []
+    for i, (video, text) in enumerate(batches):
+        if group is not None:
+            video, text = _shard(video, rank, world), _shard(text, rank, world)
+        hooks = []
+        if poison == (rank, i):
+            hooks = [p.register_hook(lambda g: g * float("nan"))
+                     for p in model.parameters() if p.requires_grad]
+        loss, skipped = step(torch.from_numpy(video), torch.from_numpy(text),
+                             torch.zeros(video.shape[0]))
+        for hook in hooks:
+            hook.remove()
+        losses.append(float(loss))
+        skips.append(int(skipped))
+        states.append(_state(model))
+    grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return losses, skips, states, grads
+
+
+# ------------------------------------------------------------ trainer ranks
+def train_runs(rank, world, _group, runs):
+    """``run_training`` for each (label, cfg) of ``runs`` in turn, every
+    run joining its own group through ``parallel.coordinator_address``
+    (already set in ``cfg``) at this rank.  Returns per run: the
+    {step: loss} the run reported, the lines its ``log`` got, its
+    ``TrainResult`` fields and its final state."""
+    from milnce_tpu_torch.train.loop import run_training
+
+    out = {}
+    for label, cfg in runs:
+        cfg.parallel.process_id = rank
+        losses, lines = {}, []
+        res = run_training(cfg, log=lines.append,
+                           on_step=lambda s, _t, loss, _w:
+                           losses.__setitem__(s, loss))
+        out[label] = dict(losses=losses, lines=lines, steps=res.steps,
+                          rank=res.rank, state=_state(res.model))
+    return out

@@ -19,13 +19,17 @@ Phases, each fatal on failure:
                loop with a ragged last tile (B=200 against Bg=3000, K=3),
                and the two distributed phases' own (train-full's with
                the gathered copies apart from the local rows, and ddp-2's
-               B_local=4 against Bg=8, K=3);
+               B_local=4 against Bg=8, K=3); and the deep mode past
+               D = 768 at the recipe shape with D = 1024, at D = 1000
+               (B=200 against Bg=3000, K=3: the scalar path, ragged
+               tiles), at D = 2048 and at D = 769, each plan's mode
+               printed;
                then the kernels', the plain versions' and the dense
                PyTorch form's times (median of 20 after warm-up, CUDA
                events) at the recipe shape, beside the card's bound, and
                each kernel launch by launch with TFLOP/s, share of the
                bound, kernel/library ratio and the launch plan its
-               wrapper chose.
+               wrapper chose; the same for the deep mode at D = 1024.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's grad_D, fed the
                same table, under a random cotangent and under a stride-0
@@ -44,7 +48,9 @@ Phases, each fatal on failure:
                and each kernel's figures before its redesign.
 5. reference-- a small model with the chunked loss on the kernels agrees
                with the dense loss: one step's gradients, three steps'
-               losses.
+               losses; at embedding 512 and at 1024, where the kernels
+               run their deep mode (the run the deep launches are
+               counted on).
 6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
                sdtw_negative, sdtw_3) on the soft-DTW kernels against the
                plain recurrence: one step's gradients, three steps' losses.
@@ -56,7 +62,12 @@ Phases, each fatal on failure:
                chunked MIL-NCE on the stream kernels with chunk 8.  Each
                step's seconds and data wait, the displayed clips/s beside
                steps/s x batch; every loss finite, every kernel launched
-               its expected count; one more step profiled.
+               its expected count; one more step profiled.  Its span
+               stream and goodput ledger: 4 step spans, at least 4
+               data.wait spans, the ledger's categories within 5 % of the
+               phase's wall time, the live MFU gauge equal to the roofline
+               formula at the displayed steps/s, and the recorder's cost
+               a step.
 8. data     -- the loader and the prefetch alone at train-full's batch:
                batches/s with 20 reader threads and with 1, the synthetic
                source's samples/s on 1 and 20 threads, every batch on the
@@ -65,11 +76,14 @@ Phases, each fatal on failure:
                distributed path: an NCCL group of one rank from a
                FileStore rendezvous, the gathers, the all-reduce of the
                gradients, the BatchNorm merge; losses within rel 2e-4 of
-               phase 7's, the kernels' launches, steps/s at least 0.95x
+               phase 7's, the kernels' launches, its stream under the
+               run_id broadcast over the group, steps/s at least 0.95x
                phase 7's, idle share and peak memory beside it.
    ddp-2    -- two rank processes on the one card over gloo with CUDA
                tensors: the small model with sync BatchNorm and chunked
-               MIL-NCE on the kernels at Bg = 2 B_local, two steps,
+               MIL-NCE on the kernels at Bg = 2 B_local, two steps, each
+               rank writing its span stream under rank 0's run_id
+               (merged by ``obs/aggregate.py``),
                against one process on the concatenated batch: losses
                within rel 2e-4; the last step's reduced gradients and
                Adam's exp_avg within 1e-2 in norm, exp_avg_sq within
@@ -80,7 +94,10 @@ Phases, each fatal on failure:
                too, a rank a card, when there are two cards.
 9. resume   -- train-full stopped at step 2 and resumed to step 4 against
                the uninterrupted run (cuDNN deterministic): steps 3-4's
-               losses within rel 2e-4, the batch cursor.
+               losses within rel 2e-4, the batch cursor; in the resumed
+               half SIGUSR1 arms the bounded torch.profiler capture,
+               which must stop once, by its duration, with a trace that
+               names the three stream kernels.
 10. eval    -- ``eval.cli msrvtt`` on that checkpoint at full width (fake
                decoder, 4 windows of 32 frames at 224^2, the first 256
                rows): R@1/5/10, MedR, videos/s; the metrics against the
@@ -103,8 +120,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -123,14 +142,18 @@ TOL_RTOL, TOL_ATOL = 1e-4, 1e-5     # |kernel - plain| <= atol + rtol*max|plain|
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHUNK = 4, 16, 8
 DATA_BATCHES = 12         # batches the data-alone phase reads, each pass
 EVAL_ROWS = 256           # rows of csv/msrvtt_test.csv the eval phase scores
-SOURCES = {"lse_fwd": "milnce_tpu_torch/csrc/milnce_stream.cu",
-           "lse_bwd_rows": "milnce_tpu_torch/csrc/milnce_stream.cu",
-           "lse_bwd_cols": "milnce_tpu_torch/csrc/milnce_stream.cu",
+_STREAM_CU = "milnce_tpu_torch/csrc/milnce_stream.cu"
+SOURCES = {"lse_fwd": _STREAM_CU, "lse_bwd_rows": _STREAM_CU,
+           "lse_bwd_cols": _STREAM_CU, "lse_fwd_deep": _STREAM_CU,
+           "lse_bwd_rows_deep": _STREAM_CU, "lse_bwd_cols_deep": _STREAM_CU,
            "softdtw_fwd": "milnce_tpu_torch/csrc/softdtw.cu",
            "softdtw_bwd": "milnce_tpu_torch/csrc/softdtw.cu"}
 REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows": "milnce_tpu/ops/milnce_pallas.py:210",
             "lse_bwd_cols": "milnce_tpu/ops/milnce_pallas.py:210",
+            "lse_fwd_deep": "milnce_tpu/ops/milnce_pallas.py:131",
+            "lse_bwd_rows_deep": "milnce_tpu/ops/milnce_pallas.py:210",
+            "lse_bwd_cols_deep": "milnce_tpu/ops/milnce_pallas.py:210",
             "softdtw_fwd": "milnce_tpu/ops/softdtw_pallas.py:282 (B3), "
                            ":63 (B5), :106 (B7)",
             "softdtw_bwd": "milnce_tpu/ops/softdtw_pallas.py:340 (B4), "
@@ -138,6 +161,15 @@ REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
 # the name of each MIL-NCE kernel's CUDA function, for its device time
 KERNEL_KEYS = {"lse_fwd": "lse_fwd_kernel", "lse_bwd_rows": "lse_bwd_kernel",
                "lse_bwd_cols": "lse_bwd_kernel"}
+# each MIL-NCE kernel's name in a torch.profiler trace, demangled or not:
+# the two backward modes are one function, told apart by OWN_COLS, its
+# third template argument
+TRACE_NAMES = {
+    "lse_fwd": r"lse_fwd_kernel(<|I)",
+    "lse_bwd_rows": r"lse_bwd_kernel(<\s*\d+,\s*\w+,\s*false,|ILi\d+ELb[01]ELb0E)",
+    "lse_bwd_cols": r"lse_bwd_kernel(<\s*\d+,\s*\w+,\s*true,|ILi\d+ELb[01]ELb1E)"}
+RECORDER_COST_SPANS = 2000   # spans written to time one, alone
+DEEP_D = 1024             # the deep mode's timed and trained embedding
 # special-function (exp, log) results per clock per SM on Hopper
 H100_SFU_PER_CLOCK_SM = 16
 # (label, B, N, M, features): the soft-DTW presets of
@@ -292,7 +324,11 @@ def phase_parity():
     K = 3 gives lse_fwd's rows launch 4 owned tiles (the last ragged) and
     splits of 3 streamed tiles, the last split of 2 ending on a ragged
     tile (its plans are printed); ddp-1 and ddp-2 are the distributed
-    phases' shapes.  The cotangents are of unit
+    phases' shapes; the last four run the deep mode (D > 768): the
+    recipe at D = 1024, D = 1000 (not a multiple of 4: the scalar copies;
+    ragged owned and streamed tiles), D = 2048 (three gradient slabs) and
+    D = 769 (a one-wide last slab), each plan printed with its mode;
+    their errors are the ``_deep`` kernels'.  The cotangents are of unit
     scale and each limit shrinks with its output (``_err(scaled=True)``),
     so that a kernel returning zeros fails."""
     from milnce_tpu_torch.ops import milnce_stream as ms
@@ -307,7 +343,11 @@ def phase_parity():
              ("split", 2048, 40, 1, 512, 40, False),
              ("fwd-split", 200, 3000, 3, 512, 300, False),
              ("ddp-1", TRAIN_BATCH, TRAIN_BATCH, 5, 512, TRAIN_CHUNK, False),
-             ("ddp-2", 4, 8, 3, 512, 3, False)]
+             ("ddp-2", 4, 8, 3, 512, 3, False),
+             ("deep-recipe", 128, 8192, 5, DEEP_D, 816, False),
+             ("deep-d1000", 200, 3000, 3, 1000, 300, False),
+             ("deep-d2048", 8, 64, 2, 2048, 16, False),
+             ("deep-d769", 4, 8, 3, 769, 3, False)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {name: 0.0 for name in ms.LAUNCHES}
     for i, (label, b, bg, k, d, chunk, shared) in enumerate(cases):
@@ -316,6 +356,18 @@ def phase_parity():
             for r, c in ((b, bg * k), (b * k, bg)):
                 log(f"  [{label}] lse_fwd R={r} C={c}: "
                     f"{_plan_line(ms.fwd_plan(r, c, d, sms))}")
+        if label.startswith("deep"):
+            for r, c in ((b, bg * k), (b * k, bg)):
+                for name, plan_of in (("lse_fwd", ms.fwd_plan),
+                                      ("lse_bwd_rows", ms.rows_plan),
+                                      ("lse_bwd_cols", ms.cols_plan)):
+                    plan = plan_of(r, c, d, sms)
+                    if plan.mode != "deep":
+                        raise AssertionError(f"{label}: {name} took the "
+                                             f"{plan.mode} mode at D={d}")
+                    log(f"  [{label}] {name} R={r} C={c}: "
+                        f"{_plan_line(plan)}")
+        ms.reset_launches()
         g = torch.Generator(device="cuda").manual_seed(i)
         g_row = torch.randn(b, device="cuda", generator=g)
         g_col = torch.randn(b * k, device="cuda", generator=g)
@@ -324,12 +376,17 @@ def phase_parity():
         want = _grads(ms.milnce_stream_plain, v, t, v_all, t_all, chunk,
                       g_row, g_col)
         torch.cuda.synchronize()
+        mode = "_deep" if d > ms.STREAM_DMAX else ""
+        launched = {k: n for k, n in ms.LAUNCHES.items() if n}
+        if launched != {k + mode: 2 for k in ms.KERNELS}:
+            raise AssertionError(f"{label}: launches {launched}")
         names = ["row_lse", "col_lse", "g_v", "g_t", "g_v_all", "g_t_all"]
-        owners = [["lse_fwd"]] * 2 + [["lse_bwd_rows"]] * 2 + [
-            ["lse_bwd_cols"]] * 2
+        owners = [["lse_fwd" + mode]] * 2 + [["lse_bwd_rows" + mode]] * 2 + [
+            ["lse_bwd_cols" + mode]] * 2
         if shared:          # v_all is v: g_v and g_t sum both kernels
             names = names[:4]
-            owners = owners[:2] + [["lse_bwd_rows", "lse_bwd_cols"]] * 2
+            owners = owners[:2] + [["lse_bwd_rows" + mode,
+                                    "lse_bwd_cols" + mode]] * 2
         for name, own, a, w in zip(names, owners, got, want):
             err, lim = _err(a, w, scaled=True)
             peak = float(w.abs().max())
@@ -362,10 +419,13 @@ def _time_ms(fn, reps=20, warm=3):
 
 
 def _plan_line(plan):
-    return (f"instance D<={plan.dmax}, BM={plan.bm}, SN={plan.bn}, "
-            f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}, "
-            f"streamed tiles/split {plan.tps} of {plan.col_tiles}, "
-            f"{plan.smem_bytes} B shared, scratch {plan.scratch}")
+    where = (f"mode held, instance D<={plan.dmax}" if plan.mode == "held"
+             else f"mode deep, {plan.nz} gradient slab(s) of <= {plan.dmax}")
+    return (f"{where}, BM={plan.bm}, SN={plan.bn}, "
+            f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}"
+            f"x{plan.nz}, streamed tiles/split {plan.tps} of "
+            f"{plan.col_tiles}, {plan.smem_bytes} B shared, scratch "
+            f"{plan.scratch}")
 
 
 def _bound(flops, nbytes):
@@ -374,9 +434,10 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing():
+def phase_timing(d=512):
     """Times of each kernel's pair of launches per step (rows direction +
-    columns direction) at the recipe shape, and of each kernel's two
+    columns direction) at the recipe shape with embedding ``d`` (past
+    768, the deep mode, keyed ``<kernel>_deep``), and of each kernel's two
     launches one by one, (R, C) = (128, 40960) and (640, 8192), with its
     launch plan.  Each is timed per call (CUDA events: the wrapper's host
     work and the sum of its split partials included) and on the device
@@ -386,7 +447,8 @@ def phase_timing():
     from milnce_tpu_torch.losses.milnce_chunked import milnce_default_chunk
     from milnce_tpu_torch.ops import milnce_stream as ms
 
-    b, bg, k, d = 128, 8192, 5, 512
+    b, bg, k = 128, 8192, 5
+    suffix = "_deep" if d > ms.STREAM_DMAX else ""
     chunk = milnce_default_chunk(b, k, bg)
     v, t, v_all, t_all = _case(b, bg, k, d, 7, False)
     row = ms.lse_fwd(v, t_all)
@@ -445,7 +507,8 @@ def phase_timing():
             flops = per * r * c * d
             bound_ms, bound_by = _bound(
                 flops, 4 * (r * d + c * d + extra(r, c)))
-            log(f"  {name} launch R={r} C={c} D={d}: kernel {ms_k:.4f} ms, "
+            log(f"  {name + suffix} launch R={r} C={c} D={d}: kernel "
+                f"{ms_k:.4f} ms, "
                 f"{flops / ms_k / 1e9:.2f} TFLOP/s, {bound_ms / ms_k:.3f} of "
                 f"the f32 bound ({bound_ms:.4f} ms, {bound_by}) | library "
                 f"{ms_l:.4f} ms, kernel/library {ms_k / ms_l:.3f} | on the "
@@ -471,11 +534,11 @@ def phase_timing():
         dev_k = _device_ms(kern, KERNEL_KEYS[name])
         dev_c = _device_ms(kern, "")
         dev_l = _device_ms(library, "")
-        out[name] = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         device_ms=dev_k, call_device_ms=dev_c,
-                         library_device_ms=dev_l)
-        log(f"  {name}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
+        out[name + suffix] = dict(
+            ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound_ms,
+            bound_by=bound_by, device_ms=dev_k, call_device_ms=dev_c,
+            library_device_ms=dev_l)
+        log(f"  {name + suffix}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
             f"TFLOP/s, {bound_ms / ms_k:.3f} of the bound) | plain "
             f"{ms_p:.3f} ms | dense torch {ms_l:.4f} ms (kernel/library "
             f"{ms_k / ms_l:.3f}) | on the device: kernel alone "
@@ -714,10 +777,11 @@ def phase_softdtw_timing():
     return out
 
 
-def _small_cfg(impl, backend):
+def _small_cfg(impl, backend, embedding_dim=512):
     from milnce_tpu_torch.config import tiny_preset
 
     cfg = tiny_preset()
+    cfg.model.embedding_dim = embedding_dim
     cfg.parallel.platform = "cuda"
     cfg.model.inception_blocks = 2
     cfg.data.num_frames, cfg.data.video_size = 8, 64
@@ -731,21 +795,27 @@ def _small_cfg(impl, backend):
     return cfg
 
 
-def phase_reference():
-    """A small model on the card, chunked loss on the kernels against the
-    dense loss, with cuDNN held deterministic so that the loss is the only
-    difference: (1) every parameter's gradient of one step, within
-    1e-5 + 1e-4 * max|dense gradient| per tensor; (2) the losses of three
-    training steps (warmup gives the first step lr 0, so the third loss is
-    the first that sees an update), within rel 2e-4.  Parameters after
-    Adam are not compared element by element: Adam turns last-bit noise in
-    a near-zero gradient into a visible part of an lr-sized step."""
+def phase_reference(dim=512):
+    """A small model with embedding ``dim`` on the card, chunked loss on the
+    kernels against the dense loss, with cuDNN held deterministic so that
+    the loss is the only difference: (1) every parameter's gradient of one
+    step, within 1e-5 + 1e-4 * max|dense gradient| per tensor; (2) the
+    losses of three training steps (warmup gives the first step lr 0, so
+    the third loss is the first that sees an update), within rel 2e-4.
+    Parameters after Adam are not compared element by element: Adam turns
+    last-bit noise in a near-zero gradient into a visible part of an
+    lr-sized step.  Past D = 768 the kernels run their deep mode, and the
+    config check lets the run through.  Returns the launches of the
+    chunked training run, counted from 0 just before it: each kernel of
+    the mode twice a step."""
     from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
     from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import milnce_stream as ms
 
+    mode = "_deep" if dim > ms.STREAM_DMAX else ""
     torch.backends.cudnn.deterministic = True
     try:
-        cfg = _small_cfg("chunked", "cuda")
+        cfg = _small_cfg("chunked", "cuda", dim)
         model = build_model(cfg.model, seed=3).cuda().train()
         gen = torch.Generator(device="cuda").manual_seed(3)
         d = cfg.data
@@ -770,17 +840,23 @@ def phase_reference():
         runs = {}
         for impl, backend in (("dense", "auto"), ("chunked", "cuda")):
             losses = []
-            _run_training(_small_cfg(impl, backend), log=lambda _m: None,
+            ms.reset_launches()
+            _run_training(_small_cfg(impl, backend, dim), log=lambda _m: None,
                           on_step=lambda _s, _t, loss, _w: losses.append(loss))
+            launches = dict(ms.LAUNCHES)
             runs[impl] = losses
     finally:
         torch.backends.cudnn.deterministic = False
     ld, lc = runs["dense"], runs["chunked"]
     err = max(abs(a - b) / abs(b) for a, b in zip(lc, ld))
-    log(f"  losses dense {ld} chunked/cuda {lc}; max rel diff {err:.2e}")
+    log(f"  D={dim}: losses dense {ld} chunked/cuda {lc}; max rel diff "
+        f"{err:.2e}; the chunked run's launches {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update({name + mode: 2 * 3 for name in ms.KERNELS})
     if not (worst <= 1.0 and len(lc) == len(ld) == 3 and err <= 2e-4
-            and all(map(math.isfinite, lc))):
+            and all(map(math.isfinite, lc)) and launches == want):
         raise AssertionError("chunked/cuda training disagrees with dense")
+    return launches
 
 
 def phase_dtw_reference():
@@ -890,16 +966,18 @@ def _full_cfg(loss_name, edit):
     return cfg
 
 
-def _train_full(loss_name, edit, counters, per_step, store=None):
+def _train_full(loss_name, edit, counters, per_step, store=None, root=None):
     """``run_training`` on ``_full_cfg(loss_name, edit)``, every launch
     counter reset just before and read just after; with ``store``, through
     the distributed path: a group of one rank that meets at that
-    ``file://`` rendezvous (NCCL on the card).
+    ``file://`` rendezvous (NCCL on the card); with ``root``, checkpoints
+    and logs (the span stream and the ledger) kept under it.
     Each kernel in ``per_step`` must have launched that many times per
     step.  Prints each step's seconds and the seconds the loop waited for
     its batch, and the displayed clips/s beside steps/s x batch.  Returns
     the result, the config, the launches of the run, steps/s after the
-    first step, each step's loss and the peak memory allocated (bytes)."""
+    first step, each step's loss, the peak memory allocated (bytes) and
+    the run's wall time (host clock around ``run_training``)."""
     cfg = _full_cfg(loss_name, edit)
     if store is not None:
         cfg.parallel.coordinator_address = f"file://{store}"
@@ -915,8 +993,11 @@ def _train_full(loss_name, edit, counters, per_step, store=None):
     torch.cuda.reset_peak_memory_stats()
     for counter in counters:
         counter.reset_launches()
-    res = _run_training(cfg, log=show, on_step=lambda s, secs, loss, wait:
+    t0 = time.perf_counter()
+    res = _run_training(cfg, root, log=show,
+                        on_step=lambda s, secs, loss, wait:
                         steps.append((s, secs, loss, wait)))
+    wall = time.perf_counter() - t0
     launches = {k: v for counter in counters
                 for k, v in counter.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -939,18 +1020,21 @@ def _train_full(loss_name, edit, counters, per_step, store=None):
         raise AssertionError(f"expected launches {expected} in "
                              f"{TRAIN_STEPS} steps, got {launches}")
     return dict(res=res, cfg=cfg, launches=launches, sps=sps,
-                losses=[loss for _, _, loss, _ in steps], peak=peak)
+                losses=[loss for _, _, loss, _ in steps], peak=peak,
+                wall=wall)
 
 
-def phase_train():
+def phase_train(work):
     """Chunked MIL-NCE on the stream kernels: each kernel launches twice a
-    step (rows and columns direction).  Returns the launches and steps/s."""
+    step (rows and columns direction); the run's stream and ledger are
+    checked (``_check_run_obs``).  Returns the launches and steps/s."""
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.ops import softdtw_cuda as sd
     from milnce_tpu_torch.train.step import make_video_embed_fn
 
     run = _train_full("milnce", _stream_loss, (ms, sd),
-                      {k: 2 for k in ms.LAUNCHES})
+                      {k: 2 for k in ms.KERNELS}, root=f"{work}/train")
+    _check_run_obs(run, work)
     res, cfg = run["res"], run["cfg"]
     if (cfg.data.prefetch_depth, cfg.data.num_reader_threads) != (2, 20):
         raise AssertionError("train-full reads through the default loader")
@@ -961,6 +1045,78 @@ def phase_train():
     run["idle"] = _profile_step(res.model, cfg)
     del run["res"]      # the later phases' peak memory holds no stale model
     return run
+
+
+def _read_events(log_root, name="RUN_EVENTS.jsonl"):
+    with open(f"{log_root}/{name}") as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _check_run_obs(run, work):
+    """Phase 7's span stream and goodput ledger (``GOODPUT.json``): 4
+    ``step`` spans, at least 4 ``data.wait`` spans, one run_id on every
+    record; the ledger's categories sum to the phase's wall time (host
+    clock around ``run_training``) within 5 %, the JAX test's bound; the
+    live MFU gauge equals ``train_step_flops(16, 32, 224, 5, 20)`` times
+    the last display's steps/s over the card's peak (rel 1e-12: one float
+    expression); and the recorder's cost: its records a step times the
+    µs of one span written alone (RECORDER_COST_SPANS to a file), as a
+    share of the step, under 1 %."""
+    from milnce_tpu_torch.obs import metrics as obs_metrics
+    from milnce_tpu_torch.obs.spans import SpanRecorder
+    from milnce_tpu_torch.utils.roofline import (device_peak_flops, mfu,
+                                                 train_step_flops)
+
+    log_root = run["cfg"].train.log_root
+    records = _read_events(log_root)
+    with open(f"{log_root}/GOODPUT.json") as fh:
+        doc = json.load(fh)
+    names = [r["name"] for r in records]
+    cats = doc["categories_s"]
+    total, wall = sum(cats.values()), run["wall"]
+    log(f"  span stream: {len(records)} records ({names.count('step')} step, "
+        f"{names.count('data.wait')} data.wait, {names.count('sync')} sync, "
+        f"{names.count('display')} display, {names.count('ckpt.save')} "
+        f"ckpt.save), run_id {doc.get('run_id')}")
+    log(f"  goodput ledger: wall {doc['wall_s']:.4f} s of the phase's "
+        f"{wall:.4f} s (categories sum {total:.4f} s, "
+        f"{abs(total - wall) / wall:.4f} off, limit 0.05); goodput "
+        f"{doc['goodput_fraction']}; "
+        + ", ".join(f"{k} {v:.4f} s ({v / total:.4f})"
+                    for k, v in sorted(cats.items(), key=lambda x: -x[1])
+                    if v))
+    reg = obs_metrics.registry()
+    live = reg.gauge("milnce_train_mfu").value
+    clips = reg.gauge("milnce_train_clips_per_sec").value
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    flops = train_step_flops(TRAIN_BATCH, 32, 224, 5, 20)
+    want = mfu(flops, clips / TRAIN_BATCH, peak, 1)
+    log(f"  live MFU gauge {live:.6f} against {flops / 1e12:.4f} TFLOP a "
+        f"step x {clips / TRAIN_BATCH:.4f} steps/s (last display) / "
+        f"{peak / 1e12:g} TFLOP/s = {want:.6f}; at the phase's steps/s "
+        f"after the first step ({run['sps']:.4f}): "
+        f"{mfu(flops, run['sps'], peak, 1):.6f}")
+    rec = SpanRecorder(path=f"{work}/recorder-cost.jsonl")
+    t0 = time.perf_counter()
+    for i in range(RECORDER_COST_SPANS):
+        with rec.span("step", step=i):
+            pass
+    one_us = (time.perf_counter() - t0) / RECORDER_COST_SPANS * 1e6
+    rec.close()
+    per_step = len(records) / TRAIN_STEPS
+    share = per_step * one_us / (1e6 / run["sps"])
+    log(f"  recorder cost: {per_step:.2f} records a step x {one_us:.2f} us "
+        f"a span written alone = {per_step * one_us:.1f} us, {share:.2e} "
+        f"of a {1e3 / run['sps']:.1f} ms step")
+    if not (names.count("step") == TRAIN_STEPS
+            and names.count("data.wait") >= TRAIN_STEPS
+            and len({r.get("run_id") for r in records}) == 1
+            and doc["steps"] == TRAIN_STEPS
+            and abs(total - wall) <= 0.05 * wall
+            and peak is not None and abs(live - want) <= 1e-12 * want
+            and share < 0.01):
+        raise AssertionError("train-full's span stream, ledger or MFU "
+                             "gauge is off")
 
 
 def phase_data_alone():
@@ -1016,10 +1172,19 @@ def phase_resume(root):
     held deterministic for all three runs, so that the two step-3 and
     step-4 computations run the same algorithms.  Checks the resumed
     batch cursor against ``resume_batch_offset`` and the kernels' launch
-    counts (2 + 2 + 2 a step).  Returns the checkpoint directory."""
+    counts (2 + 2 + 2 a step).  In the resumed half a SIGUSR1 after step
+    3 arms the bounded capture (``train.capture_dir``, 100 ms), as an
+    operator would; the phase compares losses only, so the capture cannot
+    disturb it.  ``_check_capture`` holds what it wrote.  Returns the
+    checkpoint directory."""
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.train.checkpoint import CheckpointManager
     from milnce_tpu_torch.train.loop import resume_batch_offset
+
+    def on_step(losses, s, loss, capture):
+        losses[s] = loss
+        if capture and s == 3:
+            os.kill(os.getpid(), signal.SIGUSR1)
 
     torch.backends.cudnn.deterministic = True
     log("  cudnn.deterministic = True for the three runs of this phase")
@@ -1032,10 +1197,13 @@ def phase_resume(root):
                 ("resumed", TRAIN_STEPS - 2, True, root)):
             cfg = _full_cfg("milnce", _stream_loss)
             cfg.train.max_steps, cfg.train.resume = steps, resume
+            if resume:
+                cfg.train.capture_dir = f"{root}/captures"
+                cfg.train.capture_ms = 100.0
             losses = {}
             _run_training(cfg, where, log=lines.append,
                           on_step=lambda s, _t, loss, _w:
-                          losses.__setitem__(s, loss))
+                          on_step(losses, s, loss, resume))
             runs[name] = losses
             if name == "stopped":
                 ckpt = CheckpointManager(f"{root}/run", create=False)
@@ -1051,10 +1219,43 @@ def phase_resume(root):
     log(f"  steps 3-4 resumed against uninterrupted: max rel diff {err:.3e}")
     if not (sorted(runs["resumed"]) == [3, 4] and err <= 2e-4
             and shown == [f"resumed from epoch 0 at batch {want}"]
-            and want == 2 and launches == {k: 2 * 8 for k in launches}):
+            and want == 2
+            and launches == {k: 2 * 8 if k in ms.KERNELS else 0
+                             for k in launches}):
         raise AssertionError("the resumed run differs from the "
                              "uninterrupted one")
+    _check_capture(f"{root}/log", [m for m in lines
+                                   if m.startswith("SIGUSR1 profiler")])
     return f"{root}/run"
+
+
+def _check_capture(log_root, shown):
+    """The resumed run's capture: one ``capture.start`` (reason sigusr1)
+    and one ``capture.stop`` by its duration (the timer marks it due, the
+    loop's thread stops it at the next step boundary), and a Chrome trace
+    that names the three stream kernels."""
+    records = _read_events(log_root)
+    starts = [r for r in records if r["name"] == "capture.start"]
+    stops = [r for r in records if r["name"] == "capture.stop"]
+    log(f"  capture: {shown}; events {[(r['name'], r.get('reason', r.get('cause'))) for r in starts + stops]}")
+    if not (len(starts) == len(stops) == 1
+            and starts[0]["reason"] == "sigusr1"
+            and stops[0]["cause"] == "duration"):
+        raise AssertionError("the resumed run's capture did not start and "
+                             "stop once by its duration")
+    path = f"{starts[0]['trace_dir']}/trace.json"
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sorted({e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"})
+    found = {name: [k for k in kernels if re.search(pat, k)]
+             for name, pat in TRACE_NAMES.items()}
+    log(f"  trace {path}: {os.path.getsize(path)} bytes, {len(kernels)} "
+        f"kernel names; stream kernels: "
+        + "; ".join(f"{n}: {v[:1]}" for n, v in found.items()))
+    if not all(found.values()):
+        raise AssertionError(f"the capture's trace misses a stream kernel: "
+                             f"{ {n: bool(v) for n, v in found.items()} }")
 
 
 def phase_eval(ckpt_dir, workdir):
@@ -1126,7 +1327,7 @@ def phase_cudnn_benchmark(default_sps):
     torch.backends.cudnn.benchmark = True
     try:
         sps = _train_full("milnce", _stream_loss, (ms, sd),
-                          {k: 2 for k in ms.LAUNCHES})["sps"]
+                          {k: 2 for k in ms.KERNELS})["sps"]
     finally:
         torch.backends.cudnn.benchmark = False
     log(f"  cudnn.benchmark=True: {sps:.4f} steps/s after the first step, "
@@ -1171,7 +1372,16 @@ def phase_ddp1(train, work):
     from milnce_tpu_torch.parallel.dist import initialize_distributed
 
     run = _train_full("milnce", _stream_loss, (ms, sd),
-                      {k: 2 for k in ms.LAUNCHES}, store=f"{work}/ddp1-train")
+                      {k: 2 for k in ms.KERNELS}, store=f"{work}/ddp1-train",
+                      root=f"{work}/ddp1")
+    records = _read_events(run["cfg"].train.log_root)
+    run_ids = {r.get("run_id") for r in records}
+    log(f"  stream of the one-rank group: {len(records)} records, run_ids "
+        f"{run_ids} (broadcast over NCCL), process_index "
+        f"{ {r.get('process_index') for r in records} }")
+    if (len(run_ids) != 1 or None in run_ids
+            or {r.get("process_index") for r in records} != {0}):
+        raise AssertionError("ddp-1's stream lacks its run identity")
     cfg = run["cfg"]
     cfg.parallel.coordinator_address = f"file://{work}/ddp1-profile"
     ranks = initialize_distributed(cfg.parallel)
@@ -1254,7 +1464,10 @@ def _ddp2_steps(group, rank, world, device="cuda"):
 
 
 def _ddp2_loop(step, cfg, rank, b, device, losses):
+    from milnce_tpu_torch.obs import spans as obs_spans
+
     d, bg, k = cfg.data, cfg.train.batch_size, cfg.data.num_candidates
+    rec = obs_spans.get_recorder()
     for i in range(DDP2_STEPS):
         gen = torch.Generator(device=device).manual_seed(7 + i)
         video = torch.randint(0, 255, (bg, d.num_frames, d.video_size,
@@ -1262,18 +1475,24 @@ def _ddp2_loop(step, cfg, rank, b, device, losses):
                               dtype=torch.uint8, device=device)
         text = torch.randint(1, cfg.model.vocab_size, (bg * k, d.max_words),
                              generator=gen, device=device)
-        loss, skipped = step(video[rank * b:(rank + 1) * b],
-                             text[rank * b * k:(rank + 1) * b * k],
-                             torch.zeros(b, device=device))
+        with rec.span("step", step=i + 1):
+            loss, skipped = step(video[rank * b:(rank + 1) * b],
+                                 text[rank * b * k:(rank + 1) * b * k],
+                                 torch.zeros(b, device=device))
         if skipped:
             raise AssertionError(f"rank {rank}: step {i + 1} skipped")
         losses.append(float(loss))
 
 
 def _ddp2_rank(rank, world, backend, store, out):
-    """One rank of the ddp-2 phase, in a process of its own."""
+    """One rank of the ddp-2 phase, in a process of its own: its span
+    stream (``RUN_EVENTS.jsonl``, rank r ``RUN_EVENTS.p{r}.jsonl``, beside
+    ``out``) under rank 0's run_id, broadcast over the group."""
     import torch.distributed as dist
     from datetime import timedelta
+
+    from milnce_tpu_torch.obs import runctx, spans
+    from milnce_tpu_torch.parallel.dist import broadcast_str
 
     device = 0 if backend == "gloo" else rank
     torch.cuda.set_device(device)
@@ -1281,10 +1500,23 @@ def _ddp2_rank(rank, world, backend, store, out):
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=180))
     try:
+        runctx.set_run_context(
+            broadcast_str(runctx.auto_run_id(), dist.group.WORLD), rank)
+        rec = spans.SpanRecorder(path=_ddp2_stream(out, rank))
+        spans.install(rec)
+        rec.event("run.start", processes=world)
         result = _ddp2_steps(dist.group.WORLD, rank, world)
+        rec.event("run.end", steps=DDP2_STEPS)
+        rec.close()
     finally:
         dist.destroy_process_group()
     torch.save(result, out)
+
+
+def _ddp2_stream(out, rank):
+    return (os.path.join(os.path.dirname(out), os.path.basename(out)
+                         + ".RUN_EVENTS" + (f".p{rank}" if rank else "")
+                         + ".jsonl"))
 
 
 def _ddp2_spawn(backend, work):
@@ -1310,7 +1542,28 @@ def _ddp2_spawn(backend, work):
     codes = [proc.exitcode for proc in procs]
     if codes != [0] * DDP2_WORLD:
         raise AssertionError(f"ddp-2 ranks over {backend} exited {codes}")
+    _merge_ddp2_streams(backend, [_ddp2_stream(out, r)
+                                  for r, out in enumerate(outs)])
     return [torch.load(out, weights_only=True) for out in outs]
+
+
+def _merge_ddp2_streams(backend, paths):
+    """The ranks' streams merge under one run_id (``obs/aggregate.py``):
+    one step span a step on each rank."""
+    from milnce_tpu_torch.obs.aggregate import merge_event_streams
+
+    streams = []
+    for path in paths:
+        with open(path) as fh:
+            streams.append([json.loads(line) for line in fh])
+    merged = merge_event_streams(streams)
+    log(f"  ranks' streams over {backend} merged: run_id "
+        f"{merged['run_id']}, processes {merged['process_indices']}, "
+        f"steps {[p['steps'] for p in merged['per_process'].values()]}, "
+        f"step p50 skew {merged['step_p50_skew']}")
+    if [p["steps"] for p in merged["per_process"].values()] != [
+            DDP2_STEPS] * DDP2_WORLD:
+        raise AssertionError("a ddp-2 rank's stream misses its steps")
 
 
 def _grad_gap(got, want):
@@ -1389,6 +1642,8 @@ def phase_ddp2(work):
     one process stepping the rank-order concatenation of the shards.
     With two cards or more the same comparison runs over NCCL, one rank
     a card."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
     one = _ddp2_steps(None, 0, 1)
     torch.backends.cudnn.enabled = False
     try:
@@ -1402,8 +1657,8 @@ def phase_ddp2(work):
         f"{b // DDP2_WORLD}, Bg {b}: "
         f"{[r['launches'] for r in ranks]} (one process, B = Bg = {b}: "
         f"{one['launches']})")
-    if any(r["launches"] != {k: 2 * DDP2_STEPS for k in r["launches"]}
-           for r in ranks):
+    if any(r["launches"] != {k: 2 * DDP2_STEPS if k in ms.KERNELS else 0
+                             for k in r["launches"]} for r in ranks):
         raise AssertionError("a MIL-NCE kernel missed its launches")
     _ddp2_compare("gloo, 2 ranks on one card", ranks, one, yardstick)
     if torch.cuda.device_count() >= DDP2_WORLD:
@@ -1512,20 +1767,26 @@ def main() -> int:
     worst = phase_parity()
     log("== MIL-NCE kernel timing")
     times = phase_timing()
+    log(f"== MIL-NCE kernel timing, deep mode (D = {DEEP_D})")
+    times.update(phase_timing(DEEP_D))
     log("== soft-DTW kernels vs plain")
     worst.update(phase_softdtw_parity())
     log("== soft-DTW kernel timing")
     times.update(phase_softdtw_timing())
     log("== reference (small model, chunked/cuda vs dense)")
     phase_reference()
+    log(f"== reference at embedding {DEEP_D} (the kernels' deep mode)")
+    deep_launches = phase_reference(DEEP_D)
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
-    log("== train (full width, MIL-NCE)")
-    train = phase_train()
-    launches = train["launches"]
-    log("== data alone (loader + prefetch, no step)")
-    phase_data_alone()
     with tempfile.TemporaryDirectory() as work:
+        log("== train (full width, MIL-NCE)")
+        train = phase_train(work)
+        launches = train["launches"]
+        launches.update({k: n for k, n in deep_launches.items()
+                         if k.endswith("_deep")})
+        log("== data alone (loader + prefetch, no step)")
+        phase_data_alone()
         log("== ddp-1 (train-full through the distributed path, one rank)")
         phase_ddp1(train, work)
         log("== ddp-2 (two ranks on one card, sync BN, Bg = 2 B_local)")

@@ -309,16 +309,17 @@ class TrainConfig:
     eval_task: str = "hmdb"             # hmdb | youcook | msrvtt (in-training)
     num_windows_test: int = 4
     verbose: bool = True
-    trace_dir: str = ""                 # jax.profiler trace output ('' = off)
+    trace_dir: str = ""                 # torch.profiler trace output, a
+                                        # Chrome trace.json ('' = off)
     obs_dir: str = ""                   # span/event stream: RUN_EVENTS.jsonl
                                         # is appended under this dir ('' =
                                         # log_root; written only when the
                                         # run logger is enabled).  Recording
                                         # is host-side only — obs/,
                                         # OBSERVABILITY.md
-    obs_profiler_bridge: bool = False   # wrap spans in jax.profiler.
-                                        # TraceAnnotation so they land in
-                                        # real TPU traces (pairs with
+    obs_profiler_bridge: bool = False   # wrap spans in torch.profiler.
+                                        # record_function so they land in
+                                        # profiler traces (pairs with
                                         # trace_dir)
     run_id: str = ""                    # run identity stamped on every
                                         # RUN_EVENTS.jsonl line + obs
@@ -341,7 +342,7 @@ class TrainConfig:
     anomaly_cooldown_s: float = 300.0   # suppression window between
                                         # anomaly events
     capture_dir: str = ""               # anomaly-triggered bounded one-
-                                        # shot jax.profiler capture root
+                                        # shot torch.profiler capture root
                                         # ('' = no capture; also armable
                                         # via SIGUSR1)
     capture_ms: float = 2000.0          # capture stops itself after this

@@ -73,6 +73,17 @@
 //     gradient product and, with the owned tile's loads counted, 10.7 (SN
 //     = 256) or 8 (SN = 128) in the logits.
 //
+// The deep mode (every mode, any D > 768): the owned tile no longer fits
+// beside the ring at full depth, nor the backward's gradient in registers.
+// So the owned operand is streamed too: each logits stage holds an RB_K-deep
+// slab of the owned rows (from global memory and L2, swizzled as the
+// streamed slab is) beside the streamed slab, and the forward's online
+// (max, sum) runs as in the held mode.  The backward writes its gradient
+// one depth slab of at most 768 at a time, one slab a grid z-index: each
+// block recomputes the full-depth logits for its slab, so the logits FMAs
+// grow by ceil(D / 768) and the product's are those of the 768 instance.
+// Instances: DMAX = 768 with DEEP set.
+//
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
 
@@ -119,17 +130,21 @@ constexpr int RB_STAGES = 3;   // depth of the cp.async ring
 // floats per row group of the weights tile of SN streamed rows
 __host__ __device__ constexpr int w_rg(int sn) { return sn * 8 + 4; }
 
-template <int DMAX, int SN>
+// DEEP: the owned operand streamed beside S in each logits stage (its slab
+// after S's), the gradient written DMAX depths a grid z-index.
+template <int DMAX, int SN, bool DEEP = false>
 struct Inst {
   static constexpr int DV = DMAX / 256;   // float4s of output per thread and row
   static constexpr int LDA = DMAX + 4;    // row stride of the O tile
   static constexpr int NB = DMAX <= 256 ? 32 : 8;  // rows of S a product slab
+  static constexpr int LOGITS = (SN + (DEEP ? RB_M : 0)) * RB_K;
   static constexpr int STAGE =            // floats in one ring stage
-      SN * RB_K > NB * DMAX ? SN * RB_K : NB * DMAX;
+      LOGITS > NB * DMAX ? LOGITS : NB * DMAX;
+  static constexpr int OWNED = DEEP ? 0 : RB_M * LDA;  // the held O tile
   // the O tile, the weights tile, the ring, lse and g of the block's rows
   // (read by lse_bwd_rows only)
   static constexpr size_t SMEM = sizeof(float) *
-      ((size_t)RB_M * LDA + 4 * w_rg(SN) + RB_STAGES * STAGE + 2 * RB_M);
+      ((size_t)OWNED + 4 * w_rg(SN) + RB_STAGES * STAGE + 2 * RB_M);
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -207,6 +222,19 @@ __device__ __forceinline__ void load_owned(float* Os, int LDA,
   }
 }
 
+// The deep mode's slab of the owned rows: O[row0 : +M, k0 : +RB_K] into st,
+// swizzled (s_at) as the streamed slab is, zero past NO and D.
+template <bool VEC, int M>
+__device__ __forceinline__ void copy_owned_slab(float* st,
+                                                const float* __restrict__ O,
+                                                int row0, int NO, int k0,
+                                                int D) {
+  constexpr int Q = RB_K / 4;
+  for (int l = threadIdx.x; l < M * Q; l += RB_T)
+    copy4<VEC>(st + s_at(l / Q, l % Q), O, row0 + l / Q, NO, k0 + 4 * (l % Q),
+               D);
+}
+
 // One logits slab: S[col0 : +SN, k0 : +RB_K] into ring stage st, swizzled
 // (s_at).  ``fast``: the SN rows lie inside NS and VEC holds, so whole
 // 16-byte chunks inside D go without checks.
@@ -245,17 +273,21 @@ __device__ __forceinline__ void copy_logits_slab(float* st,
 // broadcast over the rest of the warp.  The product does 16 FMAs per
 // 16-byte load at D = 512 (8 rows x 4 depths, 2 weight and 2 S loads per
 // 8 x 8).
-template <int DMAX, bool VEC, bool OWN_COLS, int SN>
+//
+// DEEP: the O slab of each logits stage sits at SN * RB_K in the stage, read
+// through s_at; the block's gradient covers depths z0 .. z0 + DZ - 1 of D,
+// z0 = DMAX blockIdx.z.
+template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool DEEP>
 __global__ void __launch_bounds__(RB_T, 1)
 lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
                const float* __restrict__ lse, const float* __restrict__ g,
                float* __restrict__ part, int NO, int NS, int D, int tps) {
-  using I = Inst<DMAX, SN>;
+  using I = Inst<DMAX, SN, DEEP>;
   constexpr int DV = I::DV, LDA = I::LDA, NB = I::NB;
   constexpr int XL = SN / 32, RG = 32 / XL, MI = RB_M / RG;
   extern __shared__ float4 dyn4[];
-  float* Os = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA]
-  float* Ws = Os + RB_M * LDA;                  // [4][w_rg(SN)], w_at
+  float* Os = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA], held mode
+  float* Ws = Os + I::OWNED;                    // [4][w_rg(SN)], w_at
   float* ring = Ws + 4 * w_rg(SN);              // [RB_STAGES][STAGE]
   float* ls = ring + RB_STAGES * I::STAGE;      // [RB_M]
   float* gs = ls + RB_M;                        // [RB_M]
@@ -269,7 +301,9 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   const int ntile = min((NS + SN - 1) / SN, t_first + tps) - t_first;
   const int n_k = (D + RB_K - 1) / RB_K;        // logits slabs a tile
   const int per_tile = n_k + SN / NB;           // and product slabs a tile
-  const int d4 = (D + 3) / 4;
+  const int z0 = DEEP ? DMAX * blockIdx.z : 0;  // the gradient's depths
+  const int DZ = DEEP ? min(DMAX, D - z0) : D;
+  const int d4 = (DZ + 3) / 4;
 
   if (!OWN_COLS && tid < RB_M) {
     const int r = row0 + tid;
@@ -277,7 +311,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     gs[tid] = r < NO ? g[r] : 0.f;
   }
   // The O tile; its copies join the first stage's group.
-  load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D);
+  if (!DEEP) load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D);
 
   // The next slab to copy: tile it, part ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
@@ -289,7 +323,10 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
       const bool fast = VEC && col0 + SN <= NS;
       if (ip < n_k) {
         copy_logits_slab<VEC, SN>(st, S, col0, NS, ip * RB_K, D, fast);
-      } else {                // S[col0 + n0 : +NB, 0 : D], stride DMAX
+        if (DEEP)
+          copy_owned_slab<VEC, RB_M>(st + SN * RB_K, O, row0, NO, ip * RB_K,
+                                     D);
+      } else {                // S[col0 + n0 : +NB, z0 : z0 + DZ], stride DMAX
         const int n0 = (ip - n_k) * NB;
         constexpr int Q = DMAX / 4;
 #pragma unroll
@@ -298,9 +335,9 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
           if (q < d4) {
             float* dst = st + n * DMAX + 4 * q;
             if (fast)
-              cp16(dst, S + (size_t)(col0 + n0 + n) * D + 4 * q);
+              cp16(dst, S + (size_t)(col0 + n0 + n) * D + z0 + 4 * q);
             else
-              copy4<VEC>(dst, S, col0 + n0 + n, NS, 4 * q, D);
+              copy4<VEC>(dst, S, col0 + n0 + n, NS, z0 + 4 * q, D);
           }
         }
       }
@@ -343,7 +380,8 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
         for (int j = 0; j < 4; ++j) b[j] = ld4(st + s_at(cx + XL * j, q));
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          const float4 a = ld4(a_k + RG * i * LDA + 4 * q);
+          const float4 a = DEEP ? ld4(st + SN * RB_K + s_at(lrg + RG * i, q))
+                                : ld4(a_k + RG * i * LDA + 4 * q);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
@@ -414,18 +452,18 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   for (int i = 0; i < 8; ++i) {
     const int r = row0 + rg + 4 * i;
     if (r >= NO) continue;
-    float* dst = part + ((size_t)blockIdx.y * NO + r) * D;
+    float* dst = part + ((size_t)blockIdx.y * NO + r) * D + z0;
 #pragma unroll
     for (int v = 0; v < DV; ++v) {
       const int d = dx + 256 * v;
-      if ((D & 3) == 0 && d + 4 <= D) {
+      if ((D & 3) == 0 && d + 4 <= DZ) {
         *reinterpret_cast<float4*>(dst + d) =
             make_float4(out[i][4 * v], out[i][4 * v + 1], out[i][4 * v + 2],
                         out[i][4 * v + 3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (d + e < D) dst[d + e] = out[i][4 * v + e];
+          if (d + e < DZ) dst[d + e] = out[i][4 * v + e];
       }
     }
   }
@@ -446,17 +484,20 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
 // of each tile.  A warp's 16-byte loads touch 4 rows of the A tile (LDA is
 // 4 mod 32: 4 distinct bank groups) and 8 neighbouring rows of B (s_at: 8
 // distinct bank groups), each one wavefront broadcast over the warp.
-template <int DMAX, int FM, int SN>
+// DEEP: no A tile; each stage holds B's slab, then A's (FM rows, s_at).
+template <int DMAX, int FM, int SN, bool DEEP>
 struct FwdInst {
   static constexpr int LDA = DMAX + 4;            // row stride of the A tile
   static constexpr int TN = FM * SN / (8 * RB_T); // logits columns a thread
   static constexpr int WC = SN / (8 * TN);        // warps across a tile
   static_assert(FM % 32 == 0 && (FM / 32) * WC * 32 == RB_T,
                 "the warps must tile the block's logits");
+  static constexpr int OWNED = DEEP ? 0 : FM * LDA;
+  static constexpr int STAGE = (SN + (DEEP ? FM : 0)) * RB_K;
   // the A tile and the ring; the warps' partials reuse the ring at the end
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)FM * LDA + RB_STAGES * SN * RB_K);
-  static_assert(2 * WC * FM <= RB_STAGES * SN * RB_K, "partials fit the ring");
+      sizeof(float) * ((size_t)OWNED + RB_STAGES * STAGE);
+  static_assert(2 * WC * FM <= RB_STAGES * STAGE, "partials fit the ring");
 };
 
 // Merges the pair (mo, so) into (m, s): both are (max, sum of exp(x - max))
@@ -472,17 +513,17 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   m = mn;
 }
 
-template <int DMAX, bool VEC, int FM, int SN>
+template <int DMAX, bool VEC, int FM, int SN, bool DEEP>
 __global__ void __launch_bounds__(RB_T, 1)
 lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
                float* __restrict__ part_m, float* __restrict__ part_s, int R,
                int C, int D, int tps) {
-  using I = FwdInst<DMAX, FM, SN>;
+  using I = FwdInst<DMAX, FM, SN, DEEP>;
   constexpr int LDA = I::LDA, TN = I::TN, WC = I::WC;
-  constexpr int STAGE = SN * RB_K;
+  constexpr int STAGE = I::STAGE;
   extern __shared__ float4 dyn4[];
-  float* As = reinterpret_cast<float*>(dyn4);   // [FM][LDA]
-  float* ring = As + FM * LDA;                  // [RB_STAGES][STAGE]
+  float* As = reinterpret_cast<float*>(dyn4);   // [FM][LDA], held mode
+  float* ring = As + I::OWNED;                  // [RB_STAGES][STAGE]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lrg = lane >> 3, lx = lane & 7;
   const int wc = warp % WC;
@@ -494,7 +535,7 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int n_k = (D + RB_K - 1) / RB_K;        // slabs a tile
 
   // The A tile; its copies join the first stage's group.
-  load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D);
+  if (!DEEP) load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D);
 
   // The next slab to copy: tile it, slab ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
@@ -503,6 +544,9 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
       const int col0 = (t_first + it) * SN;
       copy_logits_slab<VEC, SN>(ring + is_ * STAGE, B, col0, C, ip * RB_K, D,
                                 VEC && col0 + SN <= C);
+      if (DEEP)
+        copy_owned_slab<VEC, FM>(ring + is_ * STAGE + SN * RB_K, A, row0, R,
+                                 ip * RB_K, D);
     }
     if (++ip == n_k) ip = 0, ++it;
     if (++is_ == RB_STAGES) is_ = 0;
@@ -539,7 +583,8 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int j = 0; j < TN; ++j) b[j] = ld4(st + s_at(cx + 8 * j, q));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float4 a = ld4(a_k + 4 * i * LDA + 4 * q);
+        const float4 a = DEEP ? ld4(st + SN * RB_K + s_at(ar + 4 * i, q))
+                              : ld4(a_k + 4 * i * LDA + 4 * q);
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
@@ -611,12 +656,12 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <int DMAX, bool VEC, int FM, int SN>
+template <int DMAX, bool VEC, int FM, int SN, bool DEEP>
 int launch_fwd_inst(const float* A, const float* B, float* part_m,
                     float* part_s, int R, int C, int D, int nsplit, int tps,
                     cudaStream_t stream) {
-  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN>;
-  const size_t smem = FwdInst<DMAX, FM, SN>::SMEM;
+  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN, DEEP>;
+  const size_t smem = FwdInst<DMAX, FM, SN, DEEP>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -625,10 +670,12 @@ int launch_fwd_inst(const float* A, const float* B, float* part_m,
   return (int)cudaGetLastError();
 }
 
-// The forward's instances, (DMAX, FM, SN) for each depth bound: 64 owned
-// rows by 128-row tiles (8 x 4 logits a thread), 32 by 256 at D <= 768.
-#define ROWS_FWD_INSTANCES(X) \
-  X(256, 64, 128) X(512, 64, 128) X(768, 32, 256)
+// The forward's instances, (DMAX, FM, SN, DEEP) for each depth bound: 64
+// owned rows by 128-row tiles (8 x 4 logits a thread), 32 by 256 at D <=
+// 768 and in the deep mode (any D).
+#define ROWS_FWD_INSTANCES(X)                                        \
+  X(256, 64, 128, false) X(512, 64, 128, false) X(768, 32, 256, false) \
+  X(768, 32, 256, true)
 
 struct Launch {
   const float *O, *S, *lse, *g;
@@ -637,23 +684,29 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int DMAX, bool VEC, bool OWN_COLS, int SN>
+template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool DEEP = false>
 int launch_inst(const Launch& a) {
-  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN>;
-  const size_t smem = Inst<DMAX, SN>::SMEM;
+  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN, DEEP>;
+  const size_t smem = Inst<DMAX, SN, DEEP>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.NO + RB_M - 1) / RB_M, a.nsplit);
+  dim3 grid((a.NO + RB_M - 1) / RB_M, a.nsplit,
+            DEEP ? (a.D + DMAX - 1) / DMAX : 1);
   kernel<<<grid, RB_T, smem, a.stream>>>(a.O, a.S, a.lse, a.g, a.part, a.NO,
                                          a.NS, a.D, a.tps);
   return (int)cudaGetLastError();
 }
 
-// ``dmax`` picks the instance (256, 512 or 768, at least D); ``vec``: D %
-// 4 == 0 and O, S 16-byte aligned.
+// ``dmax`` picks the instance (256, 512 or 768, at least D; 768 in the
+// ``deep`` mode, any D); ``vec``: D % 4 == 0 and O, S 16-byte aligned.
 template <bool OWN_COLS, int SN>
-int launch(const Launch& a, int dmax, int vec) {
+int launch(const Launch& a, int dmax, int deep, int vec) {
+  if (deep) {
+    if (dmax != 768) return (int)cudaErrorInvalidValue;
+    return vec ? launch_inst<768, true, OWN_COLS, SN, true>(a)
+               : launch_inst<768, false, OWN_COLS, SN, true>(a);
+  }
   if (a.D > dmax) return (int)cudaErrorInvalidValue;
   switch (dmax) {
     case 256:
@@ -671,7 +724,8 @@ int launch(const Launch& a, int dmax, int vec) {
 }
 
 template <int SN>
-size_t smem_bytes(int dmax) {
+size_t smem_bytes(int dmax, int deep) {
+  if (deep) return dmax == 768 ? Inst<768, SN, true>::SMEM : 0;
   switch (dmax) {
     case 256: return Inst<256, SN>::SMEM;
     case 512: return Inst<512, SN>::SMEM;
@@ -686,29 +740,31 @@ size_t smem_bytes(int dmax) {
 
 extern "C" {
 
-// Dynamic shared memory of the forward instance (dmax, fm, sn) (bytes), 0
-// for one that has no instance.
-size_t milnce_fwd_smem(int dmax, int fm, int sn) {
-#define ROWS_FWD_SMEM(DM, M, N) \
-  if (dmax == DM && fm == M && sn == N) return rows::FwdInst<DM, M, N>::SMEM;
+// Dynamic shared memory of the forward instance (dmax, fm, sn, deep)
+// (bytes), 0 for one that has no instance.
+size_t milnce_fwd_smem(int dmax, int fm, int sn, int deep) {
+#define ROWS_FWD_SMEM(DM, M, N, DP)                          \
+  if (dmax == DM && fm == M && sn == N && (deep != 0) == DP) \
+    return rows::FwdInst<DM, M, N, DP>::SMEM;
   ROWS_FWD_INSTANCES(ROWS_FWD_SMEM)
 #undef ROWS_FWD_SMEM
   return 0;
 }
 
 // One forward launch for A (R, D), B (C, D): part_m, part_s (nsplit, R) on
-// the instance (dmax, fm, sn), D <= dmax; ``vec``: D % 4 == 0 and A, B
-// 16-byte aligned.
+// the instance (dmax, fm, sn, deep), D <= dmax unless ``deep``; ``vec``: D
+// % 4 == 0 and A, B 16-byte aligned.
 int milnce_lse_fwd(const float* A, const float* B, float* part_m,
                    float* part_s, int R, int C, int D, int dmax, int fm,
-                   int sn, int nsplit, int tps, int vec, void* stream) {
+                   int sn, int deep, int nsplit, int tps, int vec,
+                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D > dmax) return (int)cudaErrorInvalidValue;
-#define ROWS_FWD_LAUNCH(DM, M, N)                                         \
-  if (dmax == DM && fm == M && sn == N)                                  \
-    return vec ? rows::launch_fwd_inst<DM, true, M, N>(                  \
+  if (D > dmax && !deep) return (int)cudaErrorInvalidValue;
+#define ROWS_FWD_LAUNCH(DM, M, N, DP)                                     \
+  if (dmax == DM && fm == M && sn == N && (deep != 0) == DP)             \
+    return vec ? rows::launch_fwd_inst<DM, true, M, N, DP>(              \
                      A, B, part_m, part_s, R, C, D, nsplit, tps, s)      \
-               : rows::launch_fwd_inst<DM, false, M, N>(                 \
+               : rows::launch_fwd_inst<DM, false, M, N, DP>(             \
                      A, B, part_m, part_s, R, C, D, nsplit, tps, s);
   ROWS_FWD_INSTANCES(ROWS_FWD_LAUNCH)
 #undef ROWS_FWD_LAUNCH
@@ -716,29 +772,30 @@ int milnce_lse_fwd(const float* A, const float* B, float* part_m,
 }
 
 // Dynamic shared memory of the backward instance for depths up to ``dmax``
-// and streamed tiles of ``sn`` rows (bytes), 0 for one that has no
-// instance.  Both modes share it.
-size_t milnce_bwd_rows_smem(int dmax, int sn) {
-  return sn == 128 ? rows::smem_bytes<128>(dmax)
-                   : sn == 256 ? rows::smem_bytes<256>(dmax) : 0;
+// (gradient slabs of ``dmax`` when ``deep``) and streamed tiles of ``sn``
+// rows (bytes), 0 for one that has no instance.  Both modes share it.
+size_t milnce_bwd_rows_smem(int dmax, int sn, int deep) {
+  return sn == 128 ? rows::smem_bytes<128>(dmax, deep)
+                   : sn == 256 ? rows::smem_bytes<256>(dmax, deep) : 0;
 }
 
 // One backward launch for A (R, D), B (C, D): part (nsplit, R, D) of dA
 // (own_cols 0, lse_bwd_rows, sn 256) or part (nsplit, C, D) of dB
-// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R.
+// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R; ``deep``: the
+// deep mode, gradient slabs of dmax = 768 over grid z.
 int milnce_lse_bwd(const float* A, const float* B, const float* lse,
                    const float* g, float* part, int R, int C, int D,
-                   int own_cols, int dmax, int sn, int nsplit, int tps,
-                   int vec, void* stream) {
+                   int own_cols, int dmax, int sn, int deep, int nsplit,
+                   int tps, int vec, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (!own_cols) {
     if (sn != 256) return (int)cudaErrorInvalidValue;
     return rows::launch<false, 256>({A, B, lse, g, part, R, C, D, nsplit, tps,
-                                     s}, dmax, vec);
+                                     s}, dmax, deep, vec);
   }
   if (sn != 128) return (int)cudaErrorInvalidValue;
   return rows::launch<true, 128>({B, A, lse, g, part, C, R, D, nsplit, tps,
-                                  s}, dmax, vec);
+                                  s}, dmax, deep, vec);
 }
 
 }  // extern "C"

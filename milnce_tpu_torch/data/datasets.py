@@ -5,8 +5,9 @@ source's, value for value, for the same ``(idx, RandomState)``).
 Re-designs of the four reference loaders (video_loader.py,
 youcook_loader.py, msrvtt_loader.py, hmdb_loader.py) as plain host-side
 sources with an injectable decoder (:class:`FakeDecoder` for hermetic
-runs).  The JAX package's decode-failure metrics counter is not ported;
-the per-source ``decode_failures`` count stays.
+runs).  Decode failures are counted per source (``decode_failures``) and
+on the process-wide registry (``milnce_data_decode_failures_total``), as
+in the JAX package.
 
 Manifest schemas (identical to the reference csv/ files):
 - train:   column ``video_path``, one caption JSON per video id under
@@ -40,6 +41,13 @@ from milnce_tpu_torch.data.tokenizer import Tokenizer, synthetic_vocab
 from milnce_tpu_torch.data.video import (ClipDecoder, black_sample,
                                          build_decoder, eval_windows,
                                          sample_clip)
+from milnce_tpu_torch.obs import metrics as obs_metrics
+
+# Decode-failure telemetry on the process-wide registry (incremented from
+# reader threads; the display keeps the per-source count).
+_OBS_DECODE_FAILURES = obs_metrics.registry().counter(
+    "milnce_data_decode_failures_total",
+    "samples whose caption load or decode raised (before resample)")
 
 
 def read_csv(path: str) -> list[dict]:
@@ -127,6 +135,7 @@ class HowTo100MSource:
                 "start": np.float32(start)}   # CIDM loss input (loss.py:56)
 
     def _record_failure(self, idx: int, exc: Exception) -> None:
+        _OBS_DECODE_FAILURES.inc()
         with self._stats_lock:
             self.decode_failures += 1
             count = self.decode_failures

@@ -13,7 +13,9 @@
 - Only full global batches are emitted (drop_last semantics).
 
 Batch order and contents are the JAX loader's exactly: sample content is
-a pure function of (seed, epoch, index).
+a pure function of (seed, epoch, index).  The watchdog's counters and
+events and the ``data.wait`` span are the JAX pipeline's, under the same
+names.
 """
 
 from __future__ import annotations
@@ -27,6 +29,26 @@ import numpy as np
 import torch
 
 from milnce_tpu_torch.data.video import kill_inflight_decoders
+from milnce_tpu_torch.obs import metrics as obs_metrics
+from milnce_tpu_torch.obs import spans as obs_spans
+
+# Decode-watchdog telemetry on the process-wide registry (host-side
+# counters incremented from reader threads).
+_OBS_TIMEOUTS = obs_metrics.registry().counter(
+    "milnce_data_decode_timeouts_total",
+    "decode futures that exceeded the watchdog timeout (wedged decodes)")
+_OBS_RETRIES = obs_metrics.registry().counter(
+    "milnce_data_decode_retries_total",
+    "fresh decode attempts resubmitted by the watchdog")
+# Data-wait attribution (the goodput ledger's data_wait category): seconds
+# the consumer (the train loop pulling device_prefetch) spent blocked on
+# the next batch, incremented on the consumer's thread; the loop reads
+# window deltas off the same child for the live goodput gauge.
+_OBS_DATA_WAIT = obs_metrics.registry().counter(
+    "milnce_data_wait_seconds_total",
+    "host seconds the training loop blocked waiting for batch data")
+
+_EXHAUSTED = object()
 
 
 class ShardedLoader:
@@ -85,6 +107,10 @@ class ShardedLoader:
                 # queue backlog, not a wedged decode, so it is not counted.
                 if not fut.cancel():
                     self.decode_timeouts += 1
+                    _OBS_TIMEOUTS.inc()
+                    obs_spans.get_recorder().event(
+                        "decode.timeout", sample=int(idx),
+                        attempt=attempt + 1, timeout_s=timeout)
                     if self._logged_timeouts < self.LOGGED_TIMEOUTS:
                         self._logged_timeouts += 1
                         self._log(
@@ -93,6 +119,9 @@ class ShardedLoader:
                             f"{attempt + 1}/{self.timeout_retries + 1}; "
                             f"total timeouts: {self.decode_timeouts})")
                 if attempt < self.timeout_retries:
+                    _OBS_RETRIES.inc()
+                    obs_spans.get_recorder().event(
+                        "decode.retry", sample=int(idx), attempt=attempt + 2)
                     fut = pool.submit(fetch, idx)
         fallback = getattr(self.source, "fallback_sample", None)
         if fallback is not None:
@@ -227,15 +256,31 @@ def device_prefetch(iterator: Iterator[list], device,
     of a ring of ``depth + 1`` and copied on a side stream; the consumer's
     current stream waits on the copy's event before it gets the batch.
     On the CPU the stacked arrays are handed on as tensors, with no
-    stream.  The pulls run on the consumer's thread, so the time it
-    blocks on ``next()`` here is the time it waited for data."""
+    stream.
+
+    Data-wait attribution: every pull of the upstream iterator (the host
+    blocking on decode and stacking of the next batch) is timed as a
+    ``data.wait`` span and added to ``milnce_data_wait_seconds_total``.
+    The pulls run on the consumer's thread, between its steps, so the
+    spans never overlap its ``step`` spans (the goodput ledger relies on
+    that); the recorder is resolved per pull."""
     device = torch.device(device)
     put = (_PinnedRing(device, depth + 1).put if device.type == "cuda"
            else _host_put)
     queue: "collections.deque" = collections.deque()
+    it = iter(iterator)
+    n_pull = 0
     try:
-        for samples in iterator:
-            queue.append(put(samples))
+        while True:
+            with obs_spans.get_recorder().span("data.wait",
+                                               batch=n_pull) as sp:
+                samples = next(it, _EXHAUSTED)
+                if samples is not _EXHAUSTED:
+                    queue.append(put(samples))
+            _OBS_DATA_WAIT.inc(sp["dur_ms"] / 1e3)
+            if samples is _EXHAUSTED:
+                break
+            n_pull += 1
             if len(queue) > depth:
                 yield _ready(queue.popleft())
         while queue:

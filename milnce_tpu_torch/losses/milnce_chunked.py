@@ -6,9 +6,9 @@ The loss needs only per-row and per-column logsumexps of the cube.
 a backward that recomputes the logits, so nothing O(B * Bg * K) is held.
 ``loss.milnce_backend`` picks the stream: ``scan`` the plain PyTorch
 twin, ``cuda`` the hand kernels, ``auto`` the kernels for CUDA tensors
-and the plain twin for CPU tensors.  The kernels take D <=
-``STREAM_DMAX``; past it a run on the card is refused when it is built
-(``train/loop.py::check_config``).  Semantics are identical to
+and the plain twin for CPU tensors.  The kernels take any D: up to
+``STREAM_DMAX`` they hold a row of D on chip, past it they stream D in
+slabs (their deep mode).  Semantics are identical to
 :func:`milnce_tpu_torch.losses.milnce.milnce_loss`, across ranks too:
 the stream runs the local rows and columns against the gathered arrays.
 """

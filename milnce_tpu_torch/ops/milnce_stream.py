@@ -26,11 +26,14 @@ the JAX stream's chunk layout (blocks of ``chunk`` gathered samples,
 zero-padded to whole chunks, padded logits masked to ``-BIG``); the
 kernels tile columns their own way, so the two agree up to summation
 order.  :func:`milnce_stream` takes the plain version only for CPU
-tensors; for CUDA tensors it launches the kernels or raises (a depth
-past :data:`STREAM_DMAX` is refused before any launch).
+tensors; for CUDA tensors it launches the kernels or raises.  Up to
+:data:`STREAM_DMAX` a kernel holds a row of D on chip (the held mode);
+past it each mode runs its deep mode, which streams D in slabs (the
+plan's ``mode``).
 
-``LAUNCHES`` counts kernel launches, one per launch, so a run can show
-that it went through the kernels.
+``LAUNCHES`` counts kernel launches, one per launch, under the kernel's
+name, and the deep mode's under the name with ``_deep`` added, so a run
+can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ import torch
 from milnce_tpu_torch.ops import cuda_build
 from milnce_tpu_torch.ops.softdtw import BIG
 
-LAUNCHES = {"lse_fwd": 0, "lse_bwd_rows": 0, "lse_bwd_cols": 0}
+KERNELS = ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")
+LAUNCHES = {f"{name}{mode}": 0 for mode in ("", "_deep") for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -144,12 +148,12 @@ _I = ctypes.c_int
 def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
-        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
-        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, *[_I] * 9, _P]
+        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, *[_I] * 10, _P]
         for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd):
             fn.restype = ctypes.c_int
-        lib.milnce_bwd_rows_smem.argtypes = [_I, _I]
-        lib.milnce_fwd_smem.argtypes = [_I, _I, _I]
+        lib.milnce_bwd_rows_smem.argtypes = [_I, _I, _I]
+        lib.milnce_fwd_smem.argtypes = [_I, _I, _I, _I]
         for fn in (lib.milnce_bwd_rows_smem, lib.milnce_fwd_smem):
             fn.restype = ctypes.c_size_t
         lib._milnce_typed = True
@@ -179,11 +183,13 @@ def _check_operands(name: str, a, b, *rows) -> None:
         raise ValueError(f"{name}: operands on different devices")
 
 
-ROWS_INSTANCES = (256, 512, 768)   # kernel instances of every mode: D <= each
-STREAM_DMAX = ROWS_INSTANCES[-1]   # the largest depth the stream kernels take
+ROWS_INSTANCES = (256, 512, 768)   # held instances of every mode: D <= each
+STREAM_DMAX = ROWS_INSTANCES[-1]   # the largest depth held on chip; past it
+                                   # the deep mode, gradient slabs this wide
 ROWS_BM, ROWS_THREADS = 32, 256
 _ROWS_BK, _ROWS_STAGES = 32, 3
-# the forward's (owned rows, streamed tile) for each instance
+# the forward's (owned rows, streamed tile) for each instance (the deep
+# mode's those of STREAM_DMAX)
 FWD_TILES = {256: (64, 128), 512: (64, 128), 768: (32, 256)}
 
 
@@ -197,7 +203,10 @@ class RowsPlan:
     (nsplit, owned rows, D) of gradient in the backward, (nsplit, R) of
     maxima and as many of sums in the forward.  ``lse_fwd`` and
     ``lse_bwd_rows`` own A and stream B, ``lse_bwd_cols`` owns B and
-    streams A."""
+    streams A.  ``mode`` is ``held`` (the owned tile on chip at full depth,
+    D <= dmax) or ``deep`` (both operands streamed in depth slabs; the
+    backward writes ``nz`` gradient slabs of ``dmax`` depths, one a grid
+    z-index, each recomputing the full-depth logits)."""
     dmax: int
     bm: int
     bn: int
@@ -208,54 +217,66 @@ class RowsPlan:
     tps: int
     smem_bytes: int
     scratch: tuple
+    mode: str = "held"
+    nz: int = 1
 
     def tiles(self, split: int) -> range:
         return range(split * self.tps,
                      min(self.col_tiles, (split + 1) * self.tps))
 
 
-def check_depth(name: str, d: int) -> int:
-    """The smallest kernel instance that holds depth ``d``; raises past
-    :data:`STREAM_DMAX`."""
+def check_depth(name: str, d: int) -> tuple[int, str]:
+    """(instance, mode) for depth ``d``: the smallest held instance that
+    holds it, or past :data:`STREAM_DMAX` the deep mode (its instance is
+    tagged STREAM_DMAX, the widest gradient slab).  Raises for d < 1."""
+    if d < 1:
+        raise ValueError(f"{name}: depth {d}, expected at least 1")
     if d > STREAM_DMAX:
-        raise ValueError(f"{name}: depth {d} is above the largest kernel "
-                         f"instance, D <= {STREAM_DMAX}")
-    return next(x for x in ROWS_INSTANCES if d <= x)
+        return STREAM_DMAX, "deep"
+    return next(x for x in ROWS_INSTANCES if d <= x), "held"
 
 
 def _plan(dmax: int, owned: int, streamed: int, sms: int, bm: int, sn: int,
-          smem: int, scratch: tuple) -> RowsPlan:
+          smem: int, scratch: tuple, mode: str = "held",
+          nz: int = 1) -> RowsPlan:
     """The fewest streamed tiles per split that keep the grid to one wave
     of one block per SM (a grid past one wave only when the owned tiles
-    alone pass it)."""
+    alone, times the ``nz`` gradient slabs, pass it)."""
     row_tiles, col_tiles = -(-owned // bm), -(-streamed // sn)
-    per_row = min(col_tiles, max(1, sms // row_tiles))
+    per_row = min(col_tiles, max(1, sms // (row_tiles * nz)))
     tps = -(-col_tiles // per_row)
     nsplit = -(-col_tiles // tps)
     return RowsPlan(dmax, bm, sn, ROWS_THREADS, row_tiles, col_tiles, nsplit,
-                    tps, smem, (nsplit, *scratch))
+                    tps, smem, (nsplit, *scratch), mode, nz)
 
 
 def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
               sn: int) -> RowsPlan:
-    """The smallest instance that holds d; 32 owned rows a block."""
-    dmax = check_depth(name, d)
+    """The smallest held instance that holds d, else the deep mode; 32
+    owned rows a block."""
+    dmax, mode = check_depth(name, d)
+    deep = mode == "deep"
     nb = 32 if dmax <= 256 else 8          # streamed rows of a product slab
-    stage = max(sn * _ROWS_BK, nb * dmax)
-    smem = 4 * (ROWS_BM * (dmax + 4) + 4 * (8 * sn + 4)
-                + _ROWS_STAGES * stage + 2 * ROWS_BM)
-    return _plan(dmax, owned, streamed, sms, ROWS_BM, sn, smem, (owned, d))
+    stage = max((sn + ROWS_BM * deep) * _ROWS_BK, nb * dmax)
+    held = 0 if deep else ROWS_BM * (dmax + 4)
+    smem = 4 * (held + 4 * (8 * sn + 4) + _ROWS_STAGES * stage + 2 * ROWS_BM)
+    return _plan(dmax, owned, streamed, sms, ROWS_BM, sn, smem, (owned, d),
+                 mode, -(-d // dmax) if deep else 1)
 
 
 def fwd_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
     """The launch plan of ``lse_fwd`` for A (r, d), B (c, d) on a card with
     ``sms`` SMs: blocks own 64 rows of A and stream B in 128-row tiles (32
     rows and 256-row tiles at D <= 768, where 64 rows of A would leave no
-    room for the ring)."""
-    dmax = check_depth("lse_fwd", d)
+    room for the ring).  Past it, the deep mode: the same tiles, the A
+    rows streamed in each stage beside B's."""
+    dmax, mode = check_depth("lse_fwd", d)
     bm, sn = FWD_TILES[dmax]
-    smem = 4 * (bm * (dmax + 4) + _ROWS_STAGES * sn * _ROWS_BK)
-    return _plan(dmax, r, c, sms, bm, sn, smem, (r,))
+    if mode == "deep":
+        smem = 4 * _ROWS_STAGES * (sn + bm) * _ROWS_BK
+    else:
+        smem = 4 * (bm * (dmax + 4) + _ROWS_STAGES * sn * _ROWS_BK)
+    return _plan(dmax, r, c, sms, bm, sn, smem, (r,), mode)
 
 
 def rows_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
@@ -300,62 +321,71 @@ def _vec(a, b) -> bool:
 def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32."""
     _check_operands("lse_fwd", a, b)
-    out = launch_fwd(_lib(), a, b)
-    LAUNCHES["lse_fwd"] += 1
+    out, plan = launch_fwd(_lib(), a, b)
+    LAUNCHES[_counter("lse_fwd", plan)] += 1
     return out
 
 
-def launch_fwd(lib, a, b) -> torch.Tensor:
+def _counter(name: str, plan: RowsPlan) -> str:
+    return name if plan.mode == "held" else f"{name}_deep"
+
+
+def launch_fwd(lib, a, b) -> tuple[torch.Tensor, RowsPlan]:
     """One launch of ``lib``'s forward kernel on checked operands, with
     the plan of :func:`fwd_plan`; then the combination of its partial
-    (max, sum) pairs."""
+    (max, sum) pairs.  Returns the lse and the plan."""
     (r, d), c = a.shape, b.shape[0]
     plan = fwd_plan(r, c, d, _sms(a.device))
+    deep = int(plan.mode == "deep")
     _check_smem("lse_fwd", lambda: lib.milnce_fwd_smem(
-        plan.dmax, plan.bm, plan.bn), plan.smem_bytes, a.device)
+        plan.dmax, plan.bm, plan.bn, deep), plan.smem_bytes, a.device)
     part_m, part_s = torch.empty((2, *plan.scratch), device=a.device)
     err = lib.milnce_lse_fwd(a.data_ptr(), b.data_ptr(), part_m.data_ptr(),
                              part_s.data_ptr(), r, c, d, plan.dmax, plan.bm,
-                             plan.bn, plan.nsplit, plan.tps, int(_vec(a, b)),
-                             cuda_build.current_stream(a))
+                             plan.bn, deep, plan.nsplit, plan.tps,
+                             int(_vec(a, b)), cuda_build.current_stream(a))
     cuda_build.check_launch("lse_fwd", err)
     m = part_m.amax(dim=0)
-    return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0))
+    return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0)), plan
 
 
 def lse_bwd_rows(a, b, lse, g) -> torch.Tensor:
     """Kernel: dA (R, D) = sum_j exp(a_r . b_j - lse_r) g_r b_j."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
-    out = launch_bwd(_lib(), a, b, lse, g, cols=False)
-    LAUNCHES["lse_bwd_rows"] += 1
+    out, plan = launch_bwd(_lib(), a, b, lse, g, cols=False)
+    LAUNCHES[_counter("lse_bwd_rows", plan)] += 1
     return out
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
     """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r."""
     _check_operands("lse_bwd_cols", a, b, lse, g)
-    out = launch_bwd(_lib(), a, b, lse, g, cols=True)
-    LAUNCHES["lse_bwd_cols"] += 1
+    out, plan = launch_bwd(_lib(), a, b, lse, g, cols=True)
+    LAUNCHES[_counter("lse_bwd_cols", plan)] += 1
     return out
 
 
-def launch_bwd(lib, a, b, lse, g, cols: bool) -> torch.Tensor:
+def launch_bwd(lib, a, b, lse, g, cols: bool) -> tuple[torch.Tensor,
+                                                       RowsPlan]:
     """One launch of ``lib``'s backward kernel on checked operands: dA
     (R, D) with the plan of :func:`rows_plan`, or dB (C, D) with that of
-    :func:`cols_plan` when ``cols``; then the sum of its partials."""
+    :func:`cols_plan` when ``cols``; then the sum of its partials.
+    Returns the gradient and the plan."""
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
     (r, d), c = a.shape, b.shape[0]
     plan = (cols_plan if cols else rows_plan)(r, c, d, _sms(a.device))
-    _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn),
+    deep = int(plan.mode == "deep")
+    _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn,
+                                                       deep),
                 plan.smem_bytes, a.device)
     part = torch.empty(plan.scratch, device=a.device)
     err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                              g.data_ptr(), part.data_ptr(), r, c, d,
-                             int(cols), plan.dmax, plan.bn, plan.nsplit,
+                             int(cols), plan.dmax, plan.bn, deep, plan.nsplit,
                              plan.tps, int(_vec(a, b)),
                              cuda_build.current_stream(a))
     cuda_build.check_launch(name, err)
-    return part[0] if plan.nsplit == 1 else part.sum(dim=0)
+    return (part[0] if plan.nsplit == 1 else part.sum(dim=0)), plan
 
 
 class _StreamCuda(torch.autograd.Function):
@@ -379,13 +409,11 @@ class _StreamCuda(torch.autograd.Function):
 
 
 def milnce_stream_cuda(v, t, v_all, t_all, chunk: int):
-    """(row_lse (B,), col_lse (B*K,)) on the CUDA kernels.  ``chunk`` is
-    the plain stream's block size, kept for the same signature; the
-    kernels tile columns their own way.  A depth past
-    :data:`STREAM_DMAX` is refused before the first launch, so that no
-    forward runs only for its backward to fail."""
+    """(row_lse (B,), col_lse (B*K,)) on the CUDA kernels, at any depth
+    (past :data:`STREAM_DMAX` in the deep mode).  ``chunk`` is the plain
+    stream's block size, kept for the same signature; the kernels tile
+    columns their own way."""
     del chunk
-    check_depth("milnce_stream_cuda", v.shape[-1])
     return _StreamCuda.apply(v, t, v_all, t_all)
 
 

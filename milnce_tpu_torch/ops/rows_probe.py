@@ -109,7 +109,8 @@ def main() -> int:
         b = torch.randn((c, d), generator=gen, device="cuda") * d ** -0.25
         lse = torch.logsumexp(a @ b.T, dim=1)
         g = torch.full((r,), 1.0 / r, device="cuda")
-        _check("lse_fwd", ms.launch_fwd(libs[0], a, b), ms.lse_plain(a, b, 4096))
+        _check("lse_fwd", ms.launch_fwd(libs[0], a, b)[0],
+               ms.lse_plain(a, b, 4096))
         print(f"lse_fwd R={r} C={c} D={d}: {ms.fwd_plan(r, c, d, sms)}")
         flops = 2 * r * c * d
         for label, lib in zip(LABELS["lse_fwd"], libs):
@@ -123,7 +124,7 @@ def main() -> int:
         for name, cols, plain, plan_of in (
                 ("lse_bwd_rows", False, ms.lse_bwd_rows_plain, ms.rows_plan),
                 ("lse_bwd_cols", True, ms.lse_bwd_cols_plain, ms.cols_plan)):
-            _check(name, ms.launch_bwd(libs[0], a, b, lse, g, cols),
+            _check(name, ms.launch_bwd(libs[0], a, b, lse, g, cols)[0],
                    plain(a, b, lse, g, 4096))
             print(f"{name} R={r} C={c} D={d}: {plan_of(r, c, d, sms)}")
             for label, lib in zip(LABELS["lse_bwd"], libs):

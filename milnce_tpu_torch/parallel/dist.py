@@ -141,6 +141,19 @@ def initialize_distributed(cfg) -> Ranks:
     return Ranks(dist.group.WORLD, rank, world, local_rank)
 
 
+def broadcast_str(value: str, group=None, max_len: int = 64) -> str:
+    """Every rank returns rank 0's ``value`` (utf-8, truncated to
+    ``max_len`` bytes), over ``group`` (port of
+    ``milnce_tpu/parallel/mesh.py::broadcast_str``): the run's one
+    ``run_id``.  No group is a pass-through.  Over NCCL the rank's CUDA
+    device must be set first, as :func:`initialize_distributed` does."""
+    if group is None:
+        return value
+    box = [value.encode("utf-8")[:max_len].decode("utf-8", "ignore")]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
 # ------------------------------------------------ differentiable collectives
 def _gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]

@@ -25,6 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from milnce_tpu_torch.obs import metrics as obs_metrics
+
+# Transient-save-failure telemetry: nonzero retries on a healthy store is
+# the early-warning signal for flaky storage.
+_OBS_SAVE_RETRIES = obs_metrics.registry().counter(
+    "milnce_ckpt_save_retries_total",
+    "checkpoint save submits retried after a transient OSError")
+
 _STALE_PREFIX = "stale-epoch-"   # non-numeric => invisible to latest_epoch
 _TMP_PREFIX = ".tmp-"
 STATE_FILE = "state.pt"
@@ -96,6 +104,7 @@ class CheckpointManager:
             except OSError as exc:
                 if attempt >= self.save_retries:
                     raise
+                _OBS_SAVE_RETRIES.inc()
                 delay = self.retry_backoff * (2 ** attempt)
                 logging.getLogger(__name__).warning(
                     "checkpoint save of epoch %d failed (%s: %s); retrying "

@@ -16,10 +16,24 @@ batch_size // 512)`` epochs.  With ``train.verbose`` the messages also
 go to ``<log_root>/<checkpoint_dir>.log``, the display windows to its
 ``.jsonl`` twin.
 
+Observability, as the JAX loop has it (``obs/``): a ``run_id`` from rank
+0 on every record; the span stream ``RUN_EVENTS.jsonl`` (rank r:
+``RUN_EVENTS.p{r}.jsonl``) in ``train.obs_dir or train.log_root`` when
+``train.verbose`` is set, with the ``run.start``, ``step``, ``data.wait``,
+``sync``, ``display``, ``ckpt.save``, ``ckpt.restore``, ``rollback``,
+``anomaly``, ``capture.*`` and ``run.end`` records; the display gauges
+(loss, lr, clips/s, skipped steps, rollbacks, live MFU, goodput, stage)
+on the process-wide registry; the EWMA step-time spike detector
+(``train.anomaly_*``) arming a bounded ``torch.profiler`` capture
+(``train.capture_*``, also armed by SIGUSR1); ``train.trace_dir``; and
+at the end the goodput ledger, ``GOODPUT.json`` (rank r:
+``GOODPUT.p{r}.json``) beside the stream.  The ``step`` span holds the
+step's device work: the finite guard reads its verdict on the host.
+
 Across ranks, rank 0 logs, saves the checkpoints and runs the eval while
 the others wait at a barrier; every rank restores on resume and on a
 rollback.  Losses, skips and the displayed clips/s are global.
-Goodput, curriculum, elastic drain and observability are not ported yet.
+Curriculum and elastic drain are not ported yet.
 
 Precision: the JAX towers run in f32, so TF32 is switched off for both
 cuDNN convolutions and CUDA matmuls before anything runs.
@@ -27,8 +41,10 @@ cuDNN convolutions and CUDA matmuls before anything runs.
 
 from __future__ import annotations
 
+import json
 import math
 import os
+import signal
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -46,14 +62,24 @@ from milnce_tpu_torch.eval.metrics import format_metrics
 from milnce_tpu_torch.eval.runner import EVAL_TASKS, evaluate_task
 from milnce_tpu_torch.losses.milnce_chunked import milnce_route
 from milnce_tpu_torch.models.build import build_model
-from milnce_tpu_torch.ops.milnce_stream import STREAM_DMAX
-from milnce_tpu_torch.parallel.dist import Ranks, initialize_distributed
+from milnce_tpu_torch.obs import export as obs_export
+from milnce_tpu_torch.obs import goodput as obs_goodput
+from milnce_tpu_torch.obs import metrics as obs_metrics
+from milnce_tpu_torch.obs import runctx as obs_runctx
+from milnce_tpu_torch.obs import spans as obs_spans
+from milnce_tpu_torch.obs.anomaly import EwmaSpikeDetector
+from milnce_tpu_torch.obs.capture import ProfilerCapture
+from milnce_tpu_torch.parallel.dist import (Ranks, broadcast_str,
+                                            initialize_distributed)
 from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
                                                load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.train.step import make_train_step
 from milnce_tpu_torch.utils.logging import RunLogger
+from milnce_tpu_torch.utils.profiling import StepTimer, maybe_trace
+from milnce_tpu_torch.utils.roofline import (device_peak_flops, mfu,
+                                             train_step_flops)
 from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 
 # Knobs of the reference loop that this loop does not read yet, as dotted
@@ -61,7 +87,6 @@ from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 # A name leaves the table in the change that ports it.
 UNPORTED_KNOBS = (
     "train.grad_accum", "train.faults", "train.curriculum",
-    "train.trace_dir", "train.obs_dir", "train.capture_dir",
     "train.drain_signal_file", "data.use_native_reader",
     "parallel.model_axis", "parallel.model_parallel_size")
 
@@ -70,10 +95,9 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     """Refuse, before anything is built, what a run of ``world`` ranks on
     ``device_type`` would not honour: every knob of
     :data:`UNPORTED_KNOBS` set away from its default, a global batch that
-    does not split over the ranks, an unknown ``train.eval_task`` when
-    evaluating, and an embedding wider than the MIL-NCE stream kernels
-    take when the loss would stream on them (backend ``cuda``, or
-    ``auto`` on a CUDA device: the kernels do not tile D yet)."""
+    does not split over the ranks, and an unknown ``train.eval_task``
+    when evaluating.  The MIL-NCE stream kernels take any embedding width
+    (past ``STREAM_DMAX`` in their deep mode)."""
     default = Config()
     unported = [name for name in UNPORTED_KNOBS
                 if _knob(cfg, name) != _knob(default, name)]
@@ -87,13 +111,6 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
         raise ValueError(f"unknown train.eval_task {cfg.train.eval_task!r}; "
                          f"expected one of {'|'.join(EVAL_TASKS)}")
-    if (cfg.loss.name == "milnce" and cfg.model.embedding_dim > STREAM_DMAX
-            and milnce_route(cfg.loss, b_global // world, b_global,
-                             cfg.data.num_candidates, device_type) == "cuda"):
-        raise ValueError(
-            f"model.embedding_dim={cfg.model.embedding_dim}: the MIL-NCE "
-            f"stream kernels take D <= {STREAM_DMAX}; use "
-            "loss.milnce_impl dense")
 
 
 _ROUTES = {"dense": "dense cubes", "cuda": "streamed on the CUDA kernels",
@@ -227,6 +244,220 @@ def _open_checkpoints(ckpt_dir: str, cfg: Config,
     return manager or CheckpointManager(ckpt_dir, create=False)
 
 
+class _RunObs:
+    """The run's observability (after ``milnce_tpu/train/loop.py:264-375``
+    and ``:1111-1127``): the run identity, the span stream, the display
+    gauges, the spike detector and the capture it arms, and at the end
+    the goodput ledger.  It reads only values the loop already holds on
+    the host, so it adds no device sync."""
+
+    def __init__(self, cfg: Config, ranks: Ranks, device, log):
+        t = cfg.train
+        self.log = log
+        self.guard_on = t.finite_guard
+        # one run_id for every rank: rank 0's, broadcast over the group
+        self.run_id = t.run_id or broadcast_str(obs_runctx.auto_run_id(),
+                                                ranks.group)
+        self.prev_runctx = obs_runctx.set_run_context(self.run_id,
+                                                      ranks.rank)
+        self.obs_dir = t.obs_dir or t.log_root
+        self.path = None
+        if t.verbose and self.obs_dir:
+            os.makedirs(self.obs_dir, exist_ok=True)
+            name = ("RUN_EVENTS.jsonl" if ranks.rank == 0
+                    else f"RUN_EVENTS.p{ranks.rank}.jsonl")
+            self.path = os.path.join(self.obs_dir, name)
+        self.rec = obs_spans.SpanRecorder(
+            path=self.path, profiler_bridge=t.obs_profiler_bridge)
+        self.rec.event("run.start", seed=t.seed, batch_size=t.batch_size,
+                       processes=ranks.world)
+        # the pipeline's data.wait spans and watchdog events land here
+        self.prev_rec = obs_spans.install(self.rec)
+        reg = self.reg = obs_metrics.registry()
+        self.m_steps = reg.counter(
+            "milnce_train_steps_total",
+            "optimizer steps dispatched (display-cadence fed)")
+        self.g_loss = reg.gauge(
+            "milnce_train_loss",
+            "windowed mean training loss at the last display")
+        self.g_lr = reg.gauge("milnce_train_learning_rate",
+                              "current LR (numpy host-schedule twin)")
+        self.g_tput = reg.gauge("milnce_train_clips_per_sec",
+                                "windowed throughput at the last display")
+        self.g_skipped = reg.gauge("milnce_train_skipped_steps",
+                                   "finite-guard skipped updates (run total)")
+        self.m_rollbacks = reg.counter("milnce_train_rollbacks_total",
+                                       "circuit-breaker checkpoint restores")
+        self.g_mfu = reg.gauge(
+            "milnce_train_mfu",
+            "live MFU at the last display (roofline step FLOPs over device "
+            "peak; only set when both are known)")
+        self.g_goodput = reg.gauge(
+            "milnce_train_goodput_fraction",
+            "windowed goodput at the last display: elapsed minus data-wait, "
+            "times the applied-update fraction, over elapsed")
+        self.g_stage = reg.gauge(
+            "milnce_train_stage",
+            "live curriculum stage index (0-based; flat runs stay 0)")
+        self.m_data_wait = reg.counter(
+            "milnce_data_wait_seconds_total",
+            "host seconds the training loop blocked waiting for batch data")
+        # live MFU: the roofline step FLOPs (MIL-NCE only, as in the JAX
+        # loop) over the card's peak for the model's dtype
+        self.peak = device_peak_flops(
+            torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+        self.n_cards = ranks.world
+        self.step_flops = None
+        if self.peak and cfg.loss.name == "milnce":
+            m, d = cfg.model, cfg.data
+            self.step_flops = train_step_flops(
+                t.batch_size, d.num_frames, d.video_size, d.num_candidates,
+                d.max_words, space_to_depth=m.space_to_depth,
+                inception_blocks=m.inception_blocks,
+                embedding_dim=m.embedding_dim,
+                word_dim=m.word_embedding_dim, hidden=m.text_hidden_dim)
+        self.last_mfu = None
+        self.steps = 0                  # the loop's steps, for run.end
+        self.wait0 = self.m_data_wait.value
+        self.prev_skipped = 0
+        self.capture = None
+        if t.capture_dir:
+            self.capture = ProfilerCapture(
+                t.capture_dir, duration_s=t.capture_ms / 1e3,
+                cooldown_s=t.anomaly_cooldown_s, max_captures=t.capture_max,
+                recorder=self.rec)
+        self.detector = None
+        if t.anomaly_detect:
+            self.detector = EwmaSpikeDetector(
+                "train.step_ms", ratio=t.anomaly_ratio,
+                warmup=t.anomaly_warmup, cooldown_s=t.anomaly_cooldown_s,
+                recorder=self.rec,
+                on_anomaly=((lambda v, e: self.capture.arm(
+                    reason="step_time_spike"))
+                    if self.capture is not None else None))
+        self.capture_requested = False      # SIGUSR1, acted on at display
+        self.prev_usr1 = None
+        if self.capture is not None:
+            try:
+                self.prev_usr1 = signal.signal(signal.SIGUSR1,
+                                               self._on_sigusr1)
+            except ValueError:                  # not the main thread
+                self.prev_usr1 = None
+
+    def _on_sigusr1(self, signum, frame) -> None:
+        self.capture_requested = True
+
+    def after_step(self) -> None:
+        """A step boundary: a capture whose duration has passed stops on
+        this (the loop's) thread."""
+        if self.capture is not None:
+            self.capture.poll()
+
+    def display(self, *, step: int, epoch: int, window: int,
+                elapsed: float, mean_loss: float, lr: float,
+                clips_per_sec: float, skipped: int,
+                first_window: bool) -> str:
+        """Feed one display window to the gauges, the ``display`` event,
+        the spike detector and a requested capture; returns the display
+        line's MFU text ('' when the MFU is unknown)."""
+        extra = ""
+        sps = window / elapsed if elapsed > 0 else 0.0
+        if self.step_flops is not None and sps > 0:
+            self.last_mfu = mfu(self.step_flops, sps, self.peak,
+                                self.n_cards)
+            self.g_mfu.set(self.last_mfu)
+            extra = f", MFU: {self.last_mfu:.3f}"
+        # windowed goodput: elapsed minus host data-wait, scaled by the
+        # applied-update fraction (a skipped step burnt time for nothing)
+        wait_now = self.m_data_wait.value
+        wait_delta = max(0.0, wait_now - self.wait0)
+        self.wait0 = wait_now
+        applied = 1.0
+        if self.guard_on and window > 0:
+            applied = max(0.0, 1.0 - max(0, skipped - self.prev_skipped)
+                          / window)
+            self.prev_skipped = skipped
+        goodput = (max(0.0, elapsed - wait_delta) / elapsed * applied
+                   if elapsed > 0 else 0.0)
+        self.g_goodput.set(goodput)
+        self.m_steps.inc(window)
+        self.g_loss.set(mean_loss)
+        self.g_lr.set(lr)
+        self.g_tput.set(clips_per_sec)
+        if self.guard_on:
+            self.g_skipped.set(skipped)
+        self.g_stage.set(0)
+        self.rec.event("display", step=step, epoch=epoch,
+                       loss=float(mean_loss), lr=float(lr),
+                       clips_per_sec=clips_per_sec,
+                       goodput_fraction=round(goodput, 5), stage=0,
+                       skipped_total=skipped,
+                       **({"mfu": round(self.last_mfu, 5)}
+                          if self.last_mfu is not None else {}))
+        # the window holding the run's first step is left out: its
+        # start-up time would set the baseline too high
+        if self.detector is not None and window > 0 and not first_window:
+            self.detector.observe(elapsed * 1e3 / window, step=step)
+        if self.capture is not None and self.capture_requested:
+            self.capture_requested = False
+            verdict = self.capture.arm(reason="sigusr1")
+            self.log(f"SIGUSR1 profiler capture: {verdict}")
+        return extra
+
+    def rollback(self, *, step: int, restored_epoch: int, consec: int,
+                 lost: int) -> None:
+        self.m_rollbacks.inc()
+        self.rec.event("rollback", step=step, restored_epoch=restored_epoch,
+                       consecutive_skips=consec, lost_updates=lost)
+
+    def close(self, steps: int) -> None:
+        """``run.end``, then the goodput ledger over the whole run; the
+        previous recorder, run context and SIGUSR1 handler come back."""
+        if self.prev_usr1 is not None:
+            signal.signal(signal.SIGUSR1, self.prev_usr1)
+        if self.capture is not None:
+            self.capture.close()        # flush a mid-capture trace
+        self.rec.event("run.end", steps=steps)
+        extra = ({"mfu": round(self.last_mfu, 5)}
+                 if self.last_mfu is not None else None)
+        _finalize_goodput_ledger(self.rec, self.path, self.run_id,
+                                 obs_runctx.get_run_context()[1], self.reg,
+                                 self.obs_dir, self.log, extra)
+        obs_spans.install(self.prev_rec)
+        self.rec.close()
+        obs_runctx.set_run_context(*self.prev_runctx)
+
+
+def _finalize_goodput_ledger(rec, rec_path, run_id, process_index,
+                             registry, obs_dir, log_fn,
+                             extra: Optional[dict] = None) -> None:
+    """End-of-run goodput ledger (``obs/goodput.py``): read back this run's
+    stream (the file when there is one, the ring otherwise), export it as
+    gauges and write ``GOODPUT.json`` (rank r: ``GOODPUT.p{r}.json``)
+    beside the stream.  Best-effort: the ledger never turns a finished
+    (or failing) run into an error."""
+    try:
+        if rec_path and os.path.exists(rec_path):
+            with open(rec_path) as fh:
+                records = [json.loads(line) for line in fh if line.strip()]
+        else:
+            records = rec.tail()
+        ledger = obs_goodput.compute_ledger(records, run_id=run_id)
+        obs_goodput.ledger_to_registry(ledger, registry)
+        if rec_path:
+            name = ("GOODPUT.json" if not process_index
+                    else f"GOODPUT.p{process_index}.json")
+            payload = ledger.to_extra()
+            payload.update(extra or {})
+            obs_export.write_snapshot(os.path.join(obs_dir, name), registry,
+                                      kind="goodput", extra=payload)
+        log_fn(ledger.summary_line())
+    except Exception as exc:
+        log_fn(f"goodput ledger failed ({type(exc).__name__}: {exc}) — "
+               "telemetry only, run result unaffected")
+
+
 def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
            on_step) -> TrainResult:
     log(disable_tf32())
@@ -234,6 +465,17 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
     if ranks.group is not None:
         log(f"process group: {ranks.world} ranks on "
             f"{dist.get_backend(ranks.group)}")
+    obs = _RunObs(cfg, ranks, device, log)
+    try:
+        with maybe_trace(cfg.train.trace_dir or None):
+            return _train_run(cfg, ranks, log, runlog, on_step, device, obs)
+    finally:
+        obs.close(obs.steps)
+
+
+def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
+               device, obs: _RunObs) -> TrainResult:
+    rec = obs.rec
     b_global = cfg.train.batch_size
     b_local = b_global // ranks.world
     if cfg.loss.name == "milnce":
@@ -272,10 +514,12 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
     manager = _open_checkpoints(ckpt_dir, cfg, ranks)
     start_epoch = resume_step = 0
     if cfg.train.resume:
-        start_epoch, state = manager.restore_latest(map_location=device)
+        with rec.span("ckpt.restore", label="latest"):
+            start_epoch, state = manager.restore_latest(map_location=device)
+            if state is not None:
+                resume_step = load_train_state(state, model, optimizer,
+                                               lr_scheduler)
         if state is not None:
-            resume_step = load_train_state(state, model, optimizer,
-                                           lr_scheduler)
             log(f"resumed from epoch {start_epoch} at batch "
                 f"{resume_batch_offset(resume_step, steps_per_epoch)}")
     max_steps = cfg.train.max_steps
@@ -287,9 +531,10 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
                            epoch_label)
 
     def save(label: int, force: bool = False) -> None:
-        if ranks.is_main:
-            manager.save(label, snapshot(label), force=force)
-        ranks.barrier()
+        with rec.span("ckpt.save", label=label, forced=force, stage=0):
+            if ranks.is_main:
+                manager.save(label, snapshot(label), force=force)
+            ranks.barrier()
 
     # The finite guard's display window, as the JAX loop keeps it: a
     # skipped step's loss stays out of the sum and the count, a window
@@ -304,7 +549,7 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
     eval_every = max(1, cfg.train.batch_size // 512)
     offset = resume_batch_offset(resume_step, steps_per_epoch)
     tick = time.time()
-    window_t0 = time.perf_counter()
+    timer = StepTimer(clips_per_step=b_global)
     for epoch in range(start_epoch, cfg.optim.epochs):
         if (cfg.train.evaluate and cfg.data.eval_video_root
                 and epoch % eval_every == 0):
@@ -321,7 +566,8 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
             if batch is None:
                 break
             video, text = flatten_text(batch)
-            out = step_fn(video, text, batch["start"])
+            with rec.span("step", step=steps + 1):
+                out = step_fn(video, text, batch["start"])
             last, skip = out if guard_on else (out, 0)
             skipped += skip
             if skip:
@@ -331,27 +577,35 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
                 valid += 1
                 consec = 0
             steps += 1
+            obs.steps = steps
             opt_step += 1
             window += 1
+            obs.after_step()
             if on_step is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 on_step(opt_step, time.perf_counter() - t0, float(last),
                         t0 - t_wait)
             if window == cfg.train.n_display or steps == max_steps:
-                mean_loss = float(running) / valid if valid else math.nan
-                elapsed = time.perf_counter() - window_t0
+                with rec.span("sync", cause="display", step=opt_step):
+                    mean_loss = float(running) / valid if valid else math.nan
+                elapsed = timer.elapsed_s
                 progress = ((opt_step - 1) % steps_per_epoch + 1) / steps_per_epoch
                 clips_per_s = window * b_global / elapsed
+                lr = schedule(opt_step)
+                extra = obs.display(
+                    step=opt_step, epoch=epoch + 1, window=window,
+                    elapsed=elapsed, mean_loss=mean_loss, lr=lr,
+                    clips_per_sec=clips_per_s, skipped=skipped,
+                    first_window=opt_step - window == resume_step)
                 log(f"Epoch {epoch + 1}, Elapsed Time: "
                     f"{time.time() - tick:.3f}, Epoch status: "
                     f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
-                    f"Learning rate: {schedule(opt_step):.6f}, Throughput: "
-                    f"{clips_per_s:.1f} clips/s")
+                    f"Learning rate: {lr:.6f}, Throughput: "
+                    f"{clips_per_s:.1f} clips/s{extra}")
                 runlog.log_event({"event": "display", "epoch": epoch + 1,
                                   "step": opt_step, "loss": mean_loss,
-                                  "lr": schedule(opt_step),
-                                  "clips_per_s": clips_per_s,
+                                  "lr": lr, "clips_per_s": clips_per_s,
                                   "skipped": skipped})
                 # A guarded window with no applied update is NaN by
                 # construction: that is the breaker's case, not the
@@ -372,19 +626,26 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
                         f"step {opt_step}")
                 if (guard_on and cfg.train.skip_rollback_after
                         and consec >= cfg.train.skip_rollback_after):
-                    _roll_back(manager, consec, opt_step, steps, skipped,
-                               last_rollback, model, optimizer, lr_scheduler,
-                               device)
+                    latest = _roll_back(manager, consec, opt_step, steps,
+                                        skipped, last_rollback, model,
+                                        optimizer, lr_scheduler, device, rec)
                     last_rollback = (steps, skipped)
                     rollbacks += 1
+                    # updates applied since the restored boundary save
+                    # are discarded; the skipped streak is already badput
+                    obs.rollback(step=opt_step, restored_epoch=latest,
+                                 consec=consec,
+                                 lost=max(0, opt_step
+                                          - latest * steps_per_epoch
+                                          - consec))
                     log(f"circuit breaker: {consec} consecutive non-finite "
                         f"updates — restored rotation checkpoint "
-                        f"{manager.latest_epoch()}, resuming at step "
+                        f"{latest}, resuming at step "
                         f"{opt_step} past the poisoned data window")
                     consec = 0
                 running.zero_()
                 window = valid = 0
-                window_t0 = time.perf_counter()
+                timer.reset()
             if steps == max_steps:
                 prefetch.close()
                 label, force = stop_save_label(epoch, opt_step,
@@ -398,13 +659,14 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
 
 
 def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
-               model, optimizer, lr_scheduler, device) -> None:
+               model, optimizer, lr_scheduler, device, rec) -> int:
     """The circuit breaker: K consecutive non-finite updates restore the
     newest rotation checkpoint's weights, optimizer and schedule; the
     caller keeps its step counter and data cursor, so the run goes on
     PAST the poisoned window.  Halts when there is no checkpoint, or when
     no update applied since the previous rollback (a persistent failure
-    would otherwise loop rollback-skip-rollback)."""
+    would otherwise loop rollback-skip-rollback).  Returns the restored
+    label."""
     latest = manager.latest_epoch()
     if latest is None:
         raise FloatingPointError(
@@ -418,5 +680,7 @@ def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
                 "with ZERO applied updates since the previous rollback — "
                 "the failure is persistent, halting instead of rolling back "
                 "in a loop")
-    load_train_state(manager.restore(latest, map_location=device), model,
-                     optimizer, lr_scheduler)
+    with rec.span("ckpt.restore", label=int(latest)):
+        load_train_state(manager.restore(latest, map_location=device), model,
+                         optimizer, lr_scheduler)
+    return int(latest)

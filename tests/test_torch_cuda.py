@@ -43,9 +43,11 @@ def _close(got, want):
     (3, 3, 2, 16, 2), (5, 37, 3, 40, 8), (33, 130, 1, 64, 100),
     (16, 16, 5, 512, 8), (33, 8191, 1, 13, 1000), (33, 8191, 1, 512, 1000),
     (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64), (2048, 40, 1, 512, 40),
-    (200, 3000, 3, 512, 300)],
+    (200, 3000, 3, 512, 300), (4, 8, 3, 769, 3), (33, 300, 3, 1000, 100),
+    (8, 64, 2, 2048, 16)],
     ids=["tiny", "odd-d", "uneven", "train", "d13-r33", "r33-bg8191",
-         "r640", "d700", "split", "fwd-split"])
+         "r640", "d700", "split", "fwd-split", "deep-d769", "deep-d1000",
+         "deep-d2048"])
 def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
     rng = np.random.default_rng(b + bg)
     arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
@@ -61,7 +63,10 @@ def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
 
     before = dict(ms.LAUNCHES)
     got = run(ms.milnce_stream)
-    assert all(ms.LAUNCHES[n] == before[n] + 2 for n in before)
+    mode = "" if d <= ms.STREAM_DMAX else "_deep"
+    assert all(ms.LAUNCHES[n + mode] == before[n + mode] + 2
+               for n in ms.KERNELS)
+    assert sum(ms.LAUNCHES.values()) == sum(before.values()) + 6
     for a, w in zip(got, run(ms.milnce_stream_plain)):
         _close(a, w)
 
@@ -110,19 +115,15 @@ def test_chunked_loss_on_kernels_matches_dense(cuda):
 @pytest.mark.parametrize("d", [768, 1024])
 def test_auto_stream_launches_the_kernels_or_refuses_the_depth(cuda, d):
     """``milnce_stream`` (backend ``auto``) on CUDA tensors launches the
-    kernels up to their depth and refuses past it, before any launch: it
-    never takes the plain stream on the card."""
+    kernels at every depth, held up to STREAM_DMAX and in the deep mode
+    past it: it never takes the plain stream on the card."""
     rng = np.random.default_rng(d)
     arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
                            device=cuda) for n in (4, 8, 12, 24)]
     ms.reset_launches()
-    if d > ms.STREAM_DMAX:
-        with pytest.raises(ValueError, match="D <= 768"):
-            ms.milnce_stream(*arrays, 5)
-        assert ms.LAUNCHES["lse_fwd"] == 0
-        return
     row, col = ms.milnce_stream(*arrays, 5)
-    assert ms.LAUNCHES["lse_fwd"] == 2
+    name = "lse_fwd" if d <= ms.STREAM_DMAX else "lse_fwd_deep"
+    assert ms.LAUNCHES[name] == 2 and sum(ms.LAUNCHES.values()) == 2
     _close(row, ms.milnce_stream_plain(*arrays, 5)[0])
     _close(col, ms.milnce_stream_plain(*arrays, 5)[1])
 
@@ -133,14 +134,17 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         ms.lse_fwd(a.double(), a.double())
     with pytest.raises(ValueError, match="contiguous"):
         ms.lse_fwd(torch.zeros(8, 4, device=cuda).T, a)
-    wide = [torch.zeros(2, 4096, device=cuda), torch.zeros(2, 4096, device=cuda),
-            torch.zeros(2, device=cuda), torch.zeros(2, device=cuda)]
-    with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
-        ms.lse_fwd(*wide[:2])
-    with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
-        ms.lse_bwd_cols(*wide)
-    with pytest.raises(ValueError, match="largest kernel instance, D <= 768"):
-        ms.lse_bwd_rows(*wide)
+    # D = 4096 is no longer refused: each wrapper launches its deep mode
+    rng = np.random.default_rng(4096)
+    wide = [torch.tensor(rng.standard_normal((n, 4096), np.float32) / 8,
+                         device=cuda) for n in (2, 3)]
+    lse = ms.lse_plain(*wide, 4096)
+    g = torch.ones(2, device=cuda)
+    _close(ms.lse_fwd(*wide), lse)
+    _close(ms.lse_bwd_rows(*wide, lse, g),
+           ms.lse_bwd_rows_plain(*wide, lse, g, 4096))
+    _close(ms.lse_bwd_cols(*wide, lse, g),
+           ms.lse_bwd_cols_plain(*wide, lse, g, 4096))
 
 
 @pytest.mark.parametrize("b,n,m,band", [

@@ -21,7 +21,9 @@ test); this process holds JAX and compares.  Inputs are numpy, seeded.
   step on the concatenated batch (reduced gradients included); a rank
   with NaN gradients makes both ranks skip.
 - ``run_training`` at W = 2: resume, checkpoint keys, a W = 2 checkpoint
-  booting one process, rank 0 alone logging and evaluating.
+  booting one process, rank 0 alone logging and evaluating; each rank's
+  span stream and goodput ledger under one ``run_id`` (rank 0's,
+  broadcast), merged alike by both packages' ``merge_event_streams``.
 """
 
 import json
@@ -413,7 +415,10 @@ def test_run_training_at_two_ranks_logs_on_rank_zero_only(trainer_runs):
     lines = r0["whole"]["lines"]
     assert "process group: 2 ranks on gloo" in lines
     assert "MIL-NCE: dense cubes (B_local 2, Bg 4, K 1, D 512)" in lines
-    assert sorted(os.listdir(root / "log-whole")) == ["run.jsonl", "run.log"]
+    # the run log is rank 0's; the span streams and ledgers every rank's
+    assert sorted(os.listdir(root / "log-whole")) == [
+        "GOODPUT.json", "GOODPUT.p1.json", "RUN_EVENTS.jsonl",
+        "RUN_EVENTS.p1.jsonl", "run.jsonl", "run.log"]
     text = (root / "log-whole" / "run.log").read_text()
     assert text.count("Training loss:") == 4
     events = [json.loads(x) for x in
@@ -422,6 +427,37 @@ def test_run_training_at_two_ranks_logs_on_rank_zero_only(trainer_runs):
     np.testing.assert_allclose([e["loss"] for e in events],
                                [r0["whole"]["losses"][s] for s in range(1, 5)],
                                rtol=1e-6)
+
+
+def test_run_training_at_two_ranks_streams_merge_under_one_run_id(
+        trainer_runs):
+    """Each rank writes its stream and ledger under rank 0's run_id (the
+    broadcast), stamped with its rank; the port's and the JAX package's
+    ``merge_event_streams`` merge the two streams alike (exact), and a
+    stream of another run is refused."""
+    from milnce_tpu.obs.aggregate import merge_event_streams as jax_merge
+    from milnce_tpu_torch.obs.aggregate import merge_event_streams
+
+    root, _ = trainer_runs
+    streams = []
+    for rank, name in enumerate(("RUN_EVENTS.jsonl", "RUN_EVENTS.p1.jsonl")):
+        recs = [json.loads(x) for x in
+                (root / "log-whole" / name).read_text().splitlines()]
+        assert {r["process_index"] for r in recs} == {rank}
+        assert [r["step"] for r in recs if r["name"] == "step"] == [1, 2, 3, 4]
+        streams.append(recs)
+    run_ids = {r["run_id"] for recs in streams for r in recs}
+    assert len(run_ids) == 1
+    merged = merge_event_streams(streams)
+    assert merged == jax_merge(streams)
+    assert merged["run_id"] in run_ids and merged["process_indices"] == [0, 1]
+    for rank, name in enumerate(("GOODPUT.json", "GOODPUT.p1.json")):
+        doc = json.loads((root / "log-whole" / name).read_text())
+        assert doc["run_id"] in run_ids and doc["process_index"] == rank
+        assert doc["steps"] == 4
+    other = [dict(r, run_id="other") for r in streams[1]]
+    with pytest.raises(ValueError, match="mixed-run merge refused"):
+        merge_event_streams([streams[0], other])
 
 
 def test_run_training_at_two_ranks_evaluates_on_rank_zero(trainer_runs):

@@ -41,7 +41,11 @@ def test_port_package_exists():
                      "eval/retrieval.py", "eval/linear_probe.py",
                      "eval/runner.py", "eval/cli.py",
                      "utils/torch_convert.py", "utils/logging.py",
-                     "parallel/dist.py"):
+                     "utils/profiling.py", "utils/roofline.py",
+                     "parallel/dist.py", "obs/__init__.py", "obs/runctx.py",
+                     "obs/metrics.py", "obs/spans.py", "obs/export.py",
+                     "obs/goodput.py", "obs/aggregate.py", "obs/anomaly.py",
+                     "obs/capture.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

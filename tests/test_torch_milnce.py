@@ -6,9 +6,13 @@ Pallas kernels run in interpret mode here.
 Same inputs (numpy, seeded) on both sides; the JAX chunked-loss file's
 tolerances: ``rtol=2e-6`` on the value, ``atol=2e-6`` on the gradients.
 Covered: K in {1, 5}, an uneven last chunk, a batch off the 8-row grid,
-and chunk >= Bg.  The CUDA kernels themselves run only on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``); here the wrappers
-must refuse CPU tensors rather than compute anything.
+and chunk >= Bg; and past the kernels' held depth (D = 1000, 1024), the
+plain stream against ``milnce_loss_chunked(backend='scan')``, the stream
+JAX's ``auto`` takes at a depth its Pallas kernel cannot hold.  The
+CUDA kernels themselves run only on the card (``tests/test_torch_cuda.py``
+and ``chip_smoke.py``); here the wrappers must refuse CPU tensors rather
+than compute anything, and the launch plans are checked as pure
+functions.
 """
 
 import numpy as np
@@ -106,6 +110,25 @@ def test_plain_primitives_against_dense_autograd(b, bg, k, chunk):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("b,k,d,chunk", [(8, 5, 1024, 3), (6, 3, 1000, 4)],
+                         ids=["d1024", "d1000"])
+def test_plain_stream_past_the_held_depth_matches_jax_scan(b, k, d, chunk):
+    """C6: past STREAM_DMAX (where the card runs the kernels' deep mode)
+    the plain stream equals JAX's scan stream, the one JAX's ``auto``
+    takes there (``prefers_pallas`` is false); the same tolerances."""
+    assert d > ms.STREAM_DMAX
+    v, t = _embeddings(b, k, d, seed=d + b)
+    v, t = v * d ** -0.25, t * d ** -0.25          # logits of unit scale
+    want = jax.value_and_grad(
+        lambda a, c: jax_milnce_loss_chunked(a, c, chunk=chunk,
+                                             backend="scan"),
+        argnums=(0, 1))(jnp.asarray(v), jnp.asarray(t))
+    got = _torch_value_and_grads(
+        lambda a, c: milnce_loss_chunked(a, c, chunk=chunk, backend="scan"),
+        v, t)
+    _check(got, want)
+
+
 def test_auto_stream_takes_the_plain_path_for_cpu_tensors():
     v, t = _embeddings(4, 2, 8, seed=1)
     ms.reset_launches()
@@ -156,12 +179,19 @@ def test_build_milnce_loss_knobs():
                        milnce_loss(v, t))
 
 
+def _instance(d):
+    """(dmax, mode, nz) a backward plan must take at depth d."""
+    if d > ms.STREAM_DMAX:
+        return ms.STREAM_DMAX, "deep", -(-d // ms.STREAM_DMAX)
+    return min(x for x in ms.ROWS_INSTANCES if d <= x), "held", 1
+
+
 @pytest.mark.parametrize("r", [1, 33, 128, 640])
 @pytest.mark.parametrize("c", [1, 80, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700])
+@pytest.mark.parametrize("d", [13, 512, 700, 1000, 2048])
 def test_rows_launch_plan_covers_every_column_tile_once(r, c, d):
     plan = ms.rows_plan(r, c, d, sms=132)
-    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    assert (plan.dmax, plan.mode, plan.nz) == _instance(d)
     assert (plan.bm, plan.bn, plan.threads) == (32, 256, 256)
     assert plan.row_tiles == -(-r // 32) and plan.col_tiles == -(-c // 256)
     covered = [t for s in range(plan.nsplit) for t in plan.tiles(s)]
@@ -169,8 +199,10 @@ def test_rows_launch_plan_covers_every_column_tile_once(r, c, d):
     assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
     assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
     assert plan.scratch == (plan.nsplit, r, d)
-    # one wave of one block per SM unless the row tiles alone pass it
-    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
+    # one wave of one block per SM unless the row tiles (times the deep
+    # mode's gradient slabs) alone pass it
+    blocks = plan.row_tiles * plan.nz
+    assert blocks * plan.nsplit <= max(132, blocks)
     assert plan.smem_bytes <= 232448
 
 
@@ -181,9 +213,19 @@ def test_rows_launch_plan_shapes_and_refusal():
     assert ms.rows_plan(1, 1, 1, sms=132).nsplit == 1
     # the row tiles alone fill the card: no split
     assert ms.rows_plan(32 * 200, 40960, 512, sms=132).nsplit == 1
-    ms.rows_plan(4, 8, 768, sms=132)
-    with pytest.raises(ValueError, match="D <= 768"):
-        ms.rows_plan(4, 8, 769, sms=132)
+    # past the largest held instance: the deep mode, not a refusal
+    held = ms.rows_plan(4, 8, 768, sms=132)
+    assert (held.dmax, held.mode, held.nz) == (768, "held", 1)
+    deep = ms.rows_plan(4, 8, 769, sms=132)
+    assert (deep.dmax, deep.mode, deep.nz) == (768, "deep", 2)
+    # the recipe's rows launch at D = 1024: 4 row tiles x 2 gradient
+    # slabs, the streamed loop split to fill one wave; no O tile held,
+    # the ring's logits stages hold an owned slab beside the streamed one
+    recipe = ms.rows_plan(128, 40960, 1024, sms=132)
+    assert (recipe.row_tiles, recipe.nz, recipe.nsplit, recipe.tps,
+            recipe.smem_bytes) == (4, 2, 16, 10, 143680)
+    assert recipe.smem_bytes == 4 * (4 * (8 * 256 + 4) + 3 * (256 + 32) * 32
+                                     + 2 * 32)
 
 
 def _pad(r, sn):
@@ -192,10 +234,10 @@ def _pad(r, sn):
 
 @pytest.mark.parametrize("r", [1, 33, 128, 200, 640, 2048])
 @pytest.mark.parametrize("c", [1, 40, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700])
+@pytest.mark.parametrize("d", [13, 512, 700, 1000, 2048])
 def test_cols_launch_plan_covers_every_streamed_tile_once(r, c, d):
     plan = ms.cols_plan(r, c, d, sms=132)
-    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    assert (plan.dmax, plan.mode, plan.nz) == _instance(d)
     assert (plan.bm, plan.threads) == (32, 256)
     # 128-row streamed tiles: a 256-row tile never pads A less
     assert plan.bn == 128
@@ -207,9 +249,11 @@ def test_cols_launch_plan_covers_every_streamed_tile_once(r, c, d):
     assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
     assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
     assert plan.scratch == (plan.nsplit, c, d)
-    # one wave of one block per SM unless the owned tiles alone pass it
-    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
-    if plan.row_tiles >= 132:
+    # one wave of one block per SM unless the owned tiles (times the deep
+    # mode's gradient slabs) alone pass it
+    blocks = plan.row_tiles * plan.nz
+    assert blocks * plan.nsplit <= max(132, blocks)
+    if blocks >= 132:
         assert plan.nsplit == 1
     assert plan.smem_bytes <= 232448
 
@@ -230,17 +274,19 @@ def test_cols_launch_plan_shapes_and_refusal():
     # 128-row streamed tiles take less shared memory than 256-row ones
     assert (ms.cols_plan(8, 8, 512, sms=132).smem_bytes
             < ms.rows_plan(8, 8, 512, sms=132).smem_bytes)
-    ms.cols_plan(4, 8, 768, sms=132)
-    with pytest.raises(ValueError, match="lse_bwd_cols: .*D <= 768"):
-        ms.cols_plan(4, 8, 769, sms=132)
+    assert ms.cols_plan(4, 8, 768, sms=132).mode == "held"
+    deep = ms.cols_plan(4, 8, 769, sms=132)
+    assert (deep.dmax, deep.mode, deep.nz, deep.smem_bytes) == (
+        768, "deep", 2, 4 * (4 * (8 * 128 + 4) + 3 * 8 * 768 + 2 * 32))
 
 
 @pytest.mark.parametrize("r", [1, 33, 64, 128, 200, 640, 2048])
 @pytest.mark.parametrize("c", [1, 40, 257, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700, 768])
+@pytest.mark.parametrize("d", [13, 512, 700, 768, 1000, 2048])
 def test_fwd_launch_plan_covers_every_tile_once(r, c, d):
     plan = ms.fwd_plan(r, c, d, sms=132)
-    assert plan.dmax == min(x for x in ms.ROWS_INSTANCES if d <= x)
+    dmax, mode, _ = _instance(d)
+    assert (plan.dmax, plan.mode, plan.nz) == (dmax, mode, 1)
     assert (plan.bm, plan.bn) == ms.FWD_TILES[plan.dmax]
     assert plan.threads == 256
     # 256 threads, each 8 owned rows by 4 streamed rows
@@ -280,17 +326,27 @@ def test_fwd_launch_plan_shapes_and_refusal():
     assert (deep.dmax, deep.bm, deep.bn, deep.smem_bytes) == (768, 32, 256,
                                                               197120)
     assert 4 * (64 * 772 + 3 * 128 * 32) > 232448
-    ms.fwd_plan(4, 8, ms.STREAM_DMAX, sms=132)
-    with pytest.raises(ValueError, match="lse_fwd: .*D <= 768"):
-        ms.fwd_plan(4, 8, ms.STREAM_DMAX + 1, sms=132)
+    assert ms.fwd_plan(4, 8, ms.STREAM_DMAX, sms=132).mode == "held"
+    # past it the deep mode: the same tiles, A streamed beside B in each
+    # of the three stages, no A tile held
+    deep = ms.fwd_plan(4, 8, ms.STREAM_DMAX + 1, sms=132)
+    assert (deep.dmax, deep.mode, deep.bm, deep.bn, deep.smem_bytes) == (
+        768, "deep", 32, 256, 4 * 3 * (256 + 32) * 32)
+    with pytest.raises(ValueError, match="lse_fwd: depth 0"):
+        ms.fwd_plan(4, 8, 0, sms=132)
 
 
 def test_stream_refuses_the_depth_before_any_launch():
-    """The depth check comes first: past the largest instance the stream
-    refuses whatever the device, before a forward could launch."""
+    """No depth is refused any more: past the largest held instance the
+    stream takes the deep mode, so on CPU tensors the only refusal is the
+    device's, at every depth, before a forward could launch; the plans
+    say which mode a launch would take."""
     ms.reset_launches()
-    for d, match in ((769, "D <= 768"), (768, "CUDA tensors")):
+    for d, mode in ((769, "deep"), (768, "held"), (2048, "deep")):
         v, t = torch.zeros(2, d), torch.zeros(4, d)
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             ms.milnce_stream_cuda(v, t, v, t, 2)
+        assert ms.check_depth("milnce_stream_cuda", d)[1] == mode
     assert all(n == 0 for n in ms.LAUNCHES.values())
+    assert set(ms.LAUNCHES) == {f"{k}{m}" for k in ms.KERNELS
+                                for m in ("", "_deep")}

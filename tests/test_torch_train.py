@@ -8,7 +8,8 @@ tolerance: three Adam steps amplify f32 summation-order differences).
 Also pinned: the schedule's pre-increment count (the first warmup step
 runs at lr 0 in both), the frozen word table, the finite-guard skip, the
 finite guard's display window against the JAX loop's helpers, the
-refusal of knobs and depths the port does not honour, and the
+refusal of knobs the port does not honour, every embedding width passing
+the config check (the stream kernels' deep mode past 768), and the
 ``milnce-train-torch`` entry point on the CPU.
 """
 
@@ -16,6 +17,8 @@ import contextlib
 import dataclasses
 import datetime
 import importlib.util
+import json
+import math
 import os
 import pathlib
 import re
@@ -461,11 +464,13 @@ def _num_devices_is_honoured(cfg, root):
 
 def _log_root_is_honoured(cfg, root):
     """The JAX loop's ``<log_root>/<checkpoint_dir>.log`` and ``.jsonl``:
-    every message, time-stamped, and one record a display window."""
+    every message, time-stamped, and one record a display window; and,
+    with no ``train.obs_dir``, the span stream and the goodput ledger."""
     cfg.train.log_root, cfg.train.checkpoint_dir = str(root / "logs"), "mine"
     lines = []
     loop.run_training(cfg, log=lines.append)
-    assert sorted(os.listdir(root / "logs")) == ["mine.jsonl", "mine.log"]
+    assert sorted(os.listdir(root / "logs")) == [
+        "GOODPUT.json", "RUN_EVENTS.jsonl", "mine.jsonl", "mine.log"]
     logged = (root / "logs" / "mine.log").read_text().splitlines()
     assert [re.sub(r"^\[\d\d:\d\d:\d\d\] ", "", m) for m in logged] == lines
     events = (root / "logs" / "mine.jsonl").read_text().splitlines()
@@ -481,6 +486,53 @@ def _verbose_is_honoured(cfg, root):
     assert not (root / "logs").exists() and lines
 
 
+def _obs_dir_is_honoured(cfg, root):
+    """The span stream and the ledger go to ``train.obs_dir``, the run
+    log stays in ``log_root``."""
+    cfg.train.log_root, cfg.train.obs_dir = str(root / "logs"), str(root / "obs")
+    loop.run_training(cfg, log=lambda _m: None)
+    assert sorted(os.listdir(root / "obs")) == ["GOODPUT.json",
+                                                "RUN_EVENTS.jsonl"]
+    assert sorted(os.listdir(root / "logs")) == ["run.jsonl", "run.log"]
+
+
+def _trace_dir_is_honoured(cfg, root):
+    """The run under ``torch.profiler``: a Chrome trace in the directory,
+    holding the step's convolutions."""
+    cfg.train.trace_dir = str(root / "trace")
+    loop.run_training(cfg, log=lambda _m: None)
+    trace = (root / "trace" / "trace.json").read_text()
+    assert "aten::convolution" in trace
+
+
+def _capture_dir_is_honoured(cfg, root):
+    """SIGUSR1 arms one bounded capture, at the next display, into a
+    numbered directory of ``train.capture_dir``, stopped on the loop's
+    thread when the run ends within its duration."""
+    import signal
+
+    cfg.train.capture_dir = str(root / "captures")
+    cfg.train.max_steps = 2
+    cfg.train.log_root = str(root / "logs")
+    sent = []
+
+    def on_step(step, *_):
+        if step == 1:
+            os.kill(os.getpid(), signal.SIGUSR1)
+            sent.append(step)
+
+    lines = []
+    loop.run_training(cfg, log=lines.append, on_step=on_step)
+    assert sent == [1]
+    assert any(m.startswith("SIGUSR1 profiler capture: {'armed': True")
+               for m in lines)
+    (trace,) = (root / "captures").glob("capture_001-sigusr1/trace.json")
+    assert "aten::convolution" in trace.read_text()
+    names = [json.loads(line)["name"] for line in
+             (root / "logs" / "RUN_EVENTS.jsonl").read_text().splitlines()]
+    assert names.count("capture.start") == names.count("capture.stop") == 1
+
+
 _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.checkpoint_dir": _checkpoint_dir_is_honoured,
                  "train.pretrain_ckpt": _pretrain_ckpt_is_honoured,
@@ -489,7 +541,10 @@ _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                      _coordinator_address_is_honoured,
                  "parallel.num_devices": _num_devices_is_honoured,
                  "train.log_root": _log_root_is_honoured,
-                 "train.verbose": _verbose_is_honoured}
+                 "train.verbose": _verbose_is_honoured,
+                 "train.obs_dir": _obs_dir_is_honoured,
+                 "train.trace_dir": _trace_dir_is_honoured,
+                 "train.capture_dir": _capture_dir_is_honoured}
 
 
 @pytest.mark.parametrize("knob", list(_PORTED_KNOBS))
@@ -588,8 +643,8 @@ def test_chip_smoke_configurations_pass_the_config_check():
         loop.check_config(cfg, "cuda")
 
 
-# ------------------------------------------- depths the stream kernels refuse
-@pytest.mark.parametrize("impl,backend,device,batch,refused", [
+# ------------------------- every depth passes: the kernels' deep mode past 768
+@pytest.mark.parametrize("impl,backend,device,batch,on_kernels", [
     ("chunked", "cuda", "cpu", 16, True),
     ("chunked", "cuda", "cuda", 16, True),
     ("chunked", "auto", "cuda", 16, True),    # auto streams on the kernels
@@ -601,21 +656,20 @@ def test_chip_smoke_configurations_pass_the_config_check():
     ("auto", "cuda", "cpu", 1024, True),
 ])
 def test_stream_depth_is_checked_at_build_time(impl, backend, device, batch,
-                                               refused):
-    """Past the kernels' depth a run whose MIL-NCE would stream on them
-    (backend ``cuda``, or ``auto`` on a CUDA device) is refused when it
-    is built; the card never falls back to the plain stream."""
+                                               on_kernels):
+    """Each configuration that was refused past the kernels' held depth
+    (MIL-NCE streaming on them: backend ``cuda``, or ``auto`` on a CUDA
+    device) now passes the check at D = 769, 1024 and 2048: the kernels
+    take it in their deep mode.  The route is unchanged: the card still
+    never falls back to the plain stream."""
     cfg = full_preset()
     cfg.loss.milnce_impl, cfg.loss.milnce_backend = impl, backend
     cfg.train.batch_size = batch
-    cfg.model.embedding_dim = STREAM_DMAX
-    loop.check_config(cfg, device)
-    cfg.model.embedding_dim = STREAM_DMAX + 1
-    if refused:
-        with pytest.raises(ValueError, match=r"model\.embedding_dim=769.*"
-                                             r"loss\.milnce_impl dense"):
-            loop.check_config(cfg, device)
-    else:
+    route = loop.milnce_route(cfg.loss, batch, batch,
+                              cfg.data.num_candidates, device)
+    assert (route == "cuda") == on_kernels
+    for d in (STREAM_DMAX, STREAM_DMAX + 1, 1024, 2048):
+        cfg.model.embedding_dim = d
         loop.check_config(cfg, device)
     cfg.loss.name = "sdtw_3"                   # no MIL-NCE stream at all
     loop.check_config(cfg, device)
@@ -632,22 +686,29 @@ def test_milnce_route_follows_the_device_and_the_global_batch(device, route):
     assert loop.milnce_route(cfg.loss, 128, 128, 5, device) == "dense"
     cfg.train.batch_size = 8192
     loop.check_config(cfg, device, world=64)
-    cfg.model.embedding_dim = 1024
-    if route == "cuda":
-        with pytest.raises(ValueError, match="embedding_dim=1024"):
-            loop.check_config(cfg, device, world=64)
-    else:
-        loop.check_config(cfg, device, world=64)
+    cfg.model.embedding_dim = 1024         # the deep mode on the card
+    loop.check_config(cfg, device, world=64)
 
 
 def test_run_training_refuses_the_depth_before_anything_runs(monkeypatch,
                                                               tmp_path):
-    """On a host without a card: the refusal comes before the device is
-    resolved and before the model is built."""
+    """D = 1024 is no longer refused: on a host without a card the only
+    refusal of a ``cuda`` run is the missing card, before the model is
+    built; on the CPU the same configuration trains a step on the plain
+    stream at D = 1024."""
     cfg = _tiny_run_cfg(1, 1, tmp_path)
+    cfg.model.inception_blocks = 1
     cfg.parallel.platform = "cuda"
     cfg.loss.milnce_impl, cfg.loss.milnce_backend = "chunked", "auto"
     cfg.model.embedding_dim = 1024
-    monkeypatch.setattr(loop, "build_model", _no_model)
-    with pytest.raises(ValueError, match="embedding_dim=1024"):
-        loop.run_training(cfg, log=lambda _m: None)
+    if not torch.cuda.is_available():
+        with monkeypatch.context() as m:
+            m.setattr(loop, "build_model", _no_model)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                loop.run_training(cfg, log=lambda _m: None)
+    cfg.parallel.platform = "cpu"
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert res.steps == 1 and math.isfinite(res.last_loss)
+    assert any(m.startswith("MIL-NCE: streamed on the plain PyTorch stream")
+               and m.endswith("D 1024)") for m in lines)

@@ -54,6 +54,16 @@ Phases, each fatal on failure:
 6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
                sdtw_negative, sdtw_3) on the soft-DTW kernels against the
                plain recurrence: one step's gradients, three steps' losses.
+   gc-ref   -- the same small model (cuDNN deterministic) with the
+               grad-cache step (``train.grad_accum``) at M = 2 and 4
+               against its one-graph form (the M microbatch forwards in
+               one autograd graph, each with its own BatchNorm
+               statistics, one loss, one backward), MIL-NCE on the stream
+               kernels and sdtw_3 on the soft-DTW kernels: step 1's
+               gradients, three steps' losses, the running statistics,
+               each step's launches (the loss once a step, not M times);
+               and a run armed with ``grad.nonfinite@2``, whose step 2
+               must leave parameters, moments and buffers as they were.
 7. train    -- ``run_training`` at full width (9 inception blocks,
                embedding 512, vocab 66250 x 300, text hidden 2048, 32
                frames at 224^2, K=5, 20 words), per-device batch 16, 4
@@ -102,6 +112,15 @@ Phases, each fatal on failure:
                decoder, 4 windows of 32 frames at 224^2, the first 256
                rows): R@1/5/10, MedR, videos/s; the metrics against the
                embeddings, the first batch against ``make_video_embed_fn``.
+   remat    -- train-full with ``model.remat``: losses within rel 2e-4
+               of phase 7's, ``num_batches_tracked`` equal; peak memory
+               and steps/s beside phase 7's.
+   gc       -- train-full-gc: phase 7's model, data, seed, loader and obs
+               at ``train.batch_size`` 128 in ``train.grad_accum`` 8
+               microbatches of 16, chunked MIL-NCE on the stream kernels
+               (chunk 8), 4 steps: every loss finite, each kernel twice a
+               step, 4 step spans; steps/s, clips/s beside phase 7's,
+               peak memory, idle share, data wait a step.
 11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
                beside phase 7's (measured only; the default stays off).
 12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
@@ -118,6 +137,7 @@ NCCL with a rank a card beside its gloo one.  It prints no kernels line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -921,6 +941,186 @@ def phase_dtw_reference():
         torch.backends.cudnn.deterministic = False
 
 
+def _virtual_shard_step(model, optimizer, lr, micro_batches, loss_cfg):
+    """The one-graph form of the grad-cache step, its reference: the M
+    microbatch forwards in one autograd graph, each with its own
+    BatchNorm statistics (the running ones: the mean of the M folds of
+    the old ones, as the JAX step's), one loss on the concatenated
+    embeddings, one backward; then Adam and the schedule."""
+    from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
+    from milnce_tpu_torch.models.s3dg import BatchNorm3d
+    from milnce_tpu_torch.train.step import _running_stats, _sequence_loss
+
+    running = _running_stats(model)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm3d)]
+    milnce = loss_cfg.name == "milnce"
+    loss_fn = build_milnce_loss(loss_cfg) if milnce else None
+
+    def step(video_u8, text, start):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        bm = video_u8.shape[0] // micro_batches
+        rows = text.shape[0] // micro_batches
+        old = [r.clone() for r in running]
+        folds = [torch.zeros_like(r) for r in running]
+        tracked = [m.num_batches_tracked.clone() for m in norms]
+        vs, ts = [], []
+        for m in range(micro_batches):
+            with torch.no_grad():
+                for r, o in zip(running, old):
+                    r.copy_(o)
+            v, t = model(video_u8[m * bm:(m + 1) * bm].float() / 255.0,
+                         text[m * rows:(m + 1) * rows],
+                         **({} if milnce else {"mode": "sequence"}))
+            vs.append(v)
+            ts.append(t)
+            with torch.no_grad():
+                for f, r in zip(folds, running):
+                    f.add_(r)
+        with torch.no_grad():
+            for r, f in zip(running, folds):
+                r.copy_(f / micro_batches)
+            for m, n in zip(norms, tracked):
+                m.num_batches_tracked.copy_(n + 1)
+        v, t = torch.cat(vs), torch.cat(ts)
+        loss = (loss_fn(v, t) if milnce else _sequence_loss(
+            loss_cfg, v, t.reshape(v.shape[0], -1, t.shape[-1]), start))
+        loss.backward()
+        optimizer.step()
+        lr.step()
+        return loss.detach()
+
+    return step
+
+
+def _gc_run(loss_name, micro_batches, counter, poison=""):
+    """Three steps of the small model (seed 3) with the grad-cache step at
+    ``micro_batches`` and of its one-graph reference, on the same batches.
+    Returns per step the grad-cache loss, the reference's, the grad-cache
+    step's launches, and after step 1 both sets of gradients; then the
+    final running statistics of both, and per step the grad-cache run's
+    (parameters, Adam moments, statistics, skipped)."""
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.resilience import faults
+    from milnce_tpu_torch.train.schedule import build_schedule_total
+    from milnce_tpu_torch.train.state import build_optimizer
+    from milnce_tpu_torch.train.step import (_running_stats,
+                                             make_grad_cache_step)
+
+    cfg = _small_cfg("chunked", "cuda")
+    cfg.loss.name = loss_name
+    cfg.loss.sdtw_backend = "cuda"
+    models, steps = [], []
+    for kind in ("gc", "ref"):
+        model = build_model(cfg.model, seed=3).cuda().train()
+        optimizer, lr = build_optimizer(
+            model, cfg.optim, build_schedule_total(cfg.optim, 100))
+        if kind == "gc":
+            with faults.armed(poison) if poison else contextlib.nullcontext():
+                steps.append(make_grad_cache_step(
+                    model, optimizer, micro_batches, cfg.loss,
+                    finite_guard=True, lr_scheduler=lr))
+        else:
+            steps.append(_virtual_shard_step(model, optimizer, lr,
+                                             micro_batches, cfg.loss))
+        models.append((model, optimizer))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bsz, d = cfg.train.batch_size, cfg.data
+    out = dict(losses=[], ref=[], launches=[], states=[])
+    for i in range(3):
+        video = torch.randint(0, 255, (bsz, d.num_frames, d.video_size,
+                                       d.video_size, 3), generator=gen,
+                              dtype=torch.uint8, device="cuda")
+        text = torch.randint(1, cfg.model.vocab_size,
+                             (bsz * d.num_candidates, d.max_words),
+                             generator=gen, device="cuda")
+        start = torch.arange(bsz, dtype=torch.float32, device="cuda") * 7
+        counter.reset_launches()
+        loss, skipped = steps[0](video, text, start)
+        torch.cuda.synchronize()
+        out["launches"].append(dict(counter.LAUNCHES))
+        out["losses"].append(float(loss))
+        out["ref"].append(float(steps[1](video, text, start)))
+        model, optimizer = models[0]
+        out["states"].append(dict(
+            skipped=skipped,
+            params=[p.detach().clone() for p in model.parameters()],
+            moments=[t.clone() for st in optimizer.state.values()
+                     for k, t in st.items() if k.startswith("exp_avg")],
+            stats=[b.clone() for b in model.buffers()]))
+        if i == 0:
+            out["grads"] = [{n: p.grad.clone() for n, p in m.named_parameters()
+                             if p.grad is not None} for m, _ in models]
+    out["running"] = [_running_stats(m) for m, _ in models]
+    return out
+
+
+def phase_gc_reference():
+    """The grad-cache step on the card against its one-graph form (the
+    identity the JAX tests pin: M microbatches = M virtual shards), the
+    small model with cuDNN deterministic and TF32 off, MIL-NCE chunked on
+    the stream kernels and sdtw_3 on the soft-DTW kernels, at M = 2 and
+    4: every parameter gradient of step 1 within 1e-5 + 1e-4 max|g|,
+    three steps' losses within rel 2e-4, every BatchNorm running mean and
+    variance after them within 1e-5 + 1e-4 max|x|; each step's launches:
+    the stream kernels twice a step (the loss once, on the whole cache,
+    not M times), the soft-DTW kernels 6 + 6 (sdtw_3's six DPs, once).
+    Then one MIL-NCE run at M = 2 armed with ``grad.nonfinite@2``: step 2
+    is skipped, and parameters, Adam's moments and every buffer are
+    step 1's after it.  Returns the launches a step."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    want = {"milnce": (ms, {k: 2 for k in ms.KERNELS}),
+            "sdtw_3": (sd, {"softdtw_fwd": 6, "softdtw_bwd": 6})}
+    seen = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for loss_name, (counter, per_step) in want.items():
+            for m in (2, 4):
+                run = _gc_run(loss_name, m, counter)
+                got, ref = run["grads"]
+                worst = max(float((got[n] - g).abs().max())
+                            / (1e-5 + 1e-4 * float(g.abs().max()))
+                            for n, g in ref.items())
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(run["losses"], run["ref"]))
+                stats = max(float((a - b).abs().max())
+                            / (1e-5 + 1e-4 * float(b.abs().max()))
+                            for a, b in zip(*run["running"]))
+                launches = [{k: n for k, n in step.items() if n}
+                            for step in run["launches"]]
+                seen[loss_name] = launches[0]
+                log(f"  {loss_name} M={m}: {len(ref)} gradients, worst |gc - "
+                    f"one graph| / limit {worst:.3e}; losses gc "
+                    f"{run['losses']} one graph {run['ref']}, max rel diff "
+                    f"{err:.2e}; running statistics worst / limit "
+                    f"{stats:.3e}; launches a step {launches}")
+                if not (worst <= 1.0 and err <= 2e-4 and stats <= 1.0
+                        and set(got) == set(ref)
+                        and all(map(math.isfinite, run["losses"]))
+                        and all(step == per_step for step in launches)):
+                    raise AssertionError(f"{loss_name} M={m}: the grad-cache "
+                                         "step differs from its one-graph "
+                                         "form")
+        run = _gc_run("milnce", 2, ms, poison="grad.nonfinite@2")
+        before, skipped, after = run["states"]
+        same = all(torch.equal(a, b) for key in ("params", "moments", "stats")
+                   for a, b in zip(before[key], skipped[key]))
+        moved = not all(torch.equal(a, b) for a, b in zip(skipped["params"],
+                                                           after["params"]))
+        log(f"  grad.nonfinite@2 at M=2: skipped "
+            f"{[s['skipped'] for s in run['states']]}; step 2 left "
+            f"parameters, moments and buffers as step 1 did: {same}; step 3 "
+            f"moved them: {moved}")
+        if [s["skipped"] for s in run["states"]] != [0, 1, 0] or not same \
+                or not moved:
+            raise AssertionError("grad.nonfinite@2 was not skipped cleanly")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return seen
+
+
 def _stream_loss(loss):
     """Chunked MIL-NCE on the stream kernels."""
     loss.milnce_impl, loss.milnce_backend = "chunked", "cuda"
@@ -947,18 +1147,20 @@ def _run_training(cfg, root=None, **kwargs):
         return run_training(cfg, **kwargs)
 
 
-def _full_cfg(loss_name, edit):
+def _full_cfg(loss_name, edit, batch=TRAIN_BATCH, accum=1):
     """The full-width training configuration with the loss ``edit``
-    applies: TRAIN_STEPS steps at batch TRAIN_BATCH on synthetic data,
-    read through ``ShardedLoader`` and ``device_prefetch`` with the data
-    knobs' defaults (``num_reader_threads`` 20, ``prefetch_depth`` 2)."""
+    applies: TRAIN_STEPS steps at global batch ``batch`` in ``accum``
+    microbatches (``train.grad_accum``) on synthetic data, read through
+    ``ShardedLoader`` and ``device_prefetch`` with the data knobs'
+    defaults (``num_reader_threads`` 20, ``prefetch_depth`` 2)."""
     from milnce_tpu_torch.config import full_preset
 
     cfg = full_preset()
     cfg.parallel.platform = "cuda"
     cfg.data.synthetic = True
-    cfg.data.synthetic_num_samples = TRAIN_BATCH * TRAIN_STEPS
-    cfg.train.batch_size = TRAIN_BATCH
+    cfg.data.synthetic_num_samples = batch * TRAIN_STEPS
+    cfg.train.batch_size = batch
+    cfg.train.grad_accum = accum
     cfg.train.max_steps = TRAIN_STEPS
     cfg.train.n_display = 1
     cfg.loss.name = loss_name
@@ -966,9 +1168,11 @@ def _full_cfg(loss_name, edit):
     return cfg
 
 
-def _train_full(loss_name, edit, counters, per_step, store=None, root=None):
-    """``run_training`` on ``_full_cfg(loss_name, edit)``, every launch
-    counter reset just before and read just after; with ``store``, through
+def _train_full(loss_name, edit, counters, per_step, store=None, root=None,
+                batch=TRAIN_BATCH, accum=1, remat=False):
+    """``run_training`` on ``_full_cfg(loss_name, edit, batch, accum)``
+    (with ``model.remat`` if ``remat``), every launch counter reset just
+    before and read just after; with ``store``, through
     the distributed path: a group of one rank that meets at that
     ``file://`` rendezvous (NCCL on the card); with ``root``, checkpoints
     and logs (the span stream and the ledger) kept under it.
@@ -978,7 +1182,8 @@ def _train_full(loss_name, edit, counters, per_step, store=None, root=None):
     the result, the config, the launches of the run, steps/s after the
     first step, each step's loss, the peak memory allocated (bytes) and
     the run's wall time (host clock around ``run_training``)."""
-    cfg = _full_cfg(loss_name, edit)
+    cfg = _full_cfg(loss_name, edit, batch, accum)
+    cfg.model.remat = remat
     if store is not None:
         cfg.parallel.coordinator_address = f"file://{store}"
         cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
@@ -1021,7 +1226,7 @@ def _train_full(loss_name, edit, counters, per_step, store=None, root=None):
                              f"{TRAIN_STEPS} steps, got {launches}")
     return dict(res=res, cfg=cfg, launches=launches, sps=sps,
                 losses=[loss for _, _, loss, _ in steps], peak=peak,
-                wall=wall)
+                wall=wall, wait=statistics.mean(w for *_, w in steps[1:]))
 
 
 def phase_train(work):
@@ -1042,8 +1247,79 @@ def phase_train(work):
     emb = make_video_embed_fn(res.model)(clip)
     if emb.shape != (2, 512) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"video embedding {tuple(emb.shape)} not finite")
+    run["tracked"] = _tracked(res.model)
     run["idle"] = _profile_step(res.model, cfg)
     del run["res"]      # the later phases' peak memory holds no stale model
+    return run
+
+
+def _tracked(model) -> dict:
+    """Every BatchNorm's ``num_batches_tracked``, by name."""
+    return {k: int(v) for k, v in model.state_dict().items()
+            if k.endswith("num_batches_tracked")}
+
+
+GC_BATCH, GC_ACCUM = 128, 8   # train-full-gc: microbatches of TRAIN_BATCH
+
+
+def phase_train_gc(train, work):
+    """train-full's model, frames, K, words, seed, loader and obs at
+    ``train.batch_size`` GC_BATCH in ``train.grad_accum`` GC_ACCUM
+    microbatches of train-full's 16, through the grad-cache step, chunked
+    MIL-NCE on the stream kernels (chunk 8): the kernels run once a step
+    at B_local = Bg = 128, so each launches twice a step as in
+    train-full, not 2 x 8 times.  Checks every loss finite and 4 ``step``
+    spans in its stream; prints steps/s, clips/s beside train-full's in
+    this run, peak memory, the idle share of one profiled step and the
+    data wait a step."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    run = _train_full("milnce", _stream_loss, (ms, sd),
+                      {k: 2 for k in ms.KERNELS}, root=f"{work}/train-gc",
+                      batch=GC_BATCH, accum=GC_ACCUM)
+    names = [r["name"] for r in _read_events(run["cfg"].train.log_root)]
+    run["idle"] = _profile_step(run["res"].model, run["cfg"])
+    clips, clips0 = run["sps"] * GC_BATCH, train["sps"] * TRAIN_BATCH
+    log(f"  train-full-gc: {run['sps']:.4f} steps/s, {clips:.2f} clips/s "
+        f"against train-full's {clips0:.2f} ({clips / clips0:.4f}x); peak "
+        f"memory {run['peak'] / 2 ** 30:.3f} GiB (train-full "
+        f"{train['peak'] / 2 ** 30:.3f}); idle share {run['idle']:.3f} "
+        f"(train-full {train['idle']:.3f}); data wait {run['wait']:.4f} s a "
+        f"step; launches a step "
+        f"{ {k: n / TRAIN_STEPS for k, n in run['launches'].items() if n} }; "
+        f"{names.count('step')} step spans")
+    if names.count("step") != TRAIN_STEPS:
+        raise AssertionError("train-full-gc's stream lacks its step spans")
+    del run["res"]
+    return run
+
+
+def phase_train_remat(train):
+    """train-full (phase 7's config, seed and steps) with ``model.remat``:
+    each Inception block recomputed in the backward.  Losses within rel
+    2e-4 of phase 7's (its run is not cuDNN deterministic), every
+    BatchNorm's ``num_batches_tracked`` equal to phase 7's (the
+    recomputation folds nothing); peak memory and steps/s beside phase
+    7's."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+
+    run = _train_full("milnce", _stream_loss, (ms, sd),
+                      {k: 2 for k in ms.KERNELS}, remat=True)
+    tracked = _tracked(run["res"].model)
+    del run["res"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                   train["losses"]))
+    log(f"  remat against phase 7: losses max rel diff {err:.3e} (limit "
+        f"2e-4); steps/s {run['sps']:.4f} / {train['sps']:.4f} "
+        f"({run['sps'] / train['sps']:.4f}x); peak memory "
+        f"{run['peak'] / 2 ** 30:.3f} / {train['peak'] / 2 ** 30:.3f} GiB; "
+        f"num_batches_tracked {sorted(set(tracked.values()))} in "
+        f"{len(tracked)} BatchNorms, equal: {tracked == train['tracked']}")
+    if not (len(run["losses"]) == len(train["losses"]) == TRAIN_STEPS
+            and err <= 2e-4 and tracked == train["tracked"]):
+        raise AssertionError("train-full with remat differs from phase 7")
     return run
 
 
@@ -1688,30 +1964,36 @@ def _kernel_group(name: str) -> str:
 
 
 def _profile_step(model, cfg, group=None):
-    """One more full-width train step under torch.profiler, after the
-    counted run (its launches are not in the counts), over ``group``'s
-    ranks when given: device time by kernel group and the device's idle
-    share of the step, which it returns."""
+    """One more full-width train step of ``cfg.train.batch_size`` clips
+    under torch.profiler (the grad-cache step under ``train.grad_accum``),
+    after the counted run (its launches are not in the counts), over
+    ``group``'s ranks when given: device time by kernel group and the
+    device's idle share of the step, which it returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from milnce_tpu_torch.train.schedule import build_schedule_total
     from milnce_tpu_torch.train.state import build_optimizer
-    from milnce_tpu_torch.train.step import make_train_step
+    from milnce_tpu_torch.train.step import (make_grad_cache_step,
+                                             make_train_step)
 
     optimizer, lr = build_optimizer(model, cfg.optim,
                                     build_schedule_total(cfg.optim, 100))
-    step = make_train_step(model, optimizer, cfg.loss, lr_scheduler=lr,
-                           group=group)
+    if cfg.train.grad_accum > 1:
+        step = make_grad_cache_step(model, optimizer, cfg.train.grad_accum,
+                                    cfg.loss, lr_scheduler=lr, group=group)
+    else:
+        step = make_train_step(model, optimizer, cfg.loss, lr_scheduler=lr,
+                               group=group)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = cfg.data
-    video = torch.randint(0, 255, (TRAIN_BATCH, d.num_frames, d.video_size,
+    d, batch = cfg.data, cfg.train.batch_size
+    video = torch.randint(0, 255, (batch, d.num_frames, d.video_size,
                                    d.video_size, 3), generator=gen,
                           dtype=torch.uint8, device="cuda")
     text = torch.randint(1, cfg.model.vocab_size,
-                         (TRAIN_BATCH * d.num_candidates, d.max_words),
+                         (batch * d.num_candidates, d.max_words),
                          generator=gen, device="cuda")
-    start = torch.arange(TRAIN_BATCH, dtype=torch.float32, device="cuda")
+    start = torch.arange(batch, dtype=torch.float32, device="cuda")
     step(video, text, start)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1779,6 +2061,8 @@ def main() -> int:
     deep_launches = phase_reference(DEEP_D)
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
+    log("== gc-ref (small model, grad-cache step vs its one-graph form)")
+    phase_gc_reference()
     with tempfile.TemporaryDirectory() as work:
         log("== train (full width, MIL-NCE)")
         train = phase_train(work)
@@ -1795,6 +2079,14 @@ def main() -> int:
         ckpt_dir = phase_resume(work)
         log("== eval (msrvtt, full width, on the resumed checkpoint)")
         phase_eval(ckpt_dir, work)
+        # after ddp-1, whose steps/s is held to phase 7's: run before it,
+        # these two left ddp-1's step with other convolution kernels and
+        # an idle share of 0.063 against phase 7's 0.022 (H100)
+        log("== train-full-remat (train-full with model.remat)")
+        phase_train_remat(train)
+        log(f"== train-full-gc (batch {GC_BATCH} in {GC_ACCUM} microbatches, "
+            "grad-cache)")
+        phase_train_gc(train, work)
     log("== cuDNN autotuning (measured only)")
     phase_cudnn_benchmark(train["sps"])
     log("== train (full width, sdtw_3)")

@@ -12,6 +12,7 @@ import numpy as np
 
 from milnce_tpu_torch.config import DataConfig
 from milnce_tpu_torch.data.video import black_sample
+from milnce_tpu_torch.resilience import faults
 
 
 class SyntheticVideoTextSource:
@@ -33,6 +34,11 @@ class SyntheticVideoTextSource:
         return black_sample(self.cfg)
 
     def sample(self, idx: int, rng: np.random.RandomState) -> dict:
+        # the decode fault sites, as on the real decode path
+        # (data/video.py sample_clip): ``train.faults`` decode clauses
+        # drive the watchdog and the fallback on hermetic runs
+        faults.maybe_raise("decode.raise")
+        faults.maybe_hang("decode.hang")
         c = self.cfg
         base = np.random.RandomState(idx % 1000)
         video = base.randint(0, 255, size=(c.num_frames, c.video_size,

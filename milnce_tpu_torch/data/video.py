@@ -16,7 +16,8 @@ Filter-graph parity with video_loader.py:60-88:
 
 Output is channels-LAST ``(T, H, W, 3) uint8``, zero-padded/truncated to
 ``num_frames`` (:92-95).  ``cv2`` is imported only where it decodes.
-The JAX package's native pipe pump (``NativeFFmpegDecoder``,
+``sample_clip`` fires the ``decode.raise`` and ``decode.hang`` fault
+sites (``resilience/faults.py``).  The JAX package's native pipe pump (``NativeFFmpegDecoder``,
 ``data.use_native_reader``) is not ported.
 """
 
@@ -30,6 +31,7 @@ from typing import Protocol
 
 import numpy as np
 
+from milnce_tpu_torch.resilience import faults
 
 # In-flight decoder children, registered for kill-on-close: a mid-epoch
 # stop cancels QUEUED decode futures, but the ffmpeg children already
@@ -326,6 +328,10 @@ def sample_clip(decoder: ClipDecoder, path: str, start: float, end: float,
     """Random training clip draw within [start, end]
     (video_loader.py:58-95): random seek, random or center fractional
     crop offset, coin-flip hflip."""
+    # the decode fault sites, inside the source's resample and the
+    # loader's watchdog: ``train.faults`` drives both through here
+    faults.maybe_raise("decode.raise")
+    faults.maybe_hang("decode.hang")
     num_sec = num_frames / float(fps)
     hi = int(max(start, end - num_sec))
     start_seek = rng.randint(int(start), hi + 1)

@@ -6,6 +6,7 @@ in the JAX package; otherwise the table is random at the configured
 vocabulary size.  ``model.sync_batchnorm`` syncs every BatchNorm's
 train-mode statistics over the ranks of the run's group, as the JAX
 factory's ``bn_axis_name`` does; without a group it changes nothing.
+``model.remat`` recomputes each Inception block in the backward.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ def build_model(cfg: ModelConfig, seed: int = 0, group=None) -> S3D:
     if cfg.dtype != "float32":
         raise ValueError(f"model.dtype={cfg.dtype!r}: the torch port runs "
                          "float32 only")
-    if cfg.remat:
-        raise ValueError("model.remat is not ported yet")
     table = None
     vocab_size = cfg.vocab_size
     if cfg.word2vec_path and os.path.exists(cfg.word2vec_path):
@@ -53,7 +52,7 @@ def build_model(cfg: ModelConfig, seed: int = 0, group=None) -> S3D:
                 vocab_size=vocab_size,
                 word_embedding_dim=cfg.word_embedding_dim,
                 text_hidden_dim=cfg.text_hidden_dim,
-                conv_impl=cfg.conv_impl)
+                conv_impl=cfg.conv_impl, remat=cfg.remat)
     init_weights(model, cfg.weight_init, torch.Generator().manual_seed(seed))
     if table is not None:
         with torch.no_grad():

@@ -20,16 +20,25 @@ the port follows the JAX model:
   ``max_pool3d`` with no padding.
 - ``space_to_depth`` orders the new channels ``(t2, h2, w2, C)``, the
   JAX model's channels-last order.
+
+``remat=True`` recomputes each Inception block in the backward instead
+of keeping its activations (the JAX model's ``nn.remat(InceptionBlock)``)
+through ``torch.utils.checkpoint`` called inside ``S3D``'s forward, so
+the ``state_dict`` keys do not change.  The recomputation folds nothing
+into the running statistics (:func:`frozen_running_stats`): a remat
+step leaves them, and ``num_batches_tracked``, as a plain step does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from milnce_tpu_torch.models.conv3d import Conv3D
 from milnce_tpu_torch.models.text import SentenceEmbedding
@@ -61,6 +70,9 @@ class BatchNorm3d(nn.BatchNorm3d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.group = None
+        # False inside frozen_running_stats: train mode normalizes with
+        # the batch statistics but folds nothing into the running ones
+        self.fold = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -89,9 +101,30 @@ class BatchNorm3d(nn.BatchNorm3d):
         return out
 
     def _fold(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if not self.fold:
+            return
         self.running_mean.lerp_(mean, self.momentum)
         self.running_var.lerp_(var, self.momentum)
         self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, every :class:`BatchNorm3d` of ``module`` runs its
+    train-mode forward as always (batch statistics, synced over its group
+    if it has one) but leaves its running statistics and
+    ``num_batches_tracked`` alone: a forward that repeats one already
+    folded (remat's recomputation, the grad-cache step's second pass)
+    must not fold it again."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm3d)]
+    before = [m.fold for m in norms]
+    for m in norms:
+        m.fold = False
+    try:
+        yield
+    finally:
+        for m, fold in zip(norms, before):
+            m.fold = fold
 
 
 class SelfGating(nn.Module):
@@ -223,18 +256,22 @@ class S3D(nn.Module):
     text (B', D)); 'video' -> video embedding, or the 1024-d pooled
     mixed_5c features with ``mixed5c=True``; 'text' -> text embedding;
     'sequence' -> (video sequence (B, T', D), text (B', D)).
-    Train or eval behaviour (BatchNorm) follows ``module.train()``."""
+    Train or eval behaviour (BatchNorm) follows ``module.train()``.
+    ``remat``: recompute each Inception block in the backward (module
+    docstring); only where a backward can follow (train mode, grad on)."""
 
     def __init__(self, num_classes: int = 512, gating: bool = True,
                  use_space_to_depth: bool = False, inception_blocks: int = 9,
                  vocab_size: int = 66250, word_embedding_dim: int = 300,
-                 text_hidden_dim: int = 2048, conv_impl: str = "native"):
+                 text_hidden_dim: int = 2048, conv_impl: str = "native",
+                 remat: bool = False):
         super().__init__()
         if not 1 <= inception_blocks <= 9:
             raise ValueError(
                 f"inception_blocks must be in [1, 9], got {inception_blocks}")
         self.use_space_to_depth = use_space_to_depth
         self.inception_blocks = inception_blocks
+        self.remat = remat
         c = dict(conv_impl=conv_impl)
         if use_space_to_depth:
             self.conv1 = STConv3D(24, 64, (2, 4, 4), 1, (1, 2, 2), **c)
@@ -271,7 +308,14 @@ class S3D(nn.Module):
         for idx, name in enumerate(self.block_names):
             if idx in _POOLS_BEFORE:
                 net = _tf_same_max_pool(net, *_POOLS_BEFORE[idx])
-            net = self._modules[name](net)
+            block = self._modules[name]
+            if self.remat and self.training and torch.is_grad_enabled():
+                net = checkpoint(
+                    block, net, use_reentrant=False,
+                    context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                frozen_running_stats(b)))
+            else:
+                net = block(net)
         return net
 
     def forward_video(self, video: torch.Tensor,

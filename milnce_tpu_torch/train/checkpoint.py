@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from milnce_tpu_torch.obs import metrics as obs_metrics
+from milnce_tpu_torch.resilience import faults
 
 # Transient-save-failure telemetry: nonzero retries on a healthy store is
 # the early-warning signal for flaky storage.
@@ -93,10 +94,12 @@ class CheckpointManager:
 
     def _write_with_retry(self, epoch: int, state: dict) -> str:
         """torch.save into a fresh temporary directory; only OSError is
-        retried."""
+        retried (the ``ckpt.save_ioerror`` fault site fires inside the
+        retry, as in the JAX manager)."""
         tmp = os.path.join(self._directory, f"{_TMP_PREFIX}{epoch}")
         for attempt in range(self.save_retries + 1):
             try:
+                faults.maybe_raise("ckpt.save_ioerror", OSError)
                 shutil.rmtree(tmp, ignore_errors=True)
                 os.makedirs(tmp)
                 torch.save(state, os.path.join(tmp, STATE_FILE))

@@ -33,6 +33,14 @@ step's device work: the finite guard reads its verdict on the host.
 Across ranks, rank 0 logs, saves the checkpoints and runs the eval while
 the others wait at a barrier; every rank restores on resume and on a
 rollback.  Losses, skips and the displayed clips/s are global.
+
+``train.grad_accum`` M > 1 runs the grad-cache step
+(``train/step.py::make_grad_cache_step``): ``train.batch_size`` stays the
+global batch, the loader yields each rank's share and the step splits it
+into M microbatches; the display, the span stream, the ledger and the
+schedule count optimizer steps, and the live MFU is not computed (as in
+the JAX loop).  ``train.faults`` arms the fault registry
+(``resilience/faults.py``) for the run and disarms it at the end.
 Curriculum and elastic drain are not ported yet.
 
 Precision: the JAX towers run in f32, so TF32 is switched off for both
@@ -71,11 +79,12 @@ from milnce_tpu_torch.obs.anomaly import EwmaSpikeDetector
 from milnce_tpu_torch.obs.capture import ProfilerCapture
 from milnce_tpu_torch.parallel.dist import (Ranks, broadcast_str,
                                             initialize_distributed)
+from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
                                                load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
 from milnce_tpu_torch.train.state import build_optimizer
-from milnce_tpu_torch.train.step import make_train_step
+from milnce_tpu_torch.train.step import make_grad_cache_step, make_train_step
 from milnce_tpu_torch.utils.logging import RunLogger
 from milnce_tpu_torch.utils.profiling import StepTimer, maybe_trace
 from milnce_tpu_torch.utils.roofline import (device_peak_flops, mfu,
@@ -86,8 +95,7 @@ from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 # names; a run that sets one away from its dataclass default is refused.
 # A name leaves the table in the change that ports it.
 UNPORTED_KNOBS = (
-    "train.grad_accum", "train.faults", "train.curriculum",
-    "train.drain_signal_file", "data.use_native_reader",
+    "train.curriculum", "train.drain_signal_file", "data.use_native_reader",
     "parallel.model_axis", "parallel.model_parallel_size")
 
 
@@ -95,9 +103,11 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     """Refuse, before anything is built, what a run of ``world`` ranks on
     ``device_type`` would not honour: every knob of
     :data:`UNPORTED_KNOBS` set away from its default, a global batch that
-    does not split over the ranks, and an unknown ``train.eval_task``
-    when evaluating.  The MIL-NCE stream kernels take any embedding width
-    (past ``STREAM_DMAX`` in their deep mode)."""
+    does not split over the ranks, a rank's batch that does not split
+    into ``train.grad_accum`` microbatches, a malformed ``train.faults``
+    spec, and an unknown ``train.eval_task`` when evaluating.  The
+    MIL-NCE stream kernels take any embedding width (past
+    ``STREAM_DMAX`` in their deep mode)."""
     default = Config()
     unported = [name for name in UNPORTED_KNOBS
                 if _knob(cfg, name) != _knob(default, name)]
@@ -108,6 +118,12 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     if b_global % world:
         raise ValueError(f"train.batch_size={b_global} does not split over "
                          f"{world} ranks")
+    accum = cfg.train.grad_accum
+    if accum < 1 or (b_global // world) % accum:
+        raise ValueError(f"train.grad_accum={accum} does not split a rank's "
+                         f"batch of {b_global // world}")
+    if cfg.train.faults:
+        faults.parse_spec(cfg.train.faults)
     if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
         raise ValueError(f"unknown train.eval_task {cfg.train.eval_task!r}; "
                          f"expected one of {'|'.join(EVAL_TASKS)}")
@@ -216,6 +232,10 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
     ranks = initialize_distributed(cfg.parallel)
     try:
         check_config(cfg, cfg.parallel.platform, ranks.world)
+        if cfg.train.faults:
+            # armed before any decode or step is built, so every site
+            # sees it; a config-armed registry dies with the run
+            faults.arm(cfg.train.faults)
         runlog = RunLogger(cfg.train.log_root, cfg.train.checkpoint_dir,
                            enabled=ranks.is_main and cfg.train.verbose,
                            echo=log)
@@ -225,6 +245,8 @@ def run_training(cfg: Config, log: Callable[[str], None] = print,
             return _train(cfg, ranks, say, runlog, on_step)
         finally:
             runlog.close()
+            if cfg.train.faults:
+                faults.disarm()
     finally:
         ranks.close()
 
@@ -302,14 +324,15 @@ class _RunObs:
         self.m_data_wait = reg.counter(
             "milnce_data_wait_seconds_total",
             "host seconds the training loop blocked waiting for batch data")
-        # live MFU: the roofline step FLOPs (MIL-NCE only, as in the JAX
-        # loop) over the card's peak for the model's dtype
+        # live MFU: the roofline step FLOPs (MIL-NCE without grad-cache
+        # only, as in the JAX loop) over the card's peak for the model's
+        # dtype
         self.peak = device_peak_flops(
             torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
         self.n_cards = ranks.world
         self.step_flops = None
-        if self.peak and cfg.loss.name == "milnce":
+        if self.peak and cfg.loss.name == "milnce" and t.grad_accum == 1:
             m, d = cfg.model, cfg.data
             self.step_flops = train_step_flops(
                 t.batch_size, d.num_frames, d.video_size, d.num_candidates,
@@ -505,9 +528,6 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     schedule = build_schedule_total(cfg.optim,
                                     steps_per_epoch * cfg.optim.epochs)
     optimizer, lr_scheduler = build_optimizer(model, cfg.optim, schedule)
-    step_fn = make_train_step(model, optimizer, cfg.loss,
-                              finite_guard=cfg.train.finite_guard,
-                              lr_scheduler=lr_scheduler, group=ranks.group)
 
     ckpt_dir = os.path.join(cfg.train.checkpoint_root,
                             cfg.train.checkpoint_dir or "run")
@@ -522,9 +542,22 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         if state is not None:
             log(f"resumed from epoch {start_epoch} at batch "
                 f"{resume_batch_offset(resume_step, steps_per_epoch)}")
+    # built after the restore: the grad.nonfinite fault counts optimizer
+    # steps from the restored one
+    step_kwargs = dict(finite_guard=cfg.train.finite_guard,
+                       lr_scheduler=lr_scheduler, group=ranks.group,
+                       first_step=resume_step)
+    if cfg.train.grad_accum > 1:
+        step_fn = make_grad_cache_step(model, optimizer,
+                                       cfg.train.grad_accum, cfg.loss,
+                                       **step_kwargs)
+    else:
+        step_fn = make_train_step(model, optimizer, cfg.loss, **step_kwargs)
     max_steps = cfg.train.max_steps
     log(f"device: {device} | global batch: {cfg.train.batch_size} | "
-        f"steps: {max_steps or steps_per_epoch * cfg.optim.epochs}")
+        f"steps: {max_steps or steps_per_epoch * cfg.optim.epochs}"
+        + (f" | microbatches: {cfg.train.grad_accum}"
+           if cfg.train.grad_accum > 1 else ""))
 
     def snapshot(epoch_label: int) -> dict:
         return train_state(model, optimizer, lr_scheduler, opt_step,
@@ -602,7 +635,8 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                     f"{time.time() - tick:.3f}, Epoch status: "
                     f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
                     f"Learning rate: {lr:.6f}, Throughput: "
-                    f"{clips_per_s:.1f} clips/s{extra}")
+                    f"{clips_per_s:.1f} clips/s"
+                    f"{_health(guard_on, skipped, source, loader)}{extra}")
                 runlog.log_event({"event": "display", "epoch": epoch + 1,
                                   "step": opt_step, "loss": mean_loss,
                                   "lr": lr, "clips_per_s": clips_per_s,
@@ -656,6 +690,17 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         save(epoch + 1)
     return TrainResult(steps, float(last), skipped, rollbacks, model,
                        ranks.rank)
+
+
+def _health(guard_on: bool, skipped: int, source, loader) -> str:
+    """The display line's health counts, as the JAX loop prints them:
+    the finite guard's skipped steps (guard on), the source's decode
+    failures, and the loader's decode timeouts when there were any."""
+    extra = f", Skipped steps: {skipped}" if guard_on else ""
+    extra += f", Decode failures: {getattr(source, 'decode_failures', 0)}"
+    if loader.decode_timeouts:
+        extra += f", Decode timeouts: {loader.decode_timeouts}"
+    return extra
 
 
 def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,

@@ -30,7 +30,15 @@ With no group, nothing of that runs: the gradients are autograd's.  With
 the finite guard on, a non-finite gradient keeps the parameters, the
 Adam moments and the BatchNorm statistics as they were and the schedule
 does not advance; the caller's step count still does, as in the JAX
-step.  FSDP, grad-cache and ``inner_steps`` are not ported yet.
+step.  An armed ``grad.nonfinite`` fault (``resilience/faults.py``, read
+when the step is built) multiplies the reduced gradients by NaN on its
+scheduled optimizer steps, numbered ``first_step + 1, first_step + 2,
+...`` by the step itself, skipped steps included (the JAX
+``state.step + 1``): the loop hands a resumed run's restored count in.
+
+:func:`make_grad_cache_step` is the JAX two-pass embedding-cache step
+(``train.grad_accum`` microbatches, exact full-batch negatives);
+FSDP and ``inner_steps`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +49,9 @@ from milnce_tpu_torch.losses.dtw_losses import (cdtw_batch_loss, sdtw_3_loss,
                                                 sdtw_cidm_loss,
                                                 sdtw_negative_loss)
 from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
+from milnce_tpu_torch.models.s3dg import BatchNorm3d, frozen_running_stats
 from milnce_tpu_torch.parallel.dist import all_gather_tiled, all_reduce_flat
+from milnce_tpu_torch.resilience import faults
 
 KNOWN_LOSSES = ("milnce", "cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
 
@@ -93,20 +103,67 @@ def _running_stats(model) -> list:
             if name.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
 
 
+class _Update:
+    """What follows the backward in both steps, as the JAX step orders
+    it: the one all-reduce of the gradients over the group (SUM for
+    MIL-NCE, MEAN for the DTW family), the ``grad.nonfinite`` poison, the
+    finite guard, the optimizer and the schedule, then the BatchNorm
+    statistics averaged over the group.  It counts the optimizer steps
+    (skipped ones too) from ``first_step``."""
+
+    def __init__(self, model, optimizer, finite_guard, lr_scheduler, group,
+                 mean, first_step):
+        self.optimizer, self.lr_scheduler = optimizer, lr_scheduler
+        self.finite_guard, self.group, self.mean = finite_guard, group, mean
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.buffers = list(model.buffers())
+        self.running = _running_stats(model)
+        self.poison = faults.device_schedule("grad.nonfinite")
+        self.count = int(first_step)
+
+    def save(self):
+        """The buffers the guard restores on a skip (None: guard off)."""
+        return ([b.clone() for b in self.buffers] if self.finite_guard
+                else None)
+
+    def __call__(self, loss, saved):
+        self.count += 1
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.group is not None:
+            all_reduce_flat(grads, self.group, mean=self.mean)
+        if self.poison is not None and self.poison.scheduled(self.count):
+            torch._foreach_mul_(grads, float("nan"))
+        if self.finite_guard:
+            finite = torch.stack([torch.isfinite(g).all() for g in grads])
+            if not bool(finite.all()):
+                with torch.no_grad():
+                    for buf, old in zip(self.buffers, saved):
+                        buf.copy_(old)
+                return loss.detach(), 1
+        self.optimizer.step()
+        if self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        if self.group is not None:
+            with torch.no_grad():
+                all_reduce_flat(self.running, self.group, mean=True)
+        return (loss.detach(), 0) if self.finite_guard else loss.detach()
+
+
 def make_train_step(model, optimizer, loss_cfg=None,
                     finite_guard: bool = False, lr_scheduler=None,
-                    group=None):
+                    group=None, first_step: int = 0):
     """-> ``step(video_u8, text_ids, start)`` returning the loss (a 0-d
     tensor on the device), or ``(loss, skipped)`` with ``finite_guard``,
     where ``skipped`` is 1 when the update was dropped.  ``group``: the
     ranks stepping the global batch together (None = this process
-    alone).  A bad loss name or MIL-NCE knob raises here."""
+    alone).  ``first_step``: optimizer steps already taken (a resumed
+    run's), from which the ``grad.nonfinite`` fault counts.  A bad loss
+    name or MIL-NCE knob raises here."""
     loss_name = _check_loss_name(loss_cfg)
     milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
                  else None)
-    params = [p for group_ in optimizer.param_groups for p in group_["params"]]
-    buffers = list(model.buffers())
-    running = _running_stats(model)
+    update = _Update(model, optimizer, finite_guard, lr_scheduler, group,
+                     milnce_fn is None, first_step)
 
     def compute_loss(video_u8, text_ids, start):
         video = _normalize(video_u8, model)
@@ -120,28 +177,111 @@ def make_train_step(model, optimizer, loss_cfg=None,
     def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
              start: torch.Tensor):
         model.train()
-        saved = [b.clone() for b in buffers] if finite_guard else None
+        saved = update.save()
         optimizer.zero_grad(set_to_none=True)
         loss = compute_loss(video_u8, text_ids, start)
         loss.backward()
-        if group is not None:
-            all_reduce_flat([p.grad for p in params if p.grad is not None],
-                            group, mean=milnce_fn is None)
-        if finite_guard:
-            finite = torch.stack([torch.isfinite(p.grad).all()
-                                  for p in params if p.grad is not None])
-            if not bool(finite.all()):
-                with torch.no_grad():
-                    for buf, old in zip(buffers, saved):
-                        buf.copy_(old)
-                return loss.detach(), 1
-        optimizer.step()
-        if lr_scheduler is not None:
-            lr_scheduler.step()
-        if group is not None:
-            with torch.no_grad():
-                all_reduce_flat(running, group, mean=True)
-        return (loss.detach(), 0) if finite_guard else loss.detach()
+        return update(loss, saved)
+
+    return step
+
+
+def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
+                         finite_guard: bool = False, lr_scheduler=None,
+                         group=None, first_step: int = 0):
+    """The two-pass embedding-cache step (GradCache; JAX
+    ``make_grad_cache_step``) for MIL-NCE and the DTW family: the same
+    ``step(video_u8, text_ids, start)`` as :func:`make_train_step`, over
+    ``micro_batches`` microbatches of the batch it is given.
+
+    A contrastive loss does not split over plain gradient-accumulation
+    microbatches: every clip scores against every other clip of the
+    batch.  So:
+
+    1. under ``no_grad``, embed each microbatch (``B/M`` clips and their
+       ``B/M·K`` captions; sequences for the DTW family) and keep only the
+       embeddings;
+    2. run the loss once on the concatenated cache, leaf tensors that
+       require grad, and take its gradient with respect to them: the
+       MIL-NCE stream runs once a step at ``B_local = B``, over the group
+       as in :func:`make_train_step`;
+    3. re-forward each microbatch with grad and seed its backward with
+       its slice of the cache's gradient; the parameter gradients
+       accumulate in ``.grad``.
+
+    The gradients are reduced over the group once, after pass 2, never a
+    microbatch at a time (the JAX ``scan-reduction-free`` invariant).
+
+    Each microbatch normalizes with its own BatchNorm statistics, a
+    virtual data-parallel shard with local BN.  Its running statistics:
+    each microbatch of pass 1 folds its statistics into the *same* old
+    running statistics and the new ones are the mean of those M folds
+    (then averaged over the group after the update), as the JAX step's
+    ``mean(stats_mb)``; pass 2 folds nothing (:func:`frozen_running_stats`).
+    ``num_batches_tracked`` advances by one an optimizer step.  Under sync
+    BatchNorm each microbatch's forward syncs over the ranks in both
+    passes.  The cost is pass 2's repeated forward; the activations of
+    one microbatch live at a time."""
+    if micro_batches < 2:
+        raise ValueError(f"micro_batches={micro_batches}: use "
+                         "make_train_step for one microbatch")
+    loss_name = _check_loss_name(loss_cfg)
+    milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
+                 else None)
+    update = _Update(model, optimizer, finite_guard, lr_scheduler, group,
+                     milnce_fn is None, first_step)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm3d)]
+    mode = {} if milnce_fn is not None else {"mode": "sequence"}
+
+    def embed(video_u8, text_ids):
+        return model(_normalize(video_u8, model), text_ids, **mode)
+
+    def loss_of(v, t, start):
+        if milnce_fn is not None:
+            return milnce_fn(v, t)
+        t_seq = t.reshape(v.shape[0], -1, t.shape[-1])       # (B, K, D)
+        return _sequence_loss(loss_cfg, v, t_seq, start, group)
+
+    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
+             start: torch.Tensor):
+        b = video_u8.shape[0]
+        if b % micro_batches:
+            raise ValueError(f"batch {b} does not split into "
+                             f"{micro_batches} microbatches")
+        bm = b // micro_batches
+        rows = text_ids.shape[0] // b * bm
+        vids, txts = video_u8.split(bm), text_ids.split(rows)
+        model.train()
+        saved = update.save()
+        optimizer.zero_grad(set_to_none=True)
+        # pass 1: the embeddings alone; every microbatch folds into the
+        # old running statistics, which end as the mean of the M folds
+        old = [r.clone() for r in update.running]
+        folds = [torch.zeros_like(r) for r in update.running]
+        tracked = [m.num_batches_tracked.clone() for m in norms]
+        v_mb, t_mb = [], []
+        with torch.no_grad():
+            for vu8, tids in zip(vids, txts):
+                torch._foreach_copy_(update.running, old)
+                v, t = embed(vu8, tids)
+                v_mb.append(v)
+                t_mb.append(t)
+                torch._foreach_add_(folds, update.running)
+            torch._foreach_div_(folds, micro_batches)
+            torch._foreach_copy_(update.running, folds)
+            for m, n in zip(norms, tracked):
+                m.num_batches_tracked.copy_(n + 1)
+        # the loss once, on the whole cache
+        v_all = torch.cat(v_mb).requires_grad_()
+        t_all = torch.cat(t_mb).requires_grad_()
+        loss = loss_of(v_all, t_all, start)
+        g_v, g_t = torch.autograd.grad(loss, (v_all, t_all))
+        # pass 2: each microbatch again, its backward seeded by its slice
+        with frozen_running_stats(model):
+            for vu8, tids, gv, gt in zip(vids, txts, g_v.split(bm),
+                                         g_t.split(rows)):
+                torch.autograd.backward(embed(vu8, tids), (gv, gt))
+        return update(loss, saved)
 
     return step
 

@@ -45,7 +45,8 @@ def test_port_package_exists():
                      "parallel/dist.py", "obs/__init__.py", "obs/runctx.py",
                      "obs/metrics.py", "obs/spans.py", "obs/export.py",
                      "obs/goodput.py", "obs/aggregate.py", "obs/anomaly.py",
-                     "obs/capture.py"):
+                     "obs/capture.py", "resilience/faults.py",
+                     "ops/dtw.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

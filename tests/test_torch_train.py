@@ -533,6 +533,48 @@ def _capture_dir_is_honoured(cfg, root):
     assert names.count("capture.start") == names.count("capture.stop") == 1
 
 
+def _grad_accum_is_honoured(cfg, root):
+    """The loop builds the grad-cache step with M = 2 over the rank's
+    batch of 4 (two microbatches of 2 clips); its loss is the one shown,
+    and it differs from the one-pass step's, whose BatchNorm sees all 4
+    clips at once."""
+    built, losses = [], {}
+    real = loop.make_grad_cache_step
+
+    def spy(model, optimizer, micro_batches, loss_cfg, **kwargs):
+        built.append((micro_batches, kwargs["first_step"]))
+        return real(model, optimizer, micro_batches, loss_cfg, **kwargs)
+
+    for accum in (1, 2):
+        cfg.train.grad_accum = accum
+        cfg.train.checkpoint_root = str(root / f"accum{accum}")
+        lines = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(loop, "make_grad_cache_step", spy)
+            loop.run_training(cfg, log=lines.append,
+                              on_step=lambda _s, _t, loss, _w:
+                              losses.__setitem__(accum, loss))
+    assert built == [(2, 0)]
+    shown = "\n".join(lines)
+    assert "microbatches: 2" in shown
+    assert f"Training loss: {losses[2]:.4f}" in shown
+    assert not math.isclose(losses[1], losses[2], rel_tol=1e-6)
+
+
+def _faults_is_honoured(cfg, root):
+    """``train.faults`` arms the registry for the run: the step built in
+    it poisons step 1's gradients, the guard skips it, and the registry
+    is disarmed when the run returns."""
+    from milnce_tpu_torch.resilience import faults as port_faults
+
+    cfg.train.faults = "grad.nonfinite@1"
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert res.steps == 1 and res.skipped_steps == 1
+    assert "Skipped steps: 1" in "\n".join(lines)
+    assert port_faults._active() is None
+
+
 _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.checkpoint_dir": _checkpoint_dir_is_honoured,
                  "train.pretrain_ckpt": _pretrain_ckpt_is_honoured,
@@ -544,7 +586,9 @@ _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.verbose": _verbose_is_honoured,
                  "train.obs_dir": _obs_dir_is_honoured,
                  "train.trace_dir": _trace_dir_is_honoured,
-                 "train.capture_dir": _capture_dir_is_honoured}
+                 "train.capture_dir": _capture_dir_is_honoured,
+                 "train.grad_accum": _grad_accum_is_honoured,
+                 "train.faults": _faults_is_honoured}
 
 
 @pytest.mark.parametrize("knob", list(_PORTED_KNOBS))
@@ -556,6 +600,29 @@ def test_ported_knob_is_honoured(knob, tmp_path):
     cfg.model.inception_blocks = 2
     cfg.data.synthetic_num_samples = 16
     _PORTED_KNOBS[knob](cfg, tmp_path)
+
+
+def test_remat_model_builds_and_trains(tmp_path):
+    """``model.remat`` builds the checkpointed model with the plain one's
+    ``state_dict`` keys and trains: two steps of ``run_training`` land on
+    the plain run's losses and weights (the recomputation folds nothing;
+    step by step: tests/test_torch_grad_cache.py)."""
+    runs = {}
+    for remat in (False, True):
+        cfg = _tiny_run_cfg(2, 1, tmp_path / f"remat{remat}")
+        cfg.model.inception_blocks = 2
+        cfg.model.remat = remat
+        losses = []
+        res = loop.run_training(cfg, log=lambda _m: None,
+                                on_step=lambda _s, _t, loss, _w:
+                                losses.append(loss))
+        assert res.model.remat is remat
+        runs[remat] = losses, res.model.state_dict()
+    assert runs[True][0] == pytest.approx(runs[False][0], rel=1e-6)
+    assert list(runs[True][1]) == list(runs[False][1])
+    for key, val in runs[False][1].items():
+        torch.testing.assert_close(runs[True][1][key], val, rtol=1e-5,
+                                   atol=1e-6, msg=key)
 
 
 @pytest.mark.parametrize("platform", ["cpu", "cuda"])
@@ -635,6 +702,8 @@ def test_chip_smoke_configurations_pass_the_config_check():
     cfgs = [smoke._small_cfg("chunked", "cuda"),
             smoke._small_cfg("dense", "auto"),
             smoke._full_cfg("milnce", smoke._stream_loss),
+            smoke._full_cfg("milnce", smoke._stream_loss, smoke.GC_BATCH,
+                            smoke.GC_ACCUM),
             smoke._full_cfg("sdtw_3", smoke._sdtw_loss)]
     for name in smoke.DTW_LOSSES:
         cfgs.append(smoke._small_cfg("dense", "auto"))

@@ -32,7 +32,9 @@ from milnce_tpu_torch.models.s3dg import S3D
 from milnce_tpu_torch.parallel.dist import all_gather_tiled
 from milnce_tpu_torch.train.schedule import build_schedule
 from milnce_tpu_torch.train.state import build_optimizer
-from milnce_tpu_torch.train.step import _sequence_loss, make_train_step
+from milnce_tpu_torch.train import step as step_module
+from milnce_tpu_torch.train.step import (_sequence_loss, make_grad_cache_step,
+                                         make_train_step)
 from milnce_tpu_torch.utils.torch_convert import load_jax_variables
 
 COLLECTIVE_TIMEOUT = timedelta(seconds=60)
@@ -186,6 +188,76 @@ def step_run(rank, world, group, dims, variables, batches, sync_bn=False,
     grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()
              if p.grad is not None}
     return losses, skips, states, grads
+
+
+# ------------------------------------------------------------ grad-cache ranks
+def moments(model, optimizer) -> dict:
+    """Adam's ``exp_avg`` / ``exp_avg_sq`` by parameter name."""
+    out = {}
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p)
+        if state:
+            out[name] = (state["exp_avg"].detach().clone().numpy(),
+                         state["exp_avg_sq"].detach().clone().numpy())
+    return out
+
+
+def grad_cache_run(rank, world, group, dims, variables, batches, loss,
+                   micro_batches, sync_bn=False, remat=False):
+    """Steps of the float64 port trainer from the JAX ``variables``:
+    ``make_grad_cache_step`` at ``micro_batches`` (``make_train_step`` at
+    1) with the loss named (MIL-NCE on the chunked plain stream, chunk
+    3), the finite guard, warmup 2 over 10 steps; this rank's rows of
+    each global (video, text, start) batch.  Every ``all_reduce_flat``
+    call the step makes is counted.  Returns the losses, the skips, the
+    final state, Adam's moments and each step's all-reduce calls (the
+    element count of each)."""
+    model = load_jax_variables(S3D(**dims).to(torch.float64), variables)
+    model.remat = remat
+    if sync_bn:
+        sync_batchnorm(model, group)
+    opt_cfg = OptimConfig(warmup_steps=2)
+    optimizer, sched = build_optimizer(model, opt_cfg,
+                                       build_schedule(opt_cfg, 10))
+    cfg = LossConfig(name=loss, milnce_impl="chunked", milnce_chunk=3,
+                     milnce_backend="scan", sdtw_backend="scan")
+    kwargs = dict(finite_guard=True, lr_scheduler=sched, group=group)
+    step = (make_grad_cache_step(model, optimizer, micro_batches, cfg,
+                                 **kwargs)
+            if micro_batches > 1 else
+            make_train_step(model, optimizer, cfg, **kwargs))
+    calls = []
+    real = step_module.all_reduce_flat
+
+    def counted(tensors, *args, **kw):
+        calls[-1].append(sum(t.numel() for t in tensors))
+        return real(tensors, *args, **kw)
+
+    step_module.all_reduce_flat = counted
+    losses, skips = [], []
+    try:
+        for video, text, start in batches:
+            if group is not None:
+                video, text, start = (_shard(x, rank, world)
+                                      for x in (video, text, start))
+            calls.append([])
+            loss_, skipped = step(torch.from_numpy(video),
+                                  torch.from_numpy(text),
+                                  torch.from_numpy(start))
+            losses.append(float(loss_))
+            skips.append(int(skipped))
+    finally:
+        step_module.all_reduce_flat = real
+    return losses, skips, _state(model), moments(model, optimizer), calls
+
+
+def grad_cache_runs(rank, world, group, dims, variables, batches, cases):
+    """:func:`grad_cache_run` for each ``{label: (loss, micro_batches,
+    sync_bn, remat)}`` of ``cases`` in turn, in one group; returns
+    ``{label: result}``."""
+    return {label: grad_cache_run(rank, world, group, dims, variables,
+                                  batches, *case)
+            for label, case in cases.items()}
 
 
 # ------------------------------------------------------------ trainer ranks

@@ -102,12 +102,26 @@ Phases, each fatal on failure:
                parameter (vacuous at step 2's lr of 1e-6), within
                1e-5 + 1e-4 max; the kernels' launch counts.  Over NCCL
                too, a rank a card, when there are two cards.
+   elastic-ddp -- two gloo ranks on the one card (ddp-2's model, sync
+               BatchNorm) through ``run_training``: ``host.preempt`` on
+               rank 1 alone, agreed every 2 steps
+               (``train.preempt_sync_steps``), drains both at step 2 with
+               one ``ELASTIC_STAMP.json`` of ``{"data": 2}``; resumed in
+               this process at W = 1 (same global batch) to step 4, its
+               losses within rel 2e-4 of one uninterrupted process's; a
+               run with ``host.slow`` on rank 1 puts ``straggler`` events
+               naming rank 1 in rank 0's stream.
 9. resume   -- train-full stopped at step 2 and resumed to step 4 against
                the uninterrupted run (cuDNN deterministic): steps 3-4's
                losses within rel 2e-4, the batch cursor; in the resumed
                half SIGUSR1 arms the bounded torch.profiler capture,
                which must stop once, by its duration, with a trace that
                names the three stream kernels.
+   drain    -- train-full drained at step 2 by ``train.drain_signal_file``
+               (written from ``on_step``), resumed to step 4, cuDNN
+               deterministic: ``drained``, both stamps at step 2, a
+               non-zero drain bucket in the ledger, the losses within rel
+               2e-4 of the resume phase's uninterrupted run.
 10. eval    -- ``eval.cli msrvtt`` on that checkpoint at full width (fake
                decoder, 4 windows of 32 frames at 224^2, the first 256
                rows): R@1/5/10, MedR, videos/s; the metrics against the
@@ -121,6 +135,16 @@ Phases, each fatal on failure:
                (chunk 8), 4 steps: every loss finite, each kernel twice a
                step, 4 step spans; steps/s, clips/s beside phase 7's,
                peak memory, idle share, data wait a step.
+   curriculum -- train-full-curriculum: train-full under
+               ``train.curriculum`` (2 steps of 8 frames at 112^2 and
+               batch 32, the stream kernels at B_local = Bg = 32; then 2
+               of 32 frames at 224^2 and batch 16): each step's clip shape
+               the plan's, the kernels twice a step at each stage, each
+               stage's steps/s, clips/s and peak memory beside the
+               pre-flight's figure, the ledger's stage_switch share, the
+               ledger within 5 % of the wall; then the same spec with
+               ``MILNCE_HBM_GIB`` at 0.95 of stage 1's peak refused by
+               the pre-flight, naming stage 1, before any step.
 11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
                beside phase 7's (measured only; the default stays off).
 12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
@@ -1452,7 +1476,7 @@ def phase_resume(root):
     3 arms the bounded capture (``train.capture_dir``, 100 ms), as an
     operator would; the phase compares losses only, so the capture cannot
     disturb it.  ``_check_capture`` holds what it wrote.  Returns the
-    checkpoint directory."""
+    checkpoint directory and the uninterrupted run's {step: loss}."""
     from milnce_tpu_torch.ops import milnce_stream as ms
     from milnce_tpu_torch.train.checkpoint import CheckpointManager
     from milnce_tpu_torch.train.loop import resume_batch_offset
@@ -1502,7 +1526,7 @@ def phase_resume(root):
                              "uninterrupted one")
     _check_capture(f"{root}/log", [m for m in lines
                                    if m.startswith("SIGUSR1 profiler")])
-    return f"{root}/run"
+    return f"{root}/run", runs["whole"]
 
 
 def _check_capture(log_root, shown):
@@ -1795,17 +1819,14 @@ def _ddp2_stream(out, rank):
                          + ".jsonl"))
 
 
-def _ddp2_spawn(backend, work):
-    """DDP2_WORLD rank processes of ``_ddp2_rank``, joined within 600 s
-    (killed past it); their results in rank order."""
+def _spawn_ranks(target, args, label):
+    """One process a rank (start method ``spawn``), rank r running
+    ``target(*args[r])``, joined within 600 s (killed past it); fails
+    unless every rank exits 0."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    outs = [f"{work}/ddp2-{backend}-{r}.pt" for r in range(DDP2_WORLD)]
-    procs = [ctx.Process(target=_ddp2_rank,
-                         args=(r, DDP2_WORLD, backend,
-                               f"{work}/ddp2-{backend}-store", outs[r]))
-             for r in range(DDP2_WORLD)]
+    procs = [ctx.Process(target=target, args=a) for a in args]
     for proc in procs:
         proc.start()
     deadline = time.monotonic() + 600
@@ -1816,8 +1837,18 @@ def _ddp2_spawn(backend, work):
             proc.kill()
             proc.join(10)
     codes = [proc.exitcode for proc in procs]
-    if codes != [0] * DDP2_WORLD:
-        raise AssertionError(f"ddp-2 ranks over {backend} exited {codes}")
+    if codes != [0] * len(procs):
+        raise AssertionError(f"{label} ranks exited {codes}")
+
+
+def _ddp2_spawn(backend, work):
+    """DDP2_WORLD rank processes of ``_ddp2_rank``; their results in rank
+    order."""
+    outs = [f"{work}/ddp2-{backend}-{r}.pt" for r in range(DDP2_WORLD)]
+    _spawn_ranks(_ddp2_rank, [(r, DDP2_WORLD, backend,
+                               f"{work}/ddp2-{backend}-store", outs[r])
+                              for r in range(DDP2_WORLD)],
+                 f"ddp-2 over {backend}")
     _merge_ddp2_streams(backend, [_ddp2_stream(out, r)
                                   for r, out in enumerate(outs)])
     return [torch.load(out, weights_only=True) for out in outs]
@@ -1943,6 +1974,353 @@ def phase_ddp2(work):
     else:
         log(f"  nccl, a rank a card: not run ({torch.cuda.device_count()} "
             "card visible)")
+
+
+# ------------------------------------------------------ curriculum, elastic
+CURRICULUM = ("num_frames=8,resolution=112,batch_size=32,until_step=2;"
+              "num_frames=32,resolution=224,batch_size=16")
+CURRICULUM_SAMPLES = 96   # stage 0: batches 1-2 of 32; stage 1: after the
+#                           64 samples consumed, batches 5-6 of 16
+BUDGET_SHARE = 0.95       # the refused run's budget: this share of stage
+#                           1's measured peak
+
+
+def _curriculum_cfg():
+    """train-full's model, loader, obs and seed under CURRICULUM, one
+    epoch: the plan is the run's TRAIN_STEPS steps."""
+    cfg = _full_cfg("milnce", _stream_loss)
+    cfg.train.curriculum = CURRICULUM
+    cfg.data.synthetic_num_samples = CURRICULUM_SAMPLES
+    cfg.optim.epochs = 1
+    return cfg
+
+
+def _quiet(_msg):
+    """A run's log, dropped."""
+
+
+def _step_spy(loop_mod, seen):
+    """Wrap ``loop_mod.make_train_step`` so that each step appends (its
+    clip's shape, its peak memory allocated, the stream kernels' launches
+    it made) to ``seen``; returns the original to put back."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    real = loop_mod.make_train_step
+
+    def spy(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def counted(video, text, start):
+            before = dict(ms.LAUNCHES)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = step(video, text, start)
+            torch.cuda.synchronize()
+            seen.append((tuple(video.shape), torch.cuda.max_memory_allocated(),
+                         {k: ms.LAUNCHES[k] - before.get(k, 0)
+                          for k in ms.KERNELS}))
+            return out
+
+        counted.fwd_bwd = step.fwd_bwd
+        return counted
+
+    loop_mod.make_train_step = spy
+    return real
+
+
+def phase_train_curriculum(train, work):
+    """train-full under ``train.curriculum`` CURRICULUM, 4 steps: 2 at 8
+    frames of 112^2 and batch 32 (the stream kernels at B_local = Bg =
+    32), then 2 at train-full's 32 frames of 224^2 and batch 16.  Checks
+    each step's clip shape against the plan, every loss finite, the
+    stream kernels twice a step at each stage, one ``stage.switch`` span,
+    and the goodput ledger's categories within 5 % of the phase's wall.
+    Prints each stage's steps/s and clips/s, its peak memory beside the
+    pre-flight's figure, the ledger's ``stage_switch`` share, and stage
+    1's steps/s beside phase 7's (not held to a limit: phase order moves
+    full-width speed).  Then the same spec with ``MILNCE_HBM_GIB`` at
+    BUDGET_SHARE of stage 1's measured peak must be refused by the
+    pre-flight, naming stage 1, before any step."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train import curriculum
+    from milnce_tpu_torch.train import loop as loop_mod
+
+    plan = curriculum.plan_curriculum(
+        curriculum.parse_curriculum(CURRICULUM), CURRICULUM_SAMPLES, 1)
+    want = []
+    for step in range(plan.total_steps):
+        st = plan.stages[plan.stage_at(step)]
+        want.append((st.batch_size, st.num_frames, st.resolution,
+                     st.resolution, 3))
+    saved_env = os.environ.pop("MILNCE_HBM_GIB", None)
+    seen, steps, lines = [], [], []
+    real = _step_spy(loop_mod, seen)
+    try:
+        cfg = _curriculum_cfg()
+        ms.reset_launches()
+        t0 = time.perf_counter()
+        res = _run_training(cfg, f"{work}/curriculum", log=lines.append,
+                            on_step=lambda s, secs, loss, wait:
+                            steps.append((s, secs, loss, wait)))
+        wall = time.perf_counter() - t0
+        launches = dict(ms.LAUNCHES)
+        done, stage = res.steps, res.stage
+        del res
+    finally:
+        loop_mod.make_train_step = real
+    for m in lines:
+        if m.startswith(("curriculum", "MIL-NCE", "Epoch")):
+            log(f"  {m}")
+    for (s, secs, loss, wait), (shape, peak, per) in zip(steps, seen):
+        log(f"  step {s}: clip {shape}, {secs:.3f} s, waited {wait:.4f} s "
+            f"for data, loss {loss:.6f}, peak {peak / 2 ** 30:.3f} GiB, "
+            f"launches {per}")
+    stats = {}
+    for idx, st in enumerate(plan.stages):
+        mine = [(secs, peak) for (_, secs, _, _), (shape, peak, _)
+                in zip(steps, seen) if shape[0] == st.batch_size
+                and shape[1] == st.num_frames]
+        sps = len(mine) / sum(secs for secs, _ in mine)
+        stats[idx] = dict(sps=sps, clips=sps * st.batch_size,
+                          second=1 / mine[-1][0],
+                          peak=max(peak for _, peak in mine))
+        log(f"  stage {idx} ({st.label()}): {sps:.4f} steps/s over its "
+            f"{len(mine)} steps ({stats[idx]['second']:.4f} at its second), "
+            f"{stats[idx]['clips']:.2f} clips/s, peak memory "
+            f"{stats[idx]['peak'] / 2 ** 30:.3f} GiB")
+    preflight = [m for m in lines if m.startswith("curriculum pre-flight")]
+    records = _read_events(f"{work}/curriculum/log")
+    with open(f"{work}/curriculum/log/GOODPUT.json") as fh:
+        doc = json.load(fh)
+    cats = doc["categories_s"]
+    total = sum(cats.values())
+    names = [r["name"] for r in records]
+    log(f"  stage 1 against phase 7: {stats[1]['second']:.4f} steps/s at its "
+        f"second step, {train['sps']:.4f} phase 7 after its first "
+        "(not held to a limit)")
+    log(f"  goodput ledger: categories sum {total:.4f} s of the phase's "
+        f"{wall:.4f} s ({abs(total - wall) / wall:.4f} off, limit 0.05); "
+        f"stage_switch {cats.get('stage_switch', 0):.4f} s "
+        f"({cats.get('stage_switch', 0) / total:.4f}); "
+        f"{names.count('stage.switch')} stage.switch span(s); launches "
+        f"{launches}")
+    for m in preflight:
+        log(f"  {m}")
+    route0 = ("MIL-NCE: streamed on the CUDA kernels (B_local 32, Bg 32, "
+              "K 5, D 512)")
+    if not ([shape for shape, _, _ in seen] == want
+            and done == plan.total_steps == TRAIN_STEPS and stage == 1
+            and all(math.isfinite(x[2]) for x in steps)
+            and all(per == {k: 2 for k in ms.KERNELS} for *_, per in seen)
+            and route0 in lines and len(preflight) == 2
+            and names.count("stage.switch") == 1
+            and cats.get("stage_switch", 0) > 0
+            and abs(total - wall) <= 0.05 * wall):
+        raise AssertionError("train-full-curriculum failed its checks")
+    budget = BUDGET_SHARE * stats[1]["peak"]
+    os.environ["MILNCE_HBM_GIB"] = repr(budget / 2 ** 30)
+    refused = None
+
+    def no_step(*_):
+        raise AssertionError("a step ran before the pre-flight's refusal")
+
+    try:
+        _run_training(_curriculum_cfg(), f"{work}/curriculum-refused",
+                      log=_quiet, on_step=no_step)
+    except ValueError as exc:
+        refused = str(exc)
+    finally:
+        del os.environ["MILNCE_HBM_GIB"]
+        if saved_env is not None:
+            os.environ["MILNCE_HBM_GIB"] = saved_env
+    log(f"  budget {budget / 2 ** 30:.3f} GiB ({BUDGET_SHARE} x stage 1's "
+        f"peak): refused: {refused}")
+    if not (refused or "").startswith("curriculum pre-flight refused "
+                                      "curriculum stage 1 ("):
+        raise AssertionError("the pre-flight did not refuse stage 1")
+    return dict(stats=stats, share=cats.get("stage_switch", 0) / total,
+                preflight=preflight)
+
+
+def phase_drain(whole, root):
+    """train-full drained at step 2 by ``train.drain_signal_file`` (the
+    file written from the ``on_step`` callback), then resumed to step 4,
+    cuDNN deterministic as in the resume phase: the result is
+    ``drained``, both stamps say step 2 (the elastic one ``drained``),
+    the ledger's drain bucket is non-zero, and steps 1-4 equal the resume
+    phase's uninterrupted run within rel 2e-4."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    flag = f"{root}/drain.now"
+    losses, lines = {}, []
+
+    def on_step(s, _t, loss, _w):
+        losses[s] = loss
+        if s == 2:
+            open(flag, "w").close()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        ms.reset_launches()
+        cfg = _full_cfg("milnce", _stream_loss)
+        cfg.train.drain_signal_file = flag
+        res = _run_training(cfg, root, log=lines.append, on_step=on_step)
+        drained, steps = res.drained, res.steps
+        del res
+        with open(f"{root}/log/GOODPUT.json") as fh:
+            drain_s = json.load(fh)["categories_s"].get("drain", 0)
+        with open(f"{root}/run/ELASTIC_STAMP.json") as fh:
+            est = json.load(fh)
+        with open(f"{root}/run/CURRICULUM_STAMP.json") as fh:
+            cst = json.load(fh)
+        cfg = _full_cfg("milnce", _stream_loss)
+        cfg.train.resume, cfg.train.max_steps = True, TRAIN_STEPS - 2
+        res = _run_training(cfg, root, log=lines.append,
+                            on_step=lambda s, _t, loss, _w:
+                            losses.__setitem__(s, loss))
+        resumed = res.steps
+        del res
+        launches = dict(ms.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err = max(abs(losses[s] - whole[s]) / abs(whole[s]) for s in whole)
+    log(f"  {[m for m in lines if m.startswith(('drain', 'resumed'))]}")
+    log(f"  drained {drained} after {steps} steps; stamps: elastic {est}, "
+        f"curriculum step {cst['step']}; drain bucket {drain_s:.4f} s; "
+        f"resumed {resumed} steps; losses {losses} against the "
+        f"uninterrupted {whole}: max rel diff {err:.3e} (limit 2e-4); "
+        f"launches {launches}")
+    if not (drained and steps == 2 and resumed == 2
+            and est["step"] == cst["step"] == 2 and est["drained"]
+            and est["mesh"] == {"data": 1} and drain_s > 0
+            and sorted(losses) == sorted(whole) and err <= 2e-4
+            and launches == {k: 2 * TRAIN_STEPS if k in ms.KERNELS else 0
+                             for k in launches}):
+        raise AssertionError("the drained run or its resume is off")
+
+
+ELASTIC_STEPS = 4
+ELASTIC_SLOW_S = 0.25     # host.slow's sleep on rank 1 in the straggler run
+
+
+def _elastic_cfg(root):
+    """ddp-2's small model (sync BatchNorm, chunked MIL-NCE on the
+    kernels, warmup 1000) through ``run_training``: ELASTIC_STEPS steps
+    of its global batch on synthetic data, checkpoints and logs under
+    ``root``."""
+    cfg = _ddp2_cfg()
+    cfg.data.synthetic_num_samples = cfg.train.batch_size * ELASTIC_STEPS
+    cfg.train.max_steps = None
+    cfg.train.preempt_sync_steps = 2
+    cfg.train.straggler_window = 2
+    cfg.train.checkpoint_root, cfg.train.log_root = root, f"{root}/log"
+    return cfg
+
+
+def _elastic_rank(rank, world, runs, out):
+    """One rank of the elastic-ddp phase, in a process of its own: for
+    each (label, store, {rank: faults}, root) of ``runs``, ``run_training``
+    on ``_elastic_cfg(root)`` with this rank's ``train.faults``, its group
+    a gloo one with CUDA tensors on the one card (as ddp-2's: NCCL takes
+    one rank a device), made by a stand-in for the loop's
+    ``initialize_distributed``.  Saves each run's losses, result and the
+    stream kernels' launches."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.parallel.dist import Ranks
+    from milnce_tpu_torch.train import loop as loop_mod
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    for label, store, specs, root in runs:
+        def gloo_group(_parallel, store=store):
+            dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                    rank=rank, world_size=world,
+                                    timeout=timedelta(seconds=180))
+            return Ranks(dist.group.WORLD, rank, world, 0)
+
+        loop_mod.initialize_distributed = gloo_group
+        cfg = _elastic_cfg(root)
+        cfg.train.faults = specs.get(rank, "")
+        losses = {}
+        ms.reset_launches()
+        res = loop_mod.run_training(cfg, log=lambda _m: None,
+                                    on_step=lambda s, _t, loss, _w:
+                                    losses.__setitem__(s, loss))
+        results[label] = dict(losses=losses, drained=res.drained,
+                              steps=res.steps, launches=dict(ms.LAUNCHES))
+    torch.save(results, out)
+
+
+def phase_elastic_ddp(work):
+    """Two gloo ranks on the one card (ddp-2's model, sync BatchNorm,
+    B_local 4 of Bg 8), through ``run_training``: ``host.preempt@1`` on
+    rank 1 alone with ``train.preempt_sync_steps`` 2 drains both ranks
+    at step 2 with one stamp ``{"data": 2}``; resumed at W = 1 (this
+    process, the same global batch) to step 4, its losses equal one
+    uninterrupted process's within ddp-2's rel 2e-4.  A run with
+    ``host.slow`` on rank 1 shows ``straggler`` events naming rank 1 in
+    rank 0's stream.  cuDNN deterministic throughout."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    runs = [("preempt", f"{work}/elastic-preempt-store",
+             {1: "host.preempt@1"}, f"{work}/elastic-preempt"),
+            ("slow", f"{work}/elastic-slow-store",
+             {1: f"host.slow@*:x={ELASTIC_SLOW_S}"}, f"{work}/elastic-slow")]
+    outs = [f"{work}/elastic-{r}.pt" for r in range(DDP2_WORLD)]
+    _spawn_ranks(_elastic_rank, [(r, DDP2_WORLD, runs, outs[r])
+                                 for r in range(DDP2_WORLD)], "elastic-ddp")
+    ranks = [torch.load(out, weights_only=False) for out in outs]
+    with open(f"{work}/elastic-preempt/run/ELASTIC_STAMP.json") as fh:
+        est = json.load(fh)
+    lines, resumed, one = [], {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        from milnce_tpu_torch.train.loop import run_training
+
+        cfg = _elastic_cfg(f"{work}/elastic-preempt")
+        cfg.train.resume = True
+        cfg.train.log_root = f"{work}/elastic-resumed-log"
+        ms.reset_launches()
+        res = run_training(cfg, log=lines.append,
+                           on_step=lambda s, _t, loss, _w:
+                           resumed.__setitem__(s, loss))
+        launches = dict(ms.LAUNCHES)
+        run_training(_elastic_cfg(f"{work}/elastic-one"), log=lambda _m: None,
+                     on_step=lambda s, _t, loss, _w: one.__setitem__(s, loss))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = {**ranks[0]["preempt"]["losses"], **resumed}
+    err = max(abs(got[s] - one[s]) / abs(one[s]) for s in one)
+    events = _read_events(f"{work}/elastic-slow/log")
+    flagged = [e for e in events if e["name"] == "straggler"]
+    log(f"  preempt run: {[(r['preempt']['drained'], r['preempt']['steps'], r['preempt']['launches']) for r in ranks]} "
+        f"(drained, steps, launches a rank); stamp {est}")
+    log(f"  resumed at W = 1: {[m for m in lines if m.startswith(('elastic', 'resumed'))]}; "
+        f"launches {launches}")
+    log(f"  losses W = 2 then W = 1 {got} against one process {one}: max "
+        f"rel diff {err:.3e} (limit 2e-4)")
+    log(f"  straggler run (host.slow {ELASTIC_SLOW_S} s on rank 1): "
+        f"{[(e['step'], e['process'], e['p50_ms'], e['skew']) for e in flagged]} "
+        f"(step, rank, p50 ms, skew); demoted "
+        f"{[e['process'] for e in events if e['name'] == 'straggler.demote']}")
+    if not (all(r["preempt"]["drained"] and r["preempt"]["steps"] == 2
+                for r in ranks)
+            and est["mesh"] == {"data": 2} and est["step"] == 2
+            and est["drained"] and not res.drained and res.steps == 2
+            and sorted(got) == sorted(one) == list(range(1, ELASTIC_STEPS + 1))
+            and err <= 2e-4
+            and any(m.startswith("elastic resume: topology change "
+                                 "{'data': 2} -> {'data': 1}") for m in lines)
+            and flagged and {e["process"] for e in flagged} == {1}
+            and all(r["slow"]["steps"] == ELASTIC_STEPS for r in ranks)
+            and all(r["preempt"]["launches"] == {
+                k: 2 * 2 if k in ms.KERNELS else 0
+                for k in r["preempt"]["launches"]} for r in ranks)):
+        raise AssertionError("elastic-ddp failed its checks")
 
 
 def _kernel_group(name: str) -> str:
@@ -2075,8 +2453,14 @@ def main() -> int:
         phase_ddp1(train, work)
         log("== ddp-2 (two ranks on one card, sync BN, Bg = 2 B_local)")
         phase_ddp2(work)
+        log("== elastic-ddp (two gloo ranks on one card: drain agreed "
+            "across ranks, resumed at W = 1; a straggler)")
+        phase_elastic_ddp(work)
         log("== resume (full width, stopped at step 2, resumed to step 4)")
-        ckpt_dir = phase_resume(work)
+        ckpt_dir, whole = phase_resume(work)
+        log("== drain (full width, drained at step 2 by the signal file, "
+            "resumed to step 4)")
+        phase_drain(whole, f"{work}/drain")
         log("== eval (msrvtt, full width, on the resumed checkpoint)")
         phase_eval(ckpt_dir, work)
         # after ddp-1, whose steps/s is held to phase 7's: run before it,
@@ -2087,6 +2471,9 @@ def main() -> int:
         log(f"== train-full-gc (batch {GC_BATCH} in {GC_ACCUM} microbatches, "
             "grad-cache)")
         phase_train_gc(train, work)
+        log("== train-full-curriculum (8f@112 batch 32, then 32f@224 "
+            "batch 16; the pre-flight's refusal)")
+        phase_train_curriculum(train, work)
     log("== cuDNN autotuning (measured only)")
     phase_cudnn_benchmark(train["sps"])
     log("== train (full width, sdtw_3)")

@@ -235,3 +235,38 @@ def all_reduce_flat(tensors: list, group, mean: bool = False) -> None:
         n = t.numel()
         t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+# ------------------------------------------------------------ host verdicts
+def _verdict_device(group) -> torch.device:
+    """NCCL takes CUDA tensors only (on this rank's current card); gloo
+    takes CPU tensors."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def reduce_flag(flag: bool, group) -> bool:
+    """The MAX of one flag over the ranks of ``group`` (port of
+    ``milnce_tpu/parallel/mesh.py::make_flag_reducer``): every rank that
+    calls it at the same step gets the same verdict, True when any rank's
+    flag is.  No group is a pass-through."""
+    if group is None:
+        return bool(flag)
+    box = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                       device=_verdict_device(group))
+    dist.all_reduce(box, op=dist.ReduceOp.MAX, group=group)
+    return bool(box.item())
+
+
+def gather_floats(value: float, group) -> list:
+    """Every rank's ``value`` in rank order, on every rank (one float a
+    rank, so that rank 0 can feed the straggler policy).  No group gives
+    ``[value]``."""
+    if group is None:
+        return [float(value)]
+    x = torch.tensor([float(value)], dtype=torch.float64,
+                     device=_verdict_device(group))
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return [float(p.item()) for p in parts]

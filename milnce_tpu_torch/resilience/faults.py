@@ -30,11 +30,18 @@ Training sites, fired where the JAX package fires them:
                        across a resume (the step is handed the restored
                        count).
 
+- ``host.preempt``     host; the drain controller's once-a-step poll
+                       latches a drain (``elastic/drain.py``); the
+                       occurrence is the run's step number.
+- ``host.slow``        host; the step sleeps ``x`` seconds inside its
+                       ``step`` span (``train/loop.py``; default x=0.05),
+                       a slow rank for the straggler policy.
+
 The serving (``serve.dispatch_raise``, ``serve.dispatch_hang``,
-``serve.replica_dead``), live-index (``index.swap_raise``,
-``index.ingest_hang``) and elastic (``host.preempt``, ``host.slow``)
-sites stay in the catalogue, so a spec written for the JAX package
-parses here, but fire nowhere until their modules are ported.
+``serve.replica_dead``) and live-index (``index.swap_raise``,
+``index.ingest_hang``) sites stay in the catalogue, so a spec written
+for the JAX package parses here, but fire nowhere until their modules
+are ported.
 
 Spec grammar (config ``train.faults`` or env ``MILNCE_FAULTS``)::
 

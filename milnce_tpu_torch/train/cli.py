@@ -8,17 +8,30 @@ torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) and
 trains on ``cuda:<LOCAL_RANK>``, ``train.batch_size`` being the global
 batch.  Without torchrun, ``--parallel.coordinator_address host:port``
 (or a ``tcp://`` / ``file://`` URL) with ``--parallel.num_processes`` and
-``--parallel.process_id`` names the group."""
+``--parallel.process_id`` names the group.
+
+Exit status: 0 on completion; ``DRAINED_EXIT_CODE`` (75, EX_TEMPFAIL) on
+every rank when the run drained (SIGTERM, ``--train.drain_signal_file``
+or the ``host.preempt`` fault site): the checkpoint and both stamps are
+on disk, and the orchestrator reruns with ``--train.resume true``, at
+any world size that splits every stage's batch."""
 
 from __future__ import annotations
 
 from milnce_tpu_torch.config import parse_cli
+from milnce_tpu_torch.elastic import DRAINED_EXIT_CODE
 from milnce_tpu_torch.train.loop import run_training
 
 
 def main(argv=None):
     cfg = parse_cli(argv, description="milnce-tpu-torch trainer")
     result = run_training(cfg)
+    if result.drained:
+        if result.rank == 0:
+            print(f"drained: {result.steps} steps, final loss "
+                  f"{result.last_loss:.4f} — checkpoint saved, resume with "
+                  f"--train.resume true (exit {DRAINED_EXIT_CODE})")
+        raise SystemExit(DRAINED_EXIT_CODE)
     if result.rank == 0:
         print(f"done: {result.steps} steps, final loss "
               f"{result.last_loss:.4f}")

@@ -41,7 +41,23 @@ into M microbatches; the display, the span stream, the ledger and the
 schedule count optimizer steps, and the live MFU is not computed (as in
 the JAX loop).  ``train.faults`` arms the fault registry
 (``resilience/faults.py``) for the run and disarms it at the end.
-Curriculum and elastic drain are not ported yet.
+
+Curriculum and elastic training, as the JAX loop has them: every run
+goes through a plan (``train/curriculum.py``; a flat run is one
+open-ended stage), whose segments the epoch loop walks.  At a stage
+boundary the loader is rebuilt at the stage's shapes under a
+``stage.switch`` span and the display window starts afresh; a resume
+lands where ``plan.locate`` puts the restored step.  On the card a
+curriculum run pre-flights every stage's memory before step 1.  Rank 0
+writes ``CURRICULUM_STAMP.json`` and ``ELASTIC_STAMP.json`` beside every
+save, and a resume checks both before any checkpoint is read.  SIGTERM,
+``train.drain_signal_file`` and the ``host.preempt`` fault site drain
+the run (``elastic/drain.py``): polled once a step, agreed over the
+group every ``train.preempt_sync_steps`` steps, then a forced save under
+an ``elastic.drain`` span and ``TrainResult.drained``.  The ``host.slow``
+fault site sleeps inside the ``step`` span, and the straggler policy
+(``elastic/straggler.py``) reads each rank's step time at the display
+cadence.
 
 Precision: the JAX towers run in f32, so TF32 is switched off for both
 cuDNN convolutions and CUDA matmuls before anything runs.
@@ -66,6 +82,9 @@ from milnce_tpu_torch.data.pipeline import (ShardedLoader, device_prefetch,
                                             flatten_text)
 from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
 from milnce_tpu_torch.data.video import FakeDecoder
+from milnce_tpu_torch.elastic import (DrainController, StragglerPolicy,
+                                      check_topology_resume,
+                                      read_elastic_stamp, write_elastic_stamp)
 from milnce_tpu_torch.eval.metrics import format_metrics
 from milnce_tpu_torch.eval.runner import EVAL_TASKS, evaluate_task
 from milnce_tpu_torch.losses.milnce_chunked import milnce_route
@@ -78,8 +97,11 @@ from milnce_tpu_torch.obs import spans as obs_spans
 from milnce_tpu_torch.obs.anomaly import EwmaSpikeDetector
 from milnce_tpu_torch.obs.capture import ProfilerCapture
 from milnce_tpu_torch.parallel.dist import (Ranks, broadcast_str,
-                                            initialize_distributed)
+                                            gather_floats,
+                                            initialize_distributed,
+                                            reduce_flag)
 from milnce_tpu_torch.resilience import faults
+from milnce_tpu_torch.train import curriculum
 from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
                                                load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
@@ -94,36 +116,46 @@ from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 # Knobs of the reference loop that this loop does not read yet, as dotted
 # names; a run that sets one away from its dataclass default is refused.
 # A name leaves the table in the change that ports it.
-UNPORTED_KNOBS = (
-    "train.curriculum", "train.drain_signal_file", "data.use_native_reader",
-    "parallel.model_axis", "parallel.model_parallel_size")
+UNPORTED_KNOBS = ("data.use_native_reader", "parallel.model_axis",
+                  "parallel.model_parallel_size")
 
 
 def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     """Refuse, before anything is built, what a run of ``world`` ranks on
     ``device_type`` would not honour: every knob of
-    :data:`UNPORTED_KNOBS` set away from its default, a global batch that
-    does not split over the ranks, a rank's batch that does not split
-    into ``train.grad_accum`` microbatches, a malformed ``train.faults``
-    spec, and an unknown ``train.eval_task`` when evaluating.  The
-    MIL-NCE stream kernels take any embedding width (past
-    ``STREAM_DMAX`` in their deep mode)."""
+    :data:`UNPORTED_KNOBS` set away from its default, a malformed
+    ``train.curriculum``, a global batch (each stage's, under a
+    curriculum) that does not split over the ranks, a rank's batch that
+    does not split into ``train.grad_accum`` microbatches, a malformed
+    ``train.faults`` spec, straggler knobs the policy refuses, and an
+    unknown ``train.eval_task`` when evaluating.  The MIL-NCE stream
+    kernels take any embedding width (past ``STREAM_DMAX`` in their deep
+    mode)."""
     default = Config()
     unported = [name for name in UNPORTED_KNOBS
                 if _knob(cfg, name) != _knob(default, name)]
     if unported:
         raise ValueError(f"not ported yet: {', '.join(unported)} (leave "
                          "them at their defaults)")
-    b_global = cfg.train.batch_size
-    if b_global % world:
-        raise ValueError(f"train.batch_size={b_global} does not split over "
-                         f"{world} ranks")
+    stages = curriculum.parse_curriculum(
+        cfg.train.curriculum, default_batch_size=cfg.train.batch_size)
     accum = cfg.train.grad_accum
-    if accum < 1 or (b_global // world) % accum:
-        raise ValueError(f"train.grad_accum={accum} does not split a rank's "
-                         f"batch of {b_global // world}")
+    for i, b_global in enumerate(st.batch_size for st in stages or
+                                 curriculum.flat_stages(cfg.data,
+                                                        cfg.train.batch_size)):
+        name = (f"curriculum stage {i} batch_size" if stages
+                else "train.batch_size")
+        if b_global % world:
+            raise ValueError(f"{name}={b_global} does not split over "
+                             f"{world} ranks")
+        if accum < 1 or (b_global // world) % accum:
+            raise ValueError(f"train.grad_accum={accum} does not split a "
+                             f"rank's batch of {b_global // world}"
+                             + (f" (curriculum stage {i})" if stages else ""))
     if cfg.train.faults:
         faults.parse_spec(cfg.train.faults)
+    StragglerPolicy(ratio=cfg.train.straggler_ratio,
+                    window=cfg.train.straggler_window)
     if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
         raise ValueError(f"unknown train.eval_task {cfg.train.eval_task!r}; "
                          f"expected one of {'|'.join(EVAL_TASKS)}")
@@ -147,6 +179,10 @@ class TrainResult:
     rollbacks: int = 0          # circuit-breaker checkpoint restores
     model: Optional[torch.nn.Module] = None
     rank: int = 0               # this process's rank in the run
+    stage: int = 0              # curriculum stage at exit (flat runs: 0)
+    drained: bool = False       # exited on a drain (SIGTERM, signal file,
+                                # host.preempt) with a forced checkpoint
+                                # and ELASTIC_STAMP; the CLI exits 75
 
 
 def disable_tf32() -> str:
@@ -183,9 +219,11 @@ def build_source(cfg: Config, log_fn=None):
 
 
 def resume_batch_offset(restored_step: int, steps_per_epoch: int) -> int:
-    """Mid-epoch resume position: how many global batches of the current
-    epoch the restored step counter has already consumed (an end-of-epoch
-    save lands on the boundary -> 0)."""
+    """Mid-epoch resume position of a flat run: how many global batches of
+    the current epoch the restored step counter has already consumed (an
+    end-of-epoch save lands on the boundary -> 0).  The loop reads it from
+    ``plan.locate``, whose flat plan agrees; kept, as the JAX loop keeps
+    it, for scripts that know only the epoch length."""
     return int(restored_step) % steps_per_epoch
 
 
@@ -196,6 +234,14 @@ def stop_save_label(epoch: int, opt_step: int,
     epoch and must FORCE the save, since the previous epoch's boundary
     save holds the same label."""
     done = opt_step % steps_per_epoch == 0
+    return (epoch + 1 if done else epoch), (not done)
+
+
+def stop_save_label_planned(epoch: int, opt_step: int, plan) -> tuple:
+    """Plan-aware twin of :func:`stop_save_label`: per-stage batch sizes
+    make the epoch boundary a plan lookup, not a modulo.  Identical to
+    the flat helper for single-stage plans."""
+    done = opt_step == plan.epoch_end_step(epoch)
     return (epoch + 1 if done else epoch), (not done)
 
 
@@ -331,15 +377,9 @@ class _RunObs:
             torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
         self.n_cards = ranks.world
+        self.cfg = cfg
         self.step_flops = None
-        if self.peak and cfg.loss.name == "milnce" and t.grad_accum == 1:
-            m, d = cfg.model, cfg.data
-            self.step_flops = train_step_flops(
-                t.batch_size, d.num_frames, d.video_size, d.num_candidates,
-                d.max_words, space_to_depth=m.space_to_depth,
-                inception_blocks=m.inception_blocks,
-                embedding_dim=m.embedding_dim,
-                word_dim=m.word_embedding_dim, hidden=m.text_hidden_dim)
+        self.stage = 0
         self.last_mfu = None
         self.steps = 0                  # the loop's steps, for run.end
         self.wait0 = self.m_data_wait.value
@@ -370,6 +410,24 @@ class _RunObs:
 
     def _on_sigusr1(self, signum, frame) -> None:
         self.capture_requested = True
+
+    def set_stage(self, index: int, stage) -> None:
+        """The curriculum stage the next steps run: the stage gauge, and
+        the roofline step FLOPs at its batch and shapes (MIL-NCE without
+        grad-cache only, as in the JAX loop)."""
+        self.stage = index
+        self.g_stage.set(index)
+        cfg = self.cfg
+        if (self.peak and cfg.loss.name == "milnce"
+                and cfg.train.grad_accum == 1):
+            m, d = cfg.model, cfg.data
+            self.step_flops = train_step_flops(
+                stage.batch_size, stage.num_frames, stage.resolution,
+                d.num_candidates, d.max_words,
+                space_to_depth=m.space_to_depth,
+                inception_blocks=m.inception_blocks,
+                embedding_dim=m.embedding_dim,
+                word_dim=m.word_embedding_dim, hidden=m.text_hidden_dim)
 
     def after_step(self) -> None:
         """A step boundary: a capture whose duration has passed stops on
@@ -410,11 +468,10 @@ class _RunObs:
         self.g_tput.set(clips_per_sec)
         if self.guard_on:
             self.g_skipped.set(skipped)
-        self.g_stage.set(0)
         self.rec.event("display", step=step, epoch=epoch,
                        loss=float(mean_loss), lr=float(lr),
                        clips_per_sec=clips_per_sec,
-                       goodput_fraction=round(goodput, 5), stage=0,
+                       goodput_fraction=round(goodput, 5), stage=self.stage,
                        skipped_total=skipped,
                        **({"mfu": round(self.last_mfu, 5)}
                           if self.last_mfu is not None else {}))
@@ -434,19 +491,21 @@ class _RunObs:
         self.rec.event("rollback", step=step, restored_epoch=restored_epoch,
                        consecutive_skips=consec, lost_updates=lost)
 
-    def close(self, steps: int) -> None:
-        """``run.end``, then the goodput ledger over the whole run; the
+    def close(self, steps: int, extra: Optional[dict] = None) -> None:
+        """``run.end``, then the goodput ledger over the whole run (with
+        ``extra``, the straggler policy's keys, in its snapshot); the
         previous recorder, run context and SIGUSR1 handler come back."""
         if self.prev_usr1 is not None:
             signal.signal(signal.SIGUSR1, self.prev_usr1)
         if self.capture is not None:
             self.capture.close()        # flush a mid-capture trace
         self.rec.event("run.end", steps=steps)
-        extra = ({"mfu": round(self.last_mfu, 5)}
-                 if self.last_mfu is not None else None)
+        extra = dict(extra or {})
+        if self.last_mfu is not None:
+            extra["mfu"] = round(self.last_mfu, 5)
         _finalize_goodput_ledger(self.rec, self.path, self.run_id,
                                  obs_runctx.get_run_context()[1], self.reg,
-                                 self.obs_dir, self.log, extra)
+                                 self.obs_dir, self.log, extra or None)
         obs_spans.install(self.prev_rec)
         self.rec.close()
         obs_runctx.set_run_context(*self.prev_runctx)
@@ -489,59 +548,125 @@ def _train(cfg: Config, ranks: Ranks, log, runlog: RunLogger,
         log(f"process group: {ranks.world} ranks on "
             f"{dist.get_backend(ranks.group)}")
     obs = _RunObs(cfg, ranks, device, log)
+    # the straggler policy (elastic/straggler.py): rank 0 feeds every
+    # rank's step time at the display cadence; its verdict rides the
+    # goodput snapshot
+    policy = StragglerPolicy(ratio=cfg.train.straggler_ratio,
+                             window=cfg.train.straggler_window,
+                             recommend_resize=cfg.train.straggler_resize,
+                             recorder=obs.rec)
+    # SIGTERM, the signal file and host.preempt latch one drain verdict
+    drain = DrainController(signal_file=cfg.train.drain_signal_file,
+                            recorder=obs.rec)
+    drain.install()
     try:
         with maybe_trace(cfg.train.trace_dir or None):
-            return _train_run(cfg, ranks, log, runlog, on_step, device, obs)
+            return _train_run(cfg, ranks, log, runlog, on_step, device, obs,
+                              drain, policy)
     finally:
-        obs.close(obs.steps)
+        drain.uninstall()
+        obs.close(obs.steps, policy.ledger_extra())
 
 
 def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
-               device, obs: _RunObs) -> TrainResult:
+               device, obs: _RunObs, drain: DrainController,
+               policy: StragglerPolicy) -> TrainResult:
     rec = obs.rec
-    b_global = cfg.train.batch_size
-    b_local = b_global // ranks.world
-    if cfg.loss.name == "milnce":
-        k, d = cfg.data.num_candidates, cfg.model.embedding_dim
-        route = milnce_route(cfg.loss, b_local, b_global, k, device.type)
-        log(f"MIL-NCE: {_ROUTES[route]} (B_local {b_local}, Bg {b_global}, "
-            f"K {k}, D {d})")
+    # The plan (train/curriculum.py): a flat run is one open-ended stage
+    # through the same machinery, so resume offsets, epoch progress and
+    # the schedule's total have one derivation.
+    stages = curriculum.parse_curriculum(
+        cfg.train.curriculum, default_batch_size=cfg.train.batch_size)
+    curriculum_on = bool(stages)
+    if not curriculum_on:
+        stages = curriculum.flat_stages(cfg.data, cfg.train.batch_size)
+    stage_cfgs = [curriculum.stage_config(cfg, st) for st in stages]
+    source0 = build_source(stage_cfgs[0], log_fn=log)
+    plan = curriculum.plan_curriculum(stages, len(source0), cfg.optim.epochs)
+    if curriculum_on:
+        rec.event("curriculum.plan", total_steps=plan.total_steps,
+                  stages=[{"num_frames": s.num_frames,
+                           "resolution": s.resolution,
+                           "batch_size": s.batch_size}
+                          for s in plan.stages])
+        log("curriculum: " + " -> ".join(s.label() for s in plan.stages)
+            + f" ({plan.total_steps} steps planned)")
+
+    def stage_pipeline(idx: int):
+        """(source, loader) of one stage, rebuilt at every boundary: the
+        decode shapes and the batch are the stage's; the model and the
+        optimizer are not."""
+        st = plan.stages[idx]
+        src = source0 if idx == 0 else build_source(stage_cfgs[idx],
+                                                    log_fn=log)
+        ldr = ShardedLoader(src, st.batch_size, seed=cfg.train.seed,
+                            num_threads=cfg.data.num_reader_threads,
+                            process_index=ranks.rank,
+                            process_count=ranks.world,
+                            lookahead_batches=cfg.data.decode_lookahead,
+                            sample_timeout=cfg.data.sample_timeout,
+                            timeout_retries=cfg.data.sample_timeout_retries,
+                            log_fn=log)
+        if cfg.loss.name == "milnce":
+            b_local = st.batch_size // ranks.world
+            k, d = cfg.data.num_candidates, cfg.model.embedding_dim
+            route = milnce_route(cfg.loss, b_local, st.batch_size, k,
+                                 device.type)
+            log(f"MIL-NCE: {_ROUTES[route]} (B_local {b_local}, Bg "
+                f"{st.batch_size}, K {k}, D {d})")
+        return src, ldr
+
     model = build_model(cfg.model, seed=cfg.train.seed, group=ranks.group)
     if cfg.train.pretrain_ckpt:
         # reference weights (main_distributed.py:81-83)
         load_reference_checkpoint(model, cfg.train.pretrain_ckpt)
         log(f"loaded pretrained weights from {cfg.train.pretrain_ckpt}")
     model.to(device)
-    source = build_source(cfg, log_fn=log)
-    loader = ShardedLoader(source, b_global, seed=cfg.train.seed,
-                           num_threads=cfg.data.num_reader_threads,
-                           process_index=ranks.rank,
-                           process_count=ranks.world,
-                           lookahead_batches=cfg.data.decode_lookahead,
-                           sample_timeout=cfg.data.sample_timeout,
-                           timeout_retries=cfg.data.sample_timeout_retries,
-                           log_fn=log)
-    steps_per_epoch = loader.steps_per_epoch()
-    if steps_per_epoch == 0:
-        raise ValueError(f"{len(source)} samples give no batch of "
-                         f"{cfg.train.batch_size}")
-    schedule = build_schedule_total(cfg.optim,
-                                    steps_per_epoch * cfg.optim.epochs)
+    # the schedule runs over the PLAN's total: per-stage batch sizes make
+    # steps_per_epoch * epochs wrong for a curriculum
+    schedule = build_schedule_total(cfg.optim, plan.total_steps)
     optimizer, lr_scheduler = build_optimizer(model, cfg.optim, schedule)
 
     ckpt_dir = os.path.join(cfg.train.checkpoint_root,
                             cfg.train.checkpoint_dir or "run")
     manager = _open_checkpoints(ckpt_dir, cfg, ranks)
+    mesh = {"data": ranks.world}
     start_epoch = resume_step = 0
     if cfg.train.resume:
-        with rec.span("ckpt.restore", label="latest"):
+        # both guards BEFORE any checkpoint is read: a curriculum
+        # checkpoint resumed with the schedule removed, a stage batch that
+        # does not split over the new world size and a stale sidecar pair
+        # refuse; a change of world size is logged
+        stage_stamp = curriculum.read_stage_stamp(ckpt_dir)
+        curriculum.check_resume_compatible(
+            stage_stamp, curriculum_spec=cfg.train.curriculum,
+            flat_frames=cfg.data.num_frames,
+            flat_resolution=cfg.data.video_size,
+            flat_batch=cfg.train.batch_size)
+        estamp = read_elastic_stamp(ckpt_dir)
+        note = check_topology_resume(
+            estamp, mesh_shape=mesh,
+            batch_sizes=[st.batch_size for st in plan.stages],
+            curriculum_stamp=stage_stamp)
+        if note:
+            log(note)
+        span = (rec.span("elastic.resume", label="latest",
+                         from_mesh=str(dict(estamp.get("mesh") or {})),
+                         to_mesh=str(mesh))
+                if estamp is not None else
+                rec.span("ckpt.restore", label="latest"))
+        with span:
             start_epoch, state = manager.restore_latest(map_location=device)
             if state is not None:
                 resume_step = load_train_state(state, model, optimizer,
                                                lr_scheduler)
         if state is not None:
+            seg, off = plan.locate(resume_step)
             log(f"resumed from epoch {start_epoch} at batch "
-                f"{resume_batch_offset(resume_step, steps_per_epoch)}")
+                f"{seg.skip_batches + off}"
+                + (f" (curriculum stage {seg.stage}, "
+                   f"{plan.stages[seg.stage].label()})"
+                   if curriculum_on else ""))
     # built after the restore: the grad.nonfinite fault counts optimizer
     # steps from the restored one
     step_kwargs = dict(finite_guard=cfg.train.finite_guard,
@@ -555,18 +680,50 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         step_fn = make_train_step(model, optimizer, cfg.loss, **step_kwargs)
     max_steps = cfg.train.max_steps
     log(f"device: {device} | global batch: {cfg.train.batch_size} | "
-        f"steps: {max_steps or steps_per_epoch * cfg.optim.epochs}"
+        f"steps: {max_steps or plan.total_steps}"
         + (f" | microbatches: {cfg.train.grad_accum}"
            if cfg.train.grad_accum > 1 else ""))
+    if curriculum_on:
+        # every stage's trial step against the card's memory, before
+        # step 1: an over-budget stage is refused now, not at its boundary
+        budget = curriculum.hbm_budget_bytes(device)
+        if budget:
+            for note in curriculum.preflight_stages(
+                    step_fn, model, optimizer, plan.stages,
+                    world=ranks.world,
+                    num_candidates=cfg.data.num_candidates,
+                    max_words=cfg.data.max_words,
+                    vocab_size=cfg.model.vocab_size, budget_bytes=budget,
+                    device=device):
+                log(f"curriculum pre-flight: {note}")
+        else:
+            log("curriculum pre-flight skipped: no allocator peak to read "
+                f"on {device.type} (it runs on a CUDA device)")
 
     def snapshot(epoch_label: int) -> dict:
         return train_state(model, optimizer, lr_scheduler, opt_step,
                            epoch_label)
 
-    def save(label: int, force: bool = False) -> None:
-        with rec.span("ckpt.save", label=label, forced=force, stage=0):
+    def save(label: int, force: bool = False, drained: bool = False) -> None:
+        """A rotation save and, beside it, both stamps (rank 0); a
+        drain's forced save runs under ``elastic.drain`` instead of
+        ``ckpt.save``, so the ledger puts it in the drain bucket."""
+        span = ("elastic.drain" if drained else "ckpt.save")
+        with rec.span(span, label=label, forced=force, stage=stage_idx,
+                      **({"source": drain.source or "peer"} if drained
+                         else {})):
             if ranks.is_main:
                 manager.save(label, snapshot(label), force=force)
+                curriculum.write_stage_stamp(
+                    ckpt_dir, spec=cfg.train.curriculum,
+                    stage_index=stage_idx, stage=plan.stages[stage_idx],
+                    step=opt_step)
+                seg_c, off_c = plan.locate(opt_step)
+                write_elastic_stamp(
+                    ckpt_dir, mesh_shape=mesh, sharding_hash="",
+                    step=opt_step, stage_index=stage_idx,
+                    batch_offset=seg_c.skip_batches + off_c,
+                    drained=drained)
             ranks.barrier()
 
     # The finite guard's display window, as the JAX loop keeps it: a
@@ -579,117 +736,213 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     last_rollback = None            # (steps, skipped) at the last rollback
     running = torch.zeros((), device=device)
     last = torch.zeros((), device=device)
+    fn_s = 0.0                      # the window's time in the step function
     eval_every = max(1, cfg.train.batch_size // 512)
-    offset = resume_batch_offset(resume_step, steps_per_epoch)
+    sync_every = max(1, cfg.train.preempt_sync_steps)
+    cursor = resume_step            # the plan step the run resumes at
+    stage_idx = plan.stage_at(resume_step)
+    source, loader = stage_pipeline(stage_idx)
+    obs.set_stage(stage_idx, plan.stages[stage_idx])
     tick = time.time()
-    timer = StepTimer(clips_per_step=b_global)
+    timer = StepTimer(clips_per_step=plan.stages[stage_idx].batch_size)
+
+    def result(drained: bool = False) -> TrainResult:
+        return TrainResult(steps, float(last), skipped, rollbacks, model,
+                           ranks.rank, stage_idx, drained)
+
     for epoch in range(start_epoch, cfg.optim.epochs):
         if (cfg.train.evaluate and cfg.data.eval_video_root
                 and epoch % eval_every == 0):
             if ranks.is_main:
                 _in_training_eval(cfg, model, device, log)
             ranks.barrier()
-        prefetch = device_prefetch(loader.epoch(epoch, skip_batches=offset),
-                                   device, depth=cfg.data.prefetch_depth)
-        offset = 0                  # a resume's offset applies once
-        while True:
-            t_wait = time.perf_counter()
-            batch = next(prefetch, None)
-            t0 = time.perf_counter()
-            if batch is None:
-                break
-            video, text = flatten_text(batch)
-            with rec.span("step", step=steps + 1):
-                out = step_fn(video, text, batch["start"])
-            last, skip = out if guard_on else (out, 0)
-            skipped += skip
-            if skip:
-                consec += 1
-            else:
-                running += last
-                valid += 1
-                consec = 0
-            steps += 1
-            obs.steps = steps
-            opt_step += 1
-            window += 1
-            obs.after_step()
-            if on_step is not None:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                on_step(opt_step, time.perf_counter() - t0, float(last),
-                        t0 - t_wait)
-            if window == cfg.train.n_display or steps == max_steps:
-                with rec.span("sync", cause="display", step=opt_step):
-                    mean_loss = float(running) / valid if valid else math.nan
-                elapsed = timer.elapsed_s
-                progress = ((opt_step - 1) % steps_per_epoch + 1) / steps_per_epoch
-                clips_per_s = window * b_global / elapsed
-                lr = schedule(opt_step)
-                extra = obs.display(
-                    step=opt_step, epoch=epoch + 1, window=window,
-                    elapsed=elapsed, mean_loss=mean_loss, lr=lr,
-                    clips_per_sec=clips_per_s, skipped=skipped,
-                    first_window=opt_step - window == resume_step)
-                log(f"Epoch {epoch + 1}, Elapsed Time: "
-                    f"{time.time() - tick:.3f}, Epoch status: "
-                    f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
-                    f"Learning rate: {lr:.6f}, Throughput: "
-                    f"{clips_per_s:.1f} clips/s"
-                    f"{_health(guard_on, skipped, source, loader)}{extra}")
-                runlog.log_event({"event": "display", "epoch": epoch + 1,
-                                  "step": opt_step, "loss": mean_loss,
-                                  "lr": lr, "clips_per_s": clips_per_s,
-                                  "skipped": skipped})
-                # A guarded window with no applied update is NaN by
-                # construction: that is the breaker's case, not the
-                # divergence halt's.  The halt saves the state apart from
-                # the rotation (``nan_postmortem/``), which a resume would
-                # otherwise hand the poisoned weights back from.
-                if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
-                        and not (guard_on and math.isnan(mean_loss))):
-                    if ranks.is_main:
-                        CheckpointManager(
-                            os.path.join(ckpt_dir, "nan_postmortem"),
-                            keep=1).save(opt_step, snapshot(epoch))
-                    log(f"non-finite training loss ({mean_loss}) — "
-                        "post-mortem state saved under "
-                        f"nan_postmortem/{opt_step}; halting")
-                    raise FloatingPointError(
-                        f"training loss became non-finite ({mean_loss}) at "
-                        f"step {opt_step}")
-                if (guard_on and cfg.train.skip_rollback_after
-                        and consec >= cfg.train.skip_rollback_after):
-                    latest = _roll_back(manager, consec, opt_step, steps,
-                                        skipped, last_rollback, model,
-                                        optimizer, lr_scheduler, device, rec)
-                    last_rollback = (steps, skipped)
-                    rollbacks += 1
-                    # updates applied since the restored boundary save
-                    # are discarded; the skipped streak is already badput
-                    obs.rollback(step=opt_step, restored_epoch=latest,
-                                 consec=consec,
-                                 lost=max(0, opt_step
-                                          - latest * steps_per_epoch
-                                          - consec))
-                    log(f"circuit breaker: {consec} consecutive non-finite "
-                        f"updates — restored rotation checkpoint "
-                        f"{latest}, resuming at step "
-                        f"{opt_step} past the poisoned data window")
-                    consec = 0
+        for seg in plan.segments_for_epoch(epoch):
+            # a resume skips the segments its restored step consumed and
+            # starts the one holding it at its offset
+            seg_done = 0
+            if cursor:
+                if cursor >= seg.end_step:
+                    continue
+                seg_done = max(0, cursor - seg.start_step)
+                cursor = 0
+            if seg.stage != stage_idx:
+                # a curriculum boundary: the loader at the new shapes, and
+                # a fresh display window (its loss and throughput must not
+                # mix shapes)
+                st = plan.stages[seg.stage]
+                with rec.span("stage.switch", stage=seg.stage,
+                              prev_stage=stage_idx, step=opt_step,
+                              num_frames=st.num_frames,
+                              resolution=st.resolution,
+                              batch_size=st.batch_size):
+                    source, loader = stage_pipeline(seg.stage)
+                stage_idx = seg.stage
+                obs.set_stage(stage_idx, st)
+                log(f"curriculum: entering stage {stage_idx} "
+                    f"({st.label()}) at step {opt_step}")
                 running.zero_()
                 window = valid = 0
-                timer.reset()
-            if steps == max_steps:
-                prefetch.close()
-                label, force = stop_save_label(epoch, opt_step,
-                                               steps_per_epoch)
-                save(label, force=force)
-                return TrainResult(steps, float(last), skipped, rollbacks,
-                                   model, ranks.rank)
+                fn_s = 0.0
+                timer = StepTimer(clips_per_step=st.batch_size)
+                tick = time.time()
+            b_stage = plan.stages[stage_idx].batch_size
+            prefetch = device_prefetch(
+                loader.epoch(epoch, skip_batches=seg.skip_batches + seg_done),
+                device, depth=cfg.data.prefetch_depth)
+            while seg_done < seg.n_steps:
+                t_wait = time.perf_counter()
+                batch = next(prefetch, None)
+                t0 = time.perf_counter()
+                if batch is None:
+                    break
+                video, text = flatten_text(batch)
+                with rec.span("step", step=steps + 1):
+                    # host.slow: this rank's step runs slow (the straggler
+                    # policy's case), inside the span as in the JAX loop
+                    faults.maybe_hang("host.slow", default_sleep=0.05)
+                    t_fn = time.perf_counter()
+                    out = step_fn(video, text, batch["start"])
+                    fn_s += time.perf_counter() - t_fn
+                last, skip = out if guard_on else (out, 0)
+                skipped += skip
+                if skip:
+                    consec += 1
+                else:
+                    running += last
+                    valid += 1
+                    consec = 0
+                steps += 1
+                seg_done += 1
+                obs.steps = steps
+                opt_step += 1
+                window += 1
+                obs.after_step()
+                if on_step is not None:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    on_step(opt_step, time.perf_counter() - t0, float(last),
+                            t0 - t_wait)
+                if window == cfg.train.n_display or steps == max_steps:
+                    with rec.span("sync", cause="display", step=opt_step):
+                        mean_loss = (float(running) / valid if valid
+                                     else math.nan)
+                    elapsed = timer.elapsed_s
+                    ep_start = plan.epoch_start_step(epoch)
+                    ep_len = max(1, plan.epoch_steps(epoch))
+                    progress = ((opt_step - ep_start - 1) % ep_len + 1) / ep_len
+                    clips_per_s = window * b_stage / elapsed
+                    lr = schedule(opt_step)
+                    first_window = opt_step - window == resume_step
+                    extra = obs.display(
+                        step=opt_step, epoch=epoch + 1, window=window,
+                        elapsed=elapsed, mean_loss=mean_loss, lr=lr,
+                        clips_per_sec=clips_per_s, skipped=skipped,
+                        first_window=first_window)
+                    # the straggler feed, the first window left out as the
+                    # spike detector leaves it (start-up is not skew)
+                    if not first_window:
+                        _feed_straggler(policy, ranks, elapsed / window,
+                                        fn_s / window, opt_step)
+                    log(f"Epoch {epoch + 1}, Elapsed Time: "
+                        f"{time.time() - tick:.3f}, Epoch status: "
+                        f"{progress:.4f}, Training loss: {mean_loss:.4f}, "
+                        f"Learning rate: {lr:.6f}, Throughput: "
+                        f"{clips_per_s:.1f} clips/s"
+                        + (f", Stage: {stage_idx}" if curriculum_on else "")
+                        + f"{_health(guard_on, skipped, source, loader)}{extra}")
+                    runlog.log_event({"event": "display", "epoch": epoch + 1,
+                                      "step": opt_step, "loss": mean_loss,
+                                      "lr": lr, "clips_per_s": clips_per_s,
+                                      "skipped": skipped})
+                    # A guarded window with no applied update is NaN by
+                    # construction: that is the breaker's case, not the
+                    # divergence halt's.  The halt saves the state apart
+                    # from the rotation (``nan_postmortem/``), which a
+                    # resume would otherwise hand the poisoned weights
+                    # back from.
+                    if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
+                            and not (guard_on and math.isnan(mean_loss))):
+                        if ranks.is_main:
+                            CheckpointManager(
+                                os.path.join(ckpt_dir, "nan_postmortem"),
+                                keep=1).save(opt_step, snapshot(epoch))
+                        log(f"non-finite training loss ({mean_loss}) — "
+                            "post-mortem state saved under "
+                            f"nan_postmortem/{opt_step}; halting")
+                        raise FloatingPointError(
+                            f"training loss became non-finite ({mean_loss}) "
+                            f"at step {opt_step}")
+                    if (guard_on and cfg.train.skip_rollback_after
+                            and consec >= cfg.train.skip_rollback_after):
+                        latest = _roll_back(manager, consec, opt_step, steps,
+                                            skipped, last_rollback, model,
+                                            optimizer, lr_scheduler, device,
+                                            rec)
+                        last_rollback = (steps, skipped)
+                        rollbacks += 1
+                        # updates applied since the restored boundary save
+                        # are discarded; the skipped streak is already
+                        # badput
+                        obs.rollback(step=opt_step, restored_epoch=latest,
+                                     consec=consec,
+                                     lost=max(0, opt_step
+                                              - plan.epoch_start_step(latest)
+                                              - consec))
+                        log(f"circuit breaker: {consec} consecutive "
+                            f"non-finite updates — restored rotation "
+                            f"checkpoint {latest}, resuming at step "
+                            f"{opt_step} past the poisoned data window")
+                        consec = 0
+                    running.zero_()
+                    window = valid = 0
+                    fn_s = 0.0
+                    timer.reset()
+                # one drain poll a step (the host.preempt occurrence is the
+                # step number); over a group every rank takes the group's
+                # verdict at the same steps, so all stop together
+                local = drain.poll(steps)
+                if ranks.group is None:
+                    stopping = local
+                else:
+                    stopping = (steps % sync_every == 0
+                                and reduce_flag(local, ranks.group))
+                if stopping or steps == max_steps:
+                    prefetch.close()
+                    if stopping:
+                        log(f"drain ({drain.source or 'cluster peer'}) — "
+                            "checkpointing and exiting"
+                            + (" (cluster-coordinated)"
+                               if ranks.group is not None else ""))
+                    label, force = stop_save_label_planned(epoch, opt_step,
+                                                           plan)
+                    save(label, force=force, drained=bool(stopping))
+                    return result(drained=bool(stopping))
+            # the segment's end (a stage boundary or the epoch's tail):
+            # its readers retire now, before the next stage's start
+            prefetch.close()
         save(epoch + 1)
-    return TrainResult(steps, float(last), skipped, rollbacks, model,
-                       ranks.rank)
+    return result()
+
+
+def _feed_straggler(policy: StragglerPolicy, ranks: Ranks, step_s: float,
+                    fn_s: float, step: int) -> None:
+    """Each rank's step time for the straggler policy, fed on rank 0.
+    Ranks step in lockstep, so their window wall times are alike; what
+    differs is where each spends it.  A rank that is late to the step's
+    collectives makes the others wait inside the step function, so each
+    rank's own time is its wall time less its step function's, plus the
+    least step-function time over the ranks (the step without waiting).
+    One process is its own wall time (it never flags: skew needs two)."""
+    fns = gather_floats(fn_s, ranks.group)
+    if not ranks.is_main:
+        return
+    if ranks.group is None:
+        policy.observe(0, step_s * 1e3, step=step)
+        return
+    least = min(fns)
+    policy.feed_merged({"per_process": {
+        rank: {"steps": 1, "step_ms_p50": (step_s - fn + least) * 1e3}
+        for rank, fn in enumerate(fns)}}, step=step)
 
 
 def _health(guard_on: bool, skipped: int, source, loader) -> str:

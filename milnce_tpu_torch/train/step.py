@@ -158,7 +158,9 @@ def make_train_step(model, optimizer, loss_cfg=None,
     ranks stepping the global batch together (None = this process
     alone).  ``first_step``: optimizer steps already taken (a resumed
     run's), from which the ``grad.nonfinite`` fault counts.  A bad loss
-    name or MIL-NCE knob raises here."""
+    name or MIL-NCE knob raises here.  ``step.fwd_bwd(video_u8, text_ids,
+    start)`` is the step's forward and backward alone (no reduction, no
+    update), for the curriculum's memory pre-flight."""
     loss_name = _check_loss_name(loss_cfg)
     milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
                  else None)
@@ -174,15 +176,19 @@ def make_train_step(model, optimizer, loss_cfg=None,
         t_seq = t_embd.reshape(b, -1, t_embd.shape[-1])      # (B, K, D)
         return _sequence_loss(loss_cfg, v_seq, t_seq, start, group)
 
-    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
-             start: torch.Tensor):
+    def fwd_bwd(video_u8, text_ids, start):
         model.train()
-        saved = update.save()
-        optimizer.zero_grad(set_to_none=True)
         loss = compute_loss(video_u8, text_ids, start)
         loss.backward()
-        return update(loss, saved)
+        return loss
 
+    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
+             start: torch.Tensor):
+        saved = update.save()
+        optimizer.zero_grad(set_to_none=True)
+        return update(fwd_bwd(video_u8, text_ids, start), saved)
+
+    step.fwd_bwd = fwd_bwd
     return step
 
 
@@ -242,8 +248,7 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
         t_seq = t.reshape(v.shape[0], -1, t.shape[-1])       # (B, K, D)
         return _sequence_loss(loss_cfg, v, t_seq, start, group)
 
-    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
-             start: torch.Tensor):
+    def fwd_bwd(video_u8, text_ids, start):
         b = video_u8.shape[0]
         if b % micro_batches:
             raise ValueError(f"batch {b} does not split into "
@@ -252,8 +257,6 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
         rows = text_ids.shape[0] // b * bm
         vids, txts = video_u8.split(bm), text_ids.split(rows)
         model.train()
-        saved = update.save()
-        optimizer.zero_grad(set_to_none=True)
         # pass 1: the embeddings alone; every microbatch folds into the
         # old running statistics, which end as the mean of the M folds
         old = [r.clone() for r in update.running]
@@ -281,8 +284,15 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
             for vu8, tids, gv, gt in zip(vids, txts, g_v.split(bm),
                                          g_t.split(rows)):
                 torch.autograd.backward(embed(vu8, tids), (gv, gt))
-        return update(loss, saved)
+        return loss
 
+    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
+             start: torch.Tensor):
+        saved = update.save()
+        optimizer.zero_grad(set_to_none=True)
+        return update(fwd_bwd(video_u8, text_ids, start), saved)
+
+    step.fwd_bwd = fwd_bwd
     return step
 
 

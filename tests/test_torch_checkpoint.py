@@ -32,6 +32,8 @@ from milnce_tpu_torch.train.checkpoint import CheckpointManager
 from milnce_tpu_torch.utils.torch_convert import (load_jax_variables,
                                                   load_reference_checkpoint)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 
 # ------------------------------------------------------ the resume arithmetic
 @pytest.mark.parametrize("steps_per_epoch", [1, 3, 4, 7])

@@ -23,6 +23,8 @@ from milnce_tpu_torch.ops import milnce_stream as ms
 from milnce_tpu_torch.ops import softdtw as tsd
 from milnce_tpu_torch.ops import softdtw_cuda as sd
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 pytestmark = pytest.mark.cuda
 
 

@@ -35,6 +35,8 @@ from milnce_tpu_torch.data.pipeline import (ShardedLoader, device_prefetch,
 from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
 from milnce_tpu_torch.data.tokenizer import Tokenizer
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 _VOCAB = [f"word{i}" for i in range(1, 8)] + ["it's", "a"]
 _SENTENCES = ["word1 word2 it's", "nothing known here", "", "a " * 40,
               "word7, word3; WORD4 word5!", 42]

@@ -56,6 +56,8 @@ from milnce_tpu_torch.train.checkpoint import CheckpointManager
 from milnce_tpu_torch.train.step import _sequence_loss
 from milnce_tpu_torch.utils.torch_convert import flax_to_torch_state_dict
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 VALUE_RTOL, GRAD_ATOL = 1e-5, 1e-6           # tests/test_milnce.py
 STEP_RTOL, STEP_ATOL = 2e-4, 2e-5            # tests/test_torch_train.py
 B_LOCAL, D = 3, 16

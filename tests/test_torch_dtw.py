@@ -16,6 +16,8 @@ import jax.numpy as jnp
 from milnce_tpu.ops import dtw as jax_dtw
 from milnce_tpu_torch.ops import dtw_loss, dtw_path, dtw_table
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 SHAPES = [(3, 5, 5), (2, 4, 7), (2, 7, 3), (2, 1, 6), (2, 6, 1), (1, 1, 1)]
 _IDS = ["square", "wide", "tall", "1xN", "Nx1", "1x1"]
 

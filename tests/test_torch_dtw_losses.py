@@ -21,6 +21,8 @@ from milnce_tpu_torch.config import LossConfig
 from milnce_tpu_torch.losses import dtw_losses as tdl
 from milnce_tpu_torch.train import step as tstep
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 RTOL, ATOL = 1e-7, 1e-9
 
 

@@ -54,6 +54,8 @@ from milnce_tpu_torch.train.step import make_train_step
 from milnce_tpu_torch.utils.torch_convert import (flax_to_torch_state_dict,
                                                   load_jax_variables)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 2e-4, 2e-5
 _B, _K, _FRAMES, _SIZE, _WORDS, _VOCAB = 4, 3, 8, 32, 5, 32
@@ -199,7 +201,8 @@ def test_sdtw_backend_knob_takes_cuda_choices():
 
 
 def test_cli_trains_sdtw3_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS="1")     # six test workers share the cores
     proc = subprocess.run(
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
          "tiny", "--parallel.platform", "cpu", "--loss.name", "sdtw_3",

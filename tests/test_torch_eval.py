@@ -50,6 +50,8 @@ from milnce_tpu_torch.train.schedule import build_schedule
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.utils.torch_convert import load_jax_variables
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
 _DIMS = dict(num_classes=16, vocab_size=256, word_embedding_dim=8,

@@ -71,6 +71,8 @@ from milnce_tpu_torch.train.step import make_grad_cache_step, make_train_step
 from milnce_tpu_torch.utils.torch_convert import (flax_to_torch_state_dict,
                                                   load_jax_variables)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 RTOL, ATOL = 2e-4, 2e-5                      # tests/test_torch_train.py
 _VOCAB = [f"word{i}" for i in range(1, 8)] + ["it's", "a"]
 
@@ -431,6 +433,41 @@ def test_host_sites_together_through_run_training(tmp_path):
     mgr = CheckpointManager(os.path.join(cfg.train.checkpoint_root, "run"),
                             create=False)
     assert mgr.latest_epoch() is not None
+
+
+def test_host_preempt_drains_the_run_at_its_step(tmp_path):
+    """``host.preempt@2`` through run_training: the drain controller's
+    once-a-step poll fires at step 2 (the JAX loop's site), the run saves
+    under ``elastic.drain`` and returns drained, and the registry counted
+    the fire."""
+    cfg = _run_cfg(tmp_path, "preempt")
+    cfg.train.faults = "host.preempt@2"
+    lines = []
+    res = loop.run_training(cfg, log=lines.append)
+    assert res.drained and res.steps == 2
+    assert "drain (host.preempt) — checkpointing and exiting" in lines
+    names = [json.loads(line)["name"] for line in open(
+        os.path.join(cfg.train.log_root, "RUN_EVENTS.jsonl"))]
+    assert names.count("preempt.signal") == names.count("elastic.drain") == 1
+    assert "ckpt.save" not in names
+    assert faults._active() is None
+
+
+def test_host_slow_sleeps_inside_the_step_span(tmp_path):
+    """``host.slow@2:x=1`` through run_training: step 2's ``step`` span
+    (and the step time ``on_step`` reports) holds the 1 s sleep, step 3's
+    does not."""
+    cfg = _run_cfg(tmp_path, "slow")
+    cfg.train.max_steps = 3
+    cfg.train.faults = "host.slow@2:x=1.0"
+    secs = {}
+    loop.run_training(cfg, log=lambda _m: None,
+                      on_step=lambda s, t, _l, _w: secs.__setitem__(s, t))
+    spans = {r["step"]: r["dur_ms"] for r in map(json.loads, open(
+        os.path.join(cfg.train.log_root, "RUN_EVENTS.jsonl")))
+        if r["name"] == "step"}
+    assert spans[2] >= 1000 and secs[2] >= 1.0
+    assert spans[3] < 1000 and secs[3] < 1.0
 
 
 def test_guard_skips_the_faulted_step_and_counts_across_a_resume(tmp_path):

@@ -55,6 +55,8 @@ from milnce_tpu_torch.train.step import make_grad_cache_step, make_train_step
 from milnce_tpu_torch.utils.torch_convert import (flax_to_torch_state_dict,
                                                   load_jax_variables)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 STEP_RTOL, STEP_ATOL = 2e-4, 2e-5            # tests/test_torch_train.py
 _DIMS = dict(num_classes=16, vocab_size=32, word_embedding_dim=8,
              text_hidden_dim=16, inception_blocks=1)

@@ -46,7 +46,9 @@ def test_port_package_exists():
                      "obs/metrics.py", "obs/spans.py", "obs/export.py",
                      "obs/goodput.py", "obs/aggregate.py", "obs/anomaly.py",
                      "obs/capture.py", "resilience/faults.py",
-                     "ops/dtw.py"):
+                     "ops/dtw.py", "train/curriculum.py",
+                     "elastic/__init__.py", "elastic/drain.py",
+                     "elastic/stamp.py", "elastic/straggler.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

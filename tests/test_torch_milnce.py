@@ -33,6 +33,8 @@ from milnce_tpu_torch.losses.milnce_chunked import (build_milnce_loss,
                                                     prefers_chunked)
 from milnce_tpu_torch.ops import milnce_stream as ms
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 _CASES = [(8, 1, 16, 4), (8, 5, 16, 4), (8, 5, 16, 5), (6, 5, 16, 4),
           (8, 5, 16, 8), (8, 5, 16, 64)]
 _IDS = ["k1", "k5", "uneven", "uneven-b6", "chunk-eq-bg", "chunk-gt-bg"]

@@ -29,6 +29,8 @@ from milnce_tpu_torch.train.step import make_text_embed_fn, make_video_embed_fn
 from milnce_tpu_torch.utils.torch_convert import (flax_to_torch_state_dict,
                                                   load_jax_variables)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 RTOL, ATOL = 1e-4, 1e-5
 _DIMS = dict(num_classes=16, vocab_size=128, word_embedding_dim=8,
              text_hidden_dim=16, inception_blocks=2)

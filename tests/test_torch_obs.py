@@ -22,6 +22,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from milnce_tpu.obs import aggregate as j_aggregate
 from milnce_tpu.obs import anomaly as j_anomaly
@@ -43,6 +44,8 @@ from milnce_tpu_torch.obs import metrics as t_metrics
 from milnce_tpu_torch.obs import runctx as t_runctx
 from milnce_tpu_torch.obs import spans as t_spans
 from milnce_tpu_torch.utils import roofline as t_roofline
+
+torch.set_num_threads(1)         # six test workers share the cores
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _OBS_REPORT = str(ROOT / "scripts" / "obs_report.py")
@@ -422,13 +425,12 @@ def test_live_mfu_gauge_agrees_with_the_formula(two_step_run):
 
 def test_planted_spike_fires_one_anomaly_and_one_capture(tmp_path,
                                                           monkeypatch):
-    """After ``tests/test_goodput.py``'s spike acceptance: one sample of
-    step 8's batch takes 2 s, plus 8x the slowest step seen so far, to
-    build (decode-ahead and prefetch off, so the loop waits it out; the
-    margin keeps the spike above the detector's 4-sigma gate on a loaded
-    host), one display window spikes, and that fires one anomaly and one
-    bounded torch.profiler capture with a trace file."""
-    from milnce_tpu_torch.data.synthetic import SyntheticVideoTextSource
+    """After ``tests/test_goodput.py``'s spike acceptance: step 8's display
+    window reads 30 s more than it took, planted in the step timer whose
+    window time the detector reads (so the spike does not depend on the
+    host's load), and that fires one anomaly and one bounded
+    torch.profiler capture with a trace file."""
+    from milnce_tpu_torch.train import loop
     from milnce_tpu_torch.train.loop import run_training
 
     cfg = _tiny_cfg(tmp_path, samples=64)
@@ -437,21 +439,19 @@ def test_planted_spike_fires_one_anomaly_and_one_capture(tmp_path,
     cfg.train.capture_dir = str(tmp_path / "captures")
     cfg.train.capture_ms = 100.0
     cfg.train.anomaly_warmup, cfg.train.anomaly_ratio = 3, 2.0
-    cfg.data.decode_lookahead = cfg.data.prefetch_depth = 0
-    cfg.data.num_reader_threads = 1
-    seen, step_secs = [], []
-    real = SyntheticVideoTextSource.sample
+    planted, step_secs = [0.0], []
 
-    def slow(self, idx, rng=None):
-        seen.append(idx)
-        if len(seen) == 7 * cfg.train.batch_size + 1:
-            time.sleep(2.0 + 8 * max(step_secs[1:], default=0.0))
-        return real(self, idx, rng)
+    class PlantedTimer(loop.StepTimer):
+        @property
+        def elapsed_s(self):
+            return super().elapsed_s + planted[0]
 
-    monkeypatch.setattr(SyntheticVideoTextSource, "sample", slow)
-    res = run_training(cfg, log=lambda _m: None,
-                       on_step=lambda _s, secs, _l, wait:
-                       step_secs.append(secs + wait))
+    def on_step(step, secs, _loss, wait):
+        step_secs.append(secs + wait)
+        planted[0] = 30.0 if step == 8 else 0.0
+
+    monkeypatch.setattr(loop, "StepTimer", PlantedTimer)
+    res = run_training(cfg, log=lambda _m: None, on_step=on_step)
     assert res.steps == 8
     _, records = _read_events(cfg)
     names = [r["name"] for r in records]

@@ -55,6 +55,8 @@ from milnce_tpu_torch.train.step import make_train_step
 from milnce_tpu_torch.utils.torch_convert import (flax_to_torch_state_dict,
                                                   load_jax_variables)
 
+torch.set_num_threads(1)         # six test workers share the cores
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 2e-4, 2e-5
 _B, _K, _FRAMES, _SIZE, _WORDS, _VOCAB = 4, 2, 4, 32, 5, 32
@@ -204,7 +206,8 @@ def test_first_warmup_step_uses_lr_zero():
 
 
 def test_cli_trains_two_steps_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS="1")     # six test workers share the cores
     proc = subprocess.run(
         [sys.executable, "-m", "milnce_tpu_torch.train.cli", "--preset",
          "tiny", "--parallel.platform", "cpu", "--train.max_steps", "2",
@@ -401,7 +404,8 @@ def _checkpoint_dir_is_honoured(cfg, root):
     cfg.train.checkpoint_dir = "mine"
     loop.run_training(cfg, log=lambda _m: None)
     assert sorted(os.listdir(root)) == ["mine"]
-    assert os.listdir(root / "mine") == ["0"]
+    assert sorted(os.listdir(root / "mine")) == [
+        "0", "CURRICULUM_STAMP.json", "ELASTIC_STAMP.json"]
 
 
 def _pretrain_ckpt_is_honoured(cfg, root):
@@ -575,6 +579,45 @@ def _faults_is_honoured(cfg, root):
     assert port_faults._active() is None
 
 
+def _curriculum_is_honoured(cfg, root):
+    """A two-stage schedule, one step at 2 frames of 16 px and batch 8,
+    then the preset's clip at batch 4 (re-skipping the 8 samples
+    consumed: 2 steps left of the 4-sample batches): each step runs its
+    stage's clip, and the run ends in stage 1."""
+    cfg.train.max_steps = 2
+    cfg.train.curriculum = ("num_frames=2,resolution=16,batch_size=8,"
+                            "until_step=1;num_frames=4,resolution=32")
+    shapes, lines = [], []
+    real = loop.make_train_step
+
+    def spy(*args, **kwargs):
+        step = real(*args, **kwargs)
+        return lambda v, t, s: shapes.append(tuple(v.shape)) or step(v, t, s)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "make_train_step", spy)
+        res = loop.run_training(cfg, log=lines.append)
+    assert shapes == [(8, 2, 16, 16, 3), (4, 4, 32, 32, 3)]
+    assert res.stage == 1 and res.steps == 2
+    assert "curriculum: 2f@16 batch 8 -> 4f@32 batch 4 (3 steps planned)" \
+        in lines
+
+
+def _drain_signal_file_is_honoured(cfg, root):
+    """The file appearing after step 1 drains the run at step 1: a forced
+    save and a drained result."""
+    flag = root / "drain.now"
+    cfg.train.max_steps = 3
+    cfg.train.drain_signal_file = str(flag)
+    lines = []
+    res = loop.run_training(cfg, log=lines.append,
+                            on_step=lambda *_: flag.write_text(""))
+    assert res.drained and res.steps == 1
+    assert "drain (signal_file) — checkpointing and exiting" in lines
+    assert sorted(os.listdir(root / "run")) == [
+        "0", "CURRICULUM_STAMP.json", "ELASTIC_STAMP.json"]
+
+
 _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.checkpoint_dir": _checkpoint_dir_is_honoured,
                  "train.pretrain_ckpt": _pretrain_ckpt_is_honoured,
@@ -588,7 +631,9 @@ _PORTED_KNOBS = {"train.resume": _resume_is_honoured,
                  "train.trace_dir": _trace_dir_is_honoured,
                  "train.capture_dir": _capture_dir_is_honoured,
                  "train.grad_accum": _grad_accum_is_honoured,
-                 "train.faults": _faults_is_honoured}
+                 "train.faults": _faults_is_honoured,
+                 "train.curriculum": _curriculum_is_honoured,
+                 "train.drain_signal_file": _drain_signal_file_is_honoured}
 
 
 @pytest.mark.parametrize("knob", list(_PORTED_KNOBS))
@@ -708,8 +753,14 @@ def test_chip_smoke_configurations_pass_the_config_check():
     for name in smoke.DTW_LOSSES:
         cfgs.append(smoke._small_cfg("dense", "auto"))
         cfgs[-1].loss.name = name
+    cfgs.append(smoke._curriculum_cfg())
     for cfg in cfgs:
         loop.check_config(cfg, "cuda")
+    loop.check_config(smoke._elastic_cfg("root"), "cuda", smoke.DDP2_WORLD)
+    plan = loop.curriculum.plan_curriculum(
+        loop.curriculum.parse_curriculum(smoke.CURRICULUM),
+        smoke.CURRICULUM_SAMPLES, 1)
+    assert plan.total_steps == smoke.TRAIN_STEPS
 
 
 # ------------------------- every depth passes: the kernels' deep mode past 768

@@ -277,5 +277,17 @@ def train_runs(rank, world, _group, runs):
                            on_step=lambda s, _t, loss, _w:
                            losses.__setitem__(s, loss))
         out[label] = dict(losses=losses, lines=lines, steps=res.steps,
-                          rank=res.rank, state=_state(res.model))
+                          rank=res.rank, state=_state(res.model),
+                          drained=res.drained, stage=res.stage)
+    return out
+
+
+def rank_fault_runs(rank, world, group, runs):
+    """:func:`train_runs` for each (label, cfg, {rank: spec}) of ``runs``,
+    each rank arming the ``train.faults`` spec given for it ('' for a
+    rank not named)."""
+    out = {}
+    for label, cfg, specs in runs:
+        cfg.train.faults = specs.get(rank, "")
+        out.update(train_runs(rank, world, group, [(label, cfg)]))
     return out

@@ -145,6 +145,32 @@ Phases, each fatal on failure:
                ledger within 5 % of the wall; then the same spec with
                ``MILNCE_HBM_GIB`` at 0.95 of stage 1's peak refused by
                the pre-flight, naming stage 1, before any step.
+   native-data -- train-full's model through the HowTo100M source on a
+               stub ffmpeg (seeded raw frames, no codec), with
+               ``data.use_native_reader`` (the C++ pipe pump, built by
+               g++ into ``build/torch_kernels/``) and without: the
+               loader's batches on the card equal byte for byte over 3
+               batches, batches/s of each, ``run_training`` through each
+               (3 steps: data wait a step, losses within rel 2e-4, the
+               stream kernels twice a step), ``bench_reader``'s MB/s; the
+               host soft-DTW against the soft-DTW kernels at
+               train-full-sdtw3's all-pairs shape.
+   fsdp-2d  -- train-full on the (1 x 2) ``(data, model)`` grid: two gloo
+               ranks on the one card, B_local 8 of Bg 16, 3 steps, against
+               the (2 x 1) 1-D layout on the same ranks and batches:
+               losses within rel 2e-4, parameters within 1e-5 + 1e-4
+               max|p|, Adam's moments in norm, a rank's bytes of sharded
+               parameters and moments half the 1-D layout's, peak memory,
+               steps/s beside train-full's, the stream kernels twice a
+               rank a step; the small model's sdtw_3 case beside it.
+   resume-2d -- the small model: 1-D (two ranks) for 2 steps, resumed for
+               1 on the grid, resumed for 1 in one process: losses within
+               rel 2e-4 of an uninterrupted 1-D run, cuDNN deterministic.
+   softdtw-sp -- ``softdtw_seq_parallel`` on two gloo ranks on the one
+               card at (2, 2048, 2048), gamma 0.1, with and without a
+               band of 128: value and grad_D against the soft-DTW kernels
+               on one device, within the kernel-versus-plain limit; the
+               time a call.
 11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
                beside phase 7's (measured only; the default stays off).
 12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
@@ -156,7 +182,10 @@ without a CUDA device or outside a checkout of the repository.
 
 ``python3 chip_smoke.py --ddp-2``, on a machine with two cards or more,
 runs only the device, build and ddp-2 phases: ddp-2's comparison over
-NCCL with a rank a card beside its gloo one.  It prints no kernels line.
+NCCL with a rank a card beside its gloo one.  ``--fsdp-2d``, on four
+cards or more, runs only the device, build and fsdp-2d phases, over
+NCCL with a rank a card: the (2 x 2) grid against the 4-way 1-D layout.
+Neither prints a kernels line.
 """
 
 from __future__ import annotations
@@ -2323,6 +2352,538 @@ def phase_elastic_ddp(work):
         raise AssertionError("elastic-ddp failed its checks")
 
 
+# ------------------------------------------------------------ native-data
+NATIVE_STEPS = 3
+NATIVE_VIDEOS = 8         # stub videos behind the HowTo rows (raw bytes each)
+SDTW3_PAIRS = (256, 4, 5)  # train-full-sdtw3's all-pairs shape, (B^2, T', K)
+
+
+def _stub_howto(work, cfg):
+    """A HowTo100M layout under ``work`` for ``cfg``'s batch and steps:
+    a csv of NATIVE_VIDEOS videos repeated, a caption file each, and an
+    executable ``bin/ffmpeg`` that ignores the decode and prints the raw
+    rgb24 frames kept beside the video (``<path>.raw``, seeded bytes)."""
+    d = cfg.data
+    os.makedirs(f"{work}/videos", exist_ok=True)
+    os.makedirs(f"{work}/captions", exist_ok=True)
+    os.makedirs(f"{work}/bin", exist_ok=True)
+    caps = {"start": [float(3 * i) for i in range(10)],
+            "end": [float(3 * i + 3) for i in range(10)],
+            "text": [f"step {i} of the recipe" for i in range(10)]}
+    for v in range(NATIVE_VIDEOS):
+        frames = np.random.RandomState(v).randint(
+            0, 256, (d.num_frames, d.video_size, d.video_size, 3))
+        with open(f"{work}/videos/vid{v}.mp4.raw", "wb") as fh:
+            fh.write(frames.astype(np.uint8).tobytes())
+        with open(f"{work}/captions/vid{v}.json", "w") as fh:
+            json.dump(caps, fh)
+    n_rows = cfg.train.batch_size * NATIVE_STEPS
+    with open(f"{work}/train.csv", "w") as fh:
+        fh.write("video_path\n" + "".join(
+            f"vid{i % NATIVE_VIDEOS}.mp4\n" for i in range(n_rows)))
+    with open(f"{work}/bin/ffmpeg", "w") as fh:
+        fh.write('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n'
+                 '  if [ "$1" = "-i" ]; then f="$2"; fi\n  shift\ndone\n'
+                 'exec cat "$f.raw"\n')
+    os.chmod(f"{work}/bin/ffmpeg", 0o755)
+    d.synthetic = False
+    d.train_csv, d.video_root = f"{work}/train.csv", f"{work}/videos"
+    d.caption_root = f"{work}/captions"
+    d.synthetic_num_samples = n_rows
+
+
+def phase_native_data(work):
+    """train-full's model at full width (32 frames at 224^2, batch 16,
+    K = 5, chunked MIL-NCE on the stream kernels) through the HowTo100M
+    source on a stub ffmpeg, with ``data.use_native_reader`` (the C++
+    pipe pump) and without (``FFmpegDecoder``'s subprocesses): the
+    loader's batches on the card equal byte for byte over NATIVE_STEPS
+    batches, its batches/s for each decoder, the data wait a step and the
+    losses of a ``run_training`` through each, the stream kernels' launches
+    in the native run; ``bench_reader``'s MB/s line; then the host soft-DTW
+    against ``softdtw_fwd`` / ``softdtw_bwd`` on the card at
+    train-full-sdtw3's all-pairs shape and a square one, within the
+    kernel-versus-plain limit."""
+    from milnce_tpu_torch.data.pipeline import ShardedLoader, device_prefetch
+    from milnce_tpu_torch.data.video import NativeFFmpegDecoder
+    from milnce_tpu_torch.native import bench_reader
+    from milnce_tpu_torch.native.build import library_path
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train.loop import build_source
+
+    cfg = _full_cfg("milnce", _stream_loss)
+    cfg.train.max_steps = NATIVE_STEPS
+    cfg.optim.warmup_steps = 1000
+    _stub_howto(work, cfg)
+    old_path = os.environ["PATH"]
+    os.environ["PATH"] = f"{work}/bin:{old_path}"
+    got, runs = {}, {}
+    try:
+        for native in (False, True):
+            cfg.data.use_native_reader = native
+            source = build_source(cfg)
+            if isinstance(source.decoder, NativeFFmpegDecoder) != native:
+                raise AssertionError("the source's decoder is not the one "
+                                     "data.use_native_reader names")
+            loader = ShardedLoader(source, cfg.train.batch_size,
+                                   seed=cfg.train.seed,
+                                   num_threads=cfg.data.num_reader_threads,
+                                   lookahead_batches=cfg.data.decode_lookahead)
+            t0 = time.perf_counter()
+            got[native] = list(device_prefetch(loader.epoch(0), "cuda",
+                                               depth=cfg.data.prefetch_depth))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"  {'native' if native else 'python'} decoder: "
+                f"{len(got[native])} batches of {cfg.train.batch_size} x "
+                f"{cfg.data.num_frames} x {cfg.data.video_size}^2 x 3 in "
+                f"{dt:.3f} s, {len(got[native]) / dt:.3f} batches/s; "
+                f"decode failures {source.decode_failures}")
+            if source.decode_failures:
+                raise AssertionError("the stub videos failed to decode")
+            steps = []
+            ms.reset_launches()
+            torch.backends.cudnn.deterministic = True
+            try:
+                _run_training(cfg, f"{work}/run-{native}", log=_quiet,
+                              on_step=lambda s, secs, loss, wait:
+                              steps.append((secs, loss, wait)))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            runs[native] = dict(launches=dict(ms.LAUNCHES), steps=steps)
+            log(f"  run_training through it: {len(steps)} steps, losses "
+                f"{[round(x[1], 6) for x in steps]}, data wait a step after "
+                f"the first {statistics.mean(x[2] for x in steps[1:]):.4f} s "
+                f"(each {[round(x[2], 4) for x in steps]}), step seconds "
+                f"{[round(x[0], 3) for x in steps]}")
+    finally:
+        os.environ["PATH"] = old_path
+    bad = [i for i, (a, b) in enumerate(zip(got[False], got[True]))
+           if any(not torch.equal(a[k], b[k]) for k in a)]
+    log(f"  native library {library_path().name}; batches equal byte for "
+        f"byte: {len(got[True]) - len(bad)} of {len(got[True])}")
+    launches = runs[True]["launches"]
+    loss_gap = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in
+                   zip(runs[True]["steps"], runs[False]["steps"]))
+    log(f"  native run's launches {launches}; losses native vs python max "
+        f"rel diff {loss_gap:.3e}")
+    rec = bench_reader.main(n_jobs=32, mb_per_job=8, workers=8)
+    log(f"  bench_reader: {json.dumps(rec)}")
+    worst = _host_softdtw_vs_kernels()
+    if (bad or len(got[True]) != NATIVE_STEPS
+            or len(runs[True]["steps"]) != NATIVE_STEPS
+            or not all(math.isfinite(x[1]) for x in runs[True]["steps"])
+            or loss_gap > 2e-4 or worst > 1
+            or launches != {k: 2 * NATIVE_STEPS if k in ms.KERNELS else 0
+                            for k in launches}):
+        raise AssertionError("native-data failed its checks")
+
+
+def _host_softdtw_vs_kernels() -> float:
+    """The host soft-DTW (C++) against the card's kernels, value and
+    grad_D: the largest share of the kernel-versus-plain limit."""
+    from milnce_tpu_torch.native.softdtw_cpu import softdtw_native
+    from milnce_tpu_torch.ops.softdtw_cuda import softdtw_bwd, softdtw_fwd
+
+    worst = 0.0
+    for shape, gamma, band in [(SDTW3_PAIRS, 0.1, 0), ((8, 64, 64), 0.1, 0),
+                               ((8, 64, 64), 1.0, 16)]:
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        D = torch.rand(shape, generator=gen, device="cuda")
+        g = torch.rand(shape[0], generator=gen, device="cuda") + 0.5
+        value, R = softdtw_fwd(D, gamma, band)
+        grad = softdtw_bwd(R, g, gamma, band)
+        x = D.cpu().requires_grad_()
+        host = softdtw_native(x, gamma, band)
+        (host * g.cpu()).sum().backward()
+        shares = []
+        for want, got_ in ((value.cpu(), host.detach()), (grad.cpu(), x.grad)):
+            limit = TOL_ATOL + TOL_RTOL * float(want.abs().max())
+            shares.append(float((got_ - want).abs().max()) / limit)
+        worst = max(worst, *shares)
+        log(f"  host soft-DTW vs softdtw_fwd/bwd at {shape}, gamma {gamma}, "
+            f"band {band}: value {shares[0]:.3f}, grad_D {shares[1]:.3f} of "
+            "the limit")
+    return worst
+
+
+# ------------------------------------------------------------ fsdp-2d
+FSDP_WORLD, FSDP_STEPS = 2, 3
+
+
+def _fsdp_cfg(loss_name):
+    """fsdp-2d's configurations: train-full at full width with the stream
+    kernels (MIL-NCE), or the small model with sdtw_3 on the soft-DTW
+    kernels; a warmup of 1000 (see ``_ddp2_cfg``: the parameters are
+    held to a limit only a tiny lr keeps meaningful; Adam's moments
+    carry the gradients)."""
+    if loss_name == "milnce":
+        cfg = _full_cfg("milnce", _stream_loss)
+    else:
+        cfg = _small_cfg("dense", "auto")
+        cfg.loss.name = "sdtw_3"
+        _sdtw_loss(cfg.loss)
+    cfg.optim.warmup_steps = 1000
+    return cfg
+
+
+def _fsdp_steps(rank, world, group, loss_name, model_size):
+    """FSDP_STEPS steps of ``_fsdp_cfg(loss_name)`` on this rank's rows of
+    the global batches, on the 1-D layout (``model_size`` 0) or the
+    (world / model_size, model_size) grid: the losses, the full
+    parameters and Adam's moments after the last step (rank 0), the bytes
+    of the sharded parameters and their moments on this rank, the peak
+    memory, steps/s after the first step and the kernels' launches
+    (counted from 0 just before the steps)."""
+    from milnce_tpu_torch.config import ParallelConfig
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.parallel.mesh import build_mesh
+    from milnce_tpu_torch.parallel.sharding_map import (ShardedPlacement,
+                                                        build_param_map)
+    from milnce_tpu_torch.train.loop import disable_tf32
+    from milnce_tpu_torch.train.schedule import build_schedule_total
+    from milnce_tpu_torch.train.state import (build_optimizer,
+                                              local_state_bytes)
+    from milnce_tpu_torch.train.step import make_train_step
+
+    disable_tf32()
+    cfg = _fsdp_cfg(loss_name)
+    model = build_model(cfg.model, seed=3).to("cuda")
+    placement = None
+    min_size = cfg.parallel.fsdp_min_size
+    if model_size:
+        grid = build_mesh(ParallelConfig(model_axis="model",
+                                         model_parallel_size=model_size),
+                          group)
+        placement = ShardedPlacement(model, grid, group, min_size=min_size)
+        sharded = [p for p, _ in placement.sharded]
+    else:
+        names = {e.name for e in build_param_map(model, 2, min_size)
+                 if e.torch_dim is not None}
+        sharded = [p for n, p in model.named_parameters() if n in names]
+    optimizer, lr = build_optimizer(model, cfg.optim,
+                                    build_schedule_total(cfg.optim, 100))
+    step = make_train_step(model, optimizer, cfg.loss, finite_guard=True,
+                           lr_scheduler=lr, group=group, placement=placement)
+    d, bg, k = cfg.data, cfg.train.batch_size, cfg.data.num_candidates
+    b = bg // world
+    losses, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    ms.reset_launches()
+    sd.reset_launches()
+    for i in range(FSDP_STEPS):
+        gen = torch.Generator(device="cuda").manual_seed(11 + i)
+        video = torch.randint(0, 255, (bg, d.num_frames, d.video_size,
+                                       d.video_size, 3), generator=gen,
+                              dtype=torch.uint8, device="cuda")
+        text = torch.randint(1, cfg.model.vocab_size, (bg * k, d.max_words),
+                             generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, skipped = step(video[rank * b:(rank + 1) * b],
+                             text[rank * b * k:(rank + 1) * b * k],
+                             torch.zeros(b, device="cuda"))
+        losses.append(float(loss))
+        secs.append(time.perf_counter() - t0)
+        if skipped:
+            raise AssertionError(f"rank {rank}: step {i + 1} skipped")
+    launches = {**ms.LAUNCHES, **sd.LAUNCHES}
+    out = dict(losses=losses, launches=launches,
+               sharded_bytes=local_state_bytes(model, optimizer, sharded),
+               peak=torch.cuda.max_memory_allocated(),
+               sps=(FSDP_STEPS - 1) / sum(secs[1:]),
+               n_sharded=len(sharded),
+               hash=placement.hash if placement else None)
+    if placement is not None:
+        model_sd, opt_sd = placement.full_state(model, optimizer)
+    else:
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+    if rank == 0:
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        out["params"] = {n: model_sd[n].detach().cpu() for n in names}
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[key] = {names[i]: st[key].detach().cpu()
+                        for i, st in opt_sd["state"].items()}
+    return out
+
+
+def _fsdp_rank(rank, world, backend, store, cases, out):
+    """One rank of the fsdp-2d phase, in a process of its own: a gloo
+    group with CUDA tensors on the one card (NCCL takes one rank a card),
+    or an NCCL group with a rank a card; ``_fsdp_steps`` for each (label,
+    loss, model size, cuDNN deterministic) of ``cases``."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    torch.cuda.set_device(0 if backend == "gloo" else rank)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    results = {}
+    try:
+        for label, loss, size, deterministic in cases:
+            torch.backends.cudnn.deterministic = deterministic
+            results[label] = _fsdp_steps(rank, world, dist.group.WORLD, loss,
+                                         size)
+    finally:
+        dist.destroy_process_group()
+    torch.save(results, out)
+
+
+def phase_fsdp_2d(work, train=None, backend="gloo", world=FSDP_WORLD):
+    """train-full at full width on the (1 x 2) grid (``parallel.model_axis``
+    'model', ``model_parallel_size`` 2): two gloo ranks on the one card,
+    B_local 8 of Bg 16, FSDP_STEPS steps, against the same ranks and
+    batches on the (2 x 1) 1-D layout: losses within rel 2e-4; the
+    parameters after the last step within 1e-5 + 1e-4 max|p|, Adam's
+    moments within 1e-2 (exp_avg) and 2e-2 (exp_avg_sq) in norm (ddp-2's
+    limits) for the small model; at full width the moments of two correct
+    f32 runs part by about 1e-2 in norm (printed beside: the 1-D layout
+    again with cuDNN not deterministic), so they are held within 0.1,
+    which still catches a reduction fault (a SUM/MEAN slip moves them by
+    0.5, an unreduced gradient by 0.7; ``_ddp2_compare``); a rank's bytes
+    of sharded parameters plus their moments half the 1-D layout's,
+    beside the peak memory; the stream kernels twice a rank a step;
+    steps/s beside train-full's.  The small model's sdtw_3 on the
+    soft-DTW kernels beside it.  cuDNN deterministic but for the
+    yardstick.  With ``backend`` nccl and ``world`` 4 (four cards, a rank
+    a card): the (2 x 2) grid against the 4-way 1-D layout, B_local 4.  The sharded
+    gradients are reduce-scattered by ``reduce_scatter_tensor`` over
+    gloo on CUDA tensors."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    cases = [("1d", "milnce", 0, True), ("2d", "milnce", 2, True),
+             ("yardstick", "milnce", 0, False),
+             ("sdtw-1d", "sdtw_3", 0, True), ("sdtw-2d", "sdtw_3", 2, True)]
+    outs = [f"{work}/fsdp-{backend}-{r}.pt" for r in range(world)]
+    _spawn_ranks(_fsdp_rank, [(r, world, backend,
+                               f"{work}/fsdp-{backend}-store", cases, outs[r])
+                              for r in range(world)],
+                 f"fsdp-2d over {backend}")
+    ranks = [torch.load(out, weights_only=False) for out in outs]
+    log(f"  {world} ranks over {backend}; the sharded gradients go through "
+        f"reduce_scatter_tensor on CUDA tensors, the gathers through "
+        "all_gather, the replicated gradients one flat all_reduce")
+    ok = True
+    yard = [_grad_gap(ranks[0]["yardstick"][key], ranks[0]["1d"][key])[0]
+            for key in ("exp_avg", "exp_avg_sq")]
+    log(f"  yardstick, train-full 1-D with cuDNN not deterministic against "
+        f"deterministic: exp_avg {yard[0]:.3e}, exp_avg_sq {yard[1]:.3e} in "
+        "norm")
+    limits = {"2d": (0.1, 0.1), "sdtw-2d": (1e-2, 2e-2)}
+    for one, two in (("1d", "2d"), ("sdtw-1d", "sdtw-2d")):
+        a, b = ranks[0][one], ranks[0][two]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                           a["losses"]))
+        p_share = max(float((b["params"][n] - w).abs().max())
+                      / (1e-5 + 1e-4 * float(w.abs().max()))
+                      for n, w in a["params"].items())
+        m1, worst1 = _grad_gap(b["exp_avg"], a["exp_avg"])
+        m2, worst2 = _grad_gap(b["exp_avg_sq"], a["exp_avg_sq"])
+        bytes_ok = all(r[two]["sharded_bytes"] * 2 == r[one]["sharded_bytes"]
+                       for r in ranks)
+        log(f"  {two} vs {one}: losses {[round(x, 6) for x in b['losses']]} "
+            f"against {[round(x, 6) for x in a['losses']]}, max rel diff "
+            f"{loss_err:.3e} (limit 2e-4); parameters {p_share:.3f} of the "
+            f"limit; exp_avg {m1:.3e}, exp_avg_sq {m2:.3e} in norm (worst "
+            f"tensors {[(round(x, 4), n) for x, n in worst1]}, "
+            f"{[(round(x, 4), n) for x, n in worst2]})")
+        for r, res in enumerate(ranks):
+            log(f"  rank {r} {two}: {res[two]['n_sharded']} sharded "
+                f"parameters, {res[two]['sharded_bytes'] / 2 ** 20:.2f} MiB "
+                f"of them and their moments against {one}'s "
+                f"{res[one]['sharded_bytes'] / 2 ** 20:.2f} MiB; peak memory "
+                f"{res[two]['peak'] / 2 ** 30:.3f} GiB against "
+                f"{res[one]['peak'] / 2 ** 30:.3f} GiB; {res[two]['sps']:.4f} "
+                f"steps/s against {res[one]['sps']:.4f}; map hash "
+                f"{res[two]['hash']}; launches {res[two]['launches']}")
+        ok &= (loss_err <= 2e-4 and p_share <= 1 and m1 <= limits[two][0]
+               and m2 <= limits[two][1] and bytes_ok)
+    if train is not None:
+        log(f"  train-full (one process, Bg 16): {train['sps']:.4f} steps/s")
+    stream = {k: 2 * FSDP_STEPS for k in ms.KERNELS}
+    for r in ranks:
+        got = {k: r["2d"]["launches"][k] for k in ms.KERNELS}
+        ok &= got == stream and r["sdtw-2d"]["launches"]["softdtw_fwd"] > 0
+    if not ok:
+        raise AssertionError("fsdp-2d failed its checks")
+    return ranks[0]["2d"]["launches"]
+
+
+# ------------------------------------------------------------ resume-2d
+def _resume2d_cfg(root, steps, two_d=False, resume=False):
+    """ddp-2's small model (sync BatchNorm, chunked MIL-NCE on the
+    kernels, warmup 1000) through ``run_training`` over 4 global batches,
+    ``steps`` steps of it, checkpoints under ``root``; with ``two_d`` on
+    the (1 x 2) grid."""
+    cfg = _ddp2_cfg()
+    cfg.data.synthetic_num_samples = cfg.train.batch_size * 4
+    cfg.train.max_steps = steps
+    cfg.train.resume = resume
+    cfg.train.checkpoint_root, cfg.train.log_root = root, f"{root}/log"
+    if two_d:
+        cfg.parallel.model_axis = "model"
+        cfg.parallel.model_parallel_size = 2
+    return cfg
+
+
+def _resume2d_rank(rank, world, runs, out):
+    """One rank of resume-2d: for each (label, store, cfg) of ``runs``,
+    ``run_training`` with its group a gloo one on the one card (a
+    stand-in for the loop's ``initialize_distributed``, as elastic-ddp's).
+    Saves each run's {step: loss}, steps and log lines."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from milnce_tpu_torch.parallel.dist import Ranks
+    from milnce_tpu_torch.train import loop as loop_mod
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    results = {}
+    for label, store, cfg in runs:
+        def gloo_group(_parallel, store=store):
+            dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                                    rank=rank, world_size=world,
+                                    timeout=timedelta(seconds=180))
+            return Ranks(dist.group.WORLD, rank, world, 0)
+
+        loop_mod.initialize_distributed = gloo_group
+        losses, lines = {}, []
+        res = loop_mod.run_training(cfg, log=lines.append,
+                                    on_step=lambda s, _t, loss, _w:
+                                    losses.__setitem__(s, loss))
+        results[label] = dict(losses=losses, steps=res.steps, lines=lines)
+    torch.save(results, out)
+
+
+def phase_resume_2d(work):
+    """The small model: a 1-D run of 2 steps (two gloo ranks on the one
+    card), resumed for 1 step on the (1 x 2) grid, whose checkpoint
+    resumes for 1 step in one process: the step counter carries, each
+    resume logs its topology change, and the losses match an
+    uninterrupted 1-D run of 4 steps within rel 2e-4, cuDNN
+    deterministic."""
+    from milnce_tpu_torch.train.loop import run_training
+
+    root = f"{work}/resume2d"
+    runs = [("whole", f"{work}/r2d-whole-store",
+             _resume2d_cfg(f"{root}-whole", 4)),
+            ("seed", f"{work}/r2d-seed-store", _resume2d_cfg(root, 2)),
+            ("to2d", f"{work}/r2d-to2d-store",
+             _resume2d_cfg(root, 1, two_d=True, resume=True))]
+    outs = [f"{work}/resume2d-{r}.pt" for r in range(DDP2_WORLD)]
+    _spawn_ranks(_resume2d_rank, [(r, DDP2_WORLD, runs, outs[r])
+                                  for r in range(DDP2_WORLD)], "resume-2d")
+    ranks = [torch.load(out, weights_only=False) for out in outs]
+    back, lines = {}, []
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = run_training(_resume2d_cfg(root, 1, resume=True),
+                           log=lines.append,
+                           on_step=lambda s, _t, loss, _w:
+                           back.__setitem__(s, loss))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    r0 = ranks[0]
+    chain = {**r0["seed"]["losses"], **r0["to2d"]["losses"], **back}
+    whole = r0["whole"]["losses"]
+    err = max(abs(chain[s] - whole[s]) / abs(whole[s]) for s in whole)
+    notes = [m for m in r0["to2d"]["lines"] + lines
+             if m.startswith(("elastic resume", "resumed", "sharding map"))]
+    for note in notes:
+        log(f"  {note}")
+    log(f"  1-D, 2-D, one process {chain} against uninterrupted 1-D "
+        f"{whole}: max rel diff {err:.3e} (limit 2e-4)")
+    if not (sorted(chain) == sorted(whole) == [1, 2, 3, 4] and err <= 2e-4
+            and res.steps == 1 and r0["to2d"]["steps"] == 1
+            and sum(m.startswith("elastic resume: topology change")
+                    for m in notes) == 2):
+        raise AssertionError("resume-2d failed its checks")
+
+
+# ------------------------------------------------------------ softdtw-sp
+SP_SHAPE, SP_GAMMA, SP_BAND = (2, 2048, 2048), 0.1, 128
+
+
+def _sp_rank(rank, world, store, out):
+    """One rank of softdtw-sp: ``softdtw_seq_parallel`` over a gloo group
+    on the one card at SP_SHAPE, without and with the band, the value and
+    grad_D of ``sum(g * value)``, timed a call (forward, backward)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from milnce_tpu_torch.ops import softdtw_seq_parallel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    results = {}
+    try:
+        for band in (0, SP_BAND):
+            D, g = _sp_inputs()
+            x = D.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = softdtw_seq_parallel(x, SP_GAMMA, dist.group.WORLD, band)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (value * g).sum().backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            results[band] = dict(value=value.detach().cpu(),
+                                 grad=x.grad.cpu() if rank == 0 else None,
+                                 fwd_s=t1 - t0, bwd_s=t2 - t1)
+    finally:
+        dist.destroy_process_group()
+    torch.save(results, out)
+
+
+def _sp_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(2048)
+    D = torch.rand(SP_SHAPE, generator=gen, device="cuda")
+    g = torch.rand(SP_SHAPE[0], generator=gen, device="cuda") + 0.5
+    return D, g
+
+
+def phase_softdtw_sp():
+    """Two gloo ranks on the one card at (2, 2048, 2048), gamma 0.1,
+    without and with a band of 128: the value and grad_D equal
+    ``softdtw_fwd`` / ``softdtw_bwd`` on one device within the
+    kernel-versus-plain limit; the time a call (a plain path: a few
+    PyTorch ops and one exchange through host memory a diagonal)."""
+    from milnce_tpu_torch.ops.softdtw_cuda import softdtw_bwd, softdtw_fwd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [f"{tmp}/sp-{r}.pt" for r in range(2)]
+        _spawn_ranks(_sp_rank, [(r, 2, f"{tmp}/sp-store", outs[r])
+                                for r in range(2)], "softdtw-sp")
+        ranks = [torch.load(out, weights_only=False) for out in outs]
+    worst = 0.0
+    for band in (0, SP_BAND):
+        D, g = _sp_inputs()
+        value, R = softdtw_fwd(D, SP_GAMMA, band)
+        grad = softdtw_bwd(R, g, SP_GAMMA, band).cpu()
+        shares = []
+        for want, got in ((value.cpu(), ranks[0][band]["value"]),
+                          (value.cpu(), ranks[1][band]["value"]),
+                          (grad, ranks[0][band]["grad"])):
+            limit = TOL_ATOL + TOL_RTOL * float(want.abs().max())
+            shares.append(float((got - want).abs().max()) / limit)
+        worst = max(worst, *shares)
+        r = ranks[0][band]
+        log(f"  {SP_SHAPE} gamma {SP_GAMMA} band {band}: value "
+            f"{shares[0]:.3f} / {shares[1]:.3f} (ranks 0/1), grad_D "
+            f"{shares[2]:.3f} of the limit; forward {r['fwd_s']:.3f} s, "
+            f"backward {r['bwd_s']:.3f} s a call (rank 1: "
+            f"{ranks[1][band]['fwd_s']:.3f} / {ranks[1][band]['bwd_s']:.3f})")
+    if worst > 1:
+        raise AssertionError("softdtw-sp differs from the kernels")
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "softdtw" in low:
@@ -2416,6 +2977,14 @@ def main() -> int:
     card = phase_device()
     log("== build")
     phase_build()
+    if sys.argv[1:] == ["--fsdp-2d"]:
+        if torch.cuda.device_count() < 4:
+            raise SystemExit("--fsdp-2d needs 4 cards")
+        with tempfile.TemporaryDirectory() as work:
+            log("== fsdp-2d (nccl, a rank a card: the (2 x 2) grid against "
+                "the 4-way 1-D layout)")
+            phase_fsdp_2d(work, backend="nccl", world=4)
+        return _finish(card, t0)
     if sys.argv[1:] == ["--ddp-2"]:
         if torch.cuda.device_count() < DDP2_WORLD:
             raise SystemExit(f"--ddp-2 needs {DDP2_WORLD} cards")
@@ -2474,6 +3043,17 @@ def main() -> int:
         log("== train-full-curriculum (8f@112 batch 32, then 32f@224 "
             "batch 16; the pre-flight's refusal)")
         phase_train_curriculum(train, work)
+        log("== native-data (train-full through the HowTo source on a stub "
+            "ffmpeg, data.use_native_reader; the host soft-DTW)")
+        phase_native_data(f"{work}/native")
+        log("== fsdp-2d (train-full on the (1 x 2) grid, two gloo ranks on "
+            "one card, against the (2 x 1) 1-D layout)")
+        phase_fsdp_2d(work, train)
+        log("== resume-2d (small model: 1-D, resumed on the grid, resumed "
+            "in one process)")
+        phase_resume_2d(work)
+    log("== softdtw-sp (two gloo ranks on one card, (2, 2048, 2048))")
+    phase_softdtw_sp()
     log("== cuDNN autotuning (measured only)")
     phase_cudnn_benchmark(train["sps"])
     log("== train (full width, sdtw_3)")

@@ -230,11 +230,14 @@ class OptimConfig:
 
 @dataclass
 class ParallelConfig:
-    """Mesh layout in the JAX package.  The port reads platform, the
-    coordinator knobs, num_devices and its own group_timeout_s: one
-    process a rank, joined in a torch.distributed group
-    (parallel/dist.py), as the reference's NCCL/TCP rendezvous
-    (main_distributed.py:50-75) did."""
+    """Mesh layout.  The port reads platform, the coordinator knobs,
+    num_devices and its own group_timeout_s: one process a rank, joined
+    in a torch.distributed group (parallel/dist.py), as the reference's
+    NCCL/TCP rendezvous (main_distributed.py:50-75) did; and the 2-D
+    layout's data_axis, model_axis, model_parallel_size, fsdp_min_size
+    and sharding_map (parallel/mesh.py, parallel/sharding_map.py).  It
+    does not read overlap_grad_reduce: its sharded gradients are reduced
+    a leaf at a time and its replicated ones in one flat all-reduce."""
 
     data_axis: str = "data"             # batch-sharded axis (DP + global negatives)
     model_axis: Optional[str] = None    # FSDP/model axis: set (with

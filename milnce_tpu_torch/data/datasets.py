@@ -94,7 +94,11 @@ class HowTo100MSource:
         if not self.rows or "video_path" not in self.rows[0]:
             raise ValueError(f"{cfg.train_csv}: no rows with a video_path "
                              "column")
-        self.decoder = decoder or build_decoder(cfg.decoder_backend)
+        if decoder is None:
+            decoder = build_decoder(cfg.decoder_backend,
+                                    use_native_reader=cfg.use_native_reader,
+                                    workers=cfg.num_reader_threads)
+        self.decoder = decoder
         self.tokenizer = tokenizer or build_tokenizer(model_cfg, cfg.max_words)
         self._caption_cache: "OrderedDict[str, CaptionTrack]" = OrderedDict()
         self._cache_lock = threading.Lock()

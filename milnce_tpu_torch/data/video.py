@@ -17,14 +17,21 @@ Filter-graph parity with video_loader.py:60-88:
 Output is channels-LAST ``(T, H, W, 3) uint8``, zero-padded/truncated to
 ``num_frames`` (:92-95).  ``cv2`` is imported only where it decodes.
 ``sample_clip`` fires the ``decode.raise`` and ``decode.hang`` fault
-sites (``resilience/faults.py``).  The JAX package's native pipe pump (``NativeFFmpegDecoder``,
-``data.use_native_reader``) is not ported.
+sites (``resilience/faults.py``).  :class:`NativeFFmpegDecoder`
+(``data.use_native_reader``) runs the same ffmpeg command through the
+C++ pipe pump of ``native/reader.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import os
+import shlex
 import shutil
+import signal
 import subprocess
+import tempfile
 import threading
 from dataclasses import dataclass
 from typing import Protocol
@@ -36,8 +43,9 @@ from milnce_tpu_torch.resilience import faults
 # In-flight decoder children, registered for kill-on-close: a mid-epoch
 # stop cancels QUEUED decode futures, but the ffmpeg children already
 # spawned would keep decoding to completion.  Every subprocess-backed
-# decode registers its Popen here for the duration of the pipe read;
-# ShardedLoader's generator close calls :func:`kill_inflight_decoders`.
+# decode registers its Popen (the native pool's jobs: a _PoolJob) here
+# for the duration of the pipe read; ShardedLoader's generator close
+# calls :func:`kill_inflight_decoders`.
 _INFLIGHT: set = set()
 _INFLIGHT_LOCK = threading.Lock()
 
@@ -145,6 +153,125 @@ class FFmpegDecoder:
                                     check=True).stdout.strip())
 
 
+class _PoolJob:
+    """One native-pool decode, in the in-flight registry's terms (the
+    ``Popen`` calls :func:`kill_inflight_decoders` makes).  The pool
+    popen()s through ``/bin/sh``, which gives no pid back, so the job's
+    command writes the shell's pid into ``pidfile`` and ``exec``s the
+    decoder in its place (same pid); a job not started yet when it is
+    terminated finds ``cancelfile`` and exits without decoding."""
+
+    def __init__(self, pidfile: str, cancelfile: str):
+        self.pidfile, self.cancelfile = pidfile, cancelfile
+        self.done = threading.Event()
+
+    def wrap(self, cmd: str) -> str:
+        return (f"[ -e {shlex.quote(self.cancelfile)} ] || "
+                f"{{ echo $$ > {shlex.quote(self.pidfile)}; exec {cmd}; }}")
+
+    def _signal(self, sig) -> None:
+        try:
+            with open(self.pidfile) as fh:
+                pid = int(fh.read().strip() or 0)
+        except (OSError, ValueError):
+            return
+        if pid and not self.done.is_set():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+
+    def poll(self):
+        return 0 if self.done.is_set() else None
+
+    def terminate(self) -> None:
+        with open(self.cancelfile, "w"):
+            pass
+        self._signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self._signal(signal.SIGKILL)
+
+    def wait(self, timeout=None) -> int:
+        if not self.done.wait(timeout):
+            raise subprocess.TimeoutExpired("native decode", timeout)
+        return 0
+
+    def cleanup(self) -> None:
+        for path in (self.pidfile, self.cancelfile):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(path)
+
+
+class NativeFFmpegDecoder(FFmpegDecoder):
+    """FFmpegDecoder whose byte pumping runs in the C++ ReaderPool
+    (``csrc/milnce_native.cpp``): worker threads popen() the decode
+    command and fread() rawvideo straight into a numpy buffer, with no
+    GIL held and no Python-side byte copies.  Enable with
+    ``DataConfig.use_native_reader``.
+
+    The pool is shared across the loader's Python threads; each decode()
+    submits one job and blocks only its own thread (``reader_wait``
+    drops the GIL inside ctypes).  A decode whose output exactly fills
+    the buffer is treated as truncated (raise) rather than silently
+    cropped; the buffer holds ``SLACK_FRAMES`` frames more than the clip
+    can, so a correct decode never fills it.  Each job is registered
+    in flight (:class:`_PoolJob`) while its pipe is read.
+    """
+
+    SLACK_FRAMES = 4
+
+    def __init__(self, binary: str = "ffmpeg", probe_binary: str = "ffprobe",
+                 workers: int = 8):
+        super().__init__(binary=binary, probe_binary=probe_binary)
+        from milnce_tpu_torch.native.reader import ReaderPool
+
+        self._pool = ReaderPool(workers=workers)
+        self._jobdir = tempfile.mkdtemp(prefix="milnce-native-decode-")
+        self._ids = itertools.count()
+
+    def decode(self, path: str, start_seek: float, num_sec: float,
+               fps: int, size: int, aw: float = 0.5, ah: float = 0.5,
+               crop_only: bool = False, hflip: bool = False) -> np.ndarray:
+        if not self.available():
+            raise RuntimeError(
+                "ffmpeg binary not found — install it on the host or use the "
+                "synthetic data source (data.synthetic=True)")
+        cmd = self.command(path, start_seek, num_sec, fps, size, aw, ah,
+                           crop_only, hflip)
+        # the pool popen()s through /bin/sh with inherited fds: route any
+        # decoder chatter away from the training logs (the subprocess
+        # path gets the same from stderr=DEVNULL)
+        cmd_str = " ".join(shlex.quote(c) for c in cmd) + " 2>/dev/null"
+        frame_bytes = size * size * 3
+        max_frames = int(np.ceil((num_sec + 0.1) * fps)) + self.SLACK_FRAMES
+        buf = np.empty((max_frames * frame_bytes,), np.uint8)
+        n = next(self._ids)
+        job = _PoolJob(os.path.join(self._jobdir, f"{n}.pid"),
+                       os.path.join(self._jobdir, f"{n}.cancel"))
+        _register_inflight(job)
+        try:
+            got = self._pool.decode_into([job.wrap(cmd_str)], [buf])[0]
+        finally:
+            job.done.set()
+            _unregister_inflight(job)
+            job.cleanup()
+        if got < 0:
+            raise RuntimeError(f"native decode spawn failed: {path}")
+        if got == 0:
+            raise RuntimeError(f"native decode produced no frames: {path}")
+        if got >= buf.nbytes:
+            raise RuntimeError(f"native decode overflow (buffer too small "
+                               f"for {path}; got >= {buf.nbytes} bytes)")
+        n = got // frame_bytes
+        return buf[: n * frame_bytes].reshape(n, size, size, 3).copy()
+
+    def close(self) -> None:
+        """Join the pool's threads and drop the job directory."""
+        self._pool.close()
+        shutil.rmtree(self._jobdir, ignore_errors=True)
+
+
 class Cv2Decoder:
     """In-process decode via OpenCV's bundled ffmpeg libraries, for hosts
     with no ffmpeg *binary*.
@@ -250,11 +377,33 @@ class Cv2Decoder:
             cap.release()
 
 
-def build_decoder(backend: str = "auto") -> ClipDecoder:
+def build_decoder(backend: str = "auto", use_native_reader: bool = False,
+                  workers: int = 8) -> ClipDecoder:
     """Production decoder factory.  ``auto`` prefers the ffmpeg binary and
     falls back to in-process cv2; with neither it raises, naming both —
     never a silent :class:`FakeDecoder`, whose frames a run would train on
-    unnoticed.  ``fake`` is the hermetic backend, asked for by name."""
+    unnoticed.  ``fake`` is the hermetic backend, asked for by name.
+
+    ``use_native_reader`` (the JAX logic) makes ``auto`` the ffmpeg
+    backend and refuses, here, a host without the binary: a decoder
+    whose every decode raised would be swallowed by the source's
+    resampling and the run would train on black frames.  Unlike the JAX
+    package, which warns and decodes through cv2, it also refuses any
+    backend but ffmpeg (the pool pumps subprocess pipes), and a native
+    library that does not build raises here."""
+    if use_native_reader:
+        if backend not in ("auto", "ffmpeg"):
+            raise ValueError(
+                f"data.use_native_reader applies to the ffmpeg-binary "
+                f"backend only (the C++ ReaderPool pumps its subprocess "
+                f"pipes); data.decoder_backend is {backend!r}")
+        if not FFmpegDecoder().available():
+            raise RuntimeError(
+                "use_native_reader needs the ffmpeg binary (the C++ "
+                "ReaderPool pumps ffmpeg subprocess pipes) but none is on "
+                "PATH — install ffmpeg, or drop use_native_reader to let "
+                "'auto' fall back to in-process cv2 decode")
+        return NativeFFmpegDecoder(workers=workers)
     if backend == "fake":
         return FakeDecoder()
     if backend == "auto":

@@ -5,8 +5,9 @@ for key, so either package reads the other's stamp).
 A data-parallel checkpoint holds whole tensors, never a layout — which
 is what makes a resume at another world size possible, and why a resume
 can't tell from the rotation alone what layout wrote it.  The stamp
-records the writing run's mesh shape (``{"data": world}`` here: one rank
-a card), sharding-map hash ('' — the port has no FSDP) and plan cursor
+records the writing run's mesh shape (``{"data": world}``, or ``{"data":
+W / mp, "model": mp}`` on the 2-D layout), sharding-map hash ('' on a
+data-parallel run) and plan cursor
 next to the rotation (same atomic tmp+``os.replace`` discipline as
 ``CURRICULUM_STAMP.json``), so a resume at another world size is a
 *logged, validated* topology change instead of a silent one, and the
@@ -35,8 +36,8 @@ def write_elastic_stamp(ckpt_dir: str, *, mesh_shape: dict,
                         batch_offset: int, drained: bool) -> None:
     """Atomic sidecar write (rank 0 only — the caller gates).
 
-    ``mesh_shape`` is the axis->size dict (``{"data": world}`` in the
-    port; the JAX package also writes ``{"data": 4, "model": 2}``);
+    ``mesh_shape`` is the axis->size dict (``{"data": world}``, or
+    ``{"data": 4, "model": 2}`` on the 2-D layout);
     ``sharding_hash`` is the FSDP sharding map's layout hash ('' on a
     data-parallel run);
     ``step``/``stage_index``/``batch_offset`` are the plan cursor —

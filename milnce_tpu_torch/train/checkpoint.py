@@ -12,6 +12,12 @@ always whole.  Orbax checkpoints of the JAX package are not read.
 
 As the JAX manager (Orbax), a save that is not forced and whose label is
 not newer than the latest on disk is skipped.
+
+A checkpoint holds full, plain tensors and no layout (the JAX
+docstring): on the 2-D layout :func:`train_state` gathers the sharded
+parameters and their Adam moments to full tensors (every rank calls it;
+rank 0 saves), and :func:`load_train_state` slices them back, so any
+layout's checkpoint opens on any other (1-D, 2-D, one process).
 """
 
 from __future__ import annotations
@@ -167,17 +173,27 @@ class CheckpointManager:
 
 
 def train_state(model, optimizer, lr_scheduler, step: int,
-                epoch: int) -> dict:
-    """What a checkpoint holds (see the module docstring)."""
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                epoch: int, placement=None) -> dict:
+    """What a checkpoint holds (see the module docstring); with a 2-D
+    ``placement``, a collective of every rank."""
+    if placement is not None:
+        model_sd, opt_sd = placement.full_state(model, optimizer)
+    else:
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+    return {"model": model_sd, "optimizer": opt_sd,
             "scheduler": lr_scheduler.state_dict(), "step": int(step),
             "epoch": int(epoch)}
 
 
-def load_train_state(state: dict, model, optimizer, lr_scheduler) -> int:
-    """Load a checkpoint's model, optimizer and scheduler in place;
-    returns its step."""
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+def load_train_state(state: dict, model, optimizer, lr_scheduler,
+                     placement=None) -> int:
+    """Load a checkpoint's model, optimizer and scheduler in place (into
+    a 2-D ``placement``'s slices when given); returns its step."""
+    if placement is not None:
+        placement.load_full_state(model, optimizer, state["model"],
+                                  state["optimizer"])
+    else:
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
     lr_scheduler.load_state_dict(state["scheduler"])
     return int(state["step"])

@@ -8,7 +8,10 @@ torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) and
 trains on ``cuda:<LOCAL_RANK>``, ``train.batch_size`` being the global
 batch.  Without torchrun, ``--parallel.coordinator_address host:port``
 (or a ``tcp://`` / ``file://`` URL) with ``--parallel.num_processes`` and
-``--parallel.process_id`` names the group.
+``--parallel.process_id`` names the group.  The 2-D ``(data, model)``
+layout adds ``--parallel.model_axis model --parallel.model_parallel_size
+2`` (large parameters and their Adam moments sharded over pairs of
+ranks; ``--parallel.fsdp_min_size``, ``--parallel.sharding_map``).
 
 Exit status: 0 on completion; ``DRAINED_EXIT_CODE`` (75, EX_TEMPFAIL) on
 every rank when the run drained (SIGTERM, ``--train.drain_signal_file``

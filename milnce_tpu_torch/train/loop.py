@@ -42,6 +42,18 @@ schedule count optimizer steps, and the live MFU is not computed (as in
 the JAX loop).  ``train.faults`` arms the fault registry
 (``resilience/faults.py``) for the run and disarms it at the end.
 
+The 2-D ``(data, model)`` layout, as the JAX loop has it:
+``parallel.model_axis`` with ``parallel.model_parallel_size`` mp > 1
+lays the ranks out as a (W / mp, mp) DeviceMesh (``parallel/mesh.py``),
+places the model on the sharding map (``parallel/sharding_map.py``:
+``parallel.fsdp_min_size``, ``parallel.sharding_map``; a map that shards
+nothing is refused) and runs the 2-D step.  The map's hash rides the
+run log and ``ELASTIC_STAMP.json``; every save gathers the full state
+on every rank (rank 0 writes it), and a resume, the breaker's rollback
+and the in-training eval place full tensors on whichever layout the run
+has.  ``data.use_native_reader`` decodes HowTo100M through the C++
+pipe pump (``data/video.py::NativeFFmpegDecoder``).
+
 Curriculum and elastic training, as the JAX loop has them: every run
 goes through a plan (``train/curriculum.py``; a flat run is one
 open-ended stage), whose segments the epoch loop walks.  At a stage
@@ -65,6 +77,7 @@ cuDNN convolutions and CUDA matmuls before anything runs.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -100,12 +113,15 @@ from milnce_tpu_torch.parallel.dist import (Ranks, broadcast_str,
                                             gather_floats,
                                             initialize_distributed,
                                             reduce_flag)
+from milnce_tpu_torch.parallel.mesh import build_mesh, check_model_axis
+from milnce_tpu_torch.parallel.sharding_map import (ShardedPlacement,
+                                                    parse_sharding_spec)
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.train import curriculum
 from milnce_tpu_torch.train.checkpoint import (CheckpointManager,
                                                load_train_state, train_state)
 from milnce_tpu_torch.train.schedule import build_schedule_total
-from milnce_tpu_torch.train.state import build_optimizer
+from milnce_tpu_torch.train.state import build_optimizer, local_state_bytes
 from milnce_tpu_torch.train.step import make_grad_cache_step, make_train_step
 from milnce_tpu_torch.utils.logging import RunLogger
 from milnce_tpu_torch.utils.profiling import StepTimer, maybe_trace
@@ -115,9 +131,8 @@ from milnce_tpu_torch.utils.torch_convert import load_reference_checkpoint
 
 # Knobs of the reference loop that this loop does not read yet, as dotted
 # names; a run that sets one away from its dataclass default is refused.
-# A name leaves the table in the change that ports it.
-UNPORTED_KNOBS = ("data.use_native_reader", "parallel.model_axis",
-                  "parallel.model_parallel_size")
+# A name leaves the table in the change that ports it: none is left.
+UNPORTED_KNOBS: tuple = ()
 
 
 def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
@@ -127,8 +142,10 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
     ``train.curriculum``, a global batch (each stage's, under a
     curriculum) that does not split over the ranks, a rank's batch that
     does not split into ``train.grad_accum`` microbatches, a malformed
-    ``train.faults`` spec, straggler knobs the policy refuses, and an
-    unknown ``train.eval_task`` when evaluating.  The MIL-NCE stream
+    ``train.faults`` spec, straggler knobs the policy refuses, a 2-D
+    request the ranks cannot carry (``parallel/mesh.py::check_model_axis``)
+    or a malformed ``parallel.sharding_map``, and an unknown
+    ``train.eval_task`` when evaluating.  The MIL-NCE stream
     kernels take any embedding width (past ``STREAM_DMAX`` in their deep
     mode)."""
     default = Config()
@@ -154,6 +171,8 @@ def check_config(cfg: Config, device_type: str, world: int = 1) -> None:
                              + (f" (curriculum stage {i})" if stages else ""))
     if cfg.train.faults:
         faults.parse_spec(cfg.train.faults)
+    check_model_axis(cfg.parallel, world)
+    parse_sharding_spec(cfg.parallel.sharding_map)
     StragglerPolicy(ratio=cfg.train.straggler_ratio,
                     window=cfg.train.straggler_window)
     if cfg.train.evaluate and cfg.train.eval_task not in EVAL_TASKS:
@@ -183,6 +202,9 @@ class TrainResult:
     drained: bool = False       # exited on a drain (SIGTERM, signal file,
                                 # host.preempt) with a forced checkpoint
                                 # and ELASTIC_STAMP; the CLI exits 75
+    placement: Optional[ShardedPlacement] = None    # the 2-D layout: the
+                                # model's sharded parameters hold this
+                                # rank's slices
 
 
 def disable_tf32() -> str:
@@ -622,6 +644,21 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         load_reference_checkpoint(model, cfg.train.pretrain_ckpt)
         log(f"loaded pretrained weights from {cfg.train.pretrain_ckpt}")
     model.to(device)
+    grid = build_mesh(cfg.parallel, ranks.group)
+    placement = None
+    if grid is not None:
+        placement = ShardedPlacement(model, grid, ranks.group,
+                                     min_size=cfg.parallel.fsdp_min_size,
+                                     spec=cfg.parallel.sharding_map)
+        log(f"sharding map: {placement.n_sharded}/{len(placement.summary)} "
+            f"params sharded on '{grid.model_axis}' (threshold "
+            f"{cfg.parallel.fsdp_min_size} elements, hash {placement.hash})"
+            f" | mesh {grid.shape}")
+        if placement.n_sharded == 0:
+            raise ValueError(
+                "sharding map shards no parameter: the 2-D layout would pay "
+                "the model axis's collectives for pure replication (lower "
+                "parallel.fsdp_min_size or fix parallel.sharding_map)")
     # the schedule runs over the PLAN's total: per-stage batch sizes make
     # steps_per_epoch * epochs wrong for a curriculum
     schedule = build_schedule_total(cfg.optim, plan.total_steps)
@@ -630,7 +667,7 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     ckpt_dir = os.path.join(cfg.train.checkpoint_root,
                             cfg.train.checkpoint_dir or "run")
     manager = _open_checkpoints(ckpt_dir, cfg, ranks)
-    mesh = {"data": ranks.world}
+    mesh = grid.shape if grid is not None else {"data": ranks.world}
     start_epoch = resume_step = 0
     if cfg.train.resume:
         # both guards BEFORE any checkpoint is read: a curriculum
@@ -659,7 +696,7 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
             start_epoch, state = manager.restore_latest(map_location=device)
             if state is not None:
                 resume_step = load_train_state(state, model, optimizer,
-                                               lr_scheduler)
+                                               lr_scheduler, placement)
         if state is not None:
             seg, off = plan.locate(resume_step)
             log(f"resumed from epoch {start_epoch} at batch "
@@ -671,7 +708,7 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     # steps from the restored one
     step_kwargs = dict(finite_guard=cfg.train.finite_guard,
                        lr_scheduler=lr_scheduler, group=ranks.group,
-                       first_step=resume_step)
+                       first_step=resume_step, placement=placement)
     if cfg.train.grad_accum > 1:
         step_fn = make_grad_cache_step(model, optimizer,
                                        cfg.train.grad_accum, cfg.loss,
@@ -682,7 +719,9 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     log(f"device: {device} | global batch: {cfg.train.batch_size} | "
         f"steps: {max_steps or plan.total_steps}"
         + (f" | microbatches: {cfg.train.grad_accum}"
-           if cfg.train.grad_accum > 1 else ""))
+           if cfg.train.grad_accum > 1 else "")
+        + (f" | state bytes a rank: {local_state_bytes(model, optimizer)}"
+           if placement is not None else ""))
     if curriculum_on:
         # every stage's trial step against the card's memory, before
         # step 1: an over-budget stage is refused now, not at its boundary
@@ -700,9 +739,14 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
             log("curriculum pre-flight skipped: no allocator peak to read "
                 f"on {device.type} (it runs on a CUDA device)")
 
-    def snapshot(epoch_label: int) -> dict:
-        return train_state(model, optimizer, lr_scheduler, opt_step,
-                           epoch_label)
+    def snapshot(epoch_label: int) -> Optional[dict]:
+        """The checkpoint's state on rank 0 (None elsewhere); on the 2-D
+        layout every rank takes part in gathering it."""
+        if placement is None and not ranks.is_main:
+            return None
+        state = train_state(model, optimizer, lr_scheduler, opt_step,
+                            epoch_label, placement)
+        return state if ranks.is_main else None
 
     def save(label: int, force: bool = False, drained: bool = False) -> None:
         """A rotation save and, beside it, both stamps (rank 0); a
@@ -712,15 +756,17 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         with rec.span(span, label=label, forced=force, stage=stage_idx,
                       **({"source": drain.source or "peer"} if drained
                          else {})):
+            state = snapshot(label)
             if ranks.is_main:
-                manager.save(label, snapshot(label), force=force)
+                manager.save(label, state, force=force)
                 curriculum.write_stage_stamp(
                     ckpt_dir, spec=cfg.train.curriculum,
                     stage_index=stage_idx, stage=plan.stages[stage_idx],
                     step=opt_step)
                 seg_c, off_c = plan.locate(opt_step)
                 write_elastic_stamp(
-                    ckpt_dir, mesh_shape=mesh, sharding_hash="",
+                    ckpt_dir, mesh_shape=mesh,
+                    sharding_hash=placement.hash if placement else "",
                     step=opt_step, stage_index=stage_idx,
                     batch_offset=seg_c.skip_batches + off_c,
                     drained=drained)
@@ -748,14 +794,16 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
 
     def result(drained: bool = False) -> TrainResult:
         return TrainResult(steps, float(last), skipped, rollbacks, model,
-                           ranks.rank, stage_idx, drained)
+                           ranks.rank, stage_idx, drained, placement)
 
     for epoch in range(start_epoch, cfg.optim.epochs):
         if (cfg.train.evaluate and cfg.data.eval_video_root
                 and epoch % eval_every == 0):
-            if ranks.is_main:
-                _in_training_eval(cfg, model, device, log)
-            ranks.barrier()
+            with (placement.full_params() if placement is not None
+                  else contextlib.nullcontext()):
+                if ranks.is_main:
+                    _in_training_eval(cfg, model, device, log)
+                ranks.barrier()
         for seg in plan.segments_for_epoch(epoch):
             # a resume skips the segments its restored step consumed and
             # starts the one holding it at its offset
@@ -862,10 +910,11 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                     # back from.
                     if (cfg.train.halt_on_nan and not math.isfinite(mean_loss)
                             and not (guard_on and math.isnan(mean_loss))):
+                        state = snapshot(epoch)
                         if ranks.is_main:
                             CheckpointManager(
                                 os.path.join(ckpt_dir, "nan_postmortem"),
-                                keep=1).save(opt_step, snapshot(epoch))
+                                keep=1).save(opt_step, state)
                         log(f"non-finite training loss ({mean_loss}) — "
                             "post-mortem state saved under "
                             f"nan_postmortem/{opt_step}; halting")
@@ -877,7 +926,7 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                         latest = _roll_back(manager, consec, opt_step, steps,
                                             skipped, last_rollback, model,
                                             optimizer, lr_scheduler, device,
-                                            rec)
+                                            rec, placement)
                         last_rollback = (steps, skipped)
                         rollbacks += 1
                         # updates applied since the restored boundary save
@@ -957,7 +1006,8 @@ def _health(guard_on: bool, skipped: int, source, loader) -> str:
 
 
 def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
-               model, optimizer, lr_scheduler, device, rec) -> int:
+               model, optimizer, lr_scheduler, device, rec,
+               placement=None) -> int:
     """The circuit breaker: K consecutive non-finite updates restore the
     newest rotation checkpoint's weights, optimizer and schedule; the
     caller keeps its step counter and data cursor, so the run goes on
@@ -980,5 +1030,5 @@ def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
                 "in a loop")
     with rec.span("ckpt.restore", label=int(latest)):
         load_train_state(manager.restore(latest, map_location=device), model,
-                         optimizer, lr_scheduler)
+                         optimizer, lr_scheduler, placement)
     return int(latest)

@@ -37,8 +37,22 @@ scheduled optimizer steps, numbered ``first_step + 1, first_step + 2,
 ``state.step + 1``): the loop hands a resumed run's restored count in.
 
 :func:`make_grad_cache_step` is the JAX two-pass embedding-cache step
-(``train.grad_accum`` microbatches, exact full-batch negatives);
-FSDP and ``inner_steps`` are not ported yet.
+(``train.grad_accum`` microbatches, exact full-batch negatives).
+
+The 2-D ``(data, model)`` layout (JAX ``state_specs``/``model_axis``):
+both steps take a ``placement`` (``parallel/sharding_map.py``), and the
+step goes FSDP.  ``group`` stays the whole group: the batch shards over
+both axes, every rank a data shard, so the gathers of the losses, the
+global-batch semantics and local BatchNorm are the 1-D layout's.  The
+sharded parameters are gathered before the forward (the grad-cache
+step: once, before pass 1); after the backward their gradients are
+reduce-scattered over the model axis then summed over data, and the
+replicated ones summed over both axes (SUM for MIL-NCE, MEAN for the DTW
+family, as in 1-D); the optimizer then steps the local slices only.
+Each model column's guard sees only its slices, so the finite verdict is
+agreed over the model axis (JAX ``_uniform_finite_verdict``): a NaN in
+one column's slice makes every rank skip.  ``inner_steps`` is not
+ported (a benchmark knob of the JAX step).
 """
 
 from __future__ import annotations
@@ -50,7 +64,8 @@ from milnce_tpu_torch.losses.dtw_losses import (cdtw_batch_loss, sdtw_3_loss,
                                                 sdtw_negative_loss)
 from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
 from milnce_tpu_torch.models.s3dg import BatchNorm3d, frozen_running_stats
-from milnce_tpu_torch.parallel.dist import all_gather_tiled, all_reduce_flat
+from milnce_tpu_torch.parallel.dist import (all_gather_tiled, all_reduce_flat,
+                                            reduce_flag)
 from milnce_tpu_torch.resilience import faults
 
 KNOWN_LOSSES = ("milnce", "cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
@@ -112,7 +127,8 @@ class _Update:
     (skipped ones too) from ``first_step``."""
 
     def __init__(self, model, optimizer, finite_guard, lr_scheduler, group,
-                 mean, first_step):
+                 mean, first_step, placement=None):
+        self.placement = placement
         self.optimizer, self.lr_scheduler = optimizer, lr_scheduler
         self.finite_guard, self.group, self.mean = finite_guard, group, mean
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -128,14 +144,20 @@ class _Update:
 
     def __call__(self, loss, saved):
         self.count += 1
+        if self.placement is not None:
+            self.placement.reduce_grads_2d(self.mean)
         grads = [p.grad for p in self.params if p.grad is not None]
-        if self.group is not None:
+        if self.placement is None and self.group is not None:
             all_reduce_flat(grads, self.group, mean=self.mean)
         if self.poison is not None and self.poison.scheduled(self.count):
             torch._foreach_mul_(grads, float("nan"))
         if self.finite_guard:
-            finite = torch.stack([torch.isfinite(g).all() for g in grads])
-            if not bool(finite.all()):
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in grads]).all())
+            if self.placement is not None:
+                finite = not reduce_flag(not finite,
+                                         self.placement.grid.model_group)
+            if not finite:
                 with torch.no_grad():
                     for buf, old in zip(self.buffers, saved):
                         buf.copy_(old)
@@ -151,7 +173,7 @@ class _Update:
 
 def make_train_step(model, optimizer, loss_cfg=None,
                     finite_guard: bool = False, lr_scheduler=None,
-                    group=None, first_step: int = 0):
+                    group=None, first_step: int = 0, placement=None):
     """-> ``step(video_u8, text_ids, start)`` returning the loss (a 0-d
     tensor on the device), or ``(loss, skipped)`` with ``finite_guard``,
     where ``skipped`` is 1 when the update was dropped.  ``group``: the
@@ -160,12 +182,13 @@ def make_train_step(model, optimizer, loss_cfg=None,
     run's), from which the ``grad.nonfinite`` fault counts.  A bad loss
     name or MIL-NCE knob raises here.  ``step.fwd_bwd(video_u8, text_ids,
     start)`` is the step's forward and backward alone (no reduction, no
-    update), for the curriculum's memory pre-flight."""
+    update), for the curriculum's memory pre-flight.  ``placement``: the
+    2-D layout (module docstring; ``group`` must be its whole group)."""
     loss_name = _check_loss_name(loss_cfg)
     milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
                  else None)
     update = _Update(model, optimizer, finite_guard, lr_scheduler, group,
-                     milnce_fn is None, first_step)
+                     milnce_fn is None, first_step, placement)
 
     def compute_loss(video_u8, text_ids, start):
         video = _normalize(video_u8, model)
@@ -182,19 +205,12 @@ def make_train_step(model, optimizer, loss_cfg=None,
         loss.backward()
         return loss
 
-    def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
-             start: torch.Tensor):
-        saved = update.save()
-        optimizer.zero_grad(set_to_none=True)
-        return update(fwd_bwd(video_u8, text_ids, start), saved)
-
-    step.fwd_bwd = fwd_bwd
-    return step
+    return _assemble(fwd_bwd, update, optimizer, placement)
 
 
 def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
                          finite_guard: bool = False, lr_scheduler=None,
-                         group=None, first_step: int = 0):
+                         group=None, first_step: int = 0, placement=None):
     """The two-pass embedding-cache step (GradCache; JAX
     ``make_grad_cache_step``) for MIL-NCE and the DTW family: the same
     ``step(video_u8, text_ids, start)`` as :func:`make_train_step`, over
@@ -235,7 +251,7 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
     milnce_fn = (build_milnce_loss(loss_cfg, group) if loss_name == "milnce"
                  else None)
     update = _Update(model, optimizer, finite_guard, lr_scheduler, group,
-                     milnce_fn is None, first_step)
+                     milnce_fn is None, first_step, placement)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm3d)]
     mode = {} if milnce_fn is not None else {"mode": "sequence"}
 
@@ -286,13 +302,31 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
                 torch.autograd.backward(embed(vu8, tids), (gv, gt))
         return loss
 
+    return _assemble(fwd_bwd, update, optimizer, placement)
+
+
+def _assemble(fwd_bwd, update: _Update, optimizer, placement):
+    """The step of a forward-and-backward: zero the gradients, gather the
+    sharded parameters (2-D layout), forward and backward, then the
+    update, which reduces.  Its ``fwd_bwd`` attribute is the forward and
+    backward alone, leaving a 2-D layout's parameters as their slices
+    with no gradient."""
+
     def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
              start: torch.Tensor):
         saved = update.save()
         optimizer.zero_grad(set_to_none=True)
+        if placement is not None:
+            placement.gather_params()
         return update(fwd_bwd(video_u8, text_ids, start), saved)
 
-    step.fwd_bwd = fwd_bwd
+    def fwd_bwd_alone(video_u8, text_ids, start):
+        if placement is None:
+            return fwd_bwd(video_u8, text_ids, start)
+        with placement.full_params():
+            return fwd_bwd(video_u8, text_ids, start)
+
+    step.fwd_bwd = fwd_bwd_alone
     return step
 
 

@@ -39,6 +39,54 @@ def strip_ddp_prefix(state_dict: Mapping[str, np.ndarray]) -> dict[str, np.ndarr
     return {k.removeprefix("module."): v for k, v in state_dict.items()}
 
 
+def flax_location(key: str, ndim: int, keys) -> tuple | None:
+    """Where :func:`torch_state_dict_to_flax` puts the torch entry
+    ``key`` (of rank ``ndim``) of a state dict whose keys are ``keys``
+    (without the DDP prefix): ``(collection, path, perm)``, ``collection``
+    'params' or 'batch_stats', ``path`` the Flax tree path (a list of
+    names) and ``perm`` the torch dimension of each Flax dimension (the
+    Flax value is ``value.transpose(perm)``).  None for an entry Flax has
+    no leaf for (``num_batches_tracked``)."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    parts = key.split(".")
+    leaf = parts[-1]
+    mods = parts[:-1]
+    # Rename the STConv3D internals: conv1/bn1 (+conv2/bn2 when separable)
+    # -> conv/bn or conv_spatial/bn_spatial + conv_temporal/bn_temporal.
+    renamed: list[str] = []
+    for i, m in enumerate(mods):
+        if m in ("conv1", "bn1", "conv2", "bn2") and i == len(mods) - 1:
+            prefix = ".".join(mods[:i])
+            separable = f"{prefix}.conv2.weight" in keys
+            if separable:
+                m = {"conv1": "conv_spatial", "bn1": "bn_spatial",
+                     "conv2": "conv_temporal", "bn2": "bn_temporal"}[m]
+            else:
+                m = {"conv1": "conv", "bn1": "bn"}[m]
+        renamed.append(m)
+    mods = renamed
+    same = tuple(range(ndim))
+
+    is_bn = mods and mods[-1].startswith("bn")
+    if is_bn and leaf in ("running_mean", "running_var"):
+        return ("batch_stats", mods + [{"running_mean": "mean",
+                                        "running_var": "var"}[leaf]], same)
+    if is_bn:
+        return "params", mods + [{"weight": "scale", "bias": "bias"}[leaf]], same
+    if leaf == "weight":
+        if ndim == 5:            # Conv3d (O, I, t, h, w) -> (t, h, w, I, O)
+            return "params", mods + ["kernel"], (2, 3, 4, 1, 0)
+        if ndim == 2:
+            if mods and mods[-1] == "word_embd":   # Embedding
+                return "params", mods + ["embedding"], same
+            return "params", mods + ["kernel"], (1, 0)   # Linear
+        raise ValueError(f"unexpected weight rank for {key}: {ndim}")
+    if leaf == "bias":
+        return "params", mods + ["bias"], same
+    raise ValueError(f"unrecognized checkpoint entry: {key}")
+
+
 def torch_state_dict_to_flax(state_dict: Mapping[str, np.ndarray]) -> dict:
     """Return ``{'params': ..., 'batch_stats': ...}`` nested dicts matching
     ``milnce_tpu.models.S3D``."""
@@ -46,46 +94,13 @@ def torch_state_dict_to_flax(state_dict: Mapping[str, np.ndarray]) -> dict:
     params: dict = {}
     stats: dict = {}
     for key, raw in sd.items():
-        if key.endswith("num_batches_tracked"):
-            continue
         val = np.asarray(raw)
-        parts = key.split(".")
-        leaf = parts[-1]
-        mods = parts[:-1]
-        # Rename the STConv3D internals: conv1/bn1 (+conv2/bn2 when separable)
-        # -> conv/bn or conv_spatial/bn_spatial + conv_temporal/bn_temporal.
-        renamed: list[str] = []
-        for i, m in enumerate(mods):
-            if m in ("conv1", "bn1", "conv2", "bn2") and i == len(mods) - 1:
-                prefix = ".".join(mods[:i])
-                separable = f"{prefix}.conv2.weight" in sd
-                if separable:
-                    m = {"conv1": "conv_spatial", "bn1": "bn_spatial",
-                         "conv2": "conv_temporal", "bn2": "bn_temporal"}[m]
-                else:
-                    m = {"conv1": "conv", "bn1": "bn"}[m]
-            renamed.append(m)
-        mods = renamed
-
-        is_bn = mods and mods[-1].startswith("bn")
-        if is_bn and leaf in ("running_mean", "running_var"):
-            _set(stats, mods + [{"running_mean": "mean", "running_var": "var"}[leaf]], val)
-        elif is_bn:
-            _set(params, mods + [{"weight": "scale", "bias": "bias"}[leaf]], val)
-        elif leaf == "weight":
-            if val.ndim == 5:        # Conv3d
-                _set(params, mods + ["kernel"], val.transpose(2, 3, 4, 1, 0))
-            elif val.ndim == 2:
-                if mods and mods[-1] == "word_embd":   # Embedding
-                    _set(params, mods + ["embedding"], val)
-                else:                # Linear
-                    _set(params, mods + ["kernel"], val.transpose(1, 0))
-            else:
-                raise ValueError(f"unexpected weight rank for {key}: {val.shape}")
-        elif leaf == "bias":
-            _set(params, mods + ["bias"], val)
-        else:
-            raise ValueError(f"unrecognized checkpoint entry: {key}")
+        where = flax_location(key, val.ndim, sd)
+        if where is None:
+            continue
+        collection, path, perm = where
+        _set(params if collection == "params" else stats, path,
+             val.transpose(perm))
     return {"params": params, "batch_stats": stats}
 
 

@@ -48,10 +48,15 @@ def test_port_package_exists():
                      "obs/capture.py", "resilience/faults.py",
                      "ops/dtw.py", "train/curriculum.py",
                      "elastic/__init__.py", "elastic/drain.py",
-                     "elastic/stamp.py", "elastic/straggler.py"):
+                     "elastic/stamp.py", "elastic/straggler.py",
+                     "native/__init__.py", "native/build.py",
+                     "native/reader.py", "native/softdtw_cpu.py",
+                     "native/bench_reader.py", "parallel/mesh.py",
+                     "parallel/sharding_map.py", "ops/softdtw_sp.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()
+    assert (PORT / "csrc" / "milnce_native.cpp").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -83,3 +88,47 @@ def test_every_module_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def _code_strings(path: pathlib.Path):
+    """The string constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_package_path_is_read_at_run_time(path):
+    """No code string of the port names a file of the JAX package or its
+    native build (``native/milnce_native.cpp``, ``build/libmilnce_native.so``):
+    the port reads its own copies."""
+    bad = [s for s in _code_strings(path)
+           if "milnce_tpu/" in s or "libmilnce_native.so" in s
+           or s.startswith("native/")]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def test_native_library_builds_from_the_ports_own_source():
+    """The host library compiles from ``milnce_tpu_torch/csrc/
+    milnce_native.cpp`` into ``build/torch_kernels/`` and loads from
+    there; the copied source includes no file of the repository."""
+    from milnce_tpu_torch.native import build
+
+    assert build.SOURCE == PORT / "csrc" / "milnce_native.cpp"
+    assert build.library_path().parent == ROOT / "build" / "torch_kernels"
+    includes = [line for line in build.SOURCE.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and all("<" in line for line in includes)
+    if build.native_available():
+        assert build.load_native_library()._name == str(build.library_path())

@@ -231,15 +231,20 @@ def test_profiler_capture_emits_the_jax_event_sequence(tmp_path):
         now = [0.0]
         calls = []
         rec = spans.SpanRecorder()
+        # a duration long enough that the manual stop of the second
+        # capture always wins over its timer, however loaded the host
         cap = mod.ProfilerCapture(
-            str(tmp_path / "cap"), duration_s=0.05, cooldown_s=10.0,
+            str(tmp_path / "cap"), duration_s=1.0, cooldown_s=10.0,
             max_captures=2, recorder=rec,
             start_fn=lambda d: calls.append(("start", os.path.basename(d))),
             stop_fn=lambda: calls.append(("stop",)),
             time_fn=lambda: now[0])
         verdicts = [cap.arm("spike/..", step=1), cap.arm("again")]
+        # the duration timer's stop has finished when its event is in the
+        # stream (its thread sets the state idle just before recording it)
         deadline = time.monotonic() + 10
-        while cap.stats()["state"] != "idle" and time.monotonic() < deadline:
+        while (not any(r["name"] == "capture.stop" for r in rec.tail())
+               and time.monotonic() < deadline):
             time.sleep(0.01)
         verdicts.append(cap.arm("cool"))        # within the cooldown
         now[0] = 100.0

@@ -6,14 +6,19 @@ running ``fn(rank, world, group, *args)`` inside a gloo group that meets
 at a ``FileStore`` under the test's directory (no port to collide with
 other test workers), with a 60 s collective timeout; the parent joins
 them against its own deadline and kills what is left, so a hung rank
-fails its test instead of the suite's clock.  Each rank's result comes
-back through a ``torch.save`` file; a rank that raises leaves its
-traceback beside it.
+fails its test instead of the suite's clock.  The arguments go to the
+ranks through one pickle file: passed in the ``Process`` they would sit
+in each child's pipe behind the import of this module (torch), and the
+parent, blocked writing them, would start the ranks one import at a
+time (8 ranks: ~20 s instead of ~5).  Each rank's result comes back
+through a ``torch.save`` file; a rank that raises leaves its traceback
+beside it.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import time
 import traceback
 import uuid
@@ -40,10 +45,12 @@ from milnce_tpu_torch.utils.torch_convert import load_jax_variables
 COLLECTIVE_TIMEOUT = timedelta(seconds=60)
 
 
-def _entry(fn, rank, world, store, workdir, tag, args, join_group):
+def _entry(fn, rank, world, store, workdir, tag, join_group):
     torch.set_num_threads(1)
     out = os.path.join(workdir, f"{tag}-rank{rank}")
     try:
+        with open(os.path.join(workdir, f"{tag}-args.pkl"), "rb") as fh:
+            args = pickle.load(fh)
         if join_group:
             dist.init_process_group(
                 "gloo", store=dist.FileStore(store, world), rank=rank,
@@ -69,10 +76,11 @@ def spawn(fn, world: int, workdir, *args, join_group: bool = True,
     workdir = str(workdir)
     tag = uuid.uuid4().hex[:8]
     store = os.path.join(workdir, f"store-{tag}")
+    with open(os.path.join(workdir, f"{tag}-args.pkl"), "wb") as fh:
+        pickle.dump(args, fh)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, rank, world, store,
-                                              workdir, tag, args,
-                                              join_group))
+                                              workdir, tag, join_group))
              for rank in range(world)]
     for proc in procs:
         proc.start()
@@ -290,4 +298,139 @@ def rank_fault_runs(rank, world, group, runs):
     for label, cfg, specs in runs:
         cfg.train.faults = specs.get(rank, "")
         out.update(train_runs(rank, world, group, [(label, cfg)]))
+    return out
+
+
+# ------------------------------------------------------------ 2-D layout ranks
+def _grid(model_size, group):
+    from milnce_tpu_torch.config import ParallelConfig
+    from milnce_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(ParallelConfig(model_axis="model",
+                                     model_parallel_size=model_size), group)
+
+
+def layout_run(rank, world, group, dims, variables, batches, loss,
+               model_size, micro_batches=1, min_size=256, nan_at=None):
+    """Steps of the float64 port trainer from the JAX ``variables`` with
+    sync BatchNorm over the whole group (so every layout computes the
+    one-process step), warmup 2 over 10 steps, the finite guard; the 1-D
+    layout (``model_size`` 0) or the (world / model_size, model_size)
+    grid at the FSDP threshold ``min_size``; MIL-NCE dense or sdtw_3 on
+    the scan; ``make_grad_cache_step`` at ``micro_batches`` > 1.
+    ``nan_at`` (step index): rank 0 plants a NaN in the last element of
+    the first sharded parameter's full gradient before the reduction,
+    which lands in the last model column's slice alone.  Returns the
+    losses, the skips, the full state and moments after the steps, the
+    bytes of the sharded parameters plus their optimizer state on this
+    rank, and the map's summary and hash."""
+    import hashlib
+
+    from milnce_tpu_torch.parallel.sharding_map import ShardedPlacement
+    from milnce_tpu_torch.train.state import local_state_bytes
+
+    model = load_jax_variables(S3D(**dims).to(torch.float64), variables)
+    if group is not None:
+        sync_batchnorm(model, group)
+    placement = None
+    if model_size:
+        placement = ShardedPlacement(model, _grid(model_size, group), group,
+                                     min_size=min_size)
+    opt_cfg = OptimConfig(warmup_steps=2)
+    optimizer, sched = build_optimizer(model, opt_cfg,
+                                       build_schedule(opt_cfg, 10))
+    cfg = LossConfig(name=loss, milnce_impl="dense", sdtw_backend="scan")
+    kwargs = dict(finite_guard=True, lr_scheduler=sched, group=group,
+                  placement=placement)
+    step = (make_grad_cache_step(model, optimizer, micro_batches, cfg,
+                                 **kwargs)
+            if micro_batches > 1 else
+            make_train_step(model, optimizer, cfg, **kwargs))
+    losses, skips = [], []
+    for i, (video, text, start) in enumerate(batches):
+        if group is not None:
+            video, text, start = (_shard(x, rank, world)
+                                  for x in (video, text, start))
+        if placement is not None and nan_at == i and rank == 0:
+            real = placement.reduce_grads_2d
+
+            def planted(mean, real=real):
+                p, _ = placement.sharded[0]
+                p.grad.view(-1)[-1] = float("nan")
+                placement.reduce_grads_2d = real
+                return real(mean)
+
+            placement.reduce_grads_2d = planted
+        loss_, skipped = step(torch.from_numpy(video), torch.from_numpy(text),
+                              torch.from_numpy(start))
+        losses.append(float(loss_))
+        skips.append(int(skipped))
+    if placement is not None:
+        model_sd, opt_sd = placement.full_state(model, optimizer)
+        sharded = [p for p, _ in placement.sharded]
+        summary, digest = placement.summary, placement.hash
+    else:
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+        summary = digest = None
+        from milnce_tpu_torch.parallel.sharding_map import build_param_map
+
+        names = {e.name for e in build_param_map(model, 2, min_size)
+                 if e.torch_dim is not None}
+        sharded = [p for n, p in model.named_parameters() if n in names]
+    state = {k: v.detach().clone().numpy() for k, v in model_sd.items()}
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    moments_ = {names[i]: (st["exp_avg"].numpy().copy(),
+                           st["exp_avg_sq"].numpy().copy())
+                for i, st in opt_sd["state"].items()}
+    blob = hashlib.sha256()
+    for key in sorted(state):
+        blob.update(key.encode() + state[key].tobytes())
+    out = dict(losses=losses, skips=skips, state_digest=blob.hexdigest(),
+               sharded_bytes=local_state_bytes(model, optimizer, sharded),
+               summary=summary, hash=digest)
+    if rank == 0:       # the others' states are held equal by their digest
+        out.update(state=state, moments=moments_)
+    return out
+
+
+def layout_runs(rank, world, group, dims, variables, batches, cases):
+    """:func:`layout_run` for each ``{label: kwargs}`` of ``cases`` in
+    turn, in one group; returns ``{label: result}``."""
+    return {label: layout_run(rank, world, group, dims, variables, batches,
+                              **case)
+            for label, case in cases.items()}
+
+
+def train_runs_2d(rank, world, group, runs):
+    """:func:`train_runs`, plus for each run the shapes of the final
+    model's parameters as this rank holds them and the map's hash."""
+    from milnce_tpu_torch.train.loop import run_training
+
+    out = {}
+    for label, cfg in runs:
+        cfg.parallel.process_id = rank
+        losses, lines = {}, []
+        res = run_training(cfg, log=lines.append,
+                           on_step=lambda s, _t, loss, _w:
+                           losses.__setitem__(s, loss))
+        out[label] = dict(
+            losses=losses, lines=lines, steps=res.steps,
+            shapes={n: tuple(p.shape) for n, p in res.model.named_parameters()},
+            hash=res.placement.hash if res.placement else None)
+    return out
+
+
+# ------------------------------------------------ sequence-parallel soft-DTW
+def softdtw_sp_cases(rank, world, group, cases):
+    """``softdtw_seq_parallel`` over the group for each ``{label: (D,
+    gamma, bandwidth, g)}``: the values and the gradient of ``sum(g *
+    value)`` with respect to D, on this rank."""
+    from milnce_tpu_torch.ops import softdtw_seq_parallel
+
+    out = {}
+    for label, (D, gamma, band, g) in cases.items():
+        x = torch.from_numpy(D).requires_grad_()
+        value = softdtw_seq_parallel(x, gamma, group, band)
+        (value * torch.from_numpy(g)).sum().backward()
+        out[label] = (value.detach().numpy(), x.grad.numpy())
     return out

@@ -126,6 +126,23 @@ Phases, each fatal on failure:
                decoder, 4 windows of 32 frames at 224^2, the first 256
                rows): R@1/5/10, MedR, videos/s; the metrics against the
                embeddings, the first batch against ``make_video_embed_fn``.
+   serve-full -- serving's first half on that checkpoint: exported by
+               ``milnce-export-torch``'s ``main`` (its arrays equal the
+               checkpoint's state bit for bit), ``InferenceEngine.
+               from_export`` on the card with a ladder of 1-16 (each
+               bucket's embeddings against ``make_video_embed_fn`` /
+               ``make_text_embed_fn`` within 1e-5 + 1e-4 max|e|, TF32 off;
+               ms a call at each bucket), 64 clips of 32 frames at 224^2
+               through a ``DynamicBatcher``, 64 caption queries from 4
+               threads through a batcher and the cache (batched and cached
+               replies against the direct call; a second pass all cache
+               hits, the engine's call counts unchanged), and a
+               ``DeviceRetrievalIndex``
+               of the clips padded with seeded unit rows to 1,048,576 x 512
+               f32 with planted duplicates (ties across the 10th place):
+               the top-10 of 16 queries equal a float64 exhaustive ranking
+               on the host, ties by the lower row; ms a query batch beside
+               its bound; recompiles 0; peak device memory.
    remat    -- train-full with ``model.remat``: losses within rel 2e-4
                of phase 7's, ``num_batches_tracked`` equal; peak memory
                and steps/s beside phase 7's.
@@ -166,11 +183,13 @@ Phases, each fatal on failure:
    resume-2d -- the small model: 1-D (two ranks) for 2 steps, resumed for
                1 on the grid, resumed for 1 in one process: losses within
                rel 2e-4 of an uninterrupted 1-D run, cuDNN deterministic.
-   softdtw-sp -- ``softdtw_seq_parallel`` on two gloo ranks on the one
-               card at (2, 2048, 2048), gamma 0.1, with and without a
-               band of 128: value and grad_D against the soft-DTW kernels
-               on one device, within the kernel-versus-plain limit; the
-               time a call.
+   softdtw-sp -- ``softdtw_seq_parallel`` (the full D on every rank) and
+               ``softdtw_seq_parallel_rows`` (a rank's rows alone) on two
+               gloo ranks on the one card at (2, 2048, 2048), gamma 0.1,
+               with and without a band of 128: value and grad_D against
+               the soft-DTW kernels on one device, within the
+               kernel-versus-plain limit; the time a call; the bytes of D
+               and grad_D a rank holds (rows-local: half) and its peak.
 11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
                beside phase 7's (measured only; the default stays off).
 12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
@@ -1647,6 +1666,333 @@ def phase_eval(ckpt_dir, workdir):
         raise AssertionError("eval disagrees with its own embeddings")
 
 
+# ------------------------------------------------------------ serve-full
+SERVE_MAX_BATCH = 16      # the engine's ladder: 1, 2, 4, 8, 16
+SERVE_CLIPS = 64          # clips embedded through the video batcher
+SERVE_DISTINCT = 48       # distinct captions among the 64 queries
+SERVE_QUERIES = 64
+SERVE_CLIENTS = 4         # client threads asking the queries
+INDEX_ROWS = 1 << 20      # the corpus the index holds (HowTo100M ~1.2 M clips)
+INDEX_K = 10
+INDEX_QUERIES = 16
+
+
+def _timed(fn, reps, warm=1):
+    """Median seconds of ``fn()`` over ``reps`` calls after ``warm``, on
+    the host clock (a serving call returns host arrays: it synchronizes)."""
+    for _ in range(warm):
+        fn()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def _host_ranking(scores, k):
+    """(Q, N) float64 scores -> (Q, k) rows ranked best first, ties by
+    the lower row (every row tied with the k-th is a candidate)."""
+    out = []
+    for s in scores:
+        kth = np.partition(-s, k - 1)[k - 1]
+        cand = np.nonzero(-s <= kth)[0]           # ascending rows
+        out.append(cand[np.argsort(-s[cand], kind="stable")][:k])
+    return np.stack(out)
+
+
+def _plant_ties(corpus, scores, k, protected):
+    """Copy corpus rows (and their score columns) so that queries 0-3 each
+    have a tie across the k-th place (the copy below the original where
+    possible: the copy must win; else above it: the original must keep
+    the place) and queries 4-5 a tie inside the top-k; every plant must
+    leave the earlier ones standing.  No copy lands on a ``protected``
+    row.  Returns [(query, place, lower row, higher row)]."""
+    plants = []
+
+    def holds(plant):
+        q, place, lo, hi = plant
+        order = _host_ranking(scores[q:q + 1], place + 2)[0]
+        return (order[place], order[place + 1]) == (lo, hi)
+
+    n = scores.shape[1]
+    for q, place in [(q, k - 1) for q in range(4)] + [(4, 2), (5, 3)]:
+        r = int(_host_ranking(scores[q:q + 1], place + 1)[0][place])
+        taken = {int(x) for x in _host_ranking(scores, k + 1).ravel()}
+        taken |= {x for p in plants for x in p[2:]} | set(protected)
+        for rows in (range(r - 1, -1, -1), range(r + 1, n)):
+            for p in [p for p in rows[:256] if p not in taken][:32]:
+                col = scores[:, p].copy()
+                scores[:, p] = scores[:, r]
+                plant = (q, place, min(p, r), max(p, r))
+                if all(holds(x) for x in plants + [plant]):
+                    corpus[p] = corpus[r]
+                    plants.append(plant)
+                    break
+                scores[:, p] = col
+            if plants and plants[-1][0] == q:
+                break
+    return plants
+
+
+def phase_serve_full(ckpt_dir, workdir, card):
+    """Serving's first half on the resumed full-width checkpoint: export
+    it with ``milnce-export-torch``'s ``main``, boot
+    ``InferenceEngine.from_export`` on the card (ladder 1-16), embed
+    SERVE_CLIPS clips at 32 frames of 224^2 through a ``DynamicBatcher``,
+    answer SERVE_QUERIES caption queries from SERVE_CLIENTS threads through
+    a batcher and the cache (twice: the second pass all hits), and index
+    the clips padded with seeded unit rows to INDEX_ROWS x 512 f32 with
+    planted duplicates.  Checks, each fatal: every bucket's embeddings
+    equal ``make_video_embed_fn`` / ``make_text_embed_fn`` on the
+    checkpoint's model within 1e-5 + 1e-4 max|e| (TF32 off); the exported
+    arrays equal the checkpoint's state bit for bit; every batched or
+    cached reply equals the direct call (same limit); cache hits leave
+    the engine's call counts unchanged; the top-k of INDEX_QUERIES
+    queries equals a numpy exhaustive ranking on the host, ties by the
+    lower row; ``recompiles() == 0`` (0 by construction in eager PyTorch:
+    a structural invariant, not a health signal); no hand kernel
+    launches.  Measured only: the growth of the device memory reserved
+    between the end of the ladder sweep and the end of the batched and
+    cached passes, which use no new shape.  Prints each entry's
+    ms a call at each bucket, videos/s and texts/s at the top bucket, the
+    index's ms a query batch beside other selections' and its bound, the
+    peak device memory, with the card's name and power limit."""
+    import gc
+    import threading
+
+    from milnce_tpu_torch.config import full_preset
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.serving import export
+    from milnce_tpu_torch.serving.batcher import DynamicBatcher
+    from milnce_tpu_torch.serving.cache import EmbeddingLRUCache, token_key
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.train.checkpoint import CheckpointManager
+    from milnce_tpu_torch.train.step import (make_text_embed_fn,
+                                             make_video_embed_fn)
+    from milnce_tpu_torch.utils.torch_convert import torch_state_dict_to_flax
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if any(flags):
+        raise AssertionError(f"TF32 is on ({flags}): parity needs it off")
+    torch.cuda.reset_peak_memory_stats()
+    ms.reset_launches()
+    sd.reset_launches()
+    cfg = full_preset()
+    out = f"{workdir}/export"
+    t0 = time.perf_counter()
+    export.main(["--checkpoint_dir", ckpt_dir, "--out", out,
+                 "--preset", "full"])
+    t_export = time.perf_counter() - t0
+    _, state = CheckpointManager(ckpt_dir, create=False).restore_raw()
+    tree = torch_state_dict_to_flax({k: v.numpy() for k, v in state.items()})
+    want = {**export._flatten(tree["params"], "params"),
+            **export._flatten(tree["batch_stats"], "batch_stats")}
+    with np.load(f"{out}/{export.ARRAYS_FILE}") as z:
+        got = {k: z[k] for k in z.files}
+    exact = sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes()
+        for k in want)
+    log(f"  export {t_export:.2f} s: {len(got)} arrays, "
+        f"{sum(v.nbytes for v in got.values()) / 2 ** 20:.1f} MiB; equal "
+        f"to the checkpoint's state bit for bit: {exact}")
+
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_export(out, device="cuda",
+                                         max_batch=SERVE_MAX_BATCH,
+                                         min_bucket=1)
+    log(f"  engine boot (load, build, move, warm-up sweep of "
+        f"{engine.buckets}): {time.perf_counter() - t0:.2f} s")
+    ref = build_model(cfg.model)
+    ref.load_state_dict(state)
+    ref = ref.cuda()
+    video_fn, text_fn = make_video_embed_fn(ref), make_text_embed_fn(ref)
+    rng = np.random.default_rng(16)
+    d = cfg.data
+    shape = (d.num_frames, d.video_size, d.video_size, 3)
+    worst, rows = 0.0, []
+
+    def check(got, want):
+        nonlocal worst
+        want = want.cpu().numpy()
+        limit = 1e-5 + 1e-4 * float(np.abs(want).max())
+        worst = max(worst, float(np.abs(got - want).max()) / limit)
+
+    for b in engine.buckets:
+        clips = rng.integers(0, 256, (b,) + shape, dtype=np.uint8)
+        ids = rng.integers(1, cfg.model.vocab_size, (b, d.max_words),
+                           dtype=np.int32)
+        check(engine.embed_video(clips), video_fn(torch.from_numpy(clips)
+                                                  .cuda()))
+        check(engine.embed_text(ids), text_fn(torch.from_numpy(ids).cuda()))
+        v_s = _timed(lambda: engine.embed_video(clips), 5)
+        t_s = _timed(lambda: engine.embed_text(ids), 20)
+        rows.append((b, v_s, t_s))
+        log(f"  bucket {b:2d}: video {v_s * 1e3:8.3f} ms a call "
+            f"({b / v_s:8.2f} videos/s), text {t_s * 1e3:7.3f} ms a call "
+            f"({b / t_s:9.1f} texts/s)")
+    log(f"  every bucket's embeddings against make_video_embed_fn / "
+        f"make_text_embed_fn: worst {worst:.3f} of the limit")
+    reserved = torch.cuda.memory_reserved()
+    del ref, video_fn, text_fn
+
+    clips = rng.integers(0, 256, (SERVE_CLIPS,) + shape, dtype=np.uint8)
+    vb = DynamicBatcher(engine.embed_video, engine.bucket_for,
+                        max_batch=engine.max_batch, max_delay_ms=5.0,
+                        name="video")
+    try:
+        t0 = time.perf_counter()
+        futs = [vb.submit(c) for c in clips]
+        clip_emb = np.stack([f.result(timeout=600) for f in futs])
+        t_clips = time.perf_counter() - t0
+        v_stats = vb.stats()
+    finally:
+        vb.close()
+    direct = np.concatenate([engine.embed_video(clips[i:i + 16])
+                             for i in range(0, SERVE_CLIPS, 16)])
+    batched_err = float(np.abs(clip_emb - direct).max()) / (
+        1e-5 + 1e-4 * float(np.abs(direct).max()))
+    log(f"  {SERVE_CLIPS} clips through the video batcher: {t_clips:.3f} s "
+        f"({SERVE_CLIPS / t_clips:.2f} videos/s), {v_stats['flushes']} "
+        f"flushes, occupancy {v_stats['occupancy']}")
+
+    words = rng.integers(1, cfg.model.vocab_size,
+                         (SERVE_DISTINCT, d.max_words), dtype=np.int32)
+    queries = np.concatenate([words, words[rng.integers(
+        0, SERVE_DISTINCT, SERVE_QUERIES - SERVE_DISTINCT)]])
+    cache = EmbeddingLRUCache(4096)
+    tb = DynamicBatcher(engine.embed_text, engine.bucket_for,
+                        max_batch=engine.max_batch, max_delay_ms=2.0,
+                        name="text")
+
+    def ask(rows_out, i0):
+        for i in range(i0, SERVE_QUERIES, SERVE_CLIENTS):
+            key = token_key(queries[i])
+            emb = cache.get(key)
+            if emb is None:
+                emb = tb.submit(queries[i]).result(timeout=600)
+                cache.put(key, emb)
+            rows_out[i] = emb
+
+    passes = []
+    try:
+        for _ in range(2):
+            replies = [None] * SERVE_QUERIES
+            calls = dict(engine.stats()["calls"])
+            hits = cache.stats()["hits"]
+            threads = [threading.Thread(target=ask, args=(replies, c))
+                       for c in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            passes.append(dict(secs=time.perf_counter() - t0,
+                               replies=np.stack(replies),
+                               calls=engine.stats()["calls"] != calls,
+                               hits=cache.stats()["hits"] - hits))
+        t_stats = tb.stats()
+    finally:
+        tb.close()
+    direct = np.concatenate([engine.embed_text(queries[i:i + 16])
+                             for i in range(0, SERVE_QUERIES, 16)])
+    # both passes against the direct call: a caption asked twice at once
+    # may miss twice, in two buckets, and the later put is what pass 2
+    # reads back
+    batched_err = max(batched_err, *(float(
+        np.abs(p["replies"] - direct).max()) / (
+        1e-5 + 1e-4 * float(np.abs(direct).max())) for p in passes))
+    log(f"  {SERVE_QUERIES} caption queries from {SERVE_CLIENTS} threads: "
+        f"pass 1 {passes[0]['secs'] * 1e3:.2f} ms ({passes[0]['hits']} "
+        f"cache hits, {t_stats['flushes']} flushes, occupancy "
+        f"{t_stats['occupancy']}), pass 2 {passes[1]['secs'] * 1e3:.2f} ms "
+        f"({passes[1]['hits']} hits, engine calls moved: "
+        f"{passes[1]['calls']}); batched and cached replies against the "
+        f"direct call {batched_err:.3f} of the limit")
+    grown = torch.cuda.memory_reserved() - reserved
+    log(f"  device memory reserved: {reserved / 2 ** 30:.3f} GiB after the "
+        f"ladder sweep, grown by {grown / 2 ** 20:.1f} MiB over the batched "
+        f"and cached passes")
+
+    # the corpus: seeded unit rows, the clips in the middle
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    unit = torch.randn((INDEX_ROWS, clip_emb.shape[1]), generator=gen,
+                       device="cuda")
+    unit /= unit.norm(dim=1, keepdim=True)
+    corpus = unit.cpu().numpy()
+    del unit
+    mid = INDEX_ROWS // 2
+    corpus[mid:mid + SERVE_CLIPS] = clip_emb
+    q = passes[0]["replies"][:INDEX_QUERIES]
+    t0 = time.perf_counter()
+    scores = np.concatenate([q.astype(np.float64) @ corpus[i:i + 65536]
+                             .astype(np.float64).T
+                             for i in range(0, INDEX_ROWS, 65536)], axis=1)
+    plants = _plant_ties(corpus, scores, INDEX_K,
+                         range(mid, mid + SERVE_CLIPS))
+    host = _host_ranking(scores, INDEX_K)
+    t_host = time.perf_counter() - t0
+    across = sum(p[1] == INDEX_K - 1 for p in plants)
+    log(f"  host ranking (float64, {INDEX_ROWS} rows): {t_host:.2f} s; "
+        f"planted ties {plants} ({across} across the k-th place)")
+    t0 = time.perf_counter()
+    index = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                 query_buckets=engine.buckets, device="cuda")
+    t_index = time.perf_counter() - t0
+    s_dev, i_dev = index.topk(q)
+    ranking_ok = np.array_equal(i_dev, host)
+    q_s = _timed(lambda: index.topk(q), 20, warm=3)
+    q1_s = _timed(lambda: index.topk(q[:1]), 20, warm=3)
+    # the selection's share (CUDA events around the call): the matmul
+    # alone, the exact selection, a plain f32 topk (ties unordered) and a
+    # stable sort of every row
+    from milnce_tpu_torch.serving.index import exact_topk
+
+    qd = torch.from_numpy(q).cuda()
+    sc = qd @ index._corpus.T
+    cols = torch.arange(INDEX_ROWS, device="cuda")[None]
+    parts = {"matmul": lambda: qd @ index._corpus.T,
+             "exact selection": lambda: exact_topk(sc, cols, INDEX_K),
+             "f32 topk": lambda: torch.topk(sc, INDEX_K, dim=1),
+             "stable sort": lambda: torch.sort(sc, dim=1, descending=True,
+                                               stable=True)}
+    part_ms = {name: _time_ms(fn) for name, fn in parts.items()}
+    del qd, sc, cols
+    bound = INDEX_ROWS * clip_emb.shape[1] * 4 / H100_HBM_BYTES * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**ms.LAUNCHES, **sd.LAUNCHES}
+    log(f"  index: {INDEX_ROWS} x {clip_emb.shape[1]} f32 "
+        f"({INDEX_ROWS * clip_emb.shape[1] * 4 / 2 ** 30:.2f} GiB on the "
+        f"card) built in {t_index:.2f} s; top-{INDEX_K} of {INDEX_QUERIES} "
+        f"queries {q_s * 1e3:.3f} ms a batch, 1 query {q1_s * 1e3:.3f} ms "
+        f"(bound {bound:.3f} ms: the corpus read once at "
+        f"{H100_HBM_BYTES / 1e12:.2f} TB/s); CUDA events: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in part_ms.items()))
+    log(f"  top-{INDEX_K} against the host's exhaustive ranking: equal "
+        f"{ranking_ok}; recompiles (0 by construction) engine "
+        f"{engine.recompiles()} index {index.recompiles()}; peak device memory {peak / 2 ** 30:.3f} GiB; "
+        f"hand kernel launches {launches}")
+    top = rows[-1]
+    log(f"  serve-full on {card}: video {top[1] * 1e3:.3f} ms / text "
+        f"{top[2] * 1e3:.3f} ms a call at bucket {top[0]} ({top[0] / top[1]:.2f}"
+        f" videos/s, {top[0] / top[2]:.1f} texts/s); index {q_s * 1e3:.3f} ms "
+        f"a batch of {INDEX_QUERIES}; peak {peak / 2 ** 30:.3f} GiB")
+    ok = (exact and worst <= 1 and batched_err <= 1
+          and not passes[1]["calls"] and passes[1]["hits"] == SERVE_QUERIES
+          and ranking_ok and across >= 2
+          and engine.recompiles() == 0 and index.recompiles() == 0
+          and not any(launches.values()))
+    del engine, index, corpus, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("serve-full failed its checks")
+
+
 def phase_cudnn_benchmark(default_sps):
     """One more train-full run with ``torch.backends.cudnn.benchmark =
     True``, measured only (the default stays off)."""
@@ -2809,34 +3155,56 @@ SP_SHAPE, SP_GAMMA, SP_BAND = (2, 2048, 2048), 0.1, 128
 
 
 def _sp_rank(rank, world, store, out):
-    """One rank of softdtw-sp: ``softdtw_seq_parallel`` over a gloo group
-    on the one card at SP_SHAPE, without and with the band, the value and
-    grad_D of ``sum(g * value)``, timed a call (forward, backward)."""
+    """One rank of softdtw-sp at SP_SHAPE, without and with the band:
+    ``softdtw_seq_parallel`` (the full D on every rank) and
+    ``softdtw_seq_parallel_rows`` (the rank's rows alone) over a gloo
+    group on the one card, the value and grad_D of ``sum(g * value)``
+    (rows-local: the rank's gradient rows), each timed a call (forward,
+    backward), with the bytes of D and of its gradient the rank holds and
+    the rank's peak device memory through the call."""
     import torch.distributed as dist
     from datetime import timedelta
 
-    from milnce_tpu_torch.ops import softdtw_seq_parallel
+    from milnce_tpu_torch.ops import (softdtw_seq_parallel,
+                                      softdtw_seq_parallel_rows)
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=300))
+    n = SP_SHAPE[1]
+    k = -(-n // world)
     results = {}
     try:
-        for band in (0, SP_BAND):
+        for entry, band in [(e, b) for e in ("full", "rows")
+                            for b in (0, SP_BAND)]:
             D, g = _sp_inputs()
-            x = D.clone().requires_grad_()
+            if entry == "full":
+                x = D.clone().requires_grad_()
+            else:
+                x = D[:, rank * k:(rank + 1) * k].clone().requires_grad_()
+            del D
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            value = softdtw_seq_parallel(x, SP_GAMMA, dist.group.WORLD, band)
+            if entry == "full":
+                value = softdtw_seq_parallel(x, SP_GAMMA, dist.group.WORLD,
+                                             band)
+            else:
+                value = softdtw_seq_parallel_rows(x, n, SP_GAMMA,
+                                                  dist.group.WORLD, band)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             (value * g).sum().backward()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            results[band] = dict(value=value.detach().cpu(),
-                                 grad=x.grad.cpu() if rank == 0 else None,
-                                 fwd_s=t1 - t0, bwd_s=t2 - t1)
+            results[entry, band] = dict(
+                value=value.detach().cpu(),
+                grad=x.grad.cpu() if rank == 0 or entry == "rows" else None,
+                held=x.numel() * x.element_size() * 2,
+                peak=torch.cuda.max_memory_allocated(),
+                fwd_s=t1 - t0, bwd_s=t2 - t1)
+            del x, value
     finally:
         dist.destroy_process_group()
     torch.save(results, out)
@@ -2851,10 +3219,13 @@ def _sp_inputs():
 
 def phase_softdtw_sp():
     """Two gloo ranks on the one card at (2, 2048, 2048), gamma 0.1,
-    without and with a band of 128: the value and grad_D equal
-    ``softdtw_fwd`` / ``softdtw_bwd`` on one device within the
-    kernel-versus-plain limit; the time a call (a plain path: a few
-    PyTorch ops and one exchange through host memory a diagonal)."""
+    without and with a band of 128, through the full-D entry and the
+    rows-local one: the value and grad_D (rows-local: the ranks' gradient
+    rows put together) equal ``softdtw_fwd`` / ``softdtw_bwd`` on one
+    device within the kernel-versus-plain limit; the time a call (a
+    plain path: a few PyTorch ops and one exchange through host memory a
+    diagonal); the bytes of D and grad_D a rank holds, 1/W of the full-D
+    entry's in the rows-local one, and each rank's peak device memory."""
     from milnce_tpu_torch.ops.softdtw_cuda import softdtw_bwd, softdtw_fwd
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2867,20 +3238,28 @@ def phase_softdtw_sp():
         D, g = _sp_inputs()
         value, R = softdtw_fwd(D, SP_GAMMA, band)
         grad = softdtw_bwd(R, g, SP_GAMMA, band).cpu()
-        shares = []
-        for want, got in ((value.cpu(), ranks[0][band]["value"]),
-                          (value.cpu(), ranks[1][band]["value"]),
-                          (grad, ranks[0][band]["grad"])):
-            limit = TOL_ATOL + TOL_RTOL * float(want.abs().max())
-            shares.append(float((got - want).abs().max()) / limit)
-        worst = max(worst, *shares)
-        r = ranks[0][band]
-        log(f"  {SP_SHAPE} gamma {SP_GAMMA} band {band}: value "
-            f"{shares[0]:.3f} / {shares[1]:.3f} (ranks 0/1), grad_D "
-            f"{shares[2]:.3f} of the limit; forward {r['fwd_s']:.3f} s, "
-            f"backward {r['bwd_s']:.3f} s a call (rank 1: "
-            f"{ranks[1][band]['fwd_s']:.3f} / {ranks[1][band]['bwd_s']:.3f})")
-    if worst > 1:
+        del D, R
+        for entry in ("full", "rows"):
+            r0, r1 = ranks[0][entry, band], ranks[1][entry, band]
+            got = (r0["grad"] if entry == "full"
+                   else torch.cat([r0["grad"], r1["grad"]], dim=1))
+            shares = []
+            for want, have in ((value.cpu(), r0["value"]),
+                               (value.cpu(), r1["value"]), (grad, got)):
+                limit = TOL_ATOL + TOL_RTOL * float(want.abs().max())
+                shares.append(float((have - want).abs().max()) / limit)
+            worst = max(worst, *shares)
+            log(f"  {entry:4s} {SP_SHAPE} gamma {SP_GAMMA} band {band}: "
+                f"value {shares[0]:.3f} / {shares[1]:.3f} (ranks 0/1), "
+                f"grad_D {shares[2]:.3f} of the limit; forward "
+                f"{r0['fwd_s']:.3f} s, backward {r0['bwd_s']:.3f} s a call "
+                f"(rank 1: {r1['fwd_s']:.3f} / {r1['bwd_s']:.3f}); D and its "
+                f"gradient held a rank {r0['held'] / 2 ** 20:.2f} MiB, peak "
+                f"{r0['peak'] / 2 ** 20:.1f} / {r1['peak'] / 2 ** 20:.1f} MiB")
+    held = {e: ranks[0][e, 0]["held"] for e in ("full", "rows")}
+    log(f"  rows-local holds {held['rows'] / held['full']:.4f} of the full-D "
+        f"entry's bytes of D and grad_D a rank (1/W = 0.5000)")
+    if worst > 1 or held["rows"] * 2 != held["full"]:
         raise AssertionError("softdtw-sp differs from the kernels")
 
 
@@ -3032,6 +3411,9 @@ def main() -> int:
         phase_drain(whole, f"{work}/drain")
         log("== eval (msrvtt, full width, on the resumed checkpoint)")
         phase_eval(ckpt_dir, work)
+        log("== serve-full (export, engine, batchers, cache and a "
+            f"{INDEX_ROWS}-row index on the resumed checkpoint)")
+        phase_serve_full(ckpt_dir, work, card)
         # after ddp-1, whose steps/s is held to phase 7's: run before it,
         # these two left ddp-1's step with other convolution kernels and
         # an idle share of 0.063 against phase 7's 0.022 (H100)

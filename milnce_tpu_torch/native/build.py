@@ -4,8 +4,9 @@
 ``milnce_tpu_torch/csrc/milnce_native.cpp`` (the threaded pipe pump of
 the native decode path and the soft-DTW CPU recurrences) is compiled by
 ``g++ -O3 -shared -fPIC -pthread -std=c++17`` at first use into
-``build/torch_kernels/libmilnce_native-<hash>.so`` of the checkout,
-beside the CUDA libraries (``ops/cuda_build.py``); the name carries a
+``libmilnce_native-<hash>.so`` beside the CUDA libraries
+(``ops/cuda_build.py::BUILD_DIR``: ``build/torch_kernels/`` of a
+checkout, else the per-user cache); the name carries a
 hash of the source and the flags, so an edited source is never served
 from a stale build.  Nothing here runs when the module is imported.
 

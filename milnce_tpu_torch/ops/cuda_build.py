@@ -1,8 +1,12 @@
 """Build and load the port's CUDA kernels (``milnce_tpu_torch/csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface under ``build/torch_kernels/`` of the checkout,
-at first use, and loaded with ``ctypes``.  The library's name carries a
+with a plain C interface under :data:`BUILD_DIR`, at first use, and
+loaded with ``ctypes``: ``build/torch_kernels/`` of the checkout (ignored
+by git) when the package runs from a checkout of the repository, else
+the per-user cache ``$XDG_CACHE_HOME/milnce_tpu_torch`` (by default
+``~/.cache/milnce_tpu_torch``), since an installed package's directory
+may not be writable.  The library's name carries a
 hash of its source, so an edited kernel is never served from a stale
 build.  Nothing here runs when the module is imported.
 """
@@ -18,7 +22,19 @@ import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def _build_dir() -> Path:
+    """``build/torch_kernels`` of the checkout that holds the package (the
+    directory above it has ``pyproject.toml``), else the per-user cache."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "milnce_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SM90_SMEM_OPTIN = 232448            # shared bytes a block may opt in to, H100

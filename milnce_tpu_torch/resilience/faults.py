@@ -37,11 +37,18 @@ Training sites, fired where the JAX package fires them:
                        ``step`` span (``train/loop.py``; default x=0.05),
                        a slow rank for the straggler policy.
 
-The serving (``serve.dispatch_raise``, ``serve.dispatch_hang``,
-``serve.replica_dead``) and live-index (``index.swap_raise``,
-``index.ingest_hang``) sites stay in the catalogue, so a spec written
-for the JAX package parses here, but fire nowhere until their modules
-are ported.
+Serving sites, fired where the JAX engine fires them
+(``serving/engine.py``, before each dispatch takes the lock):
+
+- ``serve.dispatch_raise`` host; the dispatch raises
+                       :class:`InjectedFault`.
+- ``serve.dispatch_hang``  host; the dispatch sleeps ``x`` seconds.
+- ``serve.replica_dead``   host; the engine kills itself and raises
+                       ``ReplicaDead`` (every later dispatch too).
+
+The live-index sites (``index.swap_raise``, ``index.ingest_hang``) stay
+in the catalogue, so a spec written for the JAX package parses here,
+but fire nowhere until the live index is ported.
 
 Spec grammar (config ``train.faults`` or env ``MILNCE_FAULTS``)::
 

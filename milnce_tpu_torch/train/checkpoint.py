@@ -150,9 +150,15 @@ class CheckpointManager:
                 shutil.rmtree(self._path(old))
         return True
 
-    def restore(self, epoch: int, map_location="cpu") -> dict:
+    def restore(self, epoch: int, map_location="cpu",
+                mmap: bool = False) -> dict:
+        """The state saved under label ``epoch``.  ``mmap=True`` maps the
+        file instead of reading it: a tensor's bytes are read only when
+        it is used, so a reader of the model alone (eval, export) never
+        reads the optimizer's moments."""
         return torch.load(os.path.join(self._path(epoch), STATE_FILE),
-                          map_location=map_location, weights_only=True)
+                          map_location=map_location, weights_only=True,
+                          mmap=mmap)
 
     def restore_latest(self, map_location="cpu") -> Tuple[int, Optional[dict]]:
         """(label, state) of the newest checkpoint; (0, None) when nothing
@@ -162,14 +168,23 @@ class CheckpointManager:
             return 0, None
         return latest, self.restore(latest, map_location)
 
-    def restore_raw(self, epoch: Optional[int] = None) -> Tuple[int, dict]:
-        """(label, model state_dict) on the CPU: the weights alone, for
-        eval and export."""
+    def restore_model(self, epoch: Optional[int] = None
+                      ) -> Tuple[int, int, dict]:
+        """(label, step, model state_dict) on the CPU, label ``epoch`` or
+        the newest: the file is memory-mapped, so only the model's
+        tensors are read, never the optimizer's moments."""
         label = epoch if epoch is not None else self.latest_epoch()
         if label is None:
             raise FileNotFoundError(
                 f"no checkpoint saved in {self._directory}")
-        return label, self.restore(label)["model"]
+        state = self.restore(label, mmap=True)
+        return label, int(state.get("step", label)), state["model"]
+
+    def restore_raw(self, epoch: Optional[int] = None) -> Tuple[int, dict]:
+        """(label, model state_dict) on the CPU: the weights alone, for
+        eval and export."""
+        label, _, model = self.restore_model(epoch)
+        return label, model
 
 
 def train_state(model, optimizer, lr_scheduler, step: int,

@@ -52,7 +52,12 @@ def test_port_package_exists():
                      "native/__init__.py", "native/build.py",
                      "native/reader.py", "native/softdtw_cpu.py",
                      "native/bench_reader.py", "parallel/mesh.py",
-                     "parallel/sharding_map.py", "ops/softdtw_sp.py"):
+                     "parallel/sharding_map.py", "ops/softdtw_sp.py",
+                     "analysis/__init__.py", "analysis/lockrt.py",
+                     "serving/__init__.py", "serving/export.py",
+                     "serving/cache.py", "serving/batcher.py",
+                     "serving/engine.py", "serving/index.py",
+                     "utils/assets.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()
@@ -132,3 +137,71 @@ def test_native_library_builds_from_the_ports_own_source():
     assert includes and all("<" in line for line in includes)
     if build.native_available():
         assert build.load_native_library()._name == str(build.library_path())
+
+
+def _package_data_patterns():
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as fh:
+        project = tomllib.load(fh)
+    return project["tool"]["setuptools"]["package-data"]["milnce_tpu_torch"]
+
+
+def test_package_data_ships_every_native_source():
+    """Every file under ``milnce_tpu_torch/csrc/`` matches a package-data
+    pattern of ``pyproject.toml``, so that an installed port can build
+    each of its libraries (the CUDA kernels and the host C++ library)."""
+    import fnmatch
+
+    patterns = _package_data_patterns()
+    files = sorted(p.relative_to(PORT).as_posix()
+                   for p in (PORT / "csrc").rglob("*") if p.is_file())
+    assert files
+    missing = [f for f in files
+               if not any(fnmatch.fnmatch(f, pat) for pat in patterns)]
+    assert not missing, f"not in the package data {patterns}: {missing}"
+
+
+def test_console_scripts_of_the_port():
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as fh:
+        scripts = tomllib.load(fh)["project"]["scripts"]
+    for name in ("train", "eval", "export", "assets"):
+        target = scripts[f"milnce-{name}-torch"]
+        assert target.startswith("milnce_tpu_torch.")
+        module, _, func = target.partition(":")
+        assert (ROOT / (module.replace(".", "/") + ".py")).is_file()
+        assert func == "main"
+
+
+def test_build_dir_outside_a_checkout_is_the_user_cache(tmp_path):
+    """A copy of the package outside a checkout (as installed into
+    ``site-packages``) builds into ``$XDG_CACHE_HOME/milnce_tpu_torch``,
+    or ``~/.cache/milnce_tpu_torch`` without it, never under itself; in
+    the checkout it keeps ``build/torch_kernels``."""
+    import shutil
+
+    from milnce_tpu_torch.ops import cuda_build
+
+    assert cuda_build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+    site = tmp_path / "site-packages"
+    shutil.copytree(PORT, site / "milnce_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = ("from milnce_tpu_torch.ops import cuda_build; "
+            "from milnce_tpu_torch.native import build; "
+            "print(cuda_build.BUILD_DIR); print(build.library_path().parent)")
+    for env_cache, want in ((str(tmp_path / "xdg"),
+                             tmp_path / "xdg" / "milnce_tpu_torch"),
+                            (None, tmp_path / "home" / ".cache"
+                             / "milnce_tpu_torch")):
+        env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path / "home"),
+               "PYTHONPATH": str(site)}
+        if env_cache is not None:
+            env["XDG_CACHE_HOME"] = env_cache
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.split() == [str(want), str(want)]
+        assert not str(want).startswith(str(site))

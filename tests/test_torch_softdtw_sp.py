@@ -7,8 +7,12 @@ same number of virtual devices, and against the port's plain recurrence
 At W = 2, 3 and 4 ranks (one spawn each): square and rectangular costs,
 rows that W does not divide, fewer rows than ranks, a Sakoe-Chiba band;
 the values and the gradient of ``sum(g * value)`` (a random cotangent),
-rtol 1e-5, atol 1e-5, on every rank.  A band narrower than |N - M| is
-refused before any collective.
+rtol 1e-5, atol 1e-5, on every rank.  The rows-local entry
+(``softdtw_seq_parallel_rows``, each rank passing only its own rows) in
+the same spawns: the values, and each rank's gradient rows against the
+matching row block of JAX's gradient; no tensor it saves for the
+backward has N rows.  A band narrower than |N - M| is refused before any
+collective.
 """
 
 import numpy as np
@@ -21,7 +25,8 @@ from jax.sharding import Mesh
 
 import torch_dist_worker as worker
 from milnce_tpu.ops.softdtw_sp import softdtw_seq_parallel as jax_sp
-from milnce_tpu_torch.ops import softdtw_seq_parallel
+from milnce_tpu_torch.ops import (softdtw_seq_parallel,
+                                  softdtw_seq_parallel_rows)
 from milnce_tpu_torch.ops.softdtw import softdtw_scan
 
 torch.set_num_threads(1)         # six test workers share the cores
@@ -88,10 +93,40 @@ def test_matches_jax_and_the_plain_recurrence(runs, label, world):
                                        err_msg=f"rank {r}: {what}")
 
 
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("label", list(CASES))
+def test_rows_local_entry_matches_jax_row_blocks(runs, label, world):
+    inputs, ranks = runs
+    D, gamma, band, g = inputs[label]
+    b, n, m = D.shape
+    k = -(-n // world)
+    jax_value, jax_grad = _jax(D, gamma, band, g, world)
+    for r, result in enumerate(ranks[world]):
+        value, grad_rows, saved = result[("rows", label)]
+        assert value.dtype == np.float32 and grad_rows.shape == (b, k, m)
+        np.testing.assert_allclose(value, jax_value, RTOL, ATOL,
+                                   err_msg=f"rank {r}: value vs JAX")
+        block = jax_grad[:, r * k:(r + 1) * k]
+        np.testing.assert_allclose(grad_rows[:, :block.shape[1]], block,
+                                   RTOL, ATOL,
+                                   err_msg=f"rank {r}: grad rows vs JAX")
+        assert not grad_rows[:, block.shape[1]:].any(), "padding's grad"
+        # saved for the backward: the rank's table on the diagonals its
+        # rows reach (L, B, k), the (N + M + 1, B) halos and the (k,)
+        # row numbers; nothing of N rows
+        assert saved, "nothing saved"
+        for shape in saved:
+            assert (shape == (k,) or shape == (n + m + 1, b)
+                    or (len(shape) == 3 and shape[1:] == (b, k)
+                        and shape[0] <= k + m + 1)), (r, shape, saved)
+
+
 def test_narrow_band_is_refused():
     D = torch.ones((2, 10, 4))
     with pytest.raises(ValueError, match="bandwidth"):
         softdtw_seq_parallel(D, 1.0, None, bandwidth=3)
+    with pytest.raises(ValueError, match="bandwidth"):
+        softdtw_seq_parallel_rows(D[:, :5], 10, 1.0, None, bandwidth=3)
     with pytest.raises(ValueError, match="bandwidth"):
         jax_sp(jnp.ones((2, 10, 4)), 1.0,
                Mesh(np.array(jax.devices()[:2]), ("data",)), bandwidth=3)

@@ -424,8 +424,13 @@ def train_runs_2d(rank, world, group, runs):
 def softdtw_sp_cases(rank, world, group, cases):
     """``softdtw_seq_parallel`` over the group for each ``{label: (D,
     gamma, bandwidth, g)}``: the values and the gradient of ``sum(g *
-    value)`` with respect to D, on this rank."""
-    from milnce_tpu_torch.ops import softdtw_seq_parallel
+    value)`` with respect to D, on this rank; and under ``("rows",
+    label)`` the same through ``softdtw_seq_parallel_rows`` on this
+    rank's rows alone (k = ceil(N / W), the last rank's padding NaN,
+    which must not reach the values): the values, the gradient of the
+    rank's rows and the shape of every tensor saved for the backward."""
+    from milnce_tpu_torch.ops import (softdtw_seq_parallel,
+                                      softdtw_seq_parallel_rows)
 
     out = {}
     for label, (D, gamma, band, g) in cases.items():
@@ -433,4 +438,37 @@ def softdtw_sp_cases(rank, world, group, cases):
         value = softdtw_seq_parallel(x, gamma, group, band)
         (value * torch.from_numpy(g)).sum().backward()
         out[label] = (value.detach().numpy(), x.grad.numpy())
+
+        b, n, m = D.shape
+        k = -(-n // world)
+        own = np.full((b, k, m), np.nan, np.float32)
+        block = D[:, rank * k:(rank + 1) * k]
+        own[:, :block.shape[1]] = block
+        rows = torch.from_numpy(own).requires_grad_()
+        saved = []
+
+        def pack(t):
+            saved.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            value = softdtw_seq_parallel_rows(rows, n, gamma, group, band)
+        (value * torch.from_numpy(g)).sum().backward()
+        out[("rows", label)] = (value.detach().numpy(), rows.grad.numpy(),
+                                saved)
     return out
+
+
+# ------------------------------------------------------------ sharded index
+def index_topk_cases(rank, world, group, emb, queries, k, buckets):
+    """``serving/index.py::DeviceRetrievalIndex`` over the group (each
+    rank keeping its row shard) on the full corpus ``emb``: the top-k
+    scores and rows of ``queries``, and the rank's valid rows."""
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+
+    index = DeviceRetrievalIndex(emb, k=k, query_buckets=buckets,
+                                 device="cpu", group=group)
+    scores, idx = index.topk(queries)
+    return dict(scores=scores, idx=idx, valid=int(index._valid[0]),
+                rows=int(index._corpus.shape[0]),
+                recompiles=index.recompiles())

@@ -143,6 +143,31 @@ Phases, each fatal on failure:
                the top-10 of 16 queries equal a float64 exhaustive ranking
                on the host, ties by the lower row; ms a query batch beside
                its bound; recompiles 0; peak device memory.
+   serve-live -- serving's second half on serve-full's export:
+               ``milnce-serve-torch`` as a subprocess on 127.0.0.1 with a
+               live index booted from a snapshot of 1,000,000 seeded unit
+               rows plus serve-full's clips (ties planted across the 10th
+               place; rung 1,048,576), continuous batching, two tiers, a
+               small max_inflight: the top-10 of 16 token rows over HTTP
+               equal a float64 host ranking at boot, after 1,000
+               precomputed rows and 2 clips (through the video tower) are
+               ingested within the rung, and after 48,000 one-hot rows
+               carry it across to 2,097,152 (the generation advancing); a
+               capture armed over HTTP holds the engine's kernels; a burst
+               past max_inflight gets 429 with Retry-After; /healthz and
+               /metrics answer throughout; after SIGTERM (flush, snapshot)
+               a reboot answers bit for bit.  Then ``quant/`` at full
+               width: ``calibrate_and_quantize`` with NUMERICS.md, the v2
+               export, its engine against an f32 engine over the
+               host-dequantized weights within 1e-5 + 1e-4 max|e| at
+               buckets 1 and 16; ``distill_text_student`` at hidden 512;
+               and a pool of two f32 replicas and one int8 edge replica on
+               the card: ``serve.replica_dead`` mid-traffic, the killed
+               request requeued, rankings identical; class pins strict.
+               Measured: ms a query batch idle and while swaps run,
+               seconds a swap, reserved memory across the crossing,
+               int8/f32 ms a call, resident bytes, recall@10 of the int8
+               and student towers against f32, the pool's counts.
    remat    -- train-full with ``model.remat``: losses within rel 2e-4
                of phase 7's, ``num_batches_tracked`` equal; peak memory
                and steps/s beside phase 7's.
@@ -1991,6 +2016,621 @@ def phase_serve_full(ckpt_dir, workdir, card):
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("serve-full failed its checks")
+    return out, clip_emb
+
+
+SERVE_LIVE_ROWS = 1_000_000   # seeded unit rows in the live index's snapshot
+SERVE_LIVE_INGEST = 1000      # precomputed rows ingested within the rung
+SERVE_LIVE_CLIPS = 2          # clips ingested through the video tower
+SERVE_LIVE_CROSS = 48_000     # one-hot rows that carry the corpus past 2**20
+SERVE_LIVE_CHUNK = 12_000     # rows a request while crossing
+SERVE_LIVE_INFLIGHT = 24      # --serve.max_inflight (a request is 16 rows)
+POOL_REQUESTS = 48            # class-pinned query batches through the pool
+
+
+def _http(base, route, payload=None, timeout=600):
+    """(code, JSON body, Retry-After header) of one request; ``payload``
+    a JSON-able object or its encoded bytes."""
+    import urllib.error
+    import urllib.request
+
+    data = (payload if payload is None or isinstance(payload, bytes)
+            else json.dumps(payload).encode())
+    req = urllib.request.Request(base + route, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body, code, headers = r.read(), r.status, r.headers
+    except urllib.error.HTTPError as e:
+        body, code, headers = e.read(), e.code, e.headers
+    try:
+        body = json.loads(body)
+    except ValueError:
+        body = body.decode()
+    return code, body, headers.get("Retry-After")
+
+
+def _boot_service(args, log_path, timeout=600):
+    """Start ``milnce-serve-torch`` (``python -m``) from this checkout and
+    wait for its listening line -> (process, base URL, boot seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "milnce_tpu_torch.serving.service"] + args,
+        stdout=open(log_path, "w"), stderr=subprocess.STDOUT, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    while time.perf_counter() - t0 < timeout:
+        text = Path(log_path).read_text()
+        m = re.search(r"listening on (http://\S+) ", text)
+        if m:
+            return proc, m.group(1), time.perf_counter() - t0
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    proc.kill()
+    raise AssertionError(f"milnce-serve-torch did not boot:\n"
+                         f"{Path(log_path).read_text()[-4000:]}")
+
+
+def _stop_service(proc, timeout=300):
+    """SIGTERM (the graceful path: flush, snapshot) -> seconds to exit."""
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    if proc.returncode != 0:
+        raise AssertionError(f"milnce-serve-torch exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def _metric(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return float("nan")
+
+
+def _host_scores(q, corpus):
+    return np.concatenate([q.astype(np.float64) @ corpus[i:i + 65536]
+                           .astype(np.float64).T
+                           for i in range(0, len(corpus), 65536)], axis=1)
+
+
+def _ranked_as_host(results, q, corpus, k):
+    got = np.asarray([r["indices"] for r in results])
+    return bool(np.array_equal(got, _host_ranking(_host_scores(q, corpus),
+                                                  k)))
+
+
+def _unit_rows(n, dim, seed, device="cuda"):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    unit = torch.randn((n, dim), generator=gen, device=device)
+    unit /= unit.norm(dim=1, keepdim=True)
+    return unit.cpu().numpy()
+
+
+def _serve_live_service(export_dir, clip_emb, engine, workdir, rng, tokens,
+                        clips, preset="full", device="cuda"):
+    """The ``milnce-serve-torch`` half of serve-live -> its measurements
+    and checks."""
+    import threading
+
+    from milnce_tpu_torch.serving.export import export_corpus_snapshot
+    from milnce_tpu_torch.serving.live_index import shard_rung
+
+    dim = clip_emb.shape[1]
+    snap = f"{workdir}/live-snap"
+    corpus = _unit_rows(SERVE_LIVE_ROWS, dim, 18, device)
+    mid = SERVE_LIVE_ROWS // 2
+    corpus = np.concatenate([corpus[:mid], clip_emb, corpus[mid:]])
+    # ties planted for this process's query embeddings; the service's
+    # are read back below and the host ranks with those
+    q = engine.embed_text(tokens)
+    plants = _plant_ties(corpus, _host_scores(q, corpus), INDEX_K,
+                         range(mid, mid + len(clip_emb)))
+    export_corpus_snapshot(snap, corpus, generation=0, k=INDEX_K,
+                           source="chip_smoke")
+    args = ["--preset", preset, "--parallel.platform", device,
+            "--serve.export_dir", export_dir,
+            "--serve.port", "0", "--serve.max_batch", str(SERVE_MAX_BATCH),
+            "--serve.min_bucket", "1", "--serve.topk", str(INDEX_K),
+            "--serve.live_index", "true",
+            "--serve.index_snapshot_dir", snap,
+            "--serve.continuous_batching", "true",
+            "--serve.tiers", "interactive:1.0,batch:0.5",
+            "--serve.max_inflight", str(SERVE_LIVE_INFLIGHT),
+            "--serve.capture_dir", f"{workdir}/live-captures",
+            "--serve.capture_ms", "1500"]
+    m, checks, failures = {}, {}, []
+    m["across"] = sum(p[1] == INDEX_K - 1 for p in plants)
+    checks["ties planted across the k-th place"] = m["across"] >= 2
+    boot_rung = shard_rung(len(corpus), 1, INDEX_K)
+    proc, base = None, None
+    stop = threading.Event()
+
+    def watch():
+        """/healthz and /metrics answer throughout."""
+        while not stop.wait(0.25):
+            for route in ("/healthz", "/metrics"):
+                try:
+                    code, _, _ = _http(base, route, timeout=30)
+                except Exception as exc:    # noqa: BLE001 - recorded
+                    failures.append(f"{route}: {exc}")
+                    continue
+                if code != 200:
+                    failures.append(f"{route}: {code}")
+
+    try:
+        proc, base, m["boot_s"] = _boot_service(args,
+                                                f"{workdir}/serve-1.log")
+        _, body, _ = _http(base, "/v1/embed_text",
+                           {"token_ids": tokens.tolist()})
+        served_q = np.asarray(body["embeddings"], np.float32)
+        m["embeddings_equal"] = bool(np.array_equal(served_q, q))
+        q = served_q
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        code, first, _ = _http(base, "/v1/query", {"token_ids":
+                                                   tokens.tolist()})
+        m["query_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        checks["boot ranking"] = (code == 200 and _ranked_as_host(
+            first["results"], q, corpus, INDEX_K))
+        gens = [first["index_generation"]]
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            _http(base, "/v1/query", {"token_ids": tokens.tolist()})
+            lat.append(time.perf_counter() - t0)
+        m["query_idle_ms"] = statistics.median(lat) * 1e3
+        _, metrics0, _ = _http(base, "/metrics")
+        m["reserved_boot"] = _metric(
+            metrics0, "milnce_serve_device_memory_reserved_bytes")
+
+        # the capture: armed over HTTP, queries meanwhile (the batcher's
+        # thread launches the engine's kernels), its trace read back
+        code, armed, _ = _http(base, "/obs/capture", {"reason": "live"})
+        for _ in range(5):
+            _http(base, "/v1/query", {"token_ids": rng.integers(
+                1, 1000, (8, tokens.shape[1])).tolist(), "tier": "batch"})
+        trace = Path(armed.get("trace_dir", "-"), "trace.json")
+        t0 = time.perf_counter()
+        while not trace.exists() and time.perf_counter() - t0 < 120:
+            time.sleep(0.5)
+        time.sleep(1.0)                 # the export's last write
+        kernels = 0
+        if trace.exists():
+            events = json.loads(trace.read_text()).get("traceEvents", [])
+            kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        m["capture_kernels"] = kernels
+        checks["capture"] = bool(armed.get("armed")) and (
+            kernels > 0 or device == "cpu")
+
+        # within the rung: precomputed rows, then clips through the tower
+        grow = _unit_rows(SERVE_LIVE_INGEST, dim, 19, device)
+        t0 = time.perf_counter()
+        code, added, _ = _http(base, "/v1/index/add", {
+            "embeddings": grow.tolist(), "wait": True})
+        m["swap_in_rung_s"] = time.perf_counter() - t0
+        corpus = np.concatenate([corpus, grow])
+        clip_rows = engine.embed_video(clips)
+        code2, added2, _ = _http(base, "/v1/index/add", {
+            "clips": clips.tolist(), "wait": True})
+        corpus = np.concatenate([corpus, clip_rows])
+        code, after, _ = _http(base, "/v1/query", {"token_ids":
+                                                   tokens.tolist()})
+        gens.append(after["index_generation"])
+        checks["in-rung ranking"] = (
+            code == code2 == 200 and added["live"] and added2["live"]
+            and added2["size"] == len(corpus)
+            and _ranked_as_host(after["results"], q, corpus, INDEX_K))
+
+        # across the rung, queries running beside the swap
+        cross = np.zeros((SERVE_LIVE_CROSS, dim), np.int8)
+        cross[np.arange(SERVE_LIVE_CROSS),
+              rng.integers(0, dim, SERVE_LIVE_CROSS)] = 1
+        cross *= rng.choice(np.array([-1, 1], np.int8),
+                            (SERVE_LIVE_CROSS, 1))
+        # encoded before the querier starts: this process's encoding would
+        # otherwise hold the interpreter against its own querier thread
+        bodies = [json.dumps({
+            "embeddings": cross[lo:lo + SERVE_LIVE_CHUNK].tolist(),
+            "wait": lo + SERVE_LIVE_CHUNK >= SERVE_LIVE_CROSS}).encode()
+            for lo in range(0, SERVE_LIVE_CROSS, SERVE_LIVE_CHUNK)]
+        busy, swapping = [], threading.Event()
+
+        def query_while_swapping():
+            while swapping.is_set():
+                t0 = time.perf_counter()
+                _http(base, "/v1/query", {"token_ids": tokens.tolist()})
+                busy.append(time.perf_counter() - t0)
+
+        swapping.set()
+        querier = threading.Thread(target=query_while_swapping, daemon=True)
+        querier.start()
+        t0 = time.perf_counter()
+        for body in bodies:
+            code, added, _ = _http(base, "/v1/index/add", body)
+        m["cross_s"] = time.perf_counter() - t0
+        swapping.clear()
+        querier.join(600)
+        corpus = np.concatenate([corpus, cross.astype(np.float32)])
+        m["query_busy_ms"] = (statistics.median(busy) * 1e3 if busy
+                              else float("nan"))
+        m["query_busy_max_ms"] = max(busy, default=float("nan")) * 1e3
+        m["busy_queries"] = len(busy)
+        code, crossed, _ = _http(base, "/v1/query", {"token_ids":
+                                                     tokens.tolist()})
+        gens.append(crossed["index_generation"])
+        _, health, _ = _http(base, "/healthz")
+        _, metrics1, _ = _http(base, "/metrics")
+        _, events, _ = _http(base, "/obs/events?n=2000")
+        builds = [(e.get("rows"), e.get("dur_ms"), e.get("host_ms"),
+                   e.get("upload_ms"))
+                  for e in events["events"] if e.get("name") == "index.build"]
+        m["builds"] = builds
+        m["reserved_cross"] = _metric(
+            metrics1, "milnce_serve_device_memory_reserved_bytes")
+        m["max_reserved"] = _metric(
+            metrics1, "milnce_serve_device_memory_max_reserved_bytes")
+        idx = health["index"]
+        m["index"] = {k: idx[k] for k in ("size", "generation", "swaps",
+                                          "swap_failures", "shard_rows",
+                                          "recompiles")}
+        checks["across ranking"] = (
+            code == 200 and added["live"] and idx["size"] == len(corpus)
+            and idx["shard_rows"] == shard_rung(len(corpus), 1, INDEX_K)
+            > boot_rung and idx["recompiles"] == 0
+            and _ranked_as_host(crossed["results"], q, corpus, INDEX_K))
+        checks["generations advance"] = gens == sorted(set(gens)) \
+            and len(gens) == 3
+
+        # a burst past max_inflight: 429 with Retry-After, nothing else
+        replies = []
+
+        many = np.concatenate([tokens] * 4)
+
+        def burst(n_rows):
+            replies.append(_http(base, "/v1/query", {
+                "token_ids": many[:n_rows].tolist()}))
+
+        threads = [threading.Thread(target=burst, args=(n,))
+                   for n in [SERVE_LIVE_INFLIGHT + 1] + [12] * 8]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        shed = [r for r in replies if r[0] == 429]
+        m["burst"] = (len(shed), len(replies))
+        checks["burst sheds"] = (
+            len(replies) == len(threads) and len(shed) >= 1
+            and all(r[2] is not None and r[1]["kind"] == "shed"
+                    for r in shed)
+            and all(r[0] == 200 for r in replies if r[0] != 429))
+        stop.set()
+        watcher.join(30)
+        checks["healthz and metrics throughout"] = not failures
+        m["watch_failures"] = failures[:3]
+        m["stop_s"] = _stop_service(proc)
+        proc = None
+        proc, base, m["reboot_s"] = _boot_service(args,
+                                                  f"{workdir}/serve-3.log")
+        code, again, _ = _http(base, "/v1/query", {"token_ids":
+                                                   tokens.tolist()})
+        checks["reboot bit-exact"] = (code == 200 and again == crossed)
+        m["stop2_s"] = _stop_service(proc)
+        proc = None
+    finally:
+        stop.set()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    return m, checks
+
+
+def _pool_phase(export_dir, v2_dir, index, tokens, device="cuda:0"):
+    """Two f32 replicas and one int8 edge replica on the one card."""
+    import threading
+
+    from milnce_tpu_torch.resilience import faults
+    from milnce_tpu_torch.serving.pool import ReplicaPool
+
+    pool = ReplicaPool.from_export(
+        export_dir, 2, devices=[device] * 3, max_batch=SERVE_MAX_BATCH,
+        min_bucket=1, edge_export_dir=v2_dir, edge_replicas=1,
+        probe_interval_s=0.2, max_requeues=2, hedge_quantile=0.95,
+        hedge_min_ms=5.0)
+    checks, m = {}, {}
+    try:
+        before = index.topk(pool.embed_text(tokens, cls="f32"))[1]
+        errors, lock = [], threading.Lock()
+
+        def client(n):
+            for _ in range(n):
+                try:
+                    emb = pool.embed_text(tokens, cls="f32")
+                    same = np.array_equal(index.topk(emb)[1], before)
+                except Exception as exc:    # noqa: BLE001 - counted
+                    same = f"{type(exc).__name__}: {exc}"
+                with lock:
+                    if same is not True:
+                        errors.append(same)
+
+        with faults.armed("serve.replica_dead@20"):
+            threads = [threading.Thread(target=client,
+                                        args=(POOL_REQUESTS // 4,))
+                       for _ in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        after = index.topk(pool.embed_text(tokens, cls="f32"))[1]
+        stats = pool.pool_stats()
+        dead = [r for r in stats["replicas"] if r["dead"]]
+        checks["replica_dead requeued, rankings identical"] = (
+            not errors and len(dead) == 1 and dead[0]["class"] == "f32"
+            and stats["requeued"] >= 1 and np.array_equal(after, before))
+        calls = {r.rid: dict(r.engine.stats()["calls"])
+                 for r in pool.replicas}
+        for _ in range(4):
+            pool.embed_text(tokens, cls="edge")
+        moved = {r.rid: r.engine.stats()["calls"] != calls[r.rid]
+                 for r in pool.replicas}
+        checks["class pins strict"] = all(
+            moved[r.rid] == (r.cls == "edge") for r in pool.replicas)
+        m.update(errors=errors[:3], counts=pool.counts(),
+                 states=[(r["id"], r["class"], r["state"], r["dispatches"])
+                         for r in stats["replicas"]])
+    finally:
+        pool.close()
+    return m, checks
+
+
+def _swap_overlap(dim, q, device="cuda"):
+    """In process, with no HTTP and no JSON: ms a top-k batch of ``q``
+    on a live index of SERVE_LIVE_ROWS unit rows, run in a loop on a
+    thread of its own (a) beside nothing, (b) beside a pageable copy of
+    the same rows on a side stream, the upload as it was before the
+    pinned staging, and (c) beside a swap of SERVE_LIVE_INGEST rows within
+    the rung (host concatenate, pinned staged upload, warm) -> ({case:
+    (median ms, max ms, batches, s of the work)}, the swap's (host ms,
+    upload ms, build ms), checks)."""
+    import threading
+
+    from milnce_tpu_torch.obs.spans import SpanRecorder
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+
+    rows = _unit_rows(SERVE_LIVE_ROWS, dim, 21, device)
+    rec = SpanRecorder()
+    index = LiveRetrievalIndex(rows, k=INDEX_K, query_buckets=(len(q),),
+                               device=device, recorder=rec)
+
+    def beside(work):
+        lat, stop = [], threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                index.topk(q)
+                lat.append(time.perf_counter() - t0)
+
+        th = threading.Thread(target=loop, daemon=True)
+        th.start()
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        work()
+        took = time.perf_counter() - t0
+        stop.set()
+        th.join(60)
+        return (statistics.median(lat) * 1e3, max(lat) * 1e3, len(lat),
+                took)
+
+    def pageable():
+        side = torch.cuda.Stream(device)
+        with torch.cuda.stream(side):
+            up = torch.from_numpy(rows).to(device, non_blocking=True)
+        side.synchronize()
+        del up
+
+    grow = _unit_rows(SERVE_LIVE_INGEST, dim, 22, device)
+
+    def swap():
+        index.add(grow)
+        if not index.flush(120):
+            raise AssertionError("the in-process swap did not go live")
+
+    out = {"idle": beside(lambda: time.sleep(0.5)),
+           "pageable": beside(pageable), "staged": beside(swap)}
+    build = [e for e in rec.tail() if e["name"] == "index.build"][-1]
+    split = (build["host_ms"], build["upload_ms"], build["dur_ms"])
+    corpus = np.concatenate([rows, grow])
+    _, got = index.topk(q)
+    checks = {"in-process swap ranking": bool(
+        index.generation == 1 and index.size == len(corpus)
+        and np.array_equal(got, _host_ranking(_host_scores(q, corpus),
+                                              INDEX_K)))}
+    index.close()
+    return out, split, checks
+
+
+def phase_serve_live(export_dir, clip_emb, workdir, card):
+    """Serving's second half on serve-full's export (the resumed
+    full-width checkpoint).  The service: ``milnce-serve-torch`` as a
+    subprocess on 127.0.0.1 with a live index booted from a snapshot of
+    SERVE_LIVE_ROWS seeded unit rows plus serve-full's clips (ties planted
+    across the 10th place; rung 1,048,576), continuous batching, two
+    tiers, max_inflight SERVE_LIVE_INFLIGHT, a snapshot directory and a
+    capture directory: the top-10 of 16 token rows equal a float64 host
+    ranking at boot, after ingesting precomputed rows and clips through
+    the video tower within the rung, and after one-hot rows carry it
+    across to 2,097,152 (the generation advancing each time); a capture
+    armed over HTTP holds the engine's kernels; a burst past max_inflight
+    gets 429 with Retry-After; /healthz and /metrics answer throughout;
+    after SIGTERM a reboot from the snapshot answers bit for bit.  Quant:
+    ``calibrate_and_quantize`` with NUMERICS.md, the v2 export, the int8
+    engine against an f32 engine over the host-dequantized weights within
+    1e-5 + 1e-4 max|e| at buckets 1 and 16 (TF32 off), ``distill_text_
+    student`` at hidden 512.  Pool: two f32 replicas and one int8 edge
+    replica on the card; ``serve.replica_dead`` mid-traffic, requeued,
+    rankings identical; class pins strict.  Measured only, printed with
+    the card: ms a query batch idle and while swaps run, seconds a swap,
+    reserved memory across the crossing, int8 and student recall@10
+    against f32, ms a call of the int8 and f32 engines, resident bytes,
+    the pool's hedge and requeue counts."""
+    import gc
+
+    from milnce_tpu_torch.config import full_preset
+    from milnce_tpu_torch.quant.calibrate import calibrate_and_quantize
+    from milnce_tpu_torch.quant.distill import (build_student_variables,
+                                                distill_text_student,
+                                                student_model_config)
+    from milnce_tpu_torch.quant.quantize import (dequantize_params,
+                                                 resident_bytes)
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.export import (export_inference_checkpoint,
+                                                 export_quantized_checkpoint,
+                                                 load_inference_checkpoint)
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.models.build import build_model
+
+    cfg = full_preset()
+    d = cfg.data
+    shape = (d.num_frames, d.video_size, d.video_size, 3)
+    rng = np.random.default_rng(170)
+    tokens = rng.integers(1, cfg.model.vocab_size, (INDEX_QUERIES,
+                                                    d.max_words),
+                          dtype=np.int32)
+    clips = rng.integers(0, 256, (SERVE_LIVE_CLIPS,) + shape, dtype=np.uint8)
+    t_phase = time.perf_counter()
+    f32 = InferenceEngine.from_export(export_dir, device="cuda",
+                                      max_batch=SERVE_MAX_BATCH, min_bucket=1)
+    m, checks = _serve_live_service(export_dir, clip_emb, f32, workdir, rng,
+                                    tokens, clips)
+    t_service = time.perf_counter() - t_phase
+    overlap, split, overlap_checks = _swap_overlap(
+        clip_emb.shape[1], f32.embed_text(tokens))
+    checks.update(overlap_checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # quant at full width
+    _, variables = load_inference_checkpoint(export_dir)
+    t0 = time.perf_counter()
+    qvars, cal = calibrate_and_quantize(
+        f32.model, variables, video_batches=[clips.astype(np.float32)],
+        text_batches=[tokens], numerics_report="NUMERICS.md")
+    t_cal = time.perf_counter() - t0
+    v2_dir = f"{workdir}/export-int8"
+    export_quantized_checkpoint(v2_dir, qvars, cfg.model,
+                                max_words=d.max_words, video_shape=shape,
+                                calibration=cal)
+    int8 = InferenceEngine.from_export(v2_dir, device="cuda",
+                                       max_batch=SERVE_MAX_BATCH,
+                                       min_bucket=1)
+    deq = InferenceEngine(build_model(cfg.model), {
+        "params": dequantize_params(qvars["params"], qvars["quant_scales"]),
+        "batch_stats": qvars["batch_stats"]}, device="cuda",
+        text_words=d.max_words, video_shape=shape,
+        max_batch=SERVE_MAX_BATCH, min_bucket=1)
+    worst, timing = 0.0, []
+    for b in (1, SERVE_MAX_BATCH):
+        vb = rng.integers(0, 256, (b,) + shape, dtype=np.uint8)
+        tb = rng.integers(1, cfg.model.vocab_size, (b, d.max_words),
+                          dtype=np.int32)
+        for got, want in ((int8.embed_video(vb), deq.embed_video(vb)),
+                          (int8.embed_text(tb), deq.embed_text(tb))):
+            limit = 1e-5 + 1e-4 * float(np.abs(want).max())
+            worst = max(worst, float(np.abs(got - want).max()) / limit)
+        timing.append((b, *(_timed(lambda e=e, x=x, f=f: getattr(e, f)(x),
+                                   5 if f == "embed_video" else 20) * 1e3
+                            for e in (int8, f32)
+                            for f, x in (("embed_video", vb),
+                                         ("embed_text", tb)))))
+    checks["int8 equals f32 over the dequantized weights"] = worst <= 1
+    m["resident"] = (resident_bytes(int8.model), resident_bytes(f32.model))
+    del deq
+    t0 = time.perf_counter()
+    sparams, sinfo = distill_text_student(
+        f32.model, variables, max_words=d.max_words, hidden_dim=512)
+    t_distill = time.perf_counter() - t0
+    svars = build_student_variables(variables, sparams)
+    s_dir = f"{workdir}/export-student"
+    export_inference_checkpoint(
+        s_dir, svars["params"], svars["batch_stats"],
+        student_model_config(cfg.model, 512), max_words=d.max_words,
+        video_shape=shape)
+    student = InferenceEngine.from_export(s_dir, device="cuda",
+                                          max_batch=SERVE_MAX_BATCH,
+                                          min_bucket=1)
+    corpus = np.concatenate([_unit_rows(INDEX_ROWS - len(clip_emb),
+                                        clip_emb.shape[1], 20), clip_emb])
+    index = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                 query_buckets=f32.buckets, device="cuda")
+    top = {name: index.topk(e.embed_text(tokens))[1]
+           for name, e in (("f32", f32), ("int8", int8),
+                           ("student", student))}
+    recall = {name: float(np.mean([len(set(a) & set(b)) / INDEX_K
+                                   for a, b in zip(top[name], top["f32"])]))
+              for name in ("int8", "student")}
+    del int8, student
+    gc.collect()
+    pool_m, pool_checks = _pool_phase(export_dir, v2_dir, index, tokens)
+    checks.update(pool_checks)
+    del f32, index, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"  service: boot {m['boot_s']:.2f} s (snapshot of "
+        f"{SERVE_LIVE_ROWS + len(clip_emb)} rows, ladder 1-16), planted "
+        f"ties across the 10th place {m['across']}, its embeddings equal "
+        f"this process's engine's: {m['embeddings_equal']}; a batch of "
+        f"{INDEX_QUERIES} queries over HTTP {m['query_idle_ms']:.3f} ms "
+        f"idle (first {m['query_cold_ms']:.3f} ms), "
+        f"{m['query_busy_ms']:.3f} ms median / {m['query_busy_max_ms']:.3f}"
+        f" ms max while the crossing swapped ({m['busy_queries']} batches)")
+    log(f"  swaps: {SERVE_LIVE_INGEST} rows within the rung "
+        f"{m['swap_in_rung_s']:.3f} s (add + flush over HTTP); "
+        f"{SERVE_LIVE_CROSS} rows across it in "
+        f"{SERVE_LIVE_CROSS // SERVE_LIVE_CHUNK} requests "
+        f"{m['cross_s']:.3f} s; builder spans (rows, ms; host concatenate "
+        f"ms, upload ms): {m['builds']}")
+    log("  in process, no HTTP: a batch of "
+        f"{INDEX_QUERIES} top-k (median ms, max ms, batches, s of the "
+        f"work) {overlap}; the swap's host concatenate / staged upload / "
+        f"build {split} ms")
+    log(f"  index {m['index']}; device memory reserved "
+        f"{m['reserved_boot'] / 2 ** 30:.3f} GiB at boot, "
+        f"{m['reserved_cross'] / 2 ** 30:.3f} GiB after the crossing, peak "
+        f"{m['max_reserved'] / 2 ** 30:.3f} GiB; burst {m['burst'][0]} of "
+        f"{m['burst'][1]} shed; capture kernels {m['capture_kernels']}; "
+        f"SIGTERM (flush, snapshot) {m['stop_s']:.2f} s, reboot "
+        f"{m['reboot_s']:.2f} s; watch failures {m['watch_failures']}")
+    log(f"  quant: calibrate {t_cal:.2f} s, per-channel "
+        f"{len(cal['per_channel'])} of {len(qvars['quant_scales'])} "
+        f"(verdicts from {cal['verdict_source']}), quality "
+        f"{cal['quality']}; int8 against f32 over the dequantized weights "
+        f"{worst:.3f} of the limit; resident model state int8 "
+        f"{m['resident'][0] / 2 ** 20:.1f} MiB against f32 "
+        f"{m['resident'][1] / 2 ** 20:.1f} MiB")
+    for b, iv, it, fv, ft in timing:
+        log(f"  bucket {b:2d}: int8 video {iv:.3f} ms / text {it:.3f} ms a "
+            f"call, f32 video {fv:.3f} ms / text {ft:.3f} ms")
+    log(f"  distill (hidden 512, {sinfo['steps']} steps, batch "
+        f"{sinfo['batch_size']}): {t_distill:.2f} s, final cosine "
+        f"{sinfo['final_cosine']:.4f}, loss {sinfo['final_loss']:.4f}")
+    log(f"  recall@10 against f32 on the {INDEX_ROWS}-row index: int8 "
+        f"{recall['int8']:.4f}, student {recall['student']:.4f}")
+    log(f"  pool: {pool_m['counts']}; replicas {pool_m['states']}; errors "
+        f"{pool_m['errors']}")
+    log(f"  serve-live on {card}: service part {t_service:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s; checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"serve-live failed its checks: "
+                             f"{[k for k, v in checks.items() if not v]}")
 
 
 def phase_cudnn_benchmark(default_sps):
@@ -3413,7 +4053,11 @@ def main() -> int:
         phase_eval(ckpt_dir, work)
         log("== serve-full (export, engine, batchers, cache and a "
             f"{INDEX_ROWS}-row index on the resumed checkpoint)")
-        phase_serve_full(ckpt_dir, work, card)
+        export_dir, clip_emb = phase_serve_full(ckpt_dir, work, card)
+        log("== serve-live (milnce-serve-torch with a live index across "
+            "the 2**20 rung, the replica pool with an int8 edge replica, "
+            "quant/ at full width)")
+        phase_serve_live(export_dir, clip_emb, work, card)
         # after ddp-1, whose steps/s is held to phase 7's: run before it,
         # these two left ddp-1's step with other convolution kernels and
         # an idle share of 0.063 against phase 7's 0.022 (H100)

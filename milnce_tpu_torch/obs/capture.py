@@ -265,3 +265,85 @@ class ProfilerCapture:
         rec = (self._recorder if self._recorder is not None
                else obs_spans.get_recorder())
         rec.event(name, **attrs)
+
+
+class OwnedCapture:
+    """A :class:`ProfilerCapture` driven from ONE owner thread — the
+    serving process's capture.
+
+    ``torch.profiler`` stops only on the thread that started it, and a
+    server arms its capture from wherever the trigger lands (an HTTP
+    handler thread for ``POST /obs/capture``, the batcher's flush thread
+    for the anomaly detector), none of which waits for the duration.  So
+    the owner thread starts the capture (``capture.arm`` on the owner),
+    waits its ``duration_s``, and stops it there.  The profiler traces
+    the whole process while it runs: kernels the engine launches from the
+    batcher's thread land in its trace.
+
+    :meth:`arm` returns the capture's own answer (``{"armed": ...}``) once
+    the owner has started it or refused; while a capture is held, it
+    refuses at once (``capture active``), as the JAX capture does.
+    :meth:`arm_async` queues the request without waiting (the anomaly
+    path must not stall a flush)."""
+
+    def __init__(self, capture: ProfilerCapture):
+        import queue
+
+        self.capture = capture
+        # the owner stops it: the capture's own duration timer only marks
+        # it due, whatever its profiler backend
+        capture.stop_at_poll = True
+        self.duration_s = capture.duration_s
+        self._requests: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._busy = False              # guarded-by: _lock
+        self._closed = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serve-capture-owner")
+        self._thread.start()
+
+    def _submit(self, reason: str, attrs: dict):
+        from concurrent.futures import Future
+
+        with self._lock:
+            if self._busy:
+                return None
+            self._busy = True
+        fut: Future = Future()
+        self._requests.put((reason, attrs, fut))
+        return fut
+
+    def arm(self, reason: str = "manual", **attrs) -> dict:
+        fut = self._submit(reason, attrs)
+        if fut is None:
+            return {"armed": False, "reason": "capture active"}
+        return fut.result(timeout=120)
+
+    def arm_async(self, reason: str = "manual", **attrs) -> None:
+        self._submit(reason, attrs)
+
+    def _loop(self) -> None:
+        import queue
+
+        while not self._closed.is_set():
+            try:
+                reason, attrs, fut = self._requests.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            try:
+                out = self.capture.arm(reason=reason, **attrs)
+                fut.set_result(out)
+                if out.get("armed"):
+                    self._closed.wait(self.duration_s)
+                    self.capture.stop(cause="duration")
+            except Exception as exc:        # the owner must outlive one
+                if not fut.done():          # failed capture
+                    fut.set_exception(exc)
+            finally:
+                with self._lock:
+                    self._busy = False
+
+    def close(self) -> None:
+        """Stop a held capture (on the owner thread) and end the owner."""
+        self._closed.set()
+        self._thread.join(30)

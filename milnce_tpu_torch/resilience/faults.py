@@ -46,9 +46,13 @@ Serving sites, fired where the JAX engine fires them
 - ``serve.replica_dead``   host; the engine kills itself and raises
                        ``ReplicaDead`` (every later dispatch too).
 
-The live-index sites (``index.swap_raise``, ``index.ingest_hang``) stay
-in the catalogue, so a spec written for the JAX package parses here,
-but fire nowhere until the live index is ported.
+Live-index sites (``serving/live_index.py``):
+
+- ``index.swap_raise``  host; the build raises just before publishing
+                       its generation (the old one keeps serving, the
+                       rows are re-queued).
+- ``index.ingest_hang`` host; an ``add`` caller sleeps ``x`` seconds
+                       (the query path is untouched).
 
 Spec grammar (config ``train.faults`` or env ``MILNCE_FAULTS``)::
 

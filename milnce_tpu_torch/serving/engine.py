@@ -109,28 +109,38 @@ def load_serving_model(export_dir: str, dtype: str = ""):
     """Load a ``milnce-export``-family artifact -> ``(model, variables,
     metadata)`` ready for an :class:`InferenceEngine`: the port's S3D
     built from the artifact's model config (on the CPU) and its Flax
-    ``{'params', 'batch_stats'}`` variables.
+    variables — ``{'params', 'batch_stats'}`` for the f32 format (v1),
+    plus ``'quant_scales'`` for the quantized one (v2), which the engine
+    serves through :class:`~milnce_tpu_torch.quant.quantize.QuantizedModel`
+    (int8 resident, dequantized inside every call).
 
-    Refused, each with its reason: a quantized (v2) artifact, until the
-    port has ``quant/``; a ``dtype`` other than float32, until a bf16
-    model has its own parity argument; a model config the port's
-    ``build_model`` refuses (``conv_impl_map``)."""
+    Refused, each with its reason: a ``dtype`` override on a v2 artifact
+    (its int8 weights and f32 scales are its precision contract, as in
+    JAX); a ``dtype`` other than float32, until a bf16 model has its own
+    parity argument; a model config the port's ``build_model`` refuses
+    (``conv_impl_map``)."""
     from milnce_tpu_torch.config import ModelConfig
     from milnce_tpu_torch.models.build import build_model
     from milnce_tpu_torch.serving.export import (QUANT_FORMAT_VERSION,
                                                  load_inference_checkpoint,
+                                                 load_quantized_checkpoint,
                                                  read_export_metadata)
 
-    if read_export_metadata(export_dir).get("format_version") \
-            == QUANT_FORMAT_VERSION:
-        raise ValueError(
-            "quantized (v2) export: the torch port cannot serve int8 "
-            "weights until quant/ is ported — export the f32 (v1) artifact")
-    if dtype and dtype != "float32":
-        raise ValueError(
-            f"dtype={dtype!r}: the torch port serves float32 only — a "
-            "bfloat16 model needs its own parity argument first")
-    meta, variables = load_inference_checkpoint(export_dir)
+    quantized = (read_export_metadata(export_dir).get("format_version")
+                 == QUANT_FORMAT_VERSION)
+    if quantized:
+        if dtype:
+            raise ValueError(
+                "dtype override is not supported for quantized exports "
+                "— int8 weights + f32 scales are the artifact's "
+                "precision contract")
+        meta, variables = load_quantized_checkpoint(export_dir)
+    else:
+        if dtype and dtype != "float32":
+            raise ValueError(
+                f"dtype={dtype!r}: the torch port serves float32 only — a "
+                "bfloat16 model needs its own parity argument first")
+        meta, variables = load_inference_checkpoint(export_dir)
     model = build_model(ModelConfig(**meta["model"]))
     return model, variables, meta
 
@@ -142,7 +152,10 @@ class InferenceEngine:
       to ``device``, keeps it in eval mode).
     - ``variables``: optional Flax-shaped ``{'params': ..., 'batch_stats':
       ...}`` (an export's arrays, or the JAX package's variables), loaded
-      into ``model``; None serves the model's own weights.
+      into ``model``; with ``'quant_scales'`` (a v2 artifact) the engine
+      serves ``QuantizedModel(model, variables)``: int8 on the device,
+      dequantized inside every call.  None serves the model's own
+      weights.
     - ``text_words`` / ``video_shape``: the fixed per-row input shapes
       ((W,) token ids / (T, H, W, 3) uint8 frames); requests with any
       other trailing shape are rejected.
@@ -162,7 +175,11 @@ class InferenceEngine:
         self.max_batch = self.buckets[-1]
         self.text_words = int(text_words)
         self.video_shape = tuple(int(d) for d in video_shape)
-        if variables is not None:
+        if variables is not None and "quant_scales" in variables:
+            from milnce_tpu_torch.quant.quantize import QuantizedModel
+
+            model = QuantizedModel(model, variables)
+        elif variables is not None:
             from milnce_tpu_torch.utils.torch_convert import load_jax_variables
 
             load_jax_variables(model, variables)

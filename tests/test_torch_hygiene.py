@@ -57,7 +57,10 @@ def test_port_package_exists():
                      "serving/__init__.py", "serving/export.py",
                      "serving/cache.py", "serving/batcher.py",
                      "serving/engine.py", "serving/index.py",
-                     "utils/assets.py"):
+                     "serving/live_index.py", "serving/pool.py",
+                     "serving/service.py", "quant/__init__.py",
+                     "quant/quantize.py", "quant/calibrate.py",
+                     "quant/distill.py", "utils/assets.py"):
         assert expected in names
     assert (PORT / "csrc" / "milnce_stream.cu").exists()
     assert (PORT / "csrc" / "softdtw.cu").exists()

@@ -231,8 +231,6 @@ def test_profiler_capture_emits_the_jax_event_sequence(tmp_path):
         now = [0.0]
         calls = []
         rec = spans.SpanRecorder()
-        # a duration long enough that the manual stop of the second
-        # capture always wins over its timer, however loaded the host
         cap = mod.ProfilerCapture(
             str(tmp_path / "cap"), duration_s=1.0, cooldown_s=10.0,
             max_captures=2, recorder=rec,
@@ -242,12 +240,15 @@ def test_profiler_capture_emits_the_jax_event_sequence(tmp_path):
         verdicts = [cap.arm("spike/..", step=1), cap.arm("again")]
         # the duration timer's stop has finished when its event is in the
         # stream (its thread sets the state idle just before recording it)
-        deadline = time.monotonic() + 10
+        deadline = time.monotonic() + 60
         while (not any(r["name"] == "capture.stop" for r in rec.tail())
                and time.monotonic() < deadline):
             time.sleep(0.01)
         verdicts.append(cap.arm("cool"))        # within the cooldown
         now[0] = 100.0
+        # both captures read the duration when armed: the second one's
+        # timer can never beat the manual stop, however loaded the host
+        cap.duration_s = 3600.0
         verdicts.append(cap.arm("second"))
         verdicts.append(cap.stop(cause="manual"))
         verdicts.append(cap.arm("third"))       # budget exhausted

@@ -14,7 +14,8 @@ the two packages write and read the same artifact.
   from ``generator``'s value.
 - The format-version gate; the quantized v2 artifact and the live
   index's corpus snapshot round-trip between the packages; the port's
-  refusals of v2, of bfloat16 and of a ``conv_impl_map``.
+  refusals of a dtype override on v2, of bfloat16 and of a
+  ``conv_impl_map``.
 
 The tiny model of ``tests/test_export.py``: embedding 16, vocabulary
 128, one Inception block, 4 x 32^2 frames, 6 words.  The JAX engines run
@@ -330,14 +331,21 @@ def test_corpus_snapshot_round_trips_between_packages(writer, tmp_path):
 
 
 def test_port_refuses_v2_and_bfloat16(port_export, tmp_path):
+    """Since the port has ``quant/`` it serves a v2 artifact (int8
+    resident); what stays refused is a dtype override on one, as in JAX,
+    and a bfloat16 model."""
     out = str(tmp_path / "v2")
     export.export_quantized_checkpoint(
         out, _qvariables(port_export), ModelConfig(**_MODEL),
         max_words=_WORDS, video_shape=_meta(port_export)["video_shape"])
-    with pytest.raises(ValueError, match="quant"):
-        load_serving_model(out)
-    with pytest.raises(ValueError, match="quant"):
-        InferenceEngine.from_export(out, device="cpu", precompile=False)
+    for dtype in ("float32", "bfloat16"):
+        with pytest.raises(ValueError, match="quant"):
+            load_serving_model(out, dtype=dtype)
+        with pytest.raises(ValueError, match="quant"):
+            InferenceEngine.from_export(out, device="cpu", dtype=dtype,
+                                        precompile=False)
+    engine = InferenceEngine.from_export(out, device="cpu", max_batch=2)
+    assert {b.dtype for b in engine.model.buffers()} >= {torch.int8}
     with pytest.raises(ValueError, match="bfloat16"):
         load_serving_model(port_export, dtype="bfloat16")
     with pytest.raises(ValueError, match="bfloat16"):

@@ -472,3 +472,132 @@ def index_topk_cases(rank, world, group, emb, queries, k, buckets):
     return dict(scores=scores, idx=idx, valid=int(index._valid[0]),
                 rows=int(index._corpus.shape[0]),
                 recompiles=index.recompiles())
+
+
+# ------------------------------------------------------------- live index
+def live_index_group_cases(rank, world, group, full, chunks, queries, k):
+    """``serving/live_index.py::LiveRetrievalIndex`` over the group: boot
+    on ``full``'s first chunk, ingest the next chunks one generation at a
+    time (every rank the same rows); per generation the ranking, the
+    generation and the shard's rung."""
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+
+    index = LiveRetrievalIndex(full[:chunks[0]], k=k, query_buckets=(8,),
+                               device="cpu", group=group)
+    out, size = [], chunks[0]
+    try:
+        for n in [0] + list(chunks[1:]):
+            if n:
+                index.add(full[size:size + n])
+                assert index.flush(30.0)
+                size += n
+            _, idx, gen = index.topk_with_gen(queries)
+            out.append((idx, gen, index.stats()["shard_rows"]))
+    finally:
+        index.close()
+    return out
+
+
+def live_index_hammer() -> int:
+    """16 threads — 12 querying, 4 ingesting — against one live index
+    under ``MILNCE_LOCK_SANITIZE=1`` (set by the caller before this
+    process starts).  Pins: the final size is boot + every added row;
+    every ranking equals the exact ranking over SOME published corpus
+    prefix (a torn generation matches none), and one generation never
+    answers for two sizes; >= 3 swaps; 0 recompiles; the builder
+    survived.  Both serving locks on the path (the state lock and the
+    dispatch lock) are sanitized, and the sanitizer records no order
+    edge: neither is ever taken while the other is held (the JAX index
+    nests obs locks that are not sanitized in the port, so its hammer
+    sees edges).  Prints ``HAMMER_OK ...``."""
+    import sys
+    import threading
+
+    from milnce_tpu_torch.analysis import lockrt
+    from milnce_tpu_torch.serving.engine import DEVICE_DISPATCH_LOCK
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+
+    assert lockrt.sanitizing_enabled(), "export MILNCE_LOCK_SANITIZE=1"
+    torch.set_num_threads(1)
+    dim, boot_n, k = 16, 12, 5
+    n_query, n_ingest, per_query, per_add, rows_per_add = 12, 4, 8, 3, 4
+    rng = np.random.default_rng(0)
+    boot = rng.standard_normal((boot_n, dim)).astype(np.float32)
+    index = LiveRetrievalIndex(boot, k=k, query_buckets=(8,), device="cpu")
+    assert isinstance(index._state_lock, lockrt.SanitizedLock)
+    assert isinstance(DEVICE_DISPATCH_LOCK, lockrt.SanitizedLock)
+    total_adds = n_ingest * per_add
+    pool = rng.standard_normal((total_adds * rows_per_add,
+                                dim)).astype(np.float32)
+    add_lock = threading.Lock()
+    appended, errors, observed = [], [], []
+    obs_lock = threading.Lock()
+
+    def ingester(tid):
+        try:
+            for j in range(per_add):
+                base = (tid * per_add + j) * rows_per_add
+                rows = pool[base:base + rows_per_add]
+                with add_lock:          # serialize add + order record
+                    index.add(rows)
+                    appended.append(rows)
+                assert index.flush(60.0), "mid-hammer flush timed out"
+        except Exception as exc:  # noqa: BLE001 - the child reports
+            errors.append(f"ingest {tid}: {type(exc).__name__}: {exc}")
+
+    def querier(tid):
+        try:
+            qrng = np.random.default_rng(1000 + tid)
+            for _ in range(per_query):
+                q = qrng.standard_normal((2, dim)).astype(np.float32)
+                scores, idx, gen = index.topk_with_gen(q)
+                assert scores.shape == (2, k) and idx.shape == (2, k)
+                with obs_lock:
+                    observed.append((gen, q, idx.copy()))
+        except Exception as exc:  # noqa: BLE001 - the child reports
+            errors.append(f"query {tid}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=ingester, args=(t,))
+               for t in range(n_ingest)]
+    threads += [threading.Thread(target=querier, args=(t,))
+                for t in range(n_query)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=240)
+    try:
+        if errors:
+            raise AssertionError("\n".join(errors))
+        assert index.flush(30.0), "final flush timed out"
+        st = index.stats()
+        expect = boot_n + total_adds * rows_per_add
+        assert st["size"] == expect and \
+            st["ingested_rows"] == expect - boot_n, st
+        assert st["swaps"] >= 3, st
+        assert index.recompiles() == 0 and st["builder_alive"], st
+        full = np.concatenate([boot] + appended)
+        sizes = [boot_n + sum(a.shape[0] for a in appended[:m])
+                 for m in range(len(appended) + 1)]
+        gen_sets: dict = {}
+        for gen, q, idx in observed:
+            matches = {size for size in sizes if np.array_equal(
+                idx, np.argsort(-(q @ full[:size].T), axis=1)[:, :k])}
+            assert matches, f"TORN GENERATION {gen}"
+            gen_sets[gen] = gen_sets.get(gen, matches) & matches
+            assert gen_sets[gen], f"generation {gen} answered two sizes"
+        edges = lockrt.GLOBAL_GRAPH.snapshot()["edges"]
+        assert not edges, f"nested serving locks: {edges}"
+    except AssertionError as exc:
+        print(f"hammer failed: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        index.close()
+    print(f"HAMMER_OK threads={len(threads)} queries={len(observed)} "
+          f"swaps={st['swaps']} size={st['size']} edges={len(edges)}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    raise SystemExit({"live_index_hammer": live_index_hammer}[sys.argv[1]]())

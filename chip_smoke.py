@@ -22,14 +22,19 @@ Phases, each fatal on failure:
                B_local=4 against Bg=8, K=3); and the deep mode past
                D = 768 at the recipe shape with D = 1024, at D = 1000
                (B=200 against Bg=3000, K=3: the scalar path, ragged
-               tiles), at D = 2048 and at D = 769, each plan's mode
-               printed;
+               tiles), at D = 2048, D = 769 and D = 4096 (the backward's
+               cluster path: 2, 2, 4, 2 and 8 blocks a cluster) and at
+               D = 4608 (past its reach: the backward's slab path), each
+               plan's mode printed;
                then the kernels', the plain versions' and the dense
                PyTorch form's times (median of 20 after warm-up, CUDA
                events) at the recipe shape, beside the card's bound, and
                each kernel launch by launch with TFLOP/s, share of the
                bound, kernel/library ratio and the launch plan its
-               wrapper chose; the same for the deep mode at D = 1024.
+               wrapper chose; the same for the deep mode at D = 1024,
+               where the backward's slab path is timed beside its
+               cluster path (the wrapper's private plan argument) and
+               each plan names the clusters the card keeps resident.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's grad_D, fed the
                same table, under a random cotangent and under a stride-0
@@ -48,9 +53,10 @@ Phases, each fatal on failure:
                and each kernel's figures before its redesign.
 5. reference-- a small model with the chunked loss on the kernels agrees
                with the dense loss: one step's gradients, three steps'
-               losses; at embedding 512 and at 1024, where the kernels
+               losses; at embedding 512, at 1024, where the kernels
                run their deep mode (the run the deep launches are
-               counted on).
+               counted on), and at 4608, where the backward runs its
+               slab path (the run the slab launches are counted on).
 6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
                sdtw_negative, sdtw_3) on the soft-DTW kernels against the
                plain recurrence: one step's gradients, three steps' losses.
@@ -263,6 +269,8 @@ _STREAM_CU = "milnce_tpu_torch/csrc/milnce_stream.cu"
 SOURCES = {"lse_fwd": _STREAM_CU, "lse_bwd_rows": _STREAM_CU,
            "lse_bwd_cols": _STREAM_CU, "lse_fwd_deep": _STREAM_CU,
            "lse_bwd_rows_deep": _STREAM_CU, "lse_bwd_cols_deep": _STREAM_CU,
+           "lse_bwd_rows_deep_slab": _STREAM_CU,
+           "lse_bwd_cols_deep_slab": _STREAM_CU,
            "softdtw_fwd": "milnce_tpu_torch/csrc/softdtw.cu",
            "softdtw_bwd": "milnce_tpu_torch/csrc/softdtw.cu"}
 REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
@@ -271,6 +279,8 @@ REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_fwd_deep": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows_deep": "milnce_tpu/ops/milnce_pallas.py:210",
             "lse_bwd_cols_deep": "milnce_tpu/ops/milnce_pallas.py:210",
+            "lse_bwd_rows_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
+            "lse_bwd_cols_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
             "softdtw_fwd": "milnce_tpu/ops/softdtw_pallas.py:282 (B3), "
                            ":63 (B5), :106 (B7)",
             "softdtw_bwd": "milnce_tpu/ops/softdtw_pallas.py:340 (B4), "
@@ -287,6 +297,7 @@ TRACE_NAMES = {
     "lse_bwd_cols": r"lse_bwd_kernel(<\s*\d+,\s*\w+,\s*true,|ILi\d+ELb[01]ELb1E)"}
 RECORDER_COST_SPANS = 2000   # spans written to time one, alone
 DEEP_D = 1024             # the deep mode's timed and trained embedding
+SLAB_D = 4608             # past the backward's cluster path: its slab path
 # special-function (exp, log) results per clock per SM on Hopper
 H100_SFU_PER_CLOCK_SM = 16
 # (label, B, N, M, features): the soft-DTW presets of
@@ -441,13 +452,16 @@ def phase_parity():
     K = 3 gives lse_fwd's rows launch 4 owned tiles (the last ragged) and
     splits of 3 streamed tiles, the last split of 2 ending on a ragged
     tile (its plans are printed); ddp-1 and ddp-2 are the distributed
-    phases' shapes; the last four run the deep mode (D > 768): the
+    phases' shapes; the last six run the deep mode (D > 768): the
     recipe at D = 1024, D = 1000 (not a multiple of 4: the scalar copies;
-    ragged owned and streamed tiles), D = 2048 (three gradient slabs) and
-    D = 769 (a one-wide last slab), each plan printed with its mode;
-    their errors are the ``_deep`` kernels'.  The cotangents are of unit
-    scale and each limit shrinks with its output (``_err(scaled=True)``),
-    so that a kernel returning zeros fails."""
+    ragged owned and streamed tiles; depth parts of 512 and 488), D =
+    2048 (clusters of 4 blocks), D = 769 (parts of 416 and 353), D =
+    4096 (clusters of 8, the cluster path's reach), their errors the
+    ``_deep`` kernels', and D = 4608, where the backward's errors are its
+    slab path's (``_deep_slab``), each plan printed with its mode. The
+    cotangents are of unit scale and each limit shrinks with its output
+    (``_err(scaled=True)``), so that a kernel returning zeros fails.
+    """
     from milnce_tpu_torch.ops import milnce_stream as ms
 
     cases = [("recipe", 128, 8192, 5, 512, 816, False),
@@ -464,7 +478,9 @@ def phase_parity():
              ("deep-recipe", 128, 8192, 5, DEEP_D, 816, False),
              ("deep-d1000", 200, 3000, 3, 1000, 300, False),
              ("deep-d2048", 8, 64, 2, 2048, 16, False),
-             ("deep-d769", 4, 8, 3, 769, 3, False)]
+             ("deep-d769", 4, 8, 3, 769, 3, False),
+             ("deep-d4096", 16, 64, 2, 4096, 16, False),
+             ("deep-d4608", 4, 8, 3, SLAB_D, 3, False)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {name: 0.0 for name in ms.LAUNCHES}
     for i, (label, b, bg, k, d, chunk, shared) in enumerate(cases):
@@ -475,11 +491,14 @@ def phase_parity():
                     f"{_plan_line(ms.fwd_plan(r, c, d, sms))}")
         if label.startswith("deep"):
             for r, c in ((b, bg * k), (b * k, bg)):
-                for name, plan_of in (("lse_fwd", ms.fwd_plan),
-                                      ("lse_bwd_rows", ms.rows_plan),
-                                      ("lse_bwd_cols", ms.cols_plan)):
-                    plan = plan_of(r, c, d, sms)
-                    if plan.mode != "deep":
+                for name, plan_of in (
+                        ("lse_fwd", lambda r, c: ms.fwd_plan(r, c, d, sms)),
+                        ("lse_bwd_rows", lambda r, c: ms.card_bwd_plan(
+                            ms._lib(), False, r, c, d, "cuda")),
+                        ("lse_bwd_cols", lambda r, c: ms.card_bwd_plan(
+                            ms._lib(), True, r, c, d, "cuda"))):
+                    plan = plan_of(r, c)
+                    if name + "_" + plan.mode != ms.launch_key(name, d):
                         raise AssertionError(f"{label}: {name} took the "
                                              f"{plan.mode} mode at D={d}")
                     log(f"  [{label}] {name} R={r} C={c}: "
@@ -493,17 +512,15 @@ def phase_parity():
         want = _grads(ms.milnce_stream_plain, v, t, v_all, t_all, chunk,
                       g_row, g_col)
         torch.cuda.synchronize()
-        mode = "_deep" if d > ms.STREAM_DMAX else ""
+        fwd, rows, cols = (ms.launch_key(k, d) for k in ms.KERNELS)
         launched = {k: n for k, n in ms.LAUNCHES.items() if n}
-        if launched != {k + mode: 2 for k in ms.KERNELS}:
+        if launched != {fwd: 2, rows: 2, cols: 2}:
             raise AssertionError(f"{label}: launches {launched}")
         names = ["row_lse", "col_lse", "g_v", "g_t", "g_v_all", "g_t_all"]
-        owners = [["lse_fwd" + mode]] * 2 + [["lse_bwd_rows" + mode]] * 2 + [
-            ["lse_bwd_cols" + mode]] * 2
+        owners = [[fwd]] * 2 + [[rows]] * 2 + [[cols]] * 2
         if shared:          # v_all is v: g_v and g_t sum both kernels
             names = names[:4]
-            owners = owners[:2] + [["lse_bwd_rows" + mode,
-                                    "lse_bwd_cols" + mode]] * 2
+            owners = owners[:2] + [[rows, cols]] * 2
         for name, own, a, w in zip(names, owners, got, want):
             err, lim = _err(a, w, scaled=True)
             peak = float(w.abs().max())
@@ -536,8 +553,17 @@ def _time_ms(fn, reps=20, warm=3):
 
 
 def _plan_line(plan):
-    where = (f"mode held, instance D<={plan.dmax}" if plan.mode == "held"
-             else f"mode deep, {plan.nz} gradient slab(s) of <= {plan.dmax}")
+    if plan.mode == "held":
+        where = f"mode held, instance D<={plan.dmax}"
+    elif plan.parts:
+        where = (f"mode deep, cluster path: clusters of {plan.nz} blocks, "
+                 f"depth parts {[w for _, w in plan.parts]}, "
+                 f"{plan.clusters} clusters resident on the card")
+    elif plan.nz > 1:
+        where = (f"mode {plan.mode}, {plan.nz} gradient slab(s) of <= "
+                 f"{plan.dmax}")
+    else:
+        where = f"mode {plan.mode}, A streamed in slabs"
     return (f"{where}, BM={plan.bm}, SN={plan.bn}, "
             f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}"
             f"x{plan.nz}, streamed tiles/split {plan.tps} of "
@@ -554,18 +580,20 @@ def _bound(flops, nbytes):
 def phase_timing(d=512):
     """Times of each kernel's pair of launches per step (rows direction +
     columns direction) at the recipe shape with embedding ``d`` (past
-    768, the deep mode, keyed ``<kernel>_deep``), and of each kernel's two
-    launches one by one, (R, C) = (128, 40960) and (640, 8192), with its
-    launch plan.  Each is timed per call (CUDA events: the wrapper's host
-    work and the sum of its split partials included) and on the device
-    (torch.profiler: the kernel alone; every kernel of the wrapper's call,
-    the combination of the partials included; and every kernel of the
-    library call, which the whole call is compared with)."""
+    768, the deep mode, keyed ``<kernel>_deep``; there the backward's slab
+    path too, through the wrapper's private plan argument, keyed
+    ``<kernel>_deep_slab``), and of each kernel's two launches one by one,
+    (R, C) = (128, 40960) and (640, 8192), with its launch plan (the
+    clusters resident on the card on the cluster path).  Each is timed
+    per call (CUDA events: the wrapper's host work and the sum of its
+    split partials included) and on the device (torch.profiler: the
+    kernel alone; every kernel of the wrapper's call, the combination of
+    the partials included; and every kernel of the library call, which
+    the whole call is compared with)."""
     from milnce_tpu_torch.losses.milnce_chunked import milnce_default_chunk
     from milnce_tpu_torch.ops import milnce_stream as ms
 
     b, bg, k = 128, 8192, 5
-    suffix = "_deep" if d > ms.STREAM_DMAX else ""
     chunk = milnce_default_chunk(b, k, bg)
     v, t, v_all, t_all = _case(b, bg, k, d, 7, False)
     row = ms.lse_fwd(v, t_all)
@@ -583,38 +611,54 @@ def phase_timing(d=512):
     def cols_library(a, bm, lse, g):
         return dense_w(a, bm, lse, g).T @ a
 
-    fns = {
-        "lse_fwd": (
-            lambda: [ms.lse_fwd(a, bm) for a, bm, *_ in pairs],
-            lambda: [ms.lse_plain(a, bm, w) for a, bm, _, _, w in pairs],
-            lambda: [torch.logsumexp(a @ bm.T, dim=1) for a, bm, *_ in pairs]),
-        "lse_bwd_rows": (
-            lambda: [ms.lse_bwd_rows(a, bm, l, g) for a, bm, l, g, _ in pairs],
-            lambda: [ms.lse_bwd_rows_plain(a, bm, l, g, w)
-                     for a, bm, l, g, w in pairs],
-            lambda: [rows_library(a, bm, l, g) for a, bm, l, g, _ in pairs]),
-        "lse_bwd_cols": (
-            lambda: [ms.lse_bwd_cols(a, bm, l, g) for a, bm, l, g, _ in pairs],
-            lambda: [ms.lse_bwd_cols_plain(a, bm, l, g, w)
-                     for a, bm, l, g, w in pairs],
-            lambda: [cols_library(a, bm, l, g) for a, bm, l, g, _ in pairs]),
-    }
-    out = {}
+    lib = ms._lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # name: (kernel, plan, library call, FLOPs per logit and depth, floats
-    # read and written besides A and B)
-    per_launch = {
-        "lse_fwd": (lambda a, bm, lse, g: ms.lse_fwd(a, bm), ms.fwd_plan,
-                    lambda a, bm, lse, g: torch.logsumexp(a @ bm.T, dim=1),
-                    2, lambda r, c: r),
-        "lse_bwd_rows": (ms.lse_bwd_rows, ms.rows_plan, rows_library, 4,
-                         lambda r, c: 2 * r + r * d),
-        "lse_bwd_cols": (ms.lse_bwd_cols, ms.cols_plan, cols_library, 4,
-                         lambda r, c: 2 * r + c * d)}
-    for name, (kern, plan_of, library, per, extra) in per_launch.items():
+
+    def slab(cols):
+        """The backward's slab path at a depth its cluster path takes."""
+        def plan_of(r, c):
+            return (ms.cols_plan if cols else ms.rows_plan)(r, c, d, sms,
+                                                             slab=True)
+
+        def run(a, bm, lse, g):
+            return ms.launch_bwd(lib, a, bm, lse, g, cols,
+                                 _plan=plan_of(a.shape[0], bm.shape[0]))[0]
+        return run, plan_of
+
+    def card_plan(cols):
+        return lambda r, c: ms.card_bwd_plan(lib, cols, r, c, d, "cuda")
+
+    # key: (kernel, its function on the card, plan, plain, library call,
+    # FLOPs per logit and depth, floats read and written besides A and B)
+    kernels = {
+        ms.launch_key("lse_fwd", d): (
+            lambda a, bm, lse, g: ms.lse_fwd(a, bm), "lse_fwd",
+            lambda r, c: ms.fwd_plan(r, c, d, sms),
+            lambda a, bm, lse, g, w: ms.lse_plain(a, bm, w),
+            lambda a, bm, lse, g: torch.logsumexp(a @ bm.T, dim=1),
+            2, lambda r, c: r),
+        ms.launch_key("lse_bwd_rows", d): (
+            ms.lse_bwd_rows, "lse_bwd_rows", card_plan(False),
+            ms.lse_bwd_rows_plain, rows_library, 4,
+            lambda r, c: 2 * r + r * d),
+        ms.launch_key("lse_bwd_cols", d): (
+            ms.lse_bwd_cols, "lse_bwd_cols", card_plan(True),
+            ms.lse_bwd_cols_plain, cols_library, 4,
+            lambda r, c: 2 * r + c * d)}
+    if ms.launch_key("lse_bwd_rows", d).endswith("_deep"):
+        for cols, name, plain, library, extra in (
+                (False, "lse_bwd_rows", ms.lse_bwd_rows_plain, rows_library,
+                 lambda r, c: 2 * r + r * d),
+                (True, "lse_bwd_cols", ms.lse_bwd_cols_plain, cols_library,
+                 lambda r, c: 2 * r + c * d)):
+            run, plan_of = slab(cols)
+            kernels[name + "_deep_slab"] = (run, name, plan_of, plain,
+                                            library, 4, extra)
+    out = {}
+    for key, (kern, name, plan_of, _, library, per, extra) in kernels.items():
         for a, bm, lse, g, _ in pairs:
             r, c = a.shape[0], bm.shape[0]
-            plan = plan_of(r, c, d, sms)
+            plan = plan_of(r, c)
             ms_k = _time_ms(lambda: kern(a, bm, lse, g))
             ms_l = _time_ms(lambda: library(a, bm, lse, g))
             dev_k = _device_ms(lambda: kern(a, bm, lse, g),
@@ -624,7 +668,7 @@ def phase_timing(d=512):
             flops = per * r * c * d
             bound_ms, bound_by = _bound(
                 flops, 4 * (r * d + c * d + extra(r, c)))
-            log(f"  {name + suffix} launch R={r} C={c} D={d}: kernel "
+            log(f"  {key} launch R={r} C={c} D={d}: kernel "
                 f"{ms_k:.4f} ms, "
                 f"{flops / ms_k / 1e9:.2f} TFLOP/s, {bound_ms / ms_k:.3f} of "
                 f"the f32 bound ({bound_ms:.4f} ms, {bound_by}) | library "
@@ -633,7 +677,7 @@ def phase_timing(d=512):
                 f"of the bound), whole call {dev_c:.4f} ms, library "
                 f"{dev_l:.4f} ms, call/library {dev_c / dev_l:.3f} | plan: "
                 f"{_plan_line(plan)}")
-    for name, (kern, plain, library) in fns.items():
+    for key, (kern, name, _, plain, library, _, _) in kernels.items():
         flops = nbytes = 0
         for a, bm, *_ in pairs:
             r, c = a.shape[0], bm.shape[0]
@@ -645,17 +689,24 @@ def phase_timing(d=512):
                 out_rows = r if name == "lse_bwd_rows" else c
                 nbytes += 4 * (r * d + c * d + 2 * r + out_rows * d)
         bound_ms, bound_by = _bound(flops, nbytes)
-        ms_k = _time_ms(kern)
-        ms_p = _time_ms(plain)
-        ms_l = _time_ms(library)
-        dev_k = _device_ms(kern, KERNEL_KEYS[name])
-        dev_c = _device_ms(kern, "")
-        dev_l = _device_ms(library, "")
-        out[name + suffix] = dict(
+
+        def pair_k(kern=kern):
+            return [kern(a, bm, l, g) for a, bm, l, g, _ in pairs]
+
+        def pair_l(library=library):
+            return [library(a, bm, l, g) for a, bm, l, g, _ in pairs]
+
+        ms_k = _time_ms(pair_k)
+        ms_p = _time_ms(lambda: [plain(*x) for x in pairs])
+        ms_l = _time_ms(pair_l)
+        dev_k = _device_ms(pair_k, KERNEL_KEYS[name])
+        dev_c = _device_ms(pair_k, "")
+        dev_l = _device_ms(pair_l, "")
+        out[key] = dict(
             ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound_ms,
             bound_by=bound_by, device_ms=dev_k, call_device_ms=dev_c,
             library_device_ms=dev_l)
-        log(f"  {name + suffix}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
+        log(f"  {key}: kernel {ms_k:.4f} ms ({flops / ms_k / 1e9:.2f} "
             f"TFLOP/s, {bound_ms / ms_k:.3f} of the bound) | plain "
             f"{ms_p:.3f} ms | dense torch {ms_l:.4f} ms (kernel/library "
             f"{ms_k / ms_l:.3f}) | on the device: kernel alone "
@@ -921,15 +972,15 @@ def phase_reference(dim=512):
     the third loss is the first that sees an update), within rel 2e-4.
     Parameters after Adam are not compared element by element: Adam turns
     last-bit noise in a near-zero gradient into a visible part of an
-    lr-sized step.  Past D = 768 the kernels run their deep mode, and the
-    config check lets the run through.  Returns the launches of the
-    chunked training run, counted from 0 just before it: each kernel of
-    the mode twice a step."""
+    lr-sized step.  Past D = 768 the kernels run their deep mode (past
+    D = 4096 the backward's slab path), and the config check lets the
+    run through.  Returns the launches of the chunked training run,
+    counted from 0 just before it: each kernel of the mode twice a
+    step."""
     from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
     from milnce_tpu_torch.models.build import build_model
     from milnce_tpu_torch.ops import milnce_stream as ms
 
-    mode = "_deep" if dim > ms.STREAM_DMAX else ""
     torch.backends.cudnn.deterministic = True
     try:
         cfg = _small_cfg("chunked", "cuda", dim)
@@ -969,7 +1020,7 @@ def phase_reference(dim=512):
     log(f"  D={dim}: losses dense {ld} chunked/cuda {lc}; max rel diff "
         f"{err:.2e}; the chunked run's launches {launches}")
     want = dict.fromkeys(launches, 0)
-    want.update({name + mode: 2 * 3 for name in ms.KERNELS})
+    want.update({ms.launch_key(name, dim): 2 * 3 for name in ms.KERNELS})
     if not (worst <= 1.0 and len(lc) == len(ld) == 3 and err <= 2e-4
             and all(map(math.isfinite, lc)) and launches == want):
         raise AssertionError("chunked/cuda training disagrees with dense")
@@ -4025,6 +4076,8 @@ def main() -> int:
     phase_reference()
     log(f"== reference at embedding {DEEP_D} (the kernels' deep mode)")
     deep_launches = phase_reference(DEEP_D)
+    log(f"== reference at embedding {SLAB_D} (the backward's slab path)")
+    slab_launches = phase_reference(SLAB_D)
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
     log("== gc-ref (small model, grad-cache step vs its one-graph form)")
@@ -4035,6 +4088,8 @@ def main() -> int:
         launches = train["launches"]
         launches.update({k: n for k, n in deep_launches.items()
                          if k.endswith("_deep")})
+        launches.update({k: n for k, n in slab_launches.items()
+                         if k.endswith("_deep_slab")})
         log("== data alone (loader + prefetch, no step)")
         phase_data_alone()
         log("== ddp-1 (train-full through the distributed path, one rank)")

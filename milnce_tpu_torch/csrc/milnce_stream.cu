@@ -75,18 +75,46 @@
 //
 // The deep mode (every mode, any D > 768): the owned tile no longer fits
 // beside the ring at full depth, nor the backward's gradient in registers.
-// So the owned operand is streamed too: each logits stage holds an RB_K-deep
-// slab of the owned rows (from global memory and L2, swizzled as the
-// streamed slab is) beside the streamed slab, and the forward's online
-// (max, sum) runs as in the held mode.  The backward writes its gradient
-// one depth slab of at most 768 at a time, one slab a grid z-index: each
+// The forward streams the owned operand too: each logits stage holds an
+// RB_K-deep slab of the owned rows (from global memory and L2, swizzled as
+// the streamed slab is) beside the streamed slab, and its online (max, sum)
+// runs as in the held mode (instance DMAX = 768 with DEEP set).
+//
+// The backward's deep mode is the cluster path up to D = 4096.  What bounds
+// it: operations, 4 R C D FLOPs a launch, 0.641 ms for a step's pair of
+// launches at the deep recipe (B 128, Bg 8192, K 5, D 1024).  Its design
+// does each of those FMAs once: D is cut into nz = ceil(D / 512) parts of
+// equal width, a multiple of RB_K (the last takes the remainder), and a
+// thread-block cluster of nz blocks (grid z, cluster (1, 1, nz)) owns the
+// same 32 rows and walks the same streamed tiles, block z on part z.  A
+// block holds its part of the owned rows in shared memory and its part of
+// the gradient in registers (the 512 instance's layout) and streams only
+// its part of S.  For each tile it computes the partial logits over its
+// part, writes them to its own (32, SN) tile of shared memory, and after a
+// cluster barrier reads the nz partials through distributed shared memory
+// and sums them in rank order, so every block of the cluster holds the same
+// logits bit for bit, hence the same weights; a second barrier (arrive now,
+// wait before the next tile's partials are written) keeps a partial tile
+// until every block has read it.  Then it runs the product over its part.
+// The partials make each logit a sum in another order than lse_fwd's (one
+// sequential chain over D), so exp(x - lse) no longer cancels the forward's
+// rounding: where |x| reaches ~100 the dominant weight would be off by
+// ~|x| eps relative.  So lse_bwd_rows on this path also writes each row's
+// sum of exp(x - lse) over its own logits, and the caller divides the
+// weights by it (both modes compute the logits bit for bit alike), which
+// makes them the exact softmax of the backward's logits.
+//
+// Past D = 4096 (more than 8 blocks, the portable cluster's limit) the slab
+// path: the owned operand streamed as in the forward, the gradient written
+// one depth slab of at most 768 at a time, one slab a grid z-index; each
 // block recomputes the full-depth logits for its slab, so the logits FMAs
 // grow by ceil(D / 768) and the product's are those of the 768 instance.
-// Instances: DMAX = 768 with DEEP set.
+// Instances: DMAX = 512 with CLUSTER set; DMAX = 768 with SLAB set.
 //
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -130,22 +158,37 @@ constexpr int RB_STAGES = 3;   // depth of the cp.async ring
 // floats per row group of the weights tile of SN streamed rows
 __host__ __device__ constexpr int w_rg(int sn) { return sn * 8 + 4; }
 
-// DEEP: the owned operand streamed beside S in each logits stage (its slab
-// after S's), the gradient written DMAX depths a grid z-index.
-template <int DMAX, int SN, bool DEEP = false>
+// SLAB: the owned operand streamed beside S in each logits stage (its slab
+// after S's), the gradient written DMAX depths a grid z-index.  CLUSTER:
+// the O tile holds the block's depth part (at most DMAX), and a (RB_M, SN)
+// tile of partial logits follows lse and g.
+template <int DMAX, int SN, bool SLAB = false, bool CLUSTER = false>
 struct Inst {
+  static_assert(!(SLAB && CLUSTER), "one deep path at a time");
   static constexpr int DV = DMAX / 256;   // float4s of output per thread and row
   static constexpr int LDA = DMAX + 4;    // row stride of the O tile
   static constexpr int NB = DMAX <= 256 ? 32 : 8;  // rows of S a product slab
-  static constexpr int LOGITS = (SN + (DEEP ? RB_M : 0)) * RB_K;
+  static constexpr int LOGITS = (SN + (SLAB ? RB_M : 0)) * RB_K;
   static constexpr int STAGE =            // floats in one ring stage
       LOGITS > NB * DMAX ? LOGITS : NB * DMAX;
-  static constexpr int OWNED = DEEP ? 0 : RB_M * LDA;  // the held O tile
+  static constexpr int OWNED = SLAB ? 0 : RB_M * LDA;  // the held O tile
+  static constexpr int PART = CLUSTER ? RB_M * SN : 0; // partial logits
   // the O tile, the weights tile, the ring, lse and g of the block's rows
-  // (read by lse_bwd_rows only)
+  // (read by lse_bwd_rows only), the partial logits
   static constexpr size_t SMEM = sizeof(float) *
-      ((size_t)OWNED + 4 * w_rg(SN) + RB_STAGES * STAGE + 2 * RB_M);
+      ((size_t)OWNED + 4 * w_rg(SN) + RB_STAGES * STAGE + 2 * RB_M + PART);
 };
+
+// The cluster path's barrier in two halves: arrive (release: this block's
+// shared-memory writes and reads before it are done) and wait (acquire:
+// every block of the cluster has arrived).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -209,16 +252,17 @@ __device__ __forceinline__ int s_at(int c, int q) {
   return c * RB_K + 4 * (q ^ (c & 7));
 }
 
-// The block's owned tile: rows row0 .. row0 + M - 1 of O into Os (row
-// stride LDA), zero past NO and from D to the last slab's depth n_k RB_K.
+// The block's owned tile: rows row0 .. row0 + M - 1 of O, depths k0 ..
+// k0 + n_k RB_K - 1, into Os (row stride LDA), zero past NO and past D.
 template <bool VEC, int M>
 __device__ __forceinline__ void load_owned(float* Os, int LDA,
                                            const float* __restrict__ O,
-                                           int row0, int NO, int n_k, int D) {
+                                           int row0, int NO, int n_k, int D,
+                                           int k0 = 0) {
   const int a4 = n_k * (RB_K / 4);
   for (int l = threadIdx.x; l < M * a4; l += RB_T) {
     const int r = l / a4, q = l - r * a4;
-    copy4<VEC>(Os + r * LDA + 4 * q, O, row0 + r, NO, 4 * q, D);
+    copy4<VEC>(Os + r * LDA + 4 * q, O, row0 + r, NO, k0 + 4 * q, D);
   }
 }
 
@@ -274,23 +318,30 @@ __device__ __forceinline__ void copy_logits_slab(float* st,
 // 16-byte load at D = 512 (8 rows x 4 depths, 2 weight and 2 S loads per
 // 8 x 8).
 //
-// DEEP: the O slab of each logits stage sits at SN * RB_K in the stage, read
-// through s_at; the block's gradient covers depths z0 .. z0 + DZ - 1 of D,
-// z0 = DMAX blockIdx.z.
-template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool DEEP>
+// SLAB: the O slab of each logits stage sits at SN * RB_K in the stage,
+// read through s_at; the block's gradient covers depths z0 .. z0 + DZ - 1 of
+// D, z0 = DMAX blockIdx.z.  CLUSTER: block z of the cluster holds and
+// computes depths z0 .. z0 + DZ - 1, z0 = kw blockIdx.z (kw, the part width,
+// a multiple of RB_K); thread tid writes its partial logits acc[i] to float4
+// i RB_T + tid of its partial tile and reads the same float4 of every
+// block's tile.
+template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB,
+          bool CLUSTER = false>
 __global__ void __launch_bounds__(RB_T, 1)
 lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
                const float* __restrict__ lse, const float* __restrict__ g,
-               float* __restrict__ part, int NO, int NS, int D, int tps) {
-  using I = Inst<DMAX, SN, DEEP>;
+               float* __restrict__ part, int NO, int NS, int D, int tps,
+               int kw, float* __restrict__ sums) {
+  using I = Inst<DMAX, SN, SLAB, CLUSTER>;
   constexpr int DV = I::DV, LDA = I::LDA, NB = I::NB;
   constexpr int XL = SN / 32, RG = 32 / XL, MI = RB_M / RG;
   extern __shared__ float4 dyn4[];
-  float* Os = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA], held mode
+  float* Os = reinterpret_cast<float*>(dyn4);   // [RB_M][LDA], not SLAB
   float* Ws = Os + I::OWNED;                    // [4][w_rg(SN)], w_at
   float* ring = Ws + 4 * w_rg(SN);              // [RB_STAGES][STAGE]
   float* ls = ring + RB_STAGES * I::STAGE;      // [RB_M]
   float* gs = ls + RB_M;                        // [RB_M]
+  float4* Ps = reinterpret_cast<float4*>(gs + RB_M);  // [MI][RB_T], CLUSTER
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane >> 3, x = lane & 7;       // the product's layout
   const int lrg = lane / XL;                    // the logits' layout
@@ -299,10 +350,12 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   const int row0 = blockIdx.x * RB_M;
   const int t_first = blockIdx.y * tps;
   const int ntile = min((NS + SN - 1) / SN, t_first + tps) - t_first;
-  const int n_k = (D + RB_K - 1) / RB_K;        // logits slabs a tile
+  // the gradient's depths z0 .. z0 + DZ - 1; the logits' kz .. kz + n_k RB_K
+  const int z0 = SLAB ? DMAX * blockIdx.z : CLUSTER ? kw * blockIdx.z : 0;
+  const int DZ = SLAB ? min(DMAX, D - z0) : CLUSTER ? min(kw, D - z0) : D;
+  const int kz = CLUSTER ? z0 : 0;
+  const int n_k = ((CLUSTER ? DZ : D) + RB_K - 1) / RB_K;  // logits slabs
   const int per_tile = n_k + SN / NB;           // and product slabs a tile
-  const int z0 = DEEP ? DMAX * blockIdx.z : 0;  // the gradient's depths
-  const int DZ = DEEP ? min(DMAX, D - z0) : D;
   const int d4 = (DZ + 3) / 4;
 
   if (!OWN_COLS && tid < RB_M) {
@@ -311,7 +364,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     gs[tid] = r < NO ? g[r] : 0.f;
   }
   // The O tile; its copies join the first stage's group.
-  if (!DEEP) load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D);
+  if (!SLAB) load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D, kz);
 
   // The next slab to copy: tile it, part ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
@@ -322,8 +375,8 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
       // whole 16-byte chunks inside NS and D: copies without checks
       const bool fast = VEC && col0 + SN <= NS;
       if (ip < n_k) {
-        copy_logits_slab<VEC, SN>(st, S, col0, NS, ip * RB_K, D, fast);
-        if (DEEP)
+        copy_logits_slab<VEC, SN>(st, S, col0, NS, kz + ip * RB_K, D, fast);
+        if (SLAB)
           copy_owned_slab<VEC, RB_M>(st + SN * RB_K, O, row0, NO, ip * RB_K,
                                      D);
       } else {                // S[col0 + n0 : +NB, z0 : z0 + DZ], stride DMAX
@@ -347,6 +400,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   };
 
   float acc[MI][4];           // logits of the current tile
+  float psum[MI] = {};        // CLUSTER, lse_bwd_rows: sum_j p_rj a row
   float out[8][4 * DV];       // the gradient
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -380,7 +434,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
         for (int j = 0; j < 4; ++j) b[j] = ld4(st + s_at(cx + XL * j, q));
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          const float4 a = DEEP ? ld4(st + SN * RB_K + s_at(lrg + RG * i, q))
+          const float4 a = SLAB ? ld4(st + SN * RB_K + s_at(lrg + RG * i, q))
                                 : ld4(a_k + RG * i * LDA + 4 * q);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -389,6 +443,30 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
             acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
             acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
           }
+        }
+      }
+      if constexpr (CLUSTER) {
+        if (cp == n_k - 1) {  // the cluster's logits, summed in rank order
+          if (ct > 0) cluster_wait();  // every block read the last tile's
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            Ps[i * RB_T + tid] =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+          }
+          cluster_arrive();
+          cluster_wait();
+          const auto cluster = cooperative_groups::this_cluster();
+          for (int z = 0; z < (int)gridDim.z; ++z) {
+            const float4* src = cluster.map_shared_rank(Ps, z);
+#pragma unroll
+            for (int i = 0; i < MI; ++i) {
+              const float4 p = src[i * RB_T + tid];
+              acc[i][0] += p.x, acc[i][1] += p.y;
+              acc[i][2] += p.z, acc[i][3] += p.w;
+            }
+          }
+          cluster_arrive();     // waited for before the next tile's partials
         }
       }
       if (cp == n_k - 1) {    // the tile's weights, zero past NO and NS
@@ -404,10 +482,17 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
 #pragma unroll
           for (int i = 0; i < MI; ++i) {
             const int r = lrg + RG * i;
-            w[i] = (row0 + r < NO && n_ok)
-                       ? (OWN_COLS ? expf(acc[i][j] - ln) * gn
-                                   : expf(acc[i][j] - ls[r]) * gs[r])
-                       : 0.f;
+            if constexpr (CLUSTER && !OWN_COLS) {  // p_rj, and its row sum
+              const float p = (row0 + r < NO && n_ok)
+                                  ? expf(acc[i][j] - ls[r]) : 0.f;
+              psum[i] += p;
+              w[i] = (row0 + r < NO && n_ok) ? p * gs[r] : 0.f;
+            } else {
+              w[i] = (row0 + r < NO && n_ok)
+                         ? (OWN_COLS ? expf(acc[i][j] - ln) * gn
+                                     : expf(acc[i][j] - ls[r]) * gs[r])
+                         : 0.f;
+            }
           }
           if constexpr (MI == 8) {   // rows rg + 4 i: the product's own
             *reinterpret_cast<float4*>(Ws + w_at<SN>(lrg, n, 0)) =
@@ -447,6 +532,34 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     if (++cs == RB_STAGES) cs = 0;
   }
   cp_wait<0>();
+  // no block leaves while another may still read its partial tile
+  if constexpr (CLUSTER)
+    if (ntile > 0) cluster_wait();
+  // lse_bwd_rows on the cluster path: sums[y]_r = sum_j p_rj over the
+  // split's columns (the blocks of a cluster hold the same p; block 0
+  // writes), so that the caller can divide the weights by their row sum
+  if constexpr (CLUSTER && !OWN_COLS) {
+    if (sums != nullptr) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int o = 1; o < XL; o <<= 1)   // the XL lanes of a row group
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], o);
+      __syncthreads();        // every warp is done with the ring
+      float* red = ring;      // [RB_T / 32][RB_M]
+      if (lane % XL == 0) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i) red[warp * RB_M + lrg + RG * i] = psum[i];
+      }
+      __syncthreads();
+      if (blockIdx.z == 0 && tid < RB_M && row0 + tid < NO) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < RB_T / 32; ++w) t += red[w * RB_M + tid];
+        sums[(size_t)blockIdx.y * NO + row0 + tid] = t;
+      }
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -679,35 +792,99 @@ int launch_fwd_inst(const float* A, const float* B, float* part_m,
 
 struct Launch {
   const float *O, *S, *lse, *g;
-  float* part;
-  int NO, NS, D, nsplit, tps;
+  float *part, *sums;
+  int NO, NS, D, nsplit, tps, kw;
   cudaStream_t stream;
 };
 
-template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool DEEP = false>
+// The backward's modes (``deep`` of milnce_lse_bwd): the owned rows held at
+// full depth, the cluster path, the slab path.
+enum Mode { HELD = 0, CLUSTER_PATH = 1, SLAB_PATH = 2 };
+constexpr int CLUSTER_DMAX = 512;  // the widest depth part of a cluster block
+constexpr int CLUSTER_MAX = 8;     // blocks in a portable cluster
+
+template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB = false>
 int launch_inst(const Launch& a) {
-  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN, DEEP>;
-  const size_t smem = Inst<DMAX, SN, DEEP>::SMEM;
+  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN, SLAB>;
+  const size_t smem = Inst<DMAX, SN, SLAB>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.NO + RB_M - 1) / RB_M, a.nsplit,
-            DEEP ? (a.D + DMAX - 1) / DMAX : 1);
+            SLAB ? (a.D + DMAX - 1) / DMAX : 1);
   kernel<<<grid, RB_T, smem, a.stream>>>(a.O, a.S, a.lse, a.g, a.part, a.NO,
-                                         a.NS, a.D, a.tps);
+                                         a.NS, a.D, a.tps, a.kw, nullptr);
   return (int)cudaGetLastError();
 }
 
-// ``dmax`` picks the instance (256, 512 or 768, at least D; 768 in the
-// ``deep`` mode, any D); ``vec``: D % 4 == 0 and O, S 16-byte aligned.
+// The cluster path's launch configuration: grid (row tiles, nsplit, nz),
+// clusters of (1, 1, nz) blocks, nz = ceil(D / kw); ``attr`` holds the
+// cluster's dimensions.
+template <int SN>
+cudaLaunchConfig_t cluster_config(const Launch& a, int nz,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.NO + RB_M - 1) / RB_M, a.nsplit, nz);
+  cfg.blockDim = dim3(RB_T);
+  cfg.dynamicSmemBytes = Inst<CLUSTER_DMAX, SN, false, true>::SMEM;
+  cfg.stream = a.stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = nz;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+using BwdKernel = void (*)(const float*, const float*, const float*,
+                           const float*, float*, int, int, int, int, int,
+                           float*);
+
+// The cluster path's kernel, its shared memory opted in to.
+template <bool VEC, bool OWN_COLS, int SN>
+cudaError_t cluster_kernel(BwdKernel* kernel) {
+  *kernel = lse_bwd_kernel<CLUSTER_DMAX, VEC, OWN_COLS, SN, false, true>;
+  return cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Inst<CLUSTER_DMAX, SN, false, true>::SMEM);
+}
+
+// The cluster path: parts of kw depths (a multiple of RB_K, at most
+// CLUSTER_DMAX), nz = ceil(D / kw) of them, at most CLUSTER_MAX.  A refused
+// launch returns its error; nothing falls back to the slab path.
+template <bool VEC, bool OWN_COLS, int SN>
+int launch_cluster(const Launch& a) {
+  const int nz = (a.D + a.kw - 1) / a.kw;
+  if (a.kw % RB_K || a.kw > CLUSTER_DMAX || nz > CLUSTER_MAX)
+    return (int)cudaErrorInvalidValue;
+  BwdKernel kernel;
+  cudaError_t err = cluster_kernel<VEC, OWN_COLS, SN>(&kernel);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<SN>(a, nz, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, a.O, a.S, a.lse, a.g, a.part, a.NO,
+                           a.NS, a.D, a.tps, a.kw, a.sums);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ``deep`` picks the mode; ``dmax`` the held instance (256, 512 or 768, at
+// least D), 512 on the cluster path, 768 on the slab path (any D); ``vec``:
+// D % 4 == 0 and O, S 16-byte aligned.
 template <bool OWN_COLS, int SN>
 int launch(const Launch& a, int dmax, int deep, int vec) {
-  if (deep) {
+  if (deep == CLUSTER_PATH) {
+    if (dmax != CLUSTER_DMAX) return (int)cudaErrorInvalidValue;
+    return vec ? launch_cluster<true, OWN_COLS, SN>(a)
+               : launch_cluster<false, OWN_COLS, SN>(a);
+  }
+  if (deep == SLAB_PATH) {
     if (dmax != 768) return (int)cudaErrorInvalidValue;
     return vec ? launch_inst<768, true, OWN_COLS, SN, true>(a)
                : launch_inst<768, false, OWN_COLS, SN, true>(a);
   }
-  if (a.D > dmax) return (int)cudaErrorInvalidValue;
+  if (deep != HELD || a.D > dmax) return (int)cudaErrorInvalidValue;
   switch (dmax) {
     case 256:
       return vec ? launch_inst<256, true, OWN_COLS, SN>(a)
@@ -725,13 +902,34 @@ int launch(const Launch& a, int dmax, int deep, int vec) {
 
 template <int SN>
 size_t smem_bytes(int dmax, int deep) {
-  if (deep) return dmax == 768 ? Inst<768, SN, true>::SMEM : 0;
+  if (deep == CLUSTER_PATH)
+    return dmax == CLUSTER_DMAX ? Inst<CLUSTER_DMAX, SN, false, true>::SMEM
+                                : 0;
+  if (deep == SLAB_PATH) return dmax == 768 ? Inst<768, SN, true>::SMEM : 0;
+  if (deep != HELD) return 0;
   switch (dmax) {
     case 256: return Inst<256, SN>::SMEM;
     case 512: return Inst<512, SN>::SMEM;
     case 768: return Inst<768, SN>::SMEM;
     default: return 0;
   }
+}
+
+// How many clusters of nz blocks of the cluster path the card holds at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+template <bool OWN_COLS, int SN>
+int max_clusters(int nz) {
+  BwdKernel kernel;
+  cudaError_t err = cluster_kernel<true, OWN_COLS, SN>(&kernel);
+  if (err != cudaSuccess) return -(int)err;
+  Launch one = {};
+  one.NO = RB_M;
+  one.nsplit = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<SN>(one, nz, &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace rows
@@ -771,31 +969,46 @@ int milnce_lse_fwd(const float* A, const float* B, float* part_m,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the backward instance for depths up to ``dmax``
-// (gradient slabs of ``dmax`` when ``deep``) and streamed tiles of ``sn``
-// rows (bytes), 0 for one that has no instance.  Both modes share it.
+// Dynamic shared memory of the backward instance in mode ``deep`` (0 held,
+// D <= dmax; 1 the cluster path, parts of at most dmax = 512; 2 the slab
+// path, gradient slabs of dmax = 768) for streamed tiles of ``sn`` rows
+// (bytes), 0 for one that has no instance.  Both modes share it.
 size_t milnce_bwd_rows_smem(int dmax, int sn, int deep) {
   return sn == 128 ? rows::smem_bytes<128>(dmax, deep)
                    : sn == 256 ? rows::smem_bytes<256>(dmax, deep) : 0;
 }
 
+// How many clusters of nz blocks the cluster path's instance for own_cols
+// (sn 256 without, 128 with) can keep resident on the current card at once;
+// minus a CUDA error if the query fails.
+int milnce_bwd_clusters(int own_cols, int nz) {
+  return own_cols ? rows::max_clusters<true, 128>(nz)
+                  : rows::max_clusters<false, 256>(nz);
+}
+
 // One backward launch for A (R, D), B (C, D): part (nsplit, R, D) of dA
 // (own_cols 0, lse_bwd_rows, sn 256) or part (nsplit, C, D) of dB
-// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R; ``deep``: the
-// deep mode, gradient slabs of dmax = 768 over grid z.
+// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R, in mode
+// ``deep`` (0 held, 1 the cluster path, depth parts of ``kw``, 2 the slab
+// path, gradient slabs of dmax = 768 over grid z).  ``sums`` (nsplit, R),
+// written by lse_bwd_rows on the cluster path only (else NULL): each
+// split's sum over its columns of exp(A_r . B_j - lse_r).
 int milnce_lse_bwd(const float* A, const float* B, const float* lse,
-                   const float* g, float* part, int R, int C, int D,
-                   int own_cols, int dmax, int sn, int deep, int nsplit,
-                   int tps, int vec, void* stream) {
+                   const float* g, float* part, float* sums, int R, int C,
+                   int D, int own_cols, int dmax, int sn, int deep, int kw,
+                   int nsplit, int tps, int vec, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (deep == rows::CLUSTER_PATH && kw < 1) return (int)cudaErrorInvalidValue;
+  if (sums && (own_cols || deep != rows::CLUSTER_PATH))
+    return (int)cudaErrorInvalidValue;
   if (!own_cols) {
     if (sn != 256) return (int)cudaErrorInvalidValue;
-    return rows::launch<false, 256>({A, B, lse, g, part, R, C, D, nsplit, tps,
-                                     s}, dmax, deep, vec);
+    return rows::launch<false, 256>({A, B, lse, g, part, sums, R, C, D,
+                                     nsplit, tps, kw, s}, dmax, deep, vec);
   }
   if (sn != 128) return (int)cudaErrorInvalidValue;
-  return rows::launch<true, 128>({B, A, lse, g, part, C, R, D, nsplit, tps,
-                                  s}, dmax, deep, vec);
+  return rows::launch<true, 128>({B, A, lse, g, part, nullptr, C, R, D,
+                                  nsplit, tps, kw, s}, dmax, deep, vec);
 }
 
 }  // extern "C"

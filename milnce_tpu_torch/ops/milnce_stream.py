@@ -28,12 +28,15 @@ kernels tile columns their own way, so the two agree up to summation
 order.  :func:`milnce_stream` takes the plain version only for CPU
 tensors; for CUDA tensors it launches the kernels or raises.  Up to
 :data:`STREAM_DMAX` a kernel holds a row of D on chip (the held mode);
-past it each mode runs its deep mode, which streams D in slabs (the
-plan's ``mode``).
+past it each mode runs its deep mode (the plan's ``mode``): the forward
+streams D in slabs, the backward splits D into :func:`deep_parts` over a
+thread-block cluster up to :data:`CLUSTER_REACH` (``deep``) and past it
+recomputes the logits for each gradient slab (``deep_slab``).
 
 ``LAUNCHES`` counts kernel launches, one per launch, under the kernel's
-name, and the deep mode's under the name with ``_deep`` added, so a run
-can show that it went through the kernels.
+name, the deep mode's under the name with ``_deep`` added and the
+backward's slab path's with ``_deep_slab``, so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from milnce_tpu_torch.ops.softdtw import BIG
 
 KERNELS = ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")
 LAUNCHES = {f"{name}{mode}": 0 for mode in ("", "_deep") for name in KERNELS}
+LAUNCHES.update({f"{name}_deep_slab": 0 for name in KERNELS[1:]})
 
 
 def reset_launches() -> None:
@@ -88,29 +92,44 @@ def lse_plain(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
     return m + torch.log(s)
 
 
-def _weights(af, blk, start, width, c, lse, g):
-    x = af @ blk.T
+def _logits(af, blk, parts):
+    """af @ blk.T, or with ``parts`` (:func:`deep_parts`) the partial
+    products over each depth part summed in part order, as the cluster
+    path sums them."""
+    if not parts:
+        return af @ blk.T
+    x = None
+    for k0, width in parts:
+        p = af[:, k0:k0 + width] @ blk[:, k0:k0 + width].T
+        x = p if x is None else x + p
+    return x
+
+
+def _weights(af, blk, start, width, c, lse, g, parts=None):
+    x = _logits(af, blk, parts)
     ok = _mask(start, width, c, af.device)[None, :]
     return torch.where(ok, torch.exp(x - lse[:, None]), 0.0) * g[:, None]
 
 
-def lse_bwd_rows_plain(a, b, lse, g, width: int) -> torch.Tensor:
-    """dA (R, D) = sum_j w_rj B_j, streamed over blocks of ``width``."""
+def lse_bwd_rows_plain(a, b, lse, g, width: int, parts=None) -> torch.Tensor:
+    """dA (R, D) = sum_j w_rj B_j, streamed over blocks of ``width``; with
+    ``parts`` the logits are summed over those depth parts."""
     af, lse, g = a.float(), lse.float(), g.float()
     out = torch.zeros_like(af)
     for start, blk in _blocks(b, width):
-        out += _weights(af, blk, start, width, b.shape[0], lse, g) @ blk
+        out += _weights(af, blk, start, width, b.shape[0], lse, g, parts) @ blk
     return out.to(a.dtype)
 
 
-def lse_bwd_cols_plain(a, b, lse, g, width: int) -> torch.Tensor:
+def lse_bwd_cols_plain(a, b, lse, g, width: int, parts=None) -> torch.Tensor:
     """dB (C, D) = sum_r w_rj A_r, one block of ``width`` rows at a time,
-    each cast to ``b``'s dtype."""
+    each cast to ``b``'s dtype; with ``parts`` the logits are summed over
+    those depth parts."""
     af, lse, g = a.float(), lse.float(), g.float()
     c = b.shape[0]
-    parts = [(_weights(af, blk, start, width, c, lse, g).T @ af).to(b.dtype)
-             for start, blk in _blocks(b, width)]
-    return torch.cat(parts)[:c]
+    out = [(_weights(af, blk, start, width, c, lse, g, parts).T
+            @ af).to(b.dtype) for start, blk in _blocks(b, width)]
+    return torch.cat(out)[:c]
 
 
 class _StreamPlain(torch.autograd.Function):
@@ -149,8 +168,11 @@ def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
         lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
-        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, *[_I] * 10, _P]
-        for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd):
+        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 11,
+                                       _P]
+        lib.milnce_bwd_clusters.argtypes = [_I, _I]
+        for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd,
+                   lib.milnce_bwd_clusters):
             fn.restype = ctypes.c_int
         lib.milnce_bwd_rows_smem.argtypes = [_I, _I, _I]
         lib.milnce_fwd_smem.argtypes = [_I, _I, _I, _I]
@@ -185,28 +207,43 @@ def _check_operands(name: str, a, b, *rows) -> None:
 
 ROWS_INSTANCES = (256, 512, 768)   # held instances of every mode: D <= each
 STREAM_DMAX = ROWS_INSTANCES[-1]   # the largest depth held on chip; past it
-                                   # the deep mode, gradient slabs this wide
+                                   # the deep mode
 ROWS_BM, ROWS_THREADS = 32, 256
 _ROWS_BK, _ROWS_STAGES = 32, 3
 # the forward's (owned rows, streamed tile) for each instance (the deep
 # mode's those of STREAM_DMAX)
 FWD_TILES = {256: (64, 128), 512: (64, 128), 768: (32, 256)}
+# the backward's cluster path: depth parts of at most CLUSTER_DMAX, one
+# block each, at most CLUSTER_MAX blocks (a portable cluster)
+CLUSTER_DMAX, CLUSTER_MAX = 512, 8
+CLUSTER_REACH = CLUSTER_DMAX * CLUSTER_MAX
+# clusters of nz blocks of the cluster path (one block an SM) that an H100
+# 80GB HBM3 (132 SMs, in GPCs of unequal size) keeps resident at once,
+# either instance (cudaOccupancyMaxActiveClusters, printed by
+# ops/rows_probe.py --accuracy): the plan's wave where no card is asked
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# the mode codes of milnce_lse_bwd
+_BWD_MODES = {"held": 0, "deep": 1, "deep_slab": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class RowsPlan:
     """How a launch of the ``rows::`` kernel family runs: it owns ``bm``
     rows of one operand a block and streams the other in tiles of ``bn``
-    rows.  Instance ``dmax``, a grid of (row_tiles, nsplit) blocks of
+    rows.  Instance ``dmax``, a grid of (row_tiles, nsplit, nz) blocks of
     ``threads``, row_tiles owned tiles, split y covering streamed tiles
     ``tiles(y)`` of ``col_tiles``, partials in a ``scratch`` tensor:
     (nsplit, owned rows, D) of gradient in the backward, (nsplit, R) of
     maxima and as many of sums in the forward.  ``lse_fwd`` and
     ``lse_bwd_rows`` own A and stream B, ``lse_bwd_cols`` owns B and
     streams A.  ``mode`` is ``held`` (the owned tile on chip at full depth,
-    D <= dmax) or ``deep`` (both operands streamed in depth slabs; the
-    backward writes ``nz`` gradient slabs of ``dmax`` depths, one a grid
-    z-index, each recomputing the full-depth logits)."""
+    D <= dmax) or, past STREAM_DMAX, ``deep``: the forward streams both
+    operands in depth slabs; the backward runs clusters of ``nz`` blocks,
+    block z holding depth part ``parts[z]`` of the owned rows, of which
+    the card keeps ``clusters`` resident at once (the cluster path).
+    ``deep_slab`` (the backward past CLUSTER_REACH): both operands
+    streamed, ``nz`` gradient slabs of ``dmax`` depths, one a grid
+    z-index, each recomputing the full-depth logits."""
     dmax: int
     bm: int
     bn: int
@@ -219,6 +256,8 @@ class RowsPlan:
     scratch: tuple
     mode: str = "held"
     nz: int = 1
+    parts: tuple = ()
+    clusters: int = 0
 
     def tiles(self, split: int) -> range:
         return range(split * self.tps,
@@ -228,7 +267,7 @@ class RowsPlan:
 def check_depth(name: str, d: int) -> tuple[int, str]:
     """(instance, mode) for depth ``d``: the smallest held instance that
     holds it, or past :data:`STREAM_DMAX` the deep mode (its instance is
-    tagged STREAM_DMAX, the widest gradient slab).  Raises for d < 1."""
+    tagged STREAM_DMAX).  Raises for d < 1."""
     if d < 1:
         raise ValueError(f"{name}: depth {d}, expected at least 1")
     if d > STREAM_DMAX:
@@ -236,32 +275,74 @@ def check_depth(name: str, d: int) -> tuple[int, str]:
     return next(x for x in ROWS_INSTANCES if d <= x), "held"
 
 
-def _plan(dmax: int, owned: int, streamed: int, sms: int, bm: int, sn: int,
-          smem: int, scratch: tuple, mode: str = "held",
-          nz: int = 1) -> RowsPlan:
+def deep_parts(d: int) -> list[tuple[int, int]]:
+    """The depth parts [(k0, width), ...] of the backward's cluster path
+    at depth ``d``: ceil(d / CLUSTER_DMAX) parts of one width, ceil(d /
+    parts) rounded up to a multiple of 32 (a logits slab), the last
+    taking the remainder.  They cover 0 .. d - 1 once."""
+    nz = -(-d // CLUSTER_DMAX)
+    per_part = -(-d // nz)
+    width = -(-per_part // _ROWS_BK) * _ROWS_BK
+    return [(k0, min(width, d - k0)) for k0 in range(0, d, width)]
+
+
+def bwd_mode(name: str, d: int, slab: bool = False) -> tuple[int, str, int]:
+    """(instance, mode, nz) of a backward launch at depth ``d``: the
+    smallest held instance that holds it; past :data:`STREAM_DMAX` the
+    cluster path (``deep``: instance CLUSTER_DMAX, nz depth parts) up to
+    :data:`CLUSTER_REACH`; past it, or with ``slab``, the slab path
+    (``deep_slab``: instance STREAM_DMAX, nz gradient slabs)."""
+    dmax, mode = check_depth(name, d)
+    if mode == "held":
+        return dmax, mode, 1
+    if d <= CLUSTER_REACH and not slab:
+        return CLUSTER_DMAX, "deep", len(deep_parts(d))
+    return STREAM_DMAX, "deep_slab", -(-d // STREAM_DMAX)
+
+
+def launch_key(name: str, d: int) -> str:
+    """The ``LAUNCHES`` key under which a launch of kernel ``name`` at
+    depth ``d`` counts."""
+    mode = (check_depth(name, d) if name == "lse_fwd"
+            else bwd_mode(name, d))[1]
+    return name if mode == "held" else f"{name}_{mode}"
+
+
+def _plan(dmax: int, owned: int, streamed: int, slots: int, bm: int, sn: int,
+          smem: int, scratch: tuple, mode: str = "held", nz: int = 1,
+          parts: tuple = (), clusters: int = 0) -> RowsPlan:
     """The fewest streamed tiles per split that keep the grid to one wave
-    of one block per SM (a grid past one wave only when the owned tiles
-    alone, times the ``nz`` gradient slabs, pass it)."""
+    of ``slots`` (row tile, split) units, one block an SM for each of the
+    ``nz`` (a grid past one wave only when the owned tiles alone pass
+    it)."""
     row_tiles, col_tiles = -(-owned // bm), -(-streamed // sn)
-    per_row = min(col_tiles, max(1, sms // (row_tiles * nz)))
+    per_row = min(col_tiles, max(1, slots // row_tiles))
     tps = -(-col_tiles // per_row)
     nsplit = -(-col_tiles // tps)
     return RowsPlan(dmax, bm, sn, ROWS_THREADS, row_tiles, col_tiles, nsplit,
-                    tps, smem, (nsplit, *scratch), mode, nz)
+                    tps, smem, (nsplit, *scratch), mode, nz, parts, clusters)
 
 
 def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
-              sn: int) -> RowsPlan:
-    """The smallest held instance that holds d, else the deep mode; 32
-    owned rows a block."""
-    dmax, mode = check_depth(name, d)
-    deep = mode == "deep"
+              sn: int, clusters: int | None, slab: bool) -> RowsPlan:
+    """The mode of :func:`bwd_mode`; 32 owned rows a block.  On the
+    cluster path one wave is ``clusters`` clusters (the card's count, else
+    the H100's, :data:`H100_CLUSTERS`)."""
+    dmax, mode, nz = bwd_mode(name, d, slab)
     nb = 32 if dmax <= 256 else 8          # streamed rows of a product slab
-    stage = max((sn + ROWS_BM * deep) * _ROWS_BK, nb * dmax)
-    held = 0 if deep else ROWS_BM * (dmax + 4)
-    smem = 4 * (held + 4 * (8 * sn + 4) + _ROWS_STAGES * stage + 2 * ROWS_BM)
-    return _plan(dmax, owned, streamed, sms, ROWS_BM, sn, smem, (owned, d),
-                 mode, -(-d // dmax) if deep else 1)
+    streamed_owned = mode == "deep_slab"
+    stage = max((sn + ROWS_BM * streamed_owned) * _ROWS_BK, nb * dmax)
+    held = 0 if streamed_owned else ROWS_BM * (dmax + 4)
+    partial = ROWS_BM * sn if mode == "deep" else 0
+    smem = 4 * (held + 4 * (8 * sn + 4) + _ROWS_STAGES * stage + 2 * ROWS_BM
+                + partial)
+    if mode == "deep":
+        if clusters is None:
+            clusters = H100_CLUSTERS[nz]
+        return _plan(dmax, owned, streamed, clusters, ROWS_BM, sn, smem,
+                     (owned, d), mode, nz, tuple(deep_parts(d)), clusters)
+    return _plan(dmax, owned, streamed, sms // nz, ROWS_BM, sn, smem,
+                 (owned, d), mode, nz)
 
 
 def fwd_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
@@ -279,19 +360,22 @@ def fwd_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
     return _plan(dmax, r, c, sms, bm, sn, smem, (r,), mode)
 
 
-def rows_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
+def rows_plan(r: int, c: int, d: int, sms: int, clusters: int | None = None,
+              slab: bool = False) -> RowsPlan:
     """The launch plan of ``lse_bwd_rows`` for A (r, d), B (c, d) on a card
-    with ``sms`` SMs: blocks own 32 rows of A and stream B in 256-row
-    tiles."""
-    return _bwd_plan("lse_bwd_rows", r, c, d, sms, 256)
+    with ``sms`` SMs (holding ``clusters`` clusters of the cluster path at
+    once): blocks own 32 rows of A and stream B in 256-row tiles.
+    ``slab`` takes the slab path past STREAM_DMAX."""
+    return _bwd_plan("lse_bwd_rows", r, c, d, sms, 256, clusters, slab)
 
 
-def cols_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
+def cols_plan(r: int, c: int, d: int, sms: int, clusters: int | None = None,
+              slab: bool = False) -> RowsPlan:
     """The launch plan of ``lse_bwd_cols`` for A (r, d), B (c, d) on a card
-    with ``sms`` SMs: blocks own 32 rows of B and stream A in 128-row
-    tiles (a 256-row tile never pads A less, and pads the step's R = 128
-    launch by half)."""
-    return _bwd_plan("lse_bwd_cols", c, r, d, sms, 128)
+    with ``sms`` SMs (and ``clusters``, ``slab`` as in :func:`rows_plan`):
+    blocks own 32 rows of B and stream A in 128-row tiles (a 256-row tile
+    never pads A less, and pads the step's R = 128 launch by half)."""
+    return _bwd_plan("lse_bwd_cols", c, r, d, sms, 128, clusters, slab)
 
 
 def _sms(device) -> int:
@@ -327,7 +411,7 @@ def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _counter(name: str, plan: RowsPlan) -> str:
-    return name if plan.mode == "held" else f"{name}_deep"
+    return name if plan.mode == "held" else f"{name}_{plan.mode}"
 
 
 def launch_fwd(lib, a, b) -> tuple[torch.Tensor, RowsPlan]:
@@ -351,41 +435,87 @@ def launch_fwd(lib, a, b) -> tuple[torch.Tensor, RowsPlan]:
 
 def lse_bwd_rows(a, b, lse, g) -> torch.Tensor:
     """Kernel: dA (R, D) = sum_j exp(a_r . b_j - lse_r) g_r b_j."""
+    return _lse_bwd_rows_and_sums(a, b, lse, g)[0]
+
+
+def _lse_bwd_rows_and_sums(a, b, lse, g):
+    """:func:`lse_bwd_rows` and, on the cluster path, s_r = sum_j exp(a_r .
+    b_j - lse_r) over the kernel's own logits (else None)."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
-    out, plan = launch_bwd(_lib(), a, b, lse, g, cols=False)
+    out, plan, sums = launch_bwd(_lib(), a, b, lse, g, cols=False)
     LAUNCHES[_counter("lse_bwd_rows", plan)] += 1
-    return out
+    return out, sums
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
     """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r."""
     _check_operands("lse_bwd_cols", a, b, lse, g)
-    out, plan = launch_bwd(_lib(), a, b, lse, g, cols=True)
+    out, plan, _ = launch_bwd(_lib(), a, b, lse, g, cols=True)
     LAUNCHES[_counter("lse_bwd_cols", plan)] += 1
     return out
 
 
-def launch_bwd(lib, a, b, lse, g, cols: bool) -> tuple[torch.Tensor,
-                                                       RowsPlan]:
+_CLUSTERS: dict = {}
+
+
+def card_clusters(lib, cols: bool, nz: int, device) -> int:
+    """How many clusters of ``nz`` blocks of ``lib``'s cluster path (the
+    ``lse_bwd_cols`` instance when ``cols``) the card of ``device`` keeps
+    resident at once (``cudaOccupancyMaxActiveClusters``); raises if it
+    holds none."""
+    with torch.cuda.device(device):
+        key = (torch.cuda.current_device(), bool(cols), nz)
+        if key not in _CLUSTERS:
+            n = lib.milnce_bwd_clusters(int(cols), nz)
+            if n <= 0:
+                raise RuntimeError(
+                    f"the card holds no cluster of {nz} blocks of the "
+                    f"backward's cluster path (query returned {n})")
+            _CLUSTERS[key] = n
+        return _CLUSTERS[key]
+
+
+def card_bwd_plan(lib, cols: bool, r: int, c: int, d: int,
+                  device) -> RowsPlan:
+    """The plan :func:`launch_bwd` takes for A (r, d), B (c, d) on the card
+    of ``device``: :func:`cols_plan` when ``cols``, else :func:`rows_plan`,
+    on the cluster path with the card's resident clusters."""
+    name = "lse_bwd_cols" if cols else "lse_bwd_rows"
+    _, mode, nz = bwd_mode(name, d)
+    clusters = card_clusters(lib, cols, nz, device) if mode == "deep" else None
+    return (cols_plan if cols else rows_plan)(r, c, d, _sms(device), clusters)
+
+
+def launch_bwd(lib, a, b, lse, g, cols: bool, _plan: RowsPlan | None = None
+               ) -> tuple[torch.Tensor, RowsPlan, torch.Tensor | None]:
     """One launch of ``lib``'s backward kernel on checked operands: dA
     (R, D) with the plan of :func:`rows_plan`, or dB (C, D) with that of
-    :func:`cols_plan` when ``cols``; then the sum of its partials.
-    Returns the gradient and the plan."""
+    :func:`cols_plan` when ``cols``, on the cluster path sized by the
+    card's resident clusters; then the sum of its partials.  ``_plan``
+    replaces the plan (a timing of the slab path at a depth the cluster
+    path takes).  Returns the gradient, the plan and, for dA on the
+    cluster path, the sums (R,) of the weights before g over each row
+    (else None)."""
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
     (r, d), c = a.shape, b.shape[0]
-    plan = (cols_plan if cols else rows_plan)(r, c, d, _sms(a.device))
-    deep = int(plan.mode == "deep")
+    plan = _plan or card_bwd_plan(lib, cols, r, c, d, a.device)
+    code = _BWD_MODES[plan.mode]
     _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn,
-                                                       deep),
+                                                       code),
                 plan.smem_bytes, a.device)
     part = torch.empty(plan.scratch, device=a.device)
+    sums = (torch.empty(plan.scratch[:2], device=a.device)
+            if plan.mode == "deep" and not cols else None)
+    kw = plan.parts[0][1] if plan.parts else 0
     err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
-                             g.data_ptr(), part.data_ptr(), r, c, d,
-                             int(cols), plan.dmax, plan.bn, deep, plan.nsplit,
-                             plan.tps, int(_vec(a, b)),
+                             g.data_ptr(), part.data_ptr(),
+                             None if sums is None else sums.data_ptr(), r, c,
+                             d, int(cols), plan.dmax, plan.bn, code, kw,
+                             plan.nsplit, plan.tps, int(_vec(a, b)),
                              cuda_build.current_stream(a))
     cuda_build.check_launch(name, err)
-    return (part[0] if plan.nsplit == 1 else part.sum(dim=0)), plan
+    grad = part[0] if plan.nsplit == 1 else part.sum(dim=0)
+    return grad, plan, None if sums is None else sums.sum(dim=0)
 
 
 class _StreamCuda(torch.autograd.Function):
@@ -400,11 +530,21 @@ class _StreamCuda(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_row, g_col):
+        """On the cluster path the backward's logits round unlike the
+        forward's, so exp(x - lse) would carry that difference into the
+        dominant weight; dividing the weights by their row sum s (of the
+        backward's own logits, which both modes compute bit for bit)
+        makes them the exact softmax of those logits.  With lse the
+        logsumexp, s is 1 up to rounding: the same gradient."""
         v, t, v_all, t_all, row, col = ctx.saved_tensors
         g_row, g_col = g_row.contiguous(), g_col.contiguous()
-        return (lse_bwd_rows(v, t_all, row, g_row),
-                lse_bwd_rows(t, v_all, col, g_col),
-                lse_bwd_cols(t, v_all, col, g_col),
+        g_v, s_row = _lse_bwd_rows_and_sums(v, t_all, row, g_row)
+        g_t, s_col = _lse_bwd_rows_and_sums(t, v_all, col, g_col)
+        if s_row is not None:
+            g_v, g_row = g_v / s_row[:, None], g_row / s_row
+        if s_col is not None:
+            g_t, g_col = g_t / s_col[:, None], g_col / s_col
+        return (g_v, g_t, lse_bwd_cols(t, v_all, col, g_col),
                 lse_bwd_cols(v, t_all, row, g_row))
 
 

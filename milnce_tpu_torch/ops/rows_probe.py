@@ -4,25 +4,35 @@ card: ``python -m milnce_tpu_torch.ops.rows_probe``.
 
 Builds ``csrc/milnce_stream.cu`` as it ships, and four times more with
 ``ROWS_SKIP`` set, each leaving out part of the kernel's work; all five
-``nvcc`` at once.  It times each build's launch in each
-mode, per call (median of 20 after warm-up, CUDA events, the wrapper's
-host work and its combination of the partials included) and the kernel
-alone on the device (torch.profiler, mean of 20), at the two launches of
-a training step at the recipe shape: A (128, 512) against B (40960, 512), and A (640, 512)
-against B (8192, 512).  The bits: 1 leaves out the logits FMAs, 2 the
-gradient FMAs in the backward and the running (max, sum) update in the
-forward, 4 the copies of the streamed operand (B in ``lse_fwd`` and
-``lse_bwd_rows``, A in ``lse_bwd_cols``); 3 leaves out both, so that
-copies are all that is left.  For the forward the five builds read: full,
-without the logits FMAs, without the (max, sum) update, without the
-copies of B, copies only (bit 2 puts a plain sum of the logits in the
-update's place, so that their FMAs stay live).  The full forward is also
-timed with every kernel of its call on the device (the kernel and the
-combination of its partials), beside the library call
-``torch.logsumexp(a @ b.T, 1)``, every kernel of it too.  The partial builds
-compute wrong values; only the full one is checked, against
-``lse_plain``, ``lse_bwd_rows_plain`` and ``lse_bwd_cols_plain``.  Exits
-non-zero, printing nothing, without a card.
+``nvcc`` at once.  It times each build's launch in each mode, per call
+(median of 20 after warm-up, CUDA events, the wrapper's host work and
+its combination of the partials included) and the kernel alone on the
+device (torch.profiler, mean of 20), at the two launches of a training
+step at the recipe shape, A (128, 512) against B (40960, 512) and
+A (640, 512) against B (8192, 512), and at the same two at D = 1024, the
+deep recipe, where the backward runs its cluster path (its plan, with
+the clusters the card keeps resident, is printed).  The bits: 1 leaves
+out the logits FMAs, 2 the gradient FMAs in the backward and the running
+(max, sum) update in the forward, 4 the copies of the streamed operand
+(B in ``lse_fwd`` and ``lse_bwd_rows``, A in ``lse_bwd_cols``); 3 leaves
+out both, so that copies are all that is left.  For the forward the
+five builds read: full, without the logits FMAs, without the (max, sum)
+update, without the copies of B, copies only (bit 2 puts a plain sum of
+the logits in the update's place, so that their FMAs stay live).  The
+full forward is also timed with every kernel of its call on the device
+(the kernel and the combination of its partials), beside the library
+call ``torch.logsumexp(a @ b.T, 1)``, every kernel of it too.  The
+partial builds compute wrong values; only the full one is checked,
+against ``lse_plain``, ``lse_bwd_rows_plain`` and
+``lse_bwd_cols_plain``.
+
+``--accuracy`` instead prints the clusters of 1 to 8 blocks the card
+keeps resident, and the deep backward's error against float64 on both
+of its paths (the cluster path and the slab path, each given
+``lse_fwd``'s lse; the cluster path also with its weights divided by
+their row sum, as the stream's backward runs it; and the plain version
+given ``lse_plain``'s) at the card tests' deep shapes, with unit-normal
+inputs and with inputs scaled to unit-scale logits.  Exits non-zero, printing nothing, without a card.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from milnce_tpu_torch.ops import milnce_stream as ms
@@ -42,7 +53,8 @@ LABELS = {"lse_fwd": ("full", "no logits FMAs", "no (max, sum) update",
                       "no copies", "copies only"),
           "lse_bwd": ("full", "no logits FMAs", "no grad FMAs", "no copies",
                       "copies only")}
-SHAPES = [(128, 40960, 512), (640, 8192, 512)]
+SHAPES = [(128, 40960, 512), (640, 8192, 512), (128, 40960, 1024),
+          (640, 8192, 1024)]
 F32_FLOPS = 67e12                  # one H100 SXM, f32 outside tensor cores
 
 
@@ -91,6 +103,67 @@ def _line(label, fn, key, flops) -> str:
             f"{flops / F32_FLOPS * 1e3 / dev:.3f} of the f32 bound)")
 
 
+# (B, Bg, K, D) of the card tests' deep cases
+ACCURACY_SHAPES = [(4, 8, 3, 769), (33, 300, 3, 1000), (8, 64, 2, 2048),
+                   (16, 64, 2, 4096)]
+
+
+def _backward_f64(a, b, g):
+    """dA and dB of sum_r g_r logsumexp_j a_r . b_j in float64."""
+    a, b, g = a.double(), b.double(), g.double()
+    x = a @ b.T
+    w = torch.exp(x - torch.logsumexp(x, dim=1, keepdim=True)) * g[:, None]
+    return w @ b, w.T @ a
+
+
+def accuracy() -> None:
+    lib = ms._lib()
+    print("resident clusters of 1-8 blocks (rows, cols): "
+          f"{[ms.card_clusters(lib, False, n, 'cuda') for n in range(1, 9)]}"
+          f", {[ms.card_clusters(lib, True, n, 'cuda') for n in range(1, 9)]}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, bg, k, d in ACCURACY_SHAPES:
+        for scale in (1.0, d ** -0.25):
+            rng = np.random.default_rng(b + bg)
+            v, t, v_all, t_all = (
+                torch.tensor(rng.standard_normal((n, d), np.float32) * scale,
+                             device="cuda") for n in (b, b * k, bg, bg * k))
+            for a, bm in ((v, t_all), (t, v_all)):
+                r, c = a.shape[0], bm.shape[0]
+                g = torch.tensor(rng.standard_normal(r, np.float32),
+                                 device="cuda")
+                want = _backward_f64(a, bm, g)
+                lse = ms.lse_fwd(a, bm)
+                got = {}
+                for path, slab in (("cluster", False), ("slab", True)):
+                    got[path] = []
+                    for cols in (False, True):
+                        plan = ((ms.cols_plan if cols else ms.rows_plan)(
+                            r, c, d, sms, slab=True) if slab else None)
+                        got[path].append(ms.launch_bwd(lib, a, bm, lse, g,
+                                                       cols, _plan=plan)[0])
+                # the stream's use of the cluster path: the weights divided
+                # by their row sum
+                da, _, s = ms.launch_bwd(lib, a, bm, lse, g, False)
+                got["cluster renormalized"] = [
+                    da / s[:, None],
+                    ms.launch_bwd(lib, a, bm, lse, g / s, True)[0]]
+                lse_p = ms.lse_plain(a, bm, 4096)
+                got["plain"] = [ms.lse_bwd_rows_plain(a, bm, lse_p, g, 4096),
+                                ms.lse_bwd_cols_plain(a, bm, lse_p, g, 4096)]
+                errs = ", ".join(
+                    f"{path} " + " ".join(
+                        f"{float((x.double() - w).abs().max()):.2e}"
+                        for x, w in zip(outs, want))
+                    for path, outs in got.items())
+                limit = " ".join(f"{1e-5 + 1e-4 * float(w.abs().max()):.2e}"
+                                 for w in want)
+                print(f"B={b} Bg={bg} K={k} D={d} R={r} C={c} scale "
+                      f"{scale:.3f} max|x| {float((a @ bm.T).abs().max()):.1f}"
+                      f": error against float64 (dA dB): {errs}; the card "
+                      f"tests' limit {limit}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("rows_probe: no CUDA device visible", file=sys.stderr)
@@ -100,6 +173,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    if sys.argv[1:] == ["--accuracy"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        accuracy()
+        return 0
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = list(pool.map(ms._lib, VARIANTS.values()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -121,12 +198,13 @@ def main() -> int:
         print(_line("library call", lambda: torch.logsumexp(a @ b.T, 1), "",
                     flops))
         flops = 4 * r * c * d
-        for name, cols, plain, plan_of in (
-                ("lse_bwd_rows", False, ms.lse_bwd_rows_plain, ms.rows_plan),
-                ("lse_bwd_cols", True, ms.lse_bwd_cols_plain, ms.cols_plan)):
+        for name, cols, plain in (
+                ("lse_bwd_rows", False, ms.lse_bwd_rows_plain),
+                ("lse_bwd_cols", True, ms.lse_bwd_cols_plain)):
             _check(name, ms.launch_bwd(libs[0], a, b, lse, g, cols)[0],
                    plain(a, b, lse, g, 4096))
-            print(f"{name} R={r} C={c} D={d}: {plan_of(r, c, d, sms)}")
+            print(f"{name} R={r} C={c} D={d}: "
+                  f"{ms.card_bwd_plan(libs[0], cols, r, c, d, 'cuda')}")
             for label, lib in zip(LABELS["lse_bwd"], libs):
                 print(_line(label,
                             lambda: ms.launch_bwd(lib, a, b, lse, g, cols),

@@ -46,13 +46,28 @@ def _close(got, want):
     (16, 16, 5, 512, 8), (33, 8191, 1, 13, 1000), (33, 8191, 1, 512, 1000),
     (128, 1024, 5, 512, 64), (5, 300, 2, 700, 64), (2048, 40, 1, 512, 40),
     (200, 3000, 3, 512, 300), (4, 8, 3, 769, 3), (33, 300, 3, 1000, 100),
-    (8, 64, 2, 2048, 16)],
+    (8, 64, 2, 2048, 16), (16, 64, 2, 4096, 16)],
     ids=["tiny", "odd-d", "uneven", "train", "d13-r33", "r33-bg8191",
          "r640", "d700", "split", "fwd-split", "deep-d769", "deep-d1000",
-         "deep-d2048"])
+         "deep-d2048", "deep-d4096"])
 def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
+    _stream_matches_plain(cuda, b, bg, k, d, chunk, scale=1.0)
+
+
+def test_deep_slab_path_matches_plain_at_unit_scale(cuda):
+    """The backward's slab path past the cluster path's reach (D = 4608),
+    with inputs scaled by D ** -0.25 so that the logits are of unit
+    scale, as chip_smoke.py draws them.  At unit-normal inputs the logits
+    reach |x| ~ 250 at such depths, where the slab path, which leaves its
+    weights exp(x - lse) unnormalized, is off float64 by more than the
+    limit (at D = 4096 9.7e-4 against 7.0e-4: ``rows_probe --accuracy``,
+    PERF.md)."""
+    _stream_matches_plain(cuda, 4, 8, 3, 4608, 3, scale=4608 ** -0.25)
+
+
+def _stream_matches_plain(cuda, b, bg, k, d, chunk, scale):
     rng = np.random.default_rng(b + bg)
-    arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
+    arrays = [torch.tensor(rng.standard_normal((n, d), np.float32) * scale,
                            device=cuda) for n in (b, b * k, bg, bg * k)]
     g_row = torch.tensor(rng.standard_normal(b, np.float32), device=cuda)
     g_col = torch.tensor(rng.standard_normal(b * k, np.float32), device=cuda)
@@ -65,12 +80,45 @@ def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
 
     before = dict(ms.LAUNCHES)
     got = run(ms.milnce_stream)
-    mode = "" if d <= ms.STREAM_DMAX else "_deep"
-    assert all(ms.LAUNCHES[n + mode] == before[n + mode] + 2
-               for n in ms.KERNELS)
+    keys = [ms.launch_key(n, d) for n in ms.KERNELS]
+    assert all(ms.LAUNCHES[n] == before[n] + 2 for n in keys)
     assert sum(ms.LAUNCHES.values()) == sum(before.values()) + 6
     for a, w in zip(got, run(ms.milnce_stream_plain)):
         _close(a, w)
+
+
+@pytest.mark.parametrize("r,c,d", [(128, 4096, 1024), (33, 300, 769),
+                                   (16, 600, 2048)])
+def test_deep_backward_cluster_path_matches_slab_path(cuda, r, c, d):
+    """Both deep paths of each backward mode at one depth, the slab path
+    through the wrapper's private plan argument: each within tolerance of
+    the plain version, and of each other."""
+    rng = np.random.default_rng(d)
+    a = torch.tensor(rng.standard_normal((r, d), np.float32) * d ** -0.25,
+                     device=cuda)
+    b = torch.tensor(rng.standard_normal((c, d), np.float32) * d ** -0.25,
+                     device=cuda)
+    lse = ms.lse_plain(a, b, 4096)
+    g = torch.tensor(rng.standard_normal(r, np.float32), device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for cols, plain, plan_of in (
+            (False, ms.lse_bwd_rows_plain, ms.rows_plan),
+            (True, ms.lse_bwd_cols_plain, ms.cols_plan)):
+        got, plan, sums = ms.launch_bwd(ms._lib(), a, b, lse, g, cols)
+        slab, slab_plan, none = ms.launch_bwd(ms._lib(), a, b, lse, g, cols,
+                                              _plan=plan_of(r, c, d, sms,
+                                                            slab=True))
+        assert (plan.mode, slab_plan.mode) == ("deep", "deep_slab")
+        # the rows' weight sums, on the rows mode's cluster path only: 1
+        # up to rounding, lse being the rows' logsumexp
+        assert none is None and (sums is None) == cols
+        if not cols:
+            assert sums.shape == (r,)
+            assert float((sums - 1).abs().max()) <= 1e-5
+        want = plain(a, b, lse, g, 4096, ms.deep_parts(d))
+        _close(got, want)
+        _close(slab, want)
+        _close(got, slab)
 
 
 @pytest.mark.parametrize("r,c,where", [

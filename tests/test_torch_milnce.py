@@ -8,9 +8,12 @@ tolerances: ``rtol=2e-6`` on the value, ``atol=2e-6`` on the gradients.
 Covered: K in {1, 5}, an uneven last chunk, a batch off the 8-row grid,
 and chunk >= Bg; and past the kernels' held depth (D = 1000, 1024), the
 plain stream against ``milnce_loss_chunked(backend='scan')``, the stream
-JAX's ``auto`` takes at a depth its Pallas kernel cannot hold.  The
-CUDA kernels themselves run only on the card (``tests/test_torch_cuda.py``
-and ``chip_smoke.py``); here the wrappers must refuse CPU tensors rather
+JAX's ``auto`` takes at a depth its Pallas kernel cannot hold; and the
+plain backward with its logits summed over the deep backward's depth
+parts (``deep_parts``, the cluster path's order) against the JAX Pallas
+stream in interpret mode at D = 769 and 1024.  The CUDA kernels
+themselves run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``); here the wrappers must refuse CPU tensors rather
 than compute anything, and the launch plans are checked as pure
 functions.
 """
@@ -25,6 +28,7 @@ import jax.numpy as jnp
 from milnce_tpu.losses.milnce import milnce_loss as jax_milnce_loss
 from milnce_tpu.losses.milnce_chunked import \
     milnce_loss_chunked as jax_milnce_loss_chunked
+from milnce_tpu.ops.milnce_pallas import milnce_stream_pallas
 from milnce_tpu_torch.config import LossConfig
 from milnce_tpu_torch.losses.milnce import milnce_loss
 from milnce_tpu_torch.losses.milnce_chunked import (build_milnce_loss,
@@ -181,19 +185,40 @@ def test_build_milnce_loss_knobs():
                        milnce_loss(v, t))
 
 
-def _instance(d):
-    """(dmax, mode, nz) a backward plan must take at depth d."""
+def _bwd_instance(d):
+    """(dmax, mode, nz) a backward plan must take at depth d: held up to
+    STREAM_DMAX, the cluster path (parts of <= 512, <= 8 of them) up to
+    CLUSTER_REACH, the slab path (gradient slabs of 768) past it."""
+    if d > ms.CLUSTER_REACH:
+        return ms.STREAM_DMAX, "deep_slab", -(-d // ms.STREAM_DMAX)
     if d > ms.STREAM_DMAX:
-        return ms.STREAM_DMAX, "deep", -(-d // ms.STREAM_DMAX)
+        return ms.CLUSTER_DMAX, "deep", -(-d // ms.CLUSTER_DMAX)
     return min(x for x in ms.ROWS_INSTANCES if d <= x), "held", 1
+
+
+def _one_wave(plan):
+    """One wave: of the card's resident clusters on the cluster path, of
+    one block an SM (132) otherwise, unless the owned tiles alone pass
+    it."""
+    if plan.mode == "deep":
+        assert plan.clusters == ms.H100_CLUSTERS[plan.nz]
+        assert (plan.row_tiles * plan.nsplit
+                <= max(plan.clusters, plan.row_tiles))
+        return plan.row_tiles >= plan.clusters
+    blocks = plan.row_tiles * plan.nz
+    assert blocks * plan.nsplit <= max(132, blocks)
+    return blocks >= 132
+
+
+_BWD_DEPTHS = [13, 512, 700, 769, 1000, 1024, 2048, 4096, 4097]
 
 
 @pytest.mark.parametrize("r", [1, 33, 128, 640])
 @pytest.mark.parametrize("c", [1, 80, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700, 1000, 2048])
+@pytest.mark.parametrize("d", _BWD_DEPTHS)
 def test_rows_launch_plan_covers_every_column_tile_once(r, c, d):
     plan = ms.rows_plan(r, c, d, sms=132)
-    assert (plan.dmax, plan.mode, plan.nz) == _instance(d)
+    assert (plan.dmax, plan.mode, plan.nz) == _bwd_instance(d)
     assert (plan.bm, plan.bn, plan.threads) == (32, 256, 256)
     assert plan.row_tiles == -(-r // 32) and plan.col_tiles == -(-c // 256)
     covered = [t for s in range(plan.nsplit) for t in plan.tiles(s)]
@@ -201,10 +226,7 @@ def test_rows_launch_plan_covers_every_column_tile_once(r, c, d):
     assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
     assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
     assert plan.scratch == (plan.nsplit, r, d)
-    # one wave of one block per SM unless the row tiles (times the deep
-    # mode's gradient slabs) alone pass it
-    blocks = plan.row_tiles * plan.nz
-    assert blocks * plan.nsplit <= max(132, blocks)
+    _one_wave(plan)
     assert plan.smem_bytes <= 232448
 
 
@@ -219,15 +241,24 @@ def test_rows_launch_plan_shapes_and_refusal():
     held = ms.rows_plan(4, 8, 768, sms=132)
     assert (held.dmax, held.mode, held.nz) == (768, "held", 1)
     deep = ms.rows_plan(4, 8, 769, sms=132)
-    assert (deep.dmax, deep.mode, deep.nz) == (768, "deep", 2)
-    # the recipe's rows launch at D = 1024: 4 row tiles x 2 gradient
-    # slabs, the streamed loop split to fill one wave; no O tile held,
-    # the ring's logits stages hold an owned slab beside the streamed one
+    assert (deep.dmax, deep.mode, deep.nz, deep.parts) == (
+        512, "deep", 2, ((0, 416), (416, 353)))
+    # the recipe's rows launch at D = 1024: 4 row tiles, clusters of 2
+    # blocks, 66 of them resident, the streamed loop split to 64 clusters
     recipe = ms.rows_plan(128, 40960, 1024, sms=132)
-    assert (recipe.row_tiles, recipe.nz, recipe.nsplit, recipe.tps,
-            recipe.smem_bytes) == (4, 2, 16, 10, 143680)
-    assert recipe.smem_bytes == 4 * (4 * (8 * 256 + 4) + 3 * (256 + 32) * 32
-                                     + 2 * 32)
+    assert (recipe.row_tiles, recipe.nz, recipe.clusters, recipe.nsplit,
+            recipe.tps, recipe.smem_bytes) == (4, 2, 66, 16, 10, 230208)
+    # the held O part, Ws, three stages, lse and g, the partial tile
+    assert recipe.smem_bytes == 4 * (32 * 516 + 4 * (8 * 256 + 4)
+                                     + 3 * 256 * 32 + 2 * 32 + 32 * 256)
+    # the card's own resident count, where it is asked, sizes the wave
+    assert ms.rows_plan(128, 40960, 1024, sms=132, clusters=30).nsplit == 7
+    # the slab path, kept past the cluster's reach, on request at D = 1024
+    slab = ms.rows_plan(128, 40960, 1024, sms=132, slab=True)
+    assert (slab.dmax, slab.mode, slab.nz, slab.nsplit, slab.tps,
+            slab.smem_bytes) == (768, "deep_slab", 2, 16, 10, 143680)
+    assert slab.smem_bytes == 4 * (4 * (8 * 256 + 4) + 3 * (256 + 32) * 32
+                                   + 2 * 32)
 
 
 def _pad(r, sn):
@@ -236,10 +267,10 @@ def _pad(r, sn):
 
 @pytest.mark.parametrize("r", [1, 33, 128, 200, 640, 2048])
 @pytest.mark.parametrize("c", [1, 40, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700, 1000, 2048])
+@pytest.mark.parametrize("d", _BWD_DEPTHS)
 def test_cols_launch_plan_covers_every_streamed_tile_once(r, c, d):
     plan = ms.cols_plan(r, c, d, sms=132)
-    assert (plan.dmax, plan.mode, plan.nz) == _instance(d)
+    assert (plan.dmax, plan.mode, plan.nz) == _bwd_instance(d)
     assert (plan.bm, plan.threads) == (32, 256)
     # 128-row streamed tiles: a 256-row tile never pads A less
     assert plan.bn == 128
@@ -251,11 +282,8 @@ def test_cols_launch_plan_covers_every_streamed_tile_once(r, c, d):
     assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
     assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
     assert plan.scratch == (plan.nsplit, c, d)
-    # one wave of one block per SM unless the owned tiles (times the deep
-    # mode's gradient slabs) alone pass it
-    blocks = plan.row_tiles * plan.nz
-    assert blocks * plan.nsplit <= max(132, blocks)
-    if blocks >= 132:
+    # one wave unless the owned tiles alone pass it, and then no split
+    if _one_wave(plan):
         assert plan.nsplit == 1
     assert plan.smem_bytes <= 232448
 
@@ -279,7 +307,103 @@ def test_cols_launch_plan_shapes_and_refusal():
     assert ms.cols_plan(4, 8, 768, sms=132).mode == "held"
     deep = ms.cols_plan(4, 8, 769, sms=132)
     assert (deep.dmax, deep.mode, deep.nz, deep.smem_bytes) == (
-        768, "deep", 2, 4 * (4 * (8 * 128 + 4) + 3 * 8 * 768 + 2 * 32))
+        512, "deep", 2, 4 * (32 * 516 + 4 * (8 * 128 + 4) + 3 * 128 * 32
+                             + 2 * 32 + 32 * 128))
+    slab = ms.cols_plan(4, 8, 769, sms=132, slab=True)
+    assert (slab.dmax, slab.mode, slab.nz, slab.smem_bytes) == (
+        768, "deep_slab", 2, 4 * (4 * (8 * 128 + 4) + 3 * 8 * 768 + 2 * 32))
+
+
+@pytest.mark.parametrize("d", [769, 1000, 1024, 2048, 4096, 4097])
+def test_deep_backward_parts_and_plans(d):
+    """The deep backward at depth d: its depth parts cover 0 .. d - 1
+    once, each a multiple of 32 but the last and none past 512; up to
+    CLUSTER_REACH the cluster path in clusters of at most 8 blocks, past
+    it the slab path; both within the opt-in shared memory at both tile
+    widths; the recipe's launches in one wave of the H100's resident
+    clusters."""
+    parts = ms.deep_parts(d)
+    assert parts[0][0] == 0
+    assert all(k0 + w == k1 for (k0, w), (k1, _) in zip(parts, parts[1:]))
+    assert parts[-1][0] + parts[-1][1] == d
+    assert all(w % 32 == 0 for _, w in parts[:-1])
+    assert all(0 < w <= ms.CLUSTER_DMAX for _, w in parts)
+    assert len({w for _, w in parts[:-1]}) <= 1
+    assert len(parts) == -(-d // 512)
+    for plan_of in (ms.rows_plan, ms.cols_plan):
+        for r, c in ((128, 40960), (640, 8192)):
+            plan = plan_of(r, c, d, sms=132)
+            assert (plan.dmax, plan.mode, plan.nz) == _bwd_instance(d)
+            assert plan.smem_bytes <= 232448
+            if d <= ms.CLUSTER_REACH:
+                assert plan.parts == tuple(parts) and plan.nz <= 8
+                assert plan.clusters == ms.H100_CLUSTERS[plan.nz]
+            else:
+                assert plan.parts == () and plan.clusters == 0
+            _one_wave(plan)
+            slab = plan_of(r, c, d, sms=132, slab=True)
+            assert (slab.mode, slab.dmax) == ("deep_slab", 768)
+            assert slab.smem_bytes <= 232448
+    assert ms.launch_key("lse_bwd_rows", d) == (
+        "lse_bwd_rows_deep" if d <= 4096 else "lse_bwd_rows_deep_slab")
+    assert ms.launch_key("lse_fwd", d) == "lse_fwd_deep"
+
+
+def test_row_sum_renormalization_recovers_the_gradient():
+    """The identity the CUDA stream's backward rests on, on the cluster
+    path, where the backward's logits round unlike the forward's: with an
+    lse off by delta, dividing the rows' gradient by the row sums s_r =
+    sum_j exp(x_rj - lse_r), and the cols' g by the same s, gives the
+    gradients of the true logsumexp (the plain twins, which compute in
+    f32: rtol and atol 1e-6)."""
+    rng = np.random.RandomState(7)
+    a, b = (torch.from_numpy(rng.randn(n, 40)) for n in (6, 11))
+    g = torch.from_numpy(rng.randn(6))
+    lse = torch.logsumexp(a @ b.T, dim=1)
+    off = lse + torch.from_numpy(rng.randn(6) * 0.3)
+    s = torch.exp(a @ b.T - off[:, None]).sum(dim=1)
+    rows = ms.lse_bwd_rows_plain(a, b, off, g, 4)
+    cols = ms.lse_bwd_cols_plain(a, b, off, g / s, 4)
+    torch.testing.assert_close(rows.double() / s[:, None],
+                               ms.lse_bwd_rows_plain(a, b, lse, g, 4).double(),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(cols.double(),
+                               ms.lse_bwd_cols_plain(a, b, lse, g, 4).double(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [769, 1024])
+def test_partwise_plain_matches_jax_pallas_stream(d):
+    """The plain backward with the logits summed part by part in rank
+    order (the cluster path's arithmetic, :func:`deep_parts`) against the
+    JAX package's ``milnce_stream_pallas`` (interpret mode): values and
+    the four gradients, local rows apart from the gathered ones, an
+    uneven last chunk; the JAX chunked-loss tolerances (rtol 2e-6 on the
+    values, atol 2e-6 on the gradients)."""
+    b, bg, k, chunk = 4, 8, 3, 3
+    rng = np.random.RandomState(d)
+    v, t, v_all, t_all = (rng.randn(n, d).astype(np.float32) * d ** -0.25
+                          for n in (b, b * k, bg, bg * k))
+    g_row = rng.randn(b).astype(np.float32)
+    g_col = rng.randn(b * k).astype(np.float32)
+    (row, col), vjp = jax.vjp(
+        lambda *x: milnce_stream_pallas(*x, chunk),
+        *map(jnp.asarray, (v, t, v_all, t_all)))
+    want = vjp((jnp.asarray(g_row), jnp.asarray(g_col)))
+    tv, tt, tva, tta = map(torch.from_numpy, (v, t, v_all, t_all))
+    gr, gc = torch.from_numpy(g_row), torch.from_numpy(g_col)
+    ck, parts = chunk * k, ms.deep_parts(d)
+    assert len(parts) == 2
+    trow, tcol = ms.lse_plain(tv, tta, ck), ms.lse_plain(tt, tva, chunk)
+    got = (ms.lse_bwd_rows_plain(tv, tta, trow, gr, ck, parts),
+           ms.lse_bwd_rows_plain(tt, tva, tcol, gc, chunk, parts),
+           ms.lse_bwd_cols_plain(tt, tva, tcol, gc, chunk, parts),
+           ms.lse_bwd_cols_plain(tv, tta, trow, gr, ck, parts))
+    np.testing.assert_allclose(trow.numpy(), np.asarray(row), rtol=2e-6)
+    np.testing.assert_allclose(tcol.numpy(), np.asarray(col), rtol=2e-6)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-6)
 
 
 @pytest.mark.parametrize("r", [1, 33, 64, 128, 200, 640, 2048])
@@ -287,8 +411,8 @@ def test_cols_launch_plan_shapes_and_refusal():
 @pytest.mark.parametrize("d", [13, 512, 700, 768, 1000, 2048])
 def test_fwd_launch_plan_covers_every_tile_once(r, c, d):
     plan = ms.fwd_plan(r, c, d, sms=132)
-    dmax, mode, _ = _instance(d)
-    assert (plan.dmax, plan.mode, plan.nz) == (dmax, mode, 1)
+    assert (plan.dmax, plan.mode, plan.nz) == (*ms.check_depth("lse_fwd", d),
+                                               1)
     assert (plan.bm, plan.bn) == ms.FWD_TILES[plan.dmax]
     assert plan.threads == 256
     # 256 threads, each 8 owned rows by 4 streamed rows
@@ -351,4 +475,5 @@ def test_stream_refuses_the_depth_before_any_launch():
         assert ms.check_depth("milnce_stream_cuda", d)[1] == mode
     assert all(n == 0 for n in ms.LAUNCHES.values())
     assert set(ms.LAUNCHES) == {f"{k}{m}" for k in ms.KERNELS
-                                for m in ("", "_deep")}
+                                for m in ("", "_deep")} | {
+        "lse_bwd_rows_deep_slab", "lse_bwd_cols_deep_slab"}

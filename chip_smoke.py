@@ -22,19 +22,20 @@ Phases, each fatal on failure:
                B_local=4 against Bg=8, K=3); and the deep mode past
                D = 768 at the recipe shape with D = 1024, at D = 1000
                (B=200 against Bg=3000, K=3: the scalar path, ragged
-               tiles), at D = 2048, D = 769 and D = 4096 (the backward's
-               cluster path: 2, 2, 4, 2 and 8 blocks a cluster) and at
-               D = 4608 (past its reach: the backward's slab path), each
-               plan's mode printed;
+               tiles), at D = 2048, D = 769 and D = 4096 (every
+               kernel's cluster path: 2, 2, 4, 2 and 8 blocks a
+               cluster) and at D = 4608 (past its reach: every kernel's
+               slab path), each plan's mode printed;
                then the kernels', the plain versions' and the dense
                PyTorch form's times (median of 20 after warm-up, CUDA
                events) at the recipe shape, beside the card's bound, and
                each kernel launch by launch with TFLOP/s, share of the
                bound, kernel/library ratio and the launch plan its
                wrapper chose; the same for the deep mode at D = 1024,
-               where the backward's slab path is timed beside its
+               where each kernel's slab path is timed beside its
                cluster path (the wrapper's private plan argument) and
-               each plan names the clusters the card keeps resident.
+               each plan names its mode, nz and the clusters the card
+               keeps resident.
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's grad_D, fed the
                same table, under a random cotangent and under a stride-0
@@ -56,7 +57,7 @@ Phases, each fatal on failure:
                losses; at embedding 512, at 1024, where the kernels
                run their deep mode (the run the deep launches are
                counted on), and at 4608, where the backward runs its
-               slab path (the run the slab launches are counted on).
+               slab paths (the run the slab launches are counted on).
 6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
                sdtw_negative, sdtw_3) on the soft-DTW kernels against the
                plain recurrence: one step's gradients, three steps' losses.
@@ -269,6 +270,7 @@ _STREAM_CU = "milnce_tpu_torch/csrc/milnce_stream.cu"
 SOURCES = {"lse_fwd": _STREAM_CU, "lse_bwd_rows": _STREAM_CU,
            "lse_bwd_cols": _STREAM_CU, "lse_fwd_deep": _STREAM_CU,
            "lse_bwd_rows_deep": _STREAM_CU, "lse_bwd_cols_deep": _STREAM_CU,
+           "lse_fwd_deep_slab": _STREAM_CU,
            "lse_bwd_rows_deep_slab": _STREAM_CU,
            "lse_bwd_cols_deep_slab": _STREAM_CU,
            "softdtw_fwd": "milnce_tpu_torch/csrc/softdtw.cu",
@@ -279,6 +281,7 @@ REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_fwd_deep": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows_deep": "milnce_tpu/ops/milnce_pallas.py:210",
             "lse_bwd_cols_deep": "milnce_tpu/ops/milnce_pallas.py:210",
+            "lse_fwd_deep_slab": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
             "lse_bwd_cols_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
             "softdtw_fwd": "milnce_tpu/ops/softdtw_pallas.py:282 (B3), "
@@ -297,7 +300,7 @@ TRACE_NAMES = {
     "lse_bwd_cols": r"lse_bwd_kernel(<\s*\d+,\s*\w+,\s*true,|ILi\d+ELb[01]ELb1E)"}
 RECORDER_COST_SPANS = 2000   # spans written to time one, alone
 DEEP_D = 1024             # the deep mode's timed and trained embedding
-SLAB_D = 4608             # past the backward's cluster path: its slab path
+SLAB_D = 4608             # past the cluster path's reach: the slab path
 # special-function (exp, log) results per clock per SM on Hopper
 H100_SFU_PER_CLOCK_SM = 16
 # (label, B, N, M, features): the soft-DTW presets of
@@ -457,8 +460,8 @@ def phase_parity():
     ragged owned and streamed tiles; depth parts of 512 and 488), D =
     2048 (clusters of 4 blocks), D = 769 (parts of 416 and 353), D =
     4096 (clusters of 8, the cluster path's reach), their errors the
-    ``_deep`` kernels', and D = 4608, where the backward's errors are its
-    slab path's (``_deep_slab``), each plan printed with its mode. The
+    ``_deep`` kernels', and D = 4608, where the errors are the slab
+    paths' (``_deep_slab``), each plan printed with its mode. The
     cotangents are of unit scale and each limit shrinks with its output
     (``_err(scaled=True)``), so that a kernel returning zeros fails.
     """
@@ -492,7 +495,8 @@ def phase_parity():
         if label.startswith("deep"):
             for r, c in ((b, bg * k), (b * k, bg)):
                 for name, plan_of in (
-                        ("lse_fwd", lambda r, c: ms.fwd_plan(r, c, d, sms)),
+                        ("lse_fwd", lambda r, c: ms.card_fwd_plan(
+                            ms._lib(), r, c, d, "cuda")),
                         ("lse_bwd_rows", lambda r, c: ms.card_bwd_plan(
                             ms._lib(), False, r, c, d, "cuda")),
                         ("lse_bwd_cols", lambda r, c: ms.card_bwd_plan(
@@ -555,15 +559,15 @@ def _time_ms(fn, reps=20, warm=3):
 def _plan_line(plan):
     if plan.mode == "held":
         where = f"mode held, instance D<={plan.dmax}"
-    elif plan.parts:
+    elif plan.mode == "deep":
         where = (f"mode deep, cluster path: clusters of {plan.nz} blocks, "
                  f"depth parts {[w for _, w in plan.parts]}, "
                  f"{plan.clusters} clusters resident on the card")
-    elif plan.nz > 1:
-        where = (f"mode {plan.mode}, {plan.nz} gradient slab(s) of <= "
-                 f"{plan.dmax}")
     else:
-        where = f"mode {plan.mode}, A streamed in slabs"
+        where = (f"mode {plan.mode}, slab path: both operands streamed in "
+                 f"slabs, {len(plan.parts)} depth parts of <= "
+                 f"{plan.parts[0][1]}, {plan.nz} grid z-slab(s) of <= "
+                 f"{plan.dmax}")
     return (f"{where}, BM={plan.bm}, SN={plan.bn}, "
             f"threads={plan.threads}, grid {plan.row_tiles}x{plan.nsplit}"
             f"x{plan.nz}, streamed tiles/split {plan.tps} of "
@@ -580,9 +584,10 @@ def _bound(flops, nbytes):
 def phase_timing(d=512):
     """Times of each kernel's pair of launches per step (rows direction +
     columns direction) at the recipe shape with embedding ``d`` (past
-    768, the deep mode, keyed ``<kernel>_deep``; there the backward's slab
-    path too, through the wrapper's private plan argument, keyed
-    ``<kernel>_deep_slab``), and of each kernel's two launches one by one,
+    768, the deep mode's cluster path, keyed ``<kernel>_deep``; there
+    each kernel's slab path too, through the wrappers' private plan
+    argument, keyed ``<kernel>_deep_slab``), and of each kernel's two
+    launches one by one,
     (R, C) = (128, 40960) and (640, 8192), with its launch plan (the
     clusters resident on the card on the cluster path).  Each is timed
     per call (CUDA events: the wrapper's host work and the sum of its
@@ -614,46 +619,53 @@ def phase_timing(d=512):
     lib = ms._lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def slab(cols):
-        """The backward's slab path at a depth its cluster path takes."""
+    def slab(name):
+        """A kernel's slab path at a depth its cluster path takes, through
+        its wrapper's private plan argument: (call, plan of (r, c))."""
         def plan_of(r, c):
-            return (ms.cols_plan if cols else ms.rows_plan)(r, c, d, sms,
-                                                             slab=True)
+            if name == "lse_fwd":
+                return ms.fwd_plan(r, c, d, sms, slab=True)
+            return (ms.cols_plan if name == "lse_bwd_cols" else ms.rows_plan)(
+                r, c, d, sms, slab=True)
 
         def run(a, bm, lse, g):
-            return ms.launch_bwd(lib, a, bm, lse, g, cols,
-                                 _plan=plan_of(a.shape[0], bm.shape[0]))[0]
+            plan = plan_of(a.shape[0], bm.shape[0])
+            if name == "lse_fwd":
+                return ms.launch_fwd(lib, a, bm, _plan=plan)[0]
+            return ms.launch_bwd(lib, a, bm, lse, g, name == "lse_bwd_cols",
+                                 _plan=plan)[0]
         return run, plan_of
 
-    def card_plan(cols):
-        return lambda r, c: ms.card_bwd_plan(lib, cols, r, c, d, "cuda")
-
-    # key: (kernel, its function on the card, plan, plain, library call,
-    # FLOPs per logit and depth, floats read and written besides A and B)
-    kernels = {
-        ms.launch_key("lse_fwd", d): (
-            lambda a, bm, lse, g: ms.lse_fwd(a, bm), "lse_fwd",
-            lambda r, c: ms.fwd_plan(r, c, d, sms),
-            lambda a, bm, lse, g, w: ms.lse_plain(a, bm, w),
+    # the plain twins sum the deep paths' parts as the kernels do
+    parts = ms.deep_parts(d) if d > ms.STREAM_DMAX else None
+    # kernel: (its wrapper, the card's plan, plain, library call, FLOPs per
+    # logit and depth, floats read and written besides A and B)
+    funcs = {
+        "lse_fwd": (
+            lambda a, bm, lse, g: ms.lse_fwd(a, bm),
+            lambda r, c: ms.card_fwd_plan(lib, r, c, d, "cuda"),
+            lambda a, bm, lse, g, w: ms.lse_plain(a, bm, w, parts),
             lambda a, bm, lse, g: torch.logsumexp(a @ bm.T, dim=1),
             2, lambda r, c: r),
-        ms.launch_key("lse_bwd_rows", d): (
-            ms.lse_bwd_rows, "lse_bwd_rows", card_plan(False),
-            ms.lse_bwd_rows_plain, rows_library, 4,
+        "lse_bwd_rows": (
+            ms.lse_bwd_rows,
+            lambda r, c: ms.card_bwd_plan(lib, False, r, c, d, "cuda"),
+            lambda *x: ms.lse_bwd_rows_plain(*x, parts), rows_library, 4,
             lambda r, c: 2 * r + r * d),
-        ms.launch_key("lse_bwd_cols", d): (
-            ms.lse_bwd_cols, "lse_bwd_cols", card_plan(True),
-            ms.lse_bwd_cols_plain, cols_library, 4,
+        "lse_bwd_cols": (
+            ms.lse_bwd_cols,
+            lambda r, c: ms.card_bwd_plan(lib, True, r, c, d, "cuda"),
+            lambda *x: ms.lse_bwd_cols_plain(*x, parts), cols_library, 4,
             lambda r, c: 2 * r + c * d)}
-    if ms.launch_key("lse_bwd_rows", d).endswith("_deep"):
-        for cols, name, plain, library, extra in (
-                (False, "lse_bwd_rows", ms.lse_bwd_rows_plain, rows_library,
-                 lambda r, c: 2 * r + r * d),
-                (True, "lse_bwd_cols", ms.lse_bwd_cols_plain, cols_library,
-                 lambda r, c: 2 * r + c * d)):
-            run, plan_of = slab(cols)
-            kernels[name + "_deep_slab"] = (run, name, plan_of, plain,
-                                            library, 4, extra)
+    # key: (call, kernel, plan, plain, library call, FLOPs, floats besides)
+    kernels = {}
+    for name, (kern, plan_of, plain, library, per, extra) in funcs.items():
+        kernels[ms.launch_key(name, d)] = (kern, name, plan_of, plain,
+                                           library, per, extra)
+        if ms.launch_key(name, d).endswith("_deep"):
+            run, slab_plan = slab(name)
+            kernels[name + "_deep_slab"] = (run, name, slab_plan, plain,
+                                            library, per, extra)
     out = {}
     for key, (kern, name, plan_of, _, library, per, extra) in kernels.items():
         for a, bm, lse, g, _ in pairs:
@@ -826,38 +838,12 @@ def _sfu_rate():
 
 def _device_kernels(fn, key, reps=20):
     """Mean device time (ms) per call of ``fn`` of the kernels whose name
-    holds ``key``, from torch.profiler, without the host time of its
-    wrapper (the kernel alone, or with key '' every kernel the call
-    launches), and those kernels' names.  Each kernel counts its mean time
-    a launch times its launches a call, rounded, so that a launch the
-    profiler did not record (it can miss one of 20) does not read as a
-    faster call.  A session that recorded no matching kernel (the
-    profiler has dropped a whole session's events on the card) is run
-    again, up to three sessions; then it raises, so that a renamed kernel
-    cannot read as 0 ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    holds ``key`` (the kernel alone, or with key '' every kernel the call
+    launches), and those kernels' names: ``rows_probe.device_kernels``,
+    which takes only a profiler session that recorded every launch."""
+    from milnce_tpu_torch.ops.rows_probe import device_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    for session in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and key in e.key]
-        if events:
-            break
-        log(f"  (profiler session {session + 1}: no CUDA kernel whose name "
-            f"holds {key!r}; profiling again)")
-    else:
-        raise AssertionError(f"no CUDA kernel whose name holds {key!r} ran "
-                             "under the profiler in three sessions")
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                / e.count * max(1, round(e.count / reps)) for e in events)
-    return total / 1e3, sorted(e.key for e in events)
+    return device_kernels(fn, key, reps, log)
 
 
 def _device_ms(fn, key, reps=20):
@@ -973,7 +959,7 @@ def phase_reference(dim=512):
     Parameters after Adam are not compared element by element: Adam turns
     last-bit noise in a near-zero gradient into a visible part of an
     lr-sized step.  Past D = 768 the kernels run their deep mode (past
-    D = 4096 the backward's slab path), and the config check lets the
+    D = 4096 the slab path), and the config check lets the
     run through.  Returns the launches of the chunked training run,
     counted from 0 just before it: each kernel of the mode twice a
     step."""
@@ -4076,7 +4062,7 @@ def main() -> int:
     phase_reference()
     log(f"== reference at embedding {DEEP_D} (the kernels' deep mode)")
     deep_launches = phase_reference(DEEP_D)
-    log(f"== reference at embedding {SLAB_D} (the backward's slab path)")
+    log(f"== reference at embedding {SLAB_D} (the slab paths)")
     slab_launches = phase_reference(SLAB_D)
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()

@@ -75,41 +75,46 @@
 //
 // The deep mode (every mode, any D > 768): the owned tile no longer fits
 // beside the ring at full depth, nor the backward's gradient in registers.
-// The forward streams the owned operand too: each logits stage holds an
-// RB_K-deep slab of the owned rows (from global memory and L2, swizzled as
-// the streamed slab is) beside the streamed slab, and its online (max, sum)
-// runs as in the held mode (instance DMAX = 768 with DEEP set).
+// Every kernel has two deep paths, and on both each logit is the same
+// number: D is cut into nz = ceil(D / 512) depth parts of equal width kw, a
+// multiple of RB_K (the last takes the remainder), each part's product is
+// one chain of FMAs in depth order from 0, and the logit is the parts'
+// chains summed in rank order, ((0 + P0) + P1) + ...  So the forward's and
+// the backward's logits are equal bit for bit, exp(x - lse) cancels the
+// forward's rounding of the dominant logit, and each chain is at most 512
+// long (one chain over all of D drifts from float64 by ~|x| eps sqrt(D)).
 //
-// The backward's deep mode is the cluster path up to D = 4096.  What bounds
-// it: operations, 4 R C D FLOPs a launch, 0.641 ms for a step's pair of
-// launches at the deep recipe (B 128, Bg 8192, K 5, D 1024).  Its design
-// does each of those FMAs once: D is cut into nz = ceil(D / 512) parts of
-// equal width, a multiple of RB_K (the last takes the remainder), and a
+// The cluster path, up to D = 4096, in every mode.  What bounds it:
+// operations, 2 R C D FLOPs a forward and 4 R C D a backward launch
+// (0.321 and 0.641 ms for a step's pair at the deep recipe, B 128, Bg
+// 8192, K 5, D 1024).  Its design does each of those FMAs once: a
 // thread-block cluster of nz blocks (grid z, cluster (1, 1, nz)) owns the
-// same 32 rows and walks the same streamed tiles, block z on part z.  A
-// block holds its part of the owned rows in shared memory and its part of
-// the gradient in registers (the 512 instance's layout) and streams only
-// its part of S.  For each tile it computes the partial logits over its
-// part, writes them to its own (32, SN) tile of shared memory, and after a
-// cluster barrier reads the nz partials through distributed shared memory
-// and sums them in rank order, so every block of the cluster holds the same
-// logits bit for bit, hence the same weights; a second barrier (arrive now,
-// wait before the next tile's partials are written) keeps a partial tile
-// until every block has read it.  Then it runs the product over its part.
-// The partials make each logit a sum in another order than lse_fwd's (one
-// sequential chain over D), so exp(x - lse) no longer cancels the forward's
-// rounding: where |x| reaches ~100 the dominant weight would be off by
-// ~|x| eps relative.  So lse_bwd_rows on this path also writes each row's
-// sum of exp(x - lse) over its own logits, and the caller divides the
-// weights by it (both modes compute the logits bit for bit alike), which
-// makes them the exact softmax of the backward's logits.
+// same rows and walks the same streamed tiles, block z on part z.  A block
+// holds its part of 32 owned rows in shared memory at the 512 instance's
+// row stride (in the backward its part of the gradient in registers too,
+// the 512 instance's layout) and streams only its part of S, in tiles of
+// 256 rows (128 in lse_bwd_cols).  For each tile it computes the partial
+// logits over its part, writes them to its own tile of shared memory, and
+// after a cluster barrier reads the nz partials through distributed shared
+// memory and sums them in rank order; a second barrier (arrive now, wait
+// before the next tile's partials are written) keeps a partial tile until
+// every block has read it.  The backward needs every logit of the tile in
+// every block (each runs the product over its part); the forward sums only
+// a share, and runs the (max, sum) of only that share, so that each block
+// reads one tile's worth of partials whatever nz is.  The forward's tile
+// is 32 x 256, as at D <= 768: 1-2 % faster than the held 512 instance's
+// 64 x 128 (measured, PERF.md), which streams B's rows half as often but
+// exchanges as many partials.
 //
-// Past D = 4096 (more than 8 blocks, the portable cluster's limit) the slab
-// path: the owned operand streamed as in the forward, the gradient written
-// one depth slab of at most 768 at a time, one slab a grid z-index; each
-// block recomputes the full-depth logits for its slab, so the logits FMAs
-// grow by ceil(D / 768) and the product's are those of the 768 instance.
-// Instances: DMAX = 512 with CLUSTER set; DMAX = 768 with SLAB set.
+// The slab path, past D = 4096 (more than 8 blocks, the portable cluster's
+// limit): the owned operand streamed beside the streamed one in each logits
+// stage (an RB_K-deep slab of the owned rows from global memory and L2,
+// swizzled as the streamed slab is), the parts' chains summed at the
+// parts' ends.  The backward writes the gradient one depth slab of at most
+// 768 at a time, one slab a grid z-index; each block recomputes the
+// full-depth logits for its slab, so the logits FMAs grow by ceil(D / 768)
+// and the product's are those of the 768 instance.  Both paths run at any
+// D > 768 on request (the plan), for timing one against the other.
 //
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
@@ -155,13 +160,20 @@ constexpr int RB_K = 32;       // depth of one logits slab
 constexpr int RB_T = 256;      // threads
 constexpr int RB_STAGES = 3;   // depth of the cp.async ring
 
+// The modes of every kernel (``mode`` of milnce_lse_fwd and milnce_lse_bwd):
+// the owned rows held at full depth, the cluster path, the slab path.
+enum Mode { HELD = 0, CLUSTER_PATH = 1, SLAB_PATH = 2 };
+constexpr int CLUSTER_DMAX = 512;  // the widest depth part of a cluster block
+constexpr int CLUSTER_MAX = 8;     // blocks in a portable cluster
+
 // floats per row group of the weights tile of SN streamed rows
 __host__ __device__ constexpr int w_rg(int sn) { return sn * 8 + 4; }
 
 // SLAB: the owned operand streamed beside S in each logits stage (its slab
-// after S's), the gradient written DMAX depths a grid z-index.  CLUSTER:
-// the O tile holds the block's depth part (at most DMAX), and a (RB_M, SN)
-// tile of partial logits follows lse and g.
+// after S's), the gradient written DMAX depths a grid z-index, and a
+// (RB_M, SN) tile of the finished parts' sums of logits follows lse and g.
+// CLUSTER: the O tile holds the block's depth part (at most DMAX), and a
+// (RB_M, SN) tile of partial logits follows lse and g.
 template <int DMAX, int SN, bool SLAB = false, bool CLUSTER = false>
 struct Inst {
   static_assert(!(SLAB && CLUSTER), "one deep path at a time");
@@ -172,7 +184,8 @@ struct Inst {
   static constexpr int STAGE =            // floats in one ring stage
       LOGITS > NB * DMAX ? LOGITS : NB * DMAX;
   static constexpr int OWNED = SLAB ? 0 : RB_M * LDA;  // the held O tile
-  static constexpr int PART = CLUSTER ? RB_M * SN : 0; // partial logits
+  static constexpr int PART =             // partial or finished logits
+      SLAB || CLUSTER ? RB_M * SN : 0;
   // the O tile, the weights tile, the ring, lse and g of the block's rows
   // (read by lse_bwd_rows only), the partial logits
   static constexpr size_t SMEM = sizeof(float) *
@@ -252,6 +265,35 @@ __device__ __forceinline__ int s_at(int c, int q) {
   return c * RB_K + 4 * (q ^ (c & 7));
 }
 
+// The slab paths' logits, summed as the cluster path sums them: at the end
+// of a depth part (of pk slabs; ``kp`` counts the part's slabs done, ``cp``
+// the tile's, of n_k) the thread's chains acc (MI rows of 4 logits) are
+// added to its float4s i RB_T + tid of the finished parts' tile Ps, ((0 +
+// P0) + P1) + ..., and restart at 0; at the tile's last slab acc takes the
+// sum, the tile's logits.  Ps, not registers: the backward's gradient
+// leaves none.
+template <int MI>
+__device__ __forceinline__ void add_part(float (&acc)[MI][4], float4* Ps,
+                                         int& kp, int cp, int n_k, int pk) {
+  const bool last = cp == n_k - 1;
+  if (++kp < pk && !last) return;
+  kp = 0;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    float4 t = cp < pk ? make_float4(0.f, 0.f, 0.f, 0.f) : Ps[i * RB_T + tid];
+    t.x += acc[i][0], t.y += acc[i][1];
+    t.z += acc[i][2], t.w += acc[i][3];
+    if (last) {
+      acc[i][0] = t.x, acc[i][1] = t.y;
+      acc[i][2] = t.z, acc[i][3] = t.w;
+    } else {
+      Ps[i * RB_T + tid] = t;
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    }
+  }
+}
+
 // The block's owned tile: rows row0 .. row0 + M - 1 of O, depths k0 ..
 // k0 + n_k RB_K - 1, into Os (row stride LDA), zero past NO and past D.
 template <bool VEC, int M>
@@ -320,11 +362,12 @@ __device__ __forceinline__ void copy_logits_slab(float* st,
 //
 // SLAB: the O slab of each logits stage sits at SN * RB_K in the stage,
 // read through s_at; the block's gradient covers depths z0 .. z0 + DZ - 1 of
-// D, z0 = DMAX blockIdx.z.  CLUSTER: block z of the cluster holds and
-// computes depths z0 .. z0 + DZ - 1, z0 = kw blockIdx.z (kw, the part width,
-// a multiple of RB_K); thread tid writes its partial logits acc[i] to float4
-// i RB_T + tid of its partial tile and reads the same float4 of every
-// block's tile.
+// D, z0 = DMAX blockIdx.z; the logits are the chains of the depth parts of
+// kw depths summed in rank order (add_part).  CLUSTER: block z of the
+// cluster holds and computes depths z0 .. z0 + DZ - 1, z0 = kw blockIdx.z
+// (kw, the part width, a multiple of RB_K); thread tid writes its partial
+// logits acc[i] to float4 i RB_T + tid of its partial tile and reads the
+// same float4 of every block's tile.
 template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB,
           bool CLUSTER = false>
 __global__ void __launch_bounds__(RB_T, 1)
@@ -341,7 +384,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   float* ring = Ws + 4 * w_rg(SN);              // [RB_STAGES][STAGE]
   float* ls = ring + RB_STAGES * I::STAGE;      // [RB_M]
   float* gs = ls + RB_M;                        // [RB_M]
-  float4* Ps = reinterpret_cast<float4*>(gs + RB_M);  // [MI][RB_T], CLUSTER
+  float4* Ps = reinterpret_cast<float4*>(gs + RB_M);  // [MI][RB_T], deep
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane >> 3, x = lane & 7;       // the product's layout
   const int lrg = lane / XL;                    // the logits' layout
@@ -356,6 +399,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
   const int kz = CLUSTER ? z0 : 0;
   const int n_k = ((CLUSTER ? DZ : D) + RB_K - 1) / RB_K;  // logits slabs
   const int per_tile = n_k + SN / NB;           // and product slabs a tile
+  const int pk = SLAB ? kw / RB_K : n_k;        // logits slabs a depth part
   const int d4 = (DZ + 3) / 4;
 
   if (!OWN_COLS && tid < RB_M) {
@@ -412,8 +456,9 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     issue_next();
     cp_commit();
   }
-  // The slab to compute: tile ct, part cp, ring stage cs.
-  for (int ct = 0, cp = 0, cs = 0; ct < ntile;) {
+  // The slab to compute: tile ct, part cp, ring stage cs; kp, SLAB: the
+  // logits slabs done of the current depth part.
+  for (int ct = 0, cp = 0, cs = 0, kp = 0; ct < ntile;) {
     cp_wait<RB_STAGES - 2>();
     __syncthreads();          // stage cs has landed, the one before is free
     issue_next();
@@ -445,6 +490,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
           }
         }
       }
+      if constexpr (SLAB) add_part(acc, Ps, kp, cp, n_k, pk);
       if constexpr (CLUSTER) {
         if (cp == n_k - 1) {  // the cluster's logits, summed in rank order
           if (ct > 0) cluster_wait();  // every block read the last tile's
@@ -587,9 +633,9 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
 // part_m, part_s (nsplit, R), the (max, sum) of exp(A_r . B_j - max) over
 // the streamed tiles of split y.
 //
-// grid (ceil(R / FM), nsplit), RB_T threads, one block per SM.  The block's
-// (FM, D) A tile sits in shared memory for its whole life; it walks the
-// streamed tiles [y tps, (y + 1) tps) of its split, SN rows of B each,
+// grid (ceil(R / FM), nsplit, nz), RB_T threads, one block per SM.  The
+// block's (FM, D) A tile sits in shared memory for its whole life; it walks
+// the streamed tiles [y tps, (y + 1) tps) of its split, SN rows of B each,
 // through the backward's ring of RB_STAGES stages of RB_K-deep slabs, one
 // barrier per stage.  Lane l of warp w is (lrg, lx) = (l / 8, l % 8), and
 // the warps form (FM / 32) x WC: warp (wr, wc) = (w / WC, w % WC) owns rows
@@ -597,19 +643,32 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
 // of each tile.  A warp's 16-byte loads touch 4 rows of the A tile (LDA is
 // 4 mod 32: 4 distinct bank groups) and 8 neighbouring rows of B (s_at: 8
 // distinct bank groups), each one wavefront broadcast over the warp.
-// DEEP: no A tile; each stage holds B's slab, then A's (FM rows, s_at).
-template <int DMAX, int FM, int SN, bool DEEP>
+// SLAB: no A tile; each stage holds B's slab, then A's (FM rows, s_at); the
+// logits are the chains of the depth parts of kw depths summed in rank
+// order (add_part).  CLUSTER: clusters of (1, 1, nz) blocks; block z
+// holds depths kw z .. kw z + DZ - 1 of its FM rows and streams the same
+// depths of B; thread tid writes its partial logits acc[i] to float4 i RB_T
+// + tid of its (FM, SN) partial tile, and after the cluster barrier sums
+// the same float4 of every block's tile in rank order for its rows i with
+// i % nz == z, whose (max, sum) only this block runs and writes.
+template <int DMAX, int FM, int SN, int MODE>
 struct FwdInst {
   static constexpr int LDA = DMAX + 4;            // row stride of the A tile
   static constexpr int TN = FM * SN / (8 * RB_T); // logits columns a thread
   static constexpr int WC = SN / (8 * TN);        // warps across a tile
   static_assert(FM % 32 == 0 && (FM / 32) * WC * 32 == RB_T,
                 "the warps must tile the block's logits");
-  static constexpr int OWNED = DEEP ? 0 : FM * LDA;
-  static constexpr int STAGE = (SN + (DEEP ? FM : 0)) * RB_K;
-  // the A tile and the ring; the warps' partials reuse the ring at the end
+  static_assert(MODE == HELD || TN == 4,
+                "a thread's partial logits are float4s of one row");
+  static_assert(MODE != CLUSTER_PATH || DMAX == CLUSTER_DMAX,
+                "a cluster block's part fits the A tile");
+  static constexpr int OWNED = MODE == SLAB_PATH ? 0 : FM * LDA;
+  static constexpr int STAGE = (SN + (MODE == SLAB_PATH ? FM : 0)) * RB_K;
+  static constexpr int PART = MODE == HELD ? 0 : FM * SN;
+  // the A tile, the ring (the warps' partials reuse it at the end) and the
+  // partial (CLUSTER) or finished parts' (SLAB) logits
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)OWNED + RB_STAGES * STAGE);
+      sizeof(float) * ((size_t)OWNED + RB_STAGES * STAGE + PART);
   static_assert(2 * WC * FM <= RB_STAGES * STAGE, "partials fit the ring");
 };
 
@@ -626,17 +685,19 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   m = mn;
 }
 
-template <int DMAX, bool VEC, int FM, int SN, bool DEEP>
+template <int DMAX, bool VEC, int FM, int SN, int MODE>
 __global__ void __launch_bounds__(RB_T, 1)
 lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
                float* __restrict__ part_m, float* __restrict__ part_s, int R,
-               int C, int D, int tps) {
-  using I = FwdInst<DMAX, FM, SN, DEEP>;
+               int C, int D, int tps, int kw) {
+  using I = FwdInst<DMAX, FM, SN, MODE>;
+  constexpr bool SLAB = MODE == SLAB_PATH, CLUSTER = MODE == CLUSTER_PATH;
   constexpr int LDA = I::LDA, TN = I::TN, WC = I::WC;
   constexpr int STAGE = I::STAGE;
   extern __shared__ float4 dyn4[];
-  float* As = reinterpret_cast<float*>(dyn4);   // [FM][LDA], held mode
+  float* As = reinterpret_cast<float*>(dyn4);   // [FM][LDA], not SLAB
   float* ring = As + I::OWNED;                  // [RB_STAGES][STAGE]
+  float4* Ps = reinterpret_cast<float4*>(ring + RB_STAGES * STAGE);  // deep
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lrg = lane >> 3, lx = lane & 7;
   const int wc = warp % WC;
@@ -645,19 +706,24 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int row0 = blockIdx.x * FM;
   const int t_first = blockIdx.y * tps;
   const int ntile = min((C + SN - 1) / SN, t_first + tps) - t_first;
-  const int n_k = (D + RB_K - 1) / RB_K;        // slabs a tile
+  // the logits' depths kz .. kz + n_k RB_K - 1: CLUSTER, the block's part
+  const int kz = CLUSTER ? kw * blockIdx.z : 0;
+  const int n_k = ((CLUSTER ? min(kw, D - kz) : D) + RB_K - 1) / RB_K;
+  const int pk = SLAB ? kw / RB_K : n_k;        // slabs a depth part
+  // CLUSTER: this block's rows of the thread, i % nz == z (all elsewhere)
+  const int nz = gridDim.z, zr = blockIdx.z;
 
   // The A tile; its copies join the first stage's group.
-  if (!DEEP) load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D);
+  if (!SLAB) load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D, kz);
 
   // The next slab to copy: tile it, slab ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
   auto issue_next = [&]() {
     if (it < ntile && !(ROWS_SKIP & 4)) {
       const int col0 = (t_first + it) * SN;
-      copy_logits_slab<VEC, SN>(ring + is_ * STAGE, B, col0, C, ip * RB_K, D,
-                                VEC && col0 + SN <= C);
-      if (DEEP)
+      copy_logits_slab<VEC, SN>(ring + is_ * STAGE, B, col0, C,
+                                kz + ip * RB_K, D, VEC && col0 + SN <= C);
+      if (SLAB)
         copy_owned_slab<VEC, FM>(ring + is_ * STAGE + SN * RB_K, A, row0, R,
                                  ip * RB_K, D);
     }
@@ -675,8 +741,9 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
     issue_next();
     cp_commit();
   }
-  // The slab to compute: tile ct, slab cp, ring stage cs.
-  for (int ct = 0, cp = 0, cs = 0; ct < ntile;) {
+  // The slab to compute: tile ct, slab cp, ring stage cs; kp, SLAB: the
+  // slabs done of the current depth part.
+  for (int ct = 0, cp = 0, cs = 0, kp = 0; ct < ntile;) {
     cp_wait<RB_STAGES - 2>();
     __syncthreads();          // stage cs has landed, the one before is free
     issue_next();
@@ -696,7 +763,7 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int j = 0; j < TN; ++j) b[j] = ld4(st + s_at(cx + 8 * j, q));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float4 a = DEEP ? ld4(st + SN * RB_K + s_at(ar + 4 * i, q))
+        const float4 a = SLAB ? ld4(st + SN * RB_K + s_at(ar + 4 * i, q))
                               : ld4(a_k + 4 * i * LDA + 4 * q);
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
@@ -705,6 +772,32 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
           acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
           acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
         }
+      }
+    }
+    if constexpr (SLAB) add_part(acc, Ps, kp, cp, n_k, pk);
+    if constexpr (CLUSTER) {
+      if (cp == n_k - 1) {    // the cluster's logits, summed in rank order
+        if (ct > 0) cluster_wait();  // every block read the last tile's
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          Ps[i * RB_T + tid] =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+        }
+        cluster_arrive();
+        cluster_wait();
+        const auto cluster = cooperative_groups::this_cluster();
+        for (int z = 0; z < nz; ++z) {
+          const float4* src = cluster.map_shared_rank(Ps, z);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (i % nz != zr) continue;
+            const float4 p = src[i * RB_T + tid];
+            acc[i][0] += p.x, acc[i][1] += p.y;
+            acc[i][2] += p.z, acc[i][3] += p.w;
+          }
+        }
+        cluster_arrive();     // waited for before the next tile's partials
       }
     }
     if (cp == n_k - 1 && (ROWS_SKIP & 2)) {
@@ -721,6 +814,7 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
       if (n0 < C) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          if (CLUSTER && i % nz != zr) continue;
           float mx = -INFINITY;
 #pragma unroll
           for (int j = 0; j < TN; ++j)
@@ -740,6 +834,9 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
     if (++cs == RB_STAGES) cs = 0;
   }
   cp_wait<0>();
+  // no block leaves while another may still read its partial tile
+  if constexpr (CLUSTER)
+    if (ntile > 0) cluster_wait();
 
   // Combine once: the 8 lanes of a row group, then the WC warps of a row.
 #pragma unroll
@@ -759,7 +856,10 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
   }
   __syncthreads();
-  if (tid < FM && row0 + tid < R) {
+  // row tid is row i = (tid % 32) / 4 of its threads: CLUSTER, this block's
+  // if i % nz == z
+  if (tid < FM && row0 + tid < R &&
+      (!CLUSTER || ((tid & 31) >> 2) % nz == zr)) {
     float mm = -INFINITY, ss = 0.f;
 #pragma unroll
     for (int w = 0; w < WC; ++w)
@@ -769,26 +869,88 @@ lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <int DMAX, bool VEC, int FM, int SN, bool DEEP>
-int launch_fwd_inst(const float* A, const float* B, float* part_m,
-                    float* part_s, int R, int C, int D, int nsplit, int tps,
-                    cudaStream_t stream) {
-  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN, DEEP>;
-  const size_t smem = FwdInst<DMAX, FM, SN, DEEP>::SMEM;
+// The cluster path's launch configuration: ``grid``, its z the cluster's
+// nz blocks, clusters of (1, 1, nz); ``attr`` holds the cluster's
+// dimensions.
+cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(RB_T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of ``kernel`` (its shared memory ``smem`` opted in to)
+// of nz blocks the card holds at once (cudaOccupancyMaxActiveClusters), or
+// minus a CUDA error.
+int max_clusters(const void* kernel, size_t smem, int nz) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(1, 1, nz), smem, 0,
+                                                &attr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Whether the deep paths take parts of kw depths at depth D: a multiple of
+// RB_K, and on the cluster path at most CLUSTER_DMAX wide and at most
+// CLUSTER_MAX of them.
+bool parts_ok(int mode, int D, int kw) {
+  if (mode == HELD) return true;
+  if (kw < RB_K || kw % RB_K) return false;
+  return mode != CLUSTER_PATH ||
+         (kw <= CLUSTER_DMAX && (D + kw - 1) / kw <= CLUSTER_MAX);
+}
+
+struct FwdLaunch {
+  const float *A, *B;
+  float *part_m, *part_s;
+  int R, C, D, nsplit, tps, kw;
+  cudaStream_t stream;
+};
+
+// One forward launch; the cluster path's (cudaLaunchKernelEx) returns its
+// error if refused: nothing falls back to the slab path.
+template <int DMAX, bool VEC, int FM, int SN, int MODE>
+int launch_fwd_inst(const FwdLaunch& a) {
+  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN, MODE>;
+  const size_t smem = FwdInst<DMAX, FM, SN, MODE>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + FM - 1) / FM, nsplit);
-  kernel<<<grid, RB_T, smem, stream>>>(A, B, part_m, part_s, R, C, D, tps);
+  const int nz = MODE == CLUSTER_PATH ? (a.D + a.kw - 1) / a.kw : 1;
+  const dim3 grid((a.R + FM - 1) / FM, a.nsplit, nz);
+  if (MODE == CLUSTER_PATH) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(grid, smem, a.stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, kernel, a.A, a.B, a.part_m, a.part_s, a.R,
+                             a.C, a.D, a.tps, a.kw);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<grid, RB_T, smem, a.stream>>>(a.A, a.B, a.part_m, a.part_s, a.R,
+                                           a.C, a.D, a.tps, a.kw);
+  }
   return (int)cudaGetLastError();
 }
 
-// The forward's instances, (DMAX, FM, SN, DEEP) for each depth bound: 64
+// The forward's instances, (DMAX, FM, SN, MODE) for each depth bound: 64
 // owned rows by 128-row tiles (8 x 4 logits a thread), 32 by 256 at D <=
-// 768 and in the deep mode (any D).
-#define ROWS_FWD_INSTANCES(X)                                        \
-  X(256, 64, 128, false) X(512, 64, 128, false) X(768, 32, 256, false) \
-  X(768, 32, 256, true)
+// 768, on the slab path (any D) and on the cluster path (parts of at most
+// 512; 1-2 % faster there than 64 by 128, PERF.md).
+#define ROWS_FWD_INSTANCES(X)                                              \
+  X(256, 64, 128, HELD) X(512, 64, 128, HELD) X(768, 32, 256, HELD)        \
+  X(768, 32, 256, SLAB_PATH) X(512, 32, 256, CLUSTER_PATH)
 
 struct Launch {
   const float *O, *S, *lse, *g;
@@ -796,12 +958,6 @@ struct Launch {
   int NO, NS, D, nsplit, tps, kw;
   cudaStream_t stream;
 };
-
-// The backward's modes (``deep`` of milnce_lse_bwd): the owned rows held at
-// full depth, the cluster path, the slab path.
-enum Mode { HELD = 0, CLUSTER_PATH = 1, SLAB_PATH = 2 };
-constexpr int CLUSTER_DMAX = 512;  // the widest depth part of a cluster block
-constexpr int CLUSTER_MAX = 8;     // blocks in a portable cluster
 
 template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB = false>
 int launch_inst(const Launch& a) {
@@ -817,52 +973,21 @@ int launch_inst(const Launch& a) {
   return (int)cudaGetLastError();
 }
 
-// The cluster path's launch configuration: grid (row tiles, nsplit, nz),
-// clusters of (1, 1, nz) blocks, nz = ceil(D / kw); ``attr`` holds the
-// cluster's dimensions.
-template <int SN>
-cudaLaunchConfig_t cluster_config(const Launch& a, int nz,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.NO + RB_M - 1) / RB_M, a.nsplit, nz);
-  cfg.blockDim = dim3(RB_T);
-  cfg.dynamicSmemBytes = Inst<CLUSTER_DMAX, SN, false, true>::SMEM;
-  cfg.stream = a.stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 1;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = nz;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-using BwdKernel = void (*)(const float*, const float*, const float*,
-                           const float*, float*, int, int, int, int, int,
-                           float*);
-
-// The cluster path's kernel, its shared memory opted in to.
-template <bool VEC, bool OWN_COLS, int SN>
-cudaError_t cluster_kernel(BwdKernel* kernel) {
-  *kernel = lse_bwd_kernel<CLUSTER_DMAX, VEC, OWN_COLS, SN, false, true>;
-  return cudaFuncSetAttribute(
-      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Inst<CLUSTER_DMAX, SN, false, true>::SMEM);
-}
-
-// The cluster path: parts of kw depths (a multiple of RB_K, at most
-// CLUSTER_DMAX), nz = ceil(D / kw) of them, at most CLUSTER_MAX.  A refused
-// launch returns its error; nothing falls back to the slab path.
+// The cluster path: parts of kw depths, nz = ceil(D / kw) of them (checked
+// by parts_ok).  A refused launch returns its error; nothing falls back to
+// the slab path.
 template <bool VEC, bool OWN_COLS, int SN>
 int launch_cluster(const Launch& a) {
-  const int nz = (a.D + a.kw - 1) / a.kw;
-  if (a.kw % RB_K || a.kw > CLUSTER_DMAX || nz > CLUSTER_MAX)
-    return (int)cudaErrorInvalidValue;
-  BwdKernel kernel;
-  cudaError_t err = cluster_kernel<VEC, OWN_COLS, SN>(&kernel);
+  const auto kernel =
+      lse_bwd_kernel<CLUSTER_DMAX, VEC, OWN_COLS, SN, false, true>;
+  const size_t smem = Inst<CLUSTER_DMAX, SN, false, true>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config<SN>(a, nz, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3((a.NO + RB_M - 1) / RB_M, a.nsplit, (a.D + a.kw - 1) / a.kw), smem,
+      a.stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, a.O, a.S, a.lse, a.g, a.part, a.NO,
                            a.NS, a.D, a.tps, a.kw, a.sums);
   if (err != cudaSuccess) return (int)err;
@@ -915,55 +1040,52 @@ size_t smem_bytes(int dmax, int deep) {
   }
 }
 
-// How many clusters of nz blocks of the cluster path the card holds at
-// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
-template <bool OWN_COLS, int SN>
-int max_clusters(int nz) {
-  BwdKernel kernel;
-  cudaError_t err = cluster_kernel<true, OWN_COLS, SN>(&kernel);
-  if (err != cudaSuccess) return -(int)err;
-  Launch one = {};
-  one.NO = RB_M;
-  one.nsplit = 1;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config<SN>(one, nz, &attr);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
 }  // namespace rows
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of the forward instance (dmax, fm, sn, deep)
+// Dynamic shared memory of the forward instance (dmax, fm, sn, mode)
 // (bytes), 0 for one that has no instance.
-size_t milnce_fwd_smem(int dmax, int fm, int sn, int deep) {
-#define ROWS_FWD_SMEM(DM, M, N, DP)                          \
-  if (dmax == DM && fm == M && sn == N && (deep != 0) == DP) \
-    return rows::FwdInst<DM, M, N, DP>::SMEM;
+size_t milnce_fwd_smem(int dmax, int fm, int sn, int mode) {
+#define ROWS_FWD_SMEM(DM, M, N, MODE)                         \
+  if (dmax == DM && fm == M && sn == N && mode == rows::MODE) \
+    return rows::FwdInst<DM, M, N, rows::MODE>::SMEM;
   ROWS_FWD_INSTANCES(ROWS_FWD_SMEM)
 #undef ROWS_FWD_SMEM
   return 0;
 }
 
+// How many clusters of nz blocks of the forward's cluster path the current
+// card keeps resident at once; minus a CUDA error if the query fails.
+int milnce_fwd_clusters(int nz) {
+#define ROWS_FWD_CLUSTERS(DM, M, N, MODE)                                   \
+  if (rows::MODE == rows::CLUSTER_PATH)                                    \
+    return rows::max_clusters(                                             \
+        (const void*)rows::lse_fwd_kernel<DM, true, M, N, rows::MODE>,     \
+        rows::FwdInst<DM, M, N, rows::MODE>::SMEM, nz);
+  ROWS_FWD_INSTANCES(ROWS_FWD_CLUSTERS)
+#undef ROWS_FWD_CLUSTERS
+  return 0;
+}
+
 // One forward launch for A (R, D), B (C, D): part_m, part_s (nsplit, R) on
-// the instance (dmax, fm, sn, deep), D <= dmax unless ``deep``; ``vec``: D
-// % 4 == 0 and A, B 16-byte aligned.
+// the instance (dmax, fm, sn, mode): mode 0 held, D <= dmax; 1 the cluster
+// path and 2 the slab path, any D, their logits summed over depth parts of
+// ``kw``; ``vec``: D % 4 == 0 and A, B 16-byte aligned.
 int milnce_lse_fwd(const float* A, const float* B, float* part_m,
                    float* part_s, int R, int C, int D, int dmax, int fm,
-                   int sn, int deep, int nsplit, int tps, int vec,
+                   int sn, int mode, int kw, int nsplit, int tps, int vec,
                    void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (D > dmax && !deep) return (int)cudaErrorInvalidValue;
-#define ROWS_FWD_LAUNCH(DM, M, N, DP)                                     \
-  if (dmax == DM && fm == M && sn == N && (deep != 0) == DP)             \
-    return vec ? rows::launch_fwd_inst<DM, true, M, N, DP>(              \
-                     A, B, part_m, part_s, R, C, D, nsplit, tps, s)      \
-               : rows::launch_fwd_inst<DM, false, M, N, DP>(             \
-                     A, B, part_m, part_s, R, C, D, nsplit, tps, s);
+  if ((mode == rows::HELD && D > dmax) || !rows::parts_ok(mode, D, kw))
+    return (int)cudaErrorInvalidValue;
+  const rows::FwdLaunch a = {A, B, part_m, part_s, R, C, D, nsplit, tps, kw,
+                             (cudaStream_t)stream};
+#define ROWS_FWD_LAUNCH(DM, M, N, MODE)                                   \
+  if (dmax == DM && fm == M && sn == N && mode == rows::MODE)            \
+    return vec ? rows::launch_fwd_inst<DM, true, M, N, rows::MODE>(a)    \
+               : rows::launch_fwd_inst<DM, false, M, N, rows::MODE>(a);
   ROWS_FWD_INSTANCES(ROWS_FWD_LAUNCH)
 #undef ROWS_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -982,15 +1104,24 @@ size_t milnce_bwd_rows_smem(int dmax, int sn, int deep) {
 // (sn 256 without, 128 with) can keep resident on the current card at once;
 // minus a CUDA error if the query fails.
 int milnce_bwd_clusters(int own_cols, int nz) {
-  return own_cols ? rows::max_clusters<true, 128>(nz)
-                  : rows::max_clusters<false, 256>(nz);
+  using rows::CLUSTER_DMAX, rows::Inst, rows::lse_bwd_kernel;
+  return own_cols
+             ? rows::max_clusters(
+                   (const void*)lse_bwd_kernel<CLUSTER_DMAX, true, true, 128,
+                                               false, true>,
+                   Inst<CLUSTER_DMAX, 128, false, true>::SMEM, nz)
+             : rows::max_clusters(
+                   (const void*)lse_bwd_kernel<CLUSTER_DMAX, true, false, 256,
+                                               false, true>,
+                   Inst<CLUSTER_DMAX, 256, false, true>::SMEM, nz);
 }
 
 // One backward launch for A (R, D), B (C, D): part (nsplit, R, D) of dA
 // (own_cols 0, lse_bwd_rows, sn 256) or part (nsplit, C, D) of dB
 // (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R, in mode
-// ``deep`` (0 held, 1 the cluster path, depth parts of ``kw``, 2 the slab
-// path, gradient slabs of dmax = 768 over grid z).  ``sums`` (nsplit, R),
+// ``deep`` (0 held, 1 the cluster path, 2 the slab path, gradient slabs of
+// dmax = 768 over grid z; both deep paths sum the logits over depth parts
+// of ``kw``).  ``sums`` (nsplit, R),
 // written by lse_bwd_rows on the cluster path only (else NULL): each
 // split's sum over its columns of exp(A_r . B_j - lse_r).
 int milnce_lse_bwd(const float* A, const float* B, const float* lse,
@@ -998,7 +1129,7 @@ int milnce_lse_bwd(const float* A, const float* B, const float* lse,
                    int D, int own_cols, int dmax, int sn, int deep, int kw,
                    int nsplit, int tps, int vec, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (deep == rows::CLUSTER_PATH && kw < 1) return (int)cudaErrorInvalidValue;
+  if (!rows::parts_ok(deep, D, kw)) return (int)cudaErrorInvalidValue;
   if (sums && (own_cols || deep != rows::CLUSTER_PATH))
     return (int)cudaErrorInvalidValue;
   if (!own_cols) {

@@ -8,7 +8,8 @@ a backward that recomputes the logits, so nothing O(B * Bg * K) is held.
 twin, ``cuda`` the hand kernels, ``auto`` the kernels for CUDA tensors
 and the plain twin for CPU tensors.  The kernels take any D: up to
 ``STREAM_DMAX`` they hold a row of D on chip, past it they run their
-deep mode (the backward split over a thread-block cluster by depth).  Semantics are identical to
+deep mode (each kernel split over a thread-block cluster by depth).
+Semantics are identical to
 :func:`milnce_tpu_torch.losses.milnce.milnce_loss`, across ranks too:
 the stream runs the local rows and columns against the gathered arrays.
 """

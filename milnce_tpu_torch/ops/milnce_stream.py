@@ -28,15 +28,18 @@ kernels tile columns their own way, so the two agree up to summation
 order.  :func:`milnce_stream` takes the plain version only for CPU
 tensors; for CUDA tensors it launches the kernels or raises.  Up to
 :data:`STREAM_DMAX` a kernel holds a row of D on chip (the held mode);
-past it each mode runs its deep mode (the plan's ``mode``): the forward
-streams D in slabs, the backward splits D into :func:`deep_parts` over a
-thread-block cluster up to :data:`CLUSTER_REACH` (``deep``) and past it
-recomputes the logits for each gradient slab (``deep_slab``).
+past it each kernel runs its deep mode (the plan's ``mode``): it splits D
+into :func:`deep_parts` over a thread-block cluster up to
+:data:`CLUSTER_REACH` (``deep``) and past it streams both operands in
+depth slabs (``deep_slab``).  On both deep paths every kernel computes a
+logit as the parts' chains summed in rank order, so the forward's and the
+backward's logits are equal bit for bit; the plain twins sum the same
+parts when given them (``parts``).
 
 ``LAUNCHES`` counts kernel launches, one per launch, under the kernel's
-name, the deep mode's under the name with ``_deep`` added and the
-backward's slab path's with ``_deep_slab``, so a run can show that it
-went through the kernels.
+name, the cluster path's under the name with ``_deep`` added and the
+slab path's with ``_deep_slab``, so a run can show that it went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ from milnce_tpu_torch.ops import cuda_build
 from milnce_tpu_torch.ops.softdtw import BIG
 
 KERNELS = ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")
-LAUNCHES = {f"{name}{mode}": 0 for mode in ("", "_deep") for name in KERNELS}
-LAUNCHES.update({f"{name}_deep_slab": 0 for name in KERNELS[1:]})
+LAUNCHES = {f"{name}{mode}": 0 for mode in ("", "_deep", "_deep_slab")
+            for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -77,14 +80,16 @@ def _mask(start: int, width: int, c: int, device) -> torch.Tensor:
     return (start + torch.arange(width, device=device)) < c
 
 
-def lse_plain(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
-    """Online logsumexp of ``a @ b.T`` over blocks of ``width`` columns."""
+def lse_plain(a: torch.Tensor, b: torch.Tensor, width: int,
+              parts=None) -> torch.Tensor:
+    """Online logsumexp of ``a @ b.T`` over blocks of ``width`` columns;
+    with ``parts`` the logits are summed over those depth parts."""
     af = a.float()
     c = b.shape[0]
     m = torch.full((a.shape[0],), -math.inf, device=a.device)
     s = torch.zeros((a.shape[0],), device=a.device)
     for start, blk in _blocks(b, width):
-        x = af @ blk.T
+        x = _logits(af, blk, parts)
         x = torch.where(_mask(start, width, c, a.device)[None, :], x, -BIG)
         mn = torch.maximum(m, x.amax(dim=1))
         s = s * torch.exp(m - mn) + torch.exp(x - mn[:, None]).sum(dim=1)
@@ -94,8 +99,8 @@ def lse_plain(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
 
 def _logits(af, blk, parts):
     """af @ blk.T, or with ``parts`` (:func:`deep_parts`) the partial
-    products over each depth part summed in part order, as the cluster
-    path sums them."""
+    products over each depth part summed in part order, as the deep paths
+    sum them."""
     if not parts:
         return af @ blk.T
     x = None
@@ -167,12 +172,13 @@ _I = ctypes.c_int
 def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
-        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 11, _P]
         lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 11,
                                        _P]
         lib.milnce_bwd_clusters.argtypes = [_I, _I]
+        lib.milnce_fwd_clusters.argtypes = [_I]
         for fn in (lib.milnce_lse_fwd, lib.milnce_lse_bwd,
-                   lib.milnce_bwd_clusters):
+                   lib.milnce_bwd_clusters, lib.milnce_fwd_clusters):
             fn.restype = ctypes.c_int
         lib.milnce_bwd_rows_smem.argtypes = [_I, _I, _I]
         lib.milnce_fwd_smem.argtypes = [_I, _I, _I, _I]
@@ -210,20 +216,23 @@ STREAM_DMAX = ROWS_INSTANCES[-1]   # the largest depth held on chip; past it
                                    # the deep mode
 ROWS_BM, ROWS_THREADS = 32, 256
 _ROWS_BK, _ROWS_STAGES = 32, 3
-# the forward's (owned rows, streamed tile) for each instance (the deep
-# mode's those of STREAM_DMAX)
+# the forward's (owned rows, streamed tile) for each held instance (the
+# slab path's those of STREAM_DMAX)
 FWD_TILES = {256: (64, 128), 512: (64, 128), 768: (32, 256)}
-# the backward's cluster path: depth parts of at most CLUSTER_DMAX, one
-# block each, at most CLUSTER_MAX blocks (a portable cluster)
+# the cluster path: depth parts of at most CLUSTER_DMAX, one block each, at
+# most CLUSTER_MAX blocks (a portable cluster)
 CLUSTER_DMAX, CLUSTER_MAX = 512, 8
 CLUSTER_REACH = CLUSTER_DMAX * CLUSTER_MAX
+# the forward's cluster path's (owned rows, streamed tile): 32 x 256, 1-2 %
+# faster than 64 x 128 (PERF.md)
+FWD_CLUSTER_TILES = (32, 256)
 # clusters of nz blocks of the cluster path (one block an SM) that an H100
 # 80GB HBM3 (132 SMs, in GPCs of unequal size) keeps resident at once,
-# either instance (cudaOccupancyMaxActiveClusters, printed by
+# every kernel's instance (cudaOccupancyMaxActiveClusters, printed by
 # ops/rows_probe.py --accuracy): the plan's wave where no card is asked
 H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
-# the mode codes of milnce_lse_bwd
-_BWD_MODES = {"held": 0, "deep": 1, "deep_slab": 2}
+# the mode codes of milnce_lse_fwd and milnce_lse_bwd
+_MODES = {"held": 0, "deep": 1, "deep_slab": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,13 +246,13 @@ class RowsPlan:
     maxima and as many of sums in the forward.  ``lse_fwd`` and
     ``lse_bwd_rows`` own A and stream B, ``lse_bwd_cols`` owns B and
     streams A.  ``mode`` is ``held`` (the owned tile on chip at full depth,
-    D <= dmax) or, past STREAM_DMAX, ``deep``: the forward streams both
-    operands in depth slabs; the backward runs clusters of ``nz`` blocks,
+    D <= dmax) or, past STREAM_DMAX, ``deep``: clusters of ``nz`` blocks,
     block z holding depth part ``parts[z]`` of the owned rows, of which
-    the card keeps ``clusters`` resident at once (the cluster path).
-    ``deep_slab`` (the backward past CLUSTER_REACH): both operands
-    streamed, ``nz`` gradient slabs of ``dmax`` depths, one a grid
-    z-index, each recomputing the full-depth logits."""
+    the card keeps ``clusters`` resident at once (the cluster path); or
+    ``deep_slab`` (past CLUSTER_REACH, or on request): both operands
+    streamed in depth slabs, the backward's ``nz`` gradient slabs of
+    ``dmax`` depths one a grid z-index, each recomputing the full-depth
+    logits.  Both deep paths sum the logits over ``parts``."""
     dmax: int
     bm: int
     bn: int
@@ -276,8 +285,8 @@ def check_depth(name: str, d: int) -> tuple[int, str]:
 
 
 def deep_parts(d: int) -> list[tuple[int, int]]:
-    """The depth parts [(k0, width), ...] of the backward's cluster path
-    at depth ``d``: ceil(d / CLUSTER_DMAX) parts of one width, ceil(d /
+    """The depth parts [(k0, width), ...] of the deep paths at depth
+    ``d``: ceil(d / CLUSTER_DMAX) parts of one width, ceil(d /
     parts) rounded up to a multiple of 32 (a logits slab), the last
     taking the remainder.  They cover 0 .. d - 1 once."""
     nz = -(-d // CLUSTER_DMAX)
@@ -286,35 +295,44 @@ def deep_parts(d: int) -> list[tuple[int, int]]:
     return [(k0, min(width, d - k0)) for k0 in range(0, d, width)]
 
 
-def bwd_mode(name: str, d: int, slab: bool = False) -> tuple[int, str, int]:
-    """(instance, mode, nz) of a backward launch at depth ``d``: the
-    smallest held instance that holds it; past :data:`STREAM_DMAX` the
+def launch_mode(name: str, d: int, slab: bool = False
+                ) -> tuple[int, str, int]:
+    """(instance, mode, nz) of a launch of kernel ``name`` at depth ``d``:
+    the smallest held instance that holds it; past :data:`STREAM_DMAX` the
     cluster path (``deep``: instance CLUSTER_DMAX, nz depth parts) up to
     :data:`CLUSTER_REACH`; past it, or with ``slab``, the slab path
-    (``deep_slab``: instance STREAM_DMAX, nz gradient slabs)."""
+    (``deep_slab``: instance STREAM_DMAX, nz gradient slabs in the
+    backward, 1 in the forward)."""
     dmax, mode = check_depth(name, d)
     if mode == "held":
         return dmax, mode, 1
     if d <= CLUSTER_REACH and not slab:
         return CLUSTER_DMAX, "deep", len(deep_parts(d))
-    return STREAM_DMAX, "deep_slab", -(-d // STREAM_DMAX)
+    return (STREAM_DMAX, "deep_slab",
+            1 if name == "lse_fwd" else -(-d // STREAM_DMAX))
 
 
 def launch_key(name: str, d: int) -> str:
     """The ``LAUNCHES`` key under which a launch of kernel ``name`` at
     depth ``d`` counts."""
-    mode = (check_depth(name, d) if name == "lse_fwd"
-            else bwd_mode(name, d))[1]
+    mode = launch_mode(name, d)[1]
     return name if mode == "held" else f"{name}_{mode}"
 
 
-def _plan(dmax: int, owned: int, streamed: int, slots: int, bm: int, sn: int,
-          smem: int, scratch: tuple, mode: str = "held", nz: int = 1,
-          parts: tuple = (), clusters: int = 0) -> RowsPlan:
+def _plan(dmax: int, owned: int, streamed: int, d: int, sms: int, bm: int,
+          sn: int, smem: int, scratch: tuple, mode: str, nz: int,
+          clusters: int | None) -> RowsPlan:
     """The fewest streamed tiles per split that keep the grid to one wave
-    of ``slots`` (row tile, split) units, one block an SM for each of the
-    ``nz`` (a grid past one wave only when the owned tiles alone pass
-    it)."""
+    of (row tile, split) units: on the cluster path of ``clusters``
+    clusters (the card's count, else the H100's, :data:`H100_CLUSTERS`),
+    else of one block an SM for each of the ``nz`` (a grid past one wave
+    only when the owned tiles alone pass it); the deep paths' depth
+    parts."""
+    parts = () if mode == "held" else tuple(deep_parts(d))
+    if mode == "deep":
+        slots = clusters = H100_CLUSTERS[nz] if clusters is None else clusters
+    else:
+        slots, clusters = sms // nz, 0
     row_tiles, col_tiles = -(-owned // bm), -(-streamed // sn)
     per_row = min(col_tiles, max(1, slots // row_tiles))
     tps = -(-col_tiles // per_row)
@@ -325,39 +343,41 @@ def _plan(dmax: int, owned: int, streamed: int, slots: int, bm: int, sn: int,
 
 def _bwd_plan(name: str, owned: int, streamed: int, d: int, sms: int,
               sn: int, clusters: int | None, slab: bool) -> RowsPlan:
-    """The mode of :func:`bwd_mode`; 32 owned rows a block.  On the
-    cluster path one wave is ``clusters`` clusters (the card's count, else
-    the H100's, :data:`H100_CLUSTERS`)."""
-    dmax, mode, nz = bwd_mode(name, d, slab)
+    """The mode of :func:`launch_mode`; 32 owned rows a block."""
+    dmax, mode, nz = launch_mode(name, d, slab)
     nb = 32 if dmax <= 256 else 8          # streamed rows of a product slab
     streamed_owned = mode == "deep_slab"
     stage = max((sn + ROWS_BM * streamed_owned) * _ROWS_BK, nb * dmax)
     held = 0 if streamed_owned else ROWS_BM * (dmax + 4)
-    partial = ROWS_BM * sn if mode == "deep" else 0
+    partial = 0 if mode == "held" else ROWS_BM * sn
     smem = 4 * (held + 4 * (8 * sn + 4) + _ROWS_STAGES * stage + 2 * ROWS_BM
                 + partial)
-    if mode == "deep":
-        if clusters is None:
-            clusters = H100_CLUSTERS[nz]
-        return _plan(dmax, owned, streamed, clusters, ROWS_BM, sn, smem,
-                     (owned, d), mode, nz, tuple(deep_parts(d)), clusters)
-    return _plan(dmax, owned, streamed, sms // nz, ROWS_BM, sn, smem,
-                 (owned, d), mode, nz)
+    return _plan(dmax, owned, streamed, d, sms, ROWS_BM, sn, smem,
+                 (owned, d), mode, nz, clusters)
 
 
-def fwd_plan(r: int, c: int, d: int, sms: int) -> RowsPlan:
+def fwd_plan(r: int, c: int, d: int, sms: int, clusters: int | None = None,
+             slab: bool = False) -> RowsPlan:
     """The launch plan of ``lse_fwd`` for A (r, d), B (c, d) on a card with
-    ``sms`` SMs: blocks own 64 rows of A and stream B in 128-row tiles (32
-    rows and 256-row tiles at D <= 768, where 64 rows of A would leave no
-    room for the ring).  Past it, the deep mode: the same tiles, the A
-    rows streamed in each stage beside B's."""
-    dmax, mode = check_depth("lse_fwd", d)
-    bm, sn = FWD_TILES[dmax]
+    ``sms`` SMs (holding ``clusters`` clusters of the cluster path at
+    once): blocks own 64 rows of A and stream B in 128-row tiles (32 rows
+    and 256-row tiles at D <= 768, where 64 rows of A would leave no room
+    for the ring).  Past it the cluster path in :data:`FWD_CLUSTER_TILES`,
+    each block holding its depth part of the rows and a tile of partial
+    logits; past CLUSTER_REACH, or with ``slab``, the slab
+    path: the 768 instance's tiles, the A rows streamed in each stage
+    beside B's, a tile of the finished parts' logits."""
+    dmax, mode, nz = launch_mode("lse_fwd", d, slab)
     if mode == "deep":
-        smem = 4 * _ROWS_STAGES * (sn + bm) * _ROWS_BK
+        bm, sn = FWD_CLUSTER_TILES
+        smem = 4 * (bm * (dmax + 4) + _ROWS_STAGES * sn * _ROWS_BK + bm * sn)
+    elif mode == "deep_slab":
+        bm, sn = FWD_TILES[dmax]
+        smem = 4 * (_ROWS_STAGES * (sn + bm) * _ROWS_BK + bm * sn)
     else:
+        bm, sn = FWD_TILES[dmax]
         smem = 4 * (bm * (dmax + 4) + _ROWS_STAGES * sn * _ROWS_BK)
-    return _plan(dmax, r, c, sms, bm, sn, smem, (r,), mode)
+    return _plan(dmax, r, c, d, sms, bm, sn, smem, (r,), mode, nz, clusters)
 
 
 def rows_plan(r: int, c: int, d: int, sms: int, clusters: int | None = None,
@@ -414,19 +434,37 @@ def _counter(name: str, plan: RowsPlan) -> str:
     return name if plan.mode == "held" else f"{name}_{plan.mode}"
 
 
-def launch_fwd(lib, a, b) -> tuple[torch.Tensor, RowsPlan]:
+def card_fwd_plan(lib, r: int, c: int, d: int, device) -> RowsPlan:
+    """The plan :func:`launch_fwd` takes for A (r, d), B (c, d) on the card
+    of ``device``: :func:`fwd_plan` on the cluster path with the card's
+    resident clusters."""
+    _, mode, nz = launch_mode("lse_fwd", d)
+    clusters = (card_clusters(lib, "lse_fwd", nz, device)
+                if mode == "deep" else None)
+    return fwd_plan(r, c, d, _sms(device), clusters)
+
+
+def _kw(plan: RowsPlan) -> int:
+    """The deep paths' part width (every part's but the last), else 0."""
+    return plan.parts[0][1] if plan.parts else 0
+
+
+def launch_fwd(lib, a, b, _plan: RowsPlan | None = None
+               ) -> tuple[torch.Tensor, RowsPlan]:
     """One launch of ``lib``'s forward kernel on checked operands, with
-    the plan of :func:`fwd_plan`; then the combination of its partial
-    (max, sum) pairs.  Returns the lse and the plan."""
+    the plan of :func:`card_fwd_plan`; then the combination of its partial
+    (max, sum) pairs.  ``_plan`` replaces the plan (a timing of the slab
+    path at a depth the cluster path takes).  Returns
+    the lse and the plan."""
     (r, d), c = a.shape, b.shape[0]
-    plan = fwd_plan(r, c, d, _sms(a.device))
-    deep = int(plan.mode == "deep")
+    plan = _plan or card_fwd_plan(lib, r, c, d, a.device)
+    code = _MODES[plan.mode]
     _check_smem("lse_fwd", lambda: lib.milnce_fwd_smem(
-        plan.dmax, plan.bm, plan.bn, deep), plan.smem_bytes, a.device)
+        plan.dmax, plan.bm, plan.bn, code), plan.smem_bytes, a.device)
     part_m, part_s = torch.empty((2, *plan.scratch), device=a.device)
     err = lib.milnce_lse_fwd(a.data_ptr(), b.data_ptr(), part_m.data_ptr(),
                              part_s.data_ptr(), r, c, d, plan.dmax, plan.bm,
-                             plan.bn, deep, plan.nsplit, plan.tps,
+                             plan.bn, code, _kw(plan), plan.nsplit, plan.tps,
                              int(_vec(a, b)), cuda_build.current_stream(a))
     cuda_build.check_launch("lse_fwd", err)
     m = part_m.amax(dim=0)
@@ -458,19 +496,21 @@ def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
 _CLUSTERS: dict = {}
 
 
-def card_clusters(lib, cols: bool, nz: int, device) -> int:
-    """How many clusters of ``nz`` blocks of ``lib``'s cluster path (the
-    ``lse_bwd_cols`` instance when ``cols``) the card of ``device`` keeps
-    resident at once (``cudaOccupancyMaxActiveClusters``); raises if it
-    holds none."""
+def card_clusters(lib, name: str, nz: int, device) -> int:
+    """How many clusters of ``nz`` blocks of ``lib``'s cluster path of
+    kernel ``name`` the card of ``device`` keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``); raises if it holds none."""
     with torch.cuda.device(device):
-        key = (torch.cuda.current_device(), bool(cols), nz)
+        key = (torch.cuda.current_device(), name, nz)
         if key not in _CLUSTERS:
-            n = lib.milnce_bwd_clusters(int(cols), nz)
+            if name == "lse_fwd":
+                n = lib.milnce_fwd_clusters(nz)
+            else:
+                n = lib.milnce_bwd_clusters(int(name == "lse_bwd_cols"), nz)
             if n <= 0:
                 raise RuntimeError(
-                    f"the card holds no cluster of {nz} blocks of the "
-                    f"backward's cluster path (query returned {n})")
+                    f"the card holds no cluster of {nz} blocks of "
+                    f"{name}'s cluster path (query returned {n})")
             _CLUSTERS[key] = n
         return _CLUSTERS[key]
 
@@ -481,8 +521,8 @@ def card_bwd_plan(lib, cols: bool, r: int, c: int, d: int,
     of ``device``: :func:`cols_plan` when ``cols``, else :func:`rows_plan`,
     on the cluster path with the card's resident clusters."""
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
-    _, mode, nz = bwd_mode(name, d)
-    clusters = card_clusters(lib, cols, nz, device) if mode == "deep" else None
+    _, mode, nz = launch_mode(name, d)
+    clusters = card_clusters(lib, name, nz, device) if mode == "deep" else None
     return (cols_plan if cols else rows_plan)(r, c, d, _sms(device), clusters)
 
 
@@ -499,18 +539,17 @@ def launch_bwd(lib, a, b, lse, g, cols: bool, _plan: RowsPlan | None = None
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
     (r, d), c = a.shape, b.shape[0]
     plan = _plan or card_bwd_plan(lib, cols, r, c, d, a.device)
-    code = _BWD_MODES[plan.mode]
+    code = _MODES[plan.mode]
     _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn,
                                                        code),
                 plan.smem_bytes, a.device)
     part = torch.empty(plan.scratch, device=a.device)
     sums = (torch.empty(plan.scratch[:2], device=a.device)
             if plan.mode == "deep" and not cols else None)
-    kw = plan.parts[0][1] if plan.parts else 0
     err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
                              g.data_ptr(), part.data_ptr(),
                              None if sums is None else sums.data_ptr(), r, c,
-                             d, int(cols), plan.dmax, plan.bn, code, kw,
+                             d, int(cols), plan.dmax, plan.bn, code, _kw(plan),
                              plan.nsplit, plan.tps, int(_vec(a, b)),
                              cuda_build.current_stream(a))
     cuda_build.check_launch(name, err)
@@ -530,12 +569,14 @@ class _StreamCuda(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_row, g_col):
-        """On the cluster path the backward's logits round unlike the
-        forward's, so exp(x - lse) would carry that difference into the
-        dominant weight; dividing the weights by their row sum s (of the
-        backward's own logits, which both modes compute bit for bit)
-        makes them the exact softmax of those logits.  With lse the
-        logsumexp, s is 1 up to rounding: the same gradient."""
+        """On the cluster path the rows' gradient and the cols launch's g
+        are divided by the row sum s of the weights (of the backward's own
+        logits, which both modes compute bit for bit).  A guard: the
+        forward's logits are the backward's bit for bit on every deep
+        path, so the weights already cancel the forward's rounding and s
+        is 1 up to the lse's own rounding; were they to part again, the
+        division would keep the weights the exact softmax of the
+        backward's logits."""
         v, t, v_all, t_all, row, col = ctx.saved_tensors
         g_row, g_col = g_row.contiguous(), g_col.contiguous()
         g_v, s_row = _lse_bwd_rows_and_sums(v, t_all, row, g_row)

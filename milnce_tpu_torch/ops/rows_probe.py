@@ -10,8 +10,9 @@ its combination of the partials included) and the kernel alone on the
 device (torch.profiler, mean of 20), at the two launches of a training
 step at the recipe shape, A (128, 512) against B (40960, 512) and
 A (640, 512) against B (8192, 512), and at the same two at D = 1024, the
-deep recipe, where the backward runs its cluster path (its plan, with
-the clusters the card keeps resident, is printed).  The bits: 1 leaves
+deep recipe, where every mode runs its cluster path (its plan, with
+the clusters the card keeps resident, is printed); there the forward's
+full build is also timed on its slab path.  The bits: 1 leaves
 out the logits FMAs, 2 the gradient FMAs in the backward and the running
 (max, sum) update in the forward, 4 the copies of the streamed operand
 (B in ``lse_fwd`` and ``lse_bwd_rows``, A in ``lse_bwd_cols``); 3 leaves
@@ -27,12 +28,14 @@ against ``lse_plain``, ``lse_bwd_rows_plain`` and
 ``lse_bwd_cols_plain``.
 
 ``--accuracy`` instead prints the clusters of 1 to 8 blocks the card
-keeps resident, and the deep backward's error against float64 on both
-of its paths (the cluster path and the slab path, each given
-``lse_fwd``'s lse; the cluster path also with its weights divided by
+keeps resident, for each kernel's cluster path, and the deep forward's and backward's error against float64 on
+both paths (the cluster path and the slab path, the backward given the
+same path's lse; the cluster path also with its weights divided by
 their row sum, as the stream's backward runs it; and the plain version
-given ``lse_plain``'s) at the card tests' deep shapes, with unit-normal
-inputs and with inputs scaled to unit-scale logits.  Exits non-zero, printing nothing, without a card.
+given ``lse_plain``'s) at the card tests' deep shapes (the slab path
+alone past the cluster path's reach, at D = 4608), with unit-normal
+inputs and with inputs scaled to unit-scale logits.  Exits non-zero,
+printing nothing, without a card.
 """
 
 from __future__ import annotations
@@ -73,20 +76,60 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, key: str, reps: int = 20) -> float:
-    """Mean device time per call of ``fn`` of the kernels whose name holds
-    ``key``."""
+PAD_CYCLES = 20_000_000            # ~10 ms of a spinning kernel at 1.98 GHz
+
+
+def _profiled(fn, calls: int, key: str) -> dict:
+    """{name: (launches, device us)} of the CUDA kernels whose name holds
+    ``key`` over ``calls`` calls of ``fn`` under one torch.profiler
+    session.  A spinning kernel of ~10 ms stands before and after the
+    calls, so that none falls near the session's edges, where the
+    profiler can drop launches late in a long process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PAD_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+    return {e.key: (e.count, getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0)))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key
+            and "spin_kernel" not in e.key}
+
+
+def device_kernels(fn, key: str, reps: int = 20, log=print):
+    """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
+    name holds ``key`` (every kernel of the call with key ''), from
+    torch.profiler, without the host time of its wrapper, and those
+    kernels' names.  A session of ``reps`` calls counts only if it
+    recorded, of every kernel, ``reps`` times the launches of a session of
+    one call just before it (so that a dropped launch cannot read as a
+    faster call); else both run again, up to five times, and then it
+    raises, as it does when no kernel matched (a renamed kernel cannot
+    read as 0 ms)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key) / 1e3 / reps
+    for session in range(5):
+        one, many = _profiled(fn, 1, key), _profiled(fn, reps, key)
+        if one and one.keys() == many.keys() and all(
+                many[k][0] == reps * one[k][0] for k in one):
+            return sum(t for _, t in many.values()) / 1e3 / reps, sorted(many)
+        log(f"  (profiler session {session + 1}, kernels holding {key!r}: "
+            f"{ {k: n for k, (n, _) in many.items()} } launches in {reps} "
+            f"calls against { {k: n for k, (n, _) in one.items()} } in one;"
+            " profiling again)")
+    raise AssertionError(f"the profiler recorded no steady count of the "
+                         f"CUDA kernels whose name holds {key!r} in five "
+                         "sessions")
+
+
+def _device_ms(fn, key: str, reps: int = 20) -> float:
+    """The device time of :func:`device_kernels`."""
+    return device_kernels(fn, key, reps)[0]
 
 
 def _check(name, got, want) -> None:
@@ -105,7 +148,7 @@ def _line(label, fn, key, flops) -> str:
 
 # (B, Bg, K, D) of the card tests' deep cases
 ACCURACY_SHAPES = [(4, 8, 3, 769), (33, 300, 3, 1000), (8, 64, 2, 2048),
-                   (16, 64, 2, 4096)]
+                   (16, 64, 2, 4096), (4, 8, 3, 4608)]
 
 
 def _backward_f64(a, b, g):
@@ -116,11 +159,15 @@ def _backward_f64(a, b, g):
     return w @ b, w.T @ a
 
 
+def _err64(got, want) -> str:
+    return f"{float((got.double() - want).abs().max()):.2e}"
+
+
 def accuracy() -> None:
     lib = ms._lib()
-    print("resident clusters of 1-8 blocks (rows, cols): "
-          f"{[ms.card_clusters(lib, False, n, 'cuda') for n in range(1, 9)]}"
-          f", {[ms.card_clusters(lib, True, n, 'cuda') for n in range(1, 9)]}")
+    for name in ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols"):
+        counts = [ms.card_clusters(lib, name, n, "cuda") for n in range(1, 9)]
+        print(f"resident clusters of 1-8 blocks, {name}: {counts}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, bg, k, d in ACCURACY_SHAPES:
         for scale in (1.0, d ** -0.25):
@@ -133,22 +180,30 @@ def accuracy() -> None:
                 g = torch.tensor(rng.standard_normal(r, np.float32),
                                  device="cuda")
                 want = _backward_f64(a, bm, g)
-                lse = ms.lse_fwd(a, bm)
-                got = {}
-                for path, slab in (("cluster", False), ("slab", True)):
+                lse64 = torch.logsumexp(a.double() @ bm.double().T, dim=1)
+                got, fwd = {}, []
+                paths = (("slab", True),) if d > ms.CLUSTER_REACH else (
+                    ("cluster", False), ("slab", True))
+                for path, slab in paths:
+                    lse = ms.launch_fwd(lib, a, bm, _plan=ms.fwd_plan(
+                        r, c, d, sms, slab=True) if slab else None)[0]
+                    fwd.append(f"{path} {_err64(lse, lse64)}")
                     got[path] = []
                     for cols in (False, True):
                         plan = ((ms.cols_plan if cols else ms.rows_plan)(
                             r, c, d, sms, slab=True) if slab else None)
                         got[path].append(ms.launch_bwd(lib, a, bm, lse, g,
                                                        cols, _plan=plan)[0])
-                # the stream's use of the cluster path: the weights divided
-                # by their row sum
-                da, _, s = ms.launch_bwd(lib, a, bm, lse, g, False)
-                got["cluster renormalized"] = [
-                    da / s[:, None],
-                    ms.launch_bwd(lib, a, bm, lse, g / s, True)[0]]
+                    if slab:
+                        continue
+                    # the stream's use of the cluster path: the weights
+                    # divided by their row sum
+                    da, _, s = ms.launch_bwd(lib, a, bm, lse, g, False)
+                    got["cluster renormalized"] = [
+                        da / s[:, None],
+                        ms.launch_bwd(lib, a, bm, lse, g / s, True)[0]]
                 lse_p = ms.lse_plain(a, bm, 4096)
+                fwd.append(f"plain {_err64(lse_p, lse64)}")
                 got["plain"] = [ms.lse_bwd_rows_plain(a, bm, lse_p, g, 4096),
                                 ms.lse_bwd_cols_plain(a, bm, lse_p, g, 4096)]
                 errs = ", ".join(
@@ -160,8 +215,8 @@ def accuracy() -> None:
                                  for w in want)
                 print(f"B={b} Bg={bg} K={k} D={d} R={r} C={c} scale "
                       f"{scale:.3f} max|x| {float((a @ bm.T).abs().max()):.1f}"
-                      f": error against float64 (dA dB): {errs}; the card "
-                      f"tests' limit {limit}")
+                      f": error against float64, lse: {', '.join(fwd)}; "
+                      f"(dA dB): {errs}; the card tests' limit {limit}")
 
 
 def main() -> int:
@@ -186,15 +241,25 @@ def main() -> int:
         b = torch.randn((c, d), generator=gen, device="cuda") * d ** -0.25
         lse = torch.logsumexp(a @ b.T, dim=1)
         g = torch.full((r,), 1.0 / r, device="cuda")
+        plan = ms.card_fwd_plan(libs[0], r, c, d, "cuda")
+        parts = plan.parts or None
         _check("lse_fwd", ms.launch_fwd(libs[0], a, b)[0],
-               ms.lse_plain(a, b, 4096))
-        print(f"lse_fwd R={r} C={c} D={d}: {ms.fwd_plan(r, c, d, sms)}")
+               ms.lse_plain(a, b, 4096, parts))
+        print(f"lse_fwd R={r} C={c} D={d}: {plan}")
         flops = 2 * r * c * d
         for label, lib in zip(LABELS["lse_fwd"], libs):
             print(_line(label, lambda: ms.launch_fwd(lib, a, b),
                         "lse_fwd_kernel", flops))
         print(_line("full, every kernel", lambda: ms.launch_fwd(libs[0], a, b),
                     "", flops))
+        if plan.mode == "deep":
+            slab = ms.fwd_plan(r, c, d, sms, slab=True)
+            _check("lse_fwd slab path", ms.launch_fwd(
+                libs[0], a, b, _plan=slab)[0],
+                ms.lse_plain(a, b, 4096, parts))
+            print(f"  slab path: {slab}")
+            print(_line("slab path", lambda: ms.launch_fwd(
+                libs[0], a, b, _plan=slab), "lse_fwd_kernel", flops))
         print(_line("library call", lambda: torch.logsumexp(a @ b.T, 1), "",
                     flops))
         flops = 4 * r * c * d

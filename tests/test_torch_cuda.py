@@ -54,15 +54,17 @@ def test_kernels_match_plain(cuda, b, bg, k, d, chunk):
     _stream_matches_plain(cuda, b, bg, k, d, chunk, scale=1.0)
 
 
-def test_deep_slab_path_matches_plain_at_unit_scale(cuda):
-    """The backward's slab path past the cluster path's reach (D = 4608),
-    with inputs scaled by D ** -0.25 so that the logits are of unit
-    scale, as chip_smoke.py draws them.  At unit-normal inputs the logits
-    reach |x| ~ 250 at such depths, where the slab path, which leaves its
-    weights exp(x - lse) unnormalized, is off float64 by more than the
+@pytest.mark.parametrize("scale", [4608 ** -0.25, 1.0],
+                         ids=["unit-scale", "unit-normal"])
+def test_deep_slab_path_matches_plain_at_unit_scale(cuda, scale):
+    """Both slab paths past the cluster path's reach (D = 4608), with
+    inputs scaled by D ** -0.25 so that the logits are of unit scale, as
+    chip_smoke.py draws them, and unit-normal, where the logits reach
+    |x| ~ 250.  There a single chain over D (the slab path before its
+    logits were summed part by part) was off float64 by more than the
     limit (at D = 4096 9.7e-4 against 7.0e-4: ``rows_probe --accuracy``,
     PERF.md)."""
-    _stream_matches_plain(cuda, 4, 8, 3, 4608, 3, scale=4608 ** -0.25)
+    _stream_matches_plain(cuda, 4, 8, 3, 4608, 3, scale=scale)
 
 
 def _stream_matches_plain(cuda, b, bg, k, d, chunk, scale):
@@ -121,6 +123,81 @@ def test_deep_backward_cluster_path_matches_slab_path(cuda, r, c, d):
         _close(got, slab)
 
 
+@pytest.mark.parametrize("r,c,d", [(128, 4096, 1024), (33, 300, 769),
+                                   (16, 600, 4096)])
+def test_deep_forward_cluster_path_matches_slab_path(cuda, r, c, d):
+    """Both deep paths of ``lse_fwd`` at one depth, the slab path through
+    the wrapper's private plan argument, at unit-normal inputs: each
+    within tolerance of the plain forward with the logits summed over the
+    same parts, and of each other; the cluster path's plan in clusters of
+    len(deep_parts(d)) blocks, sized by the card's resident clusters."""
+    rng = np.random.default_rng(d + 1)
+    a = torch.tensor(rng.standard_normal((r, d), np.float32), device=cuda)
+    b = torch.tensor(rng.standard_normal((c, d), np.float32), device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got, plan = ms.launch_fwd(ms._lib(), a, b)
+    slab, slab_plan = ms.launch_fwd(ms._lib(), a, b,
+                                    _plan=ms.fwd_plan(r, c, d, sms,
+                                                      slab=True))
+    assert (plan.mode, slab_plan.mode) == ("deep", "deep_slab")
+    assert plan.nz == len(ms.deep_parts(d))
+    assert plan.clusters == ms.card_clusters(ms._lib(), "lse_fwd", plan.nz,
+                                             cuda)
+    want = ms.lse_plain(a, b, 4096, ms.deep_parts(d))
+    _close(got, want)
+    _close(slab, want)
+    _close(got, slab)
+
+
+def test_forward_instances_take_the_plans_shared_memory(cuda):
+    """Each forward mode's instance takes the shared memory its plan says
+    (the library's query)."""
+    lib = ms._lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for d, kw in ((512, {}), (700, {}), (1024, {}), (1024, {"slab": True}),
+                  (4608, {})):
+        plan = ms.fwd_plan(128, 4096, d, sms, **kw)
+        assert lib.milnce_fwd_smem(plan.dmax, plan.bm, plan.bn,
+                                   ms._MODES[plan.mode]) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("d", [1000, 2048, 4096, 4608])
+def test_deep_forward_and_backward_logits_are_equal_bit_for_bit(cuda, d):
+    """With one column (C = 1) the lse is the forward's logit a . b_j
+    itself, and the backward's weight exp(x - lse) is exactly 1 only if
+    its logit x is the forward's bit for bit.  On the cluster path the
+    rows launch's weight sum s is then 1.0; on the slab path dA is g b_j
+    exactly.  The two paths' forward logits are equal too (both sum the
+    same parts' chains in rank order), and within float32 rounding of
+    float64.  Unit-normal inputs (|x| up to ~250, where one ulp of the
+    logit moves the weight by ~1.5e-5)."""
+    rng = np.random.default_rng(d)
+    a = torch.tensor(rng.standard_normal((40, d), np.float32), device=cuda)
+    b = torch.tensor(rng.standard_normal((6, d), np.float32), device=cuda)
+    g = torch.tensor(rng.standard_normal(40, np.float32), device=cuda)
+    lib = ms._lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for j in (0, 3, 5):
+        bj = b[j:j + 1].contiguous()
+        slab_fwd = ms.fwd_plan(40, 1, d, sms, slab=True)
+        x_slab = ms.launch_fwd(lib, a, bj, _plan=slab_fwd)[0]
+        exact = (a.double() @ bj.double().T)[:, 0]
+        assert float((x_slab - exact).abs().max()) <= 1e-5 * float(
+            exact.abs().max())
+        da, plan, _ = ms.launch_bwd(lib, a, bj, x_slab, g, False,
+                                    _plan=ms.rows_plan(40, 1, d, sms,
+                                                       slab=True))
+        assert plan.mode == "deep_slab"
+        assert torch.equal(da, g[:, None] * bj)
+        if d > ms.CLUSTER_REACH:
+            continue
+        x, plan = ms.launch_fwd(lib, a, bj)
+        assert plan.mode == "deep"
+        assert torch.equal(x, x_slab)
+        _, s_row = ms._lse_bwd_rows_and_sums(a, bj, x, g)
+        assert torch.equal(s_row, torch.ones_like(s_row))
+
+
 @pytest.mark.parametrize("r,c,where", [
     (33, 3000, "b-tile"), (33, 3000, "b-tail"), (33, 3000, "a-row"),
     (640, 8192, "b-tile"), (640, 8192, "a-row")])
@@ -162,17 +239,20 @@ def test_chunked_loss_on_kernels_matches_dense(cuda):
         _close(x, y)
 
 
-@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("d", [768, 1024, 4608])
 def test_auto_stream_launches_the_kernels_or_refuses_the_depth(cuda, d):
     """``milnce_stream`` (backend ``auto``) on CUDA tensors launches the
-    kernels at every depth, held up to STREAM_DMAX and in the deep mode
-    past it: it never takes the plain stream on the card."""
+    kernels at every depth, held up to STREAM_DMAX, on the cluster path
+    up to CLUSTER_REACH and on the slab path past it: it never takes the
+    plain stream on the card."""
     rng = np.random.default_rng(d)
     arrays = [torch.tensor(rng.standard_normal((n, d), np.float32),
                            device=cuda) for n in (4, 8, 12, 24)]
     ms.reset_launches()
     row, col = ms.milnce_stream(*arrays, 5)
-    name = "lse_fwd" if d <= ms.STREAM_DMAX else "lse_fwd_deep"
+    name = ("lse_fwd" if d <= ms.STREAM_DMAX else "lse_fwd_deep"
+            if d <= ms.CLUSTER_REACH else "lse_fwd_deep_slab")
+    assert ms.launch_key("lse_fwd", d) == name
     assert ms.LAUNCHES[name] == 2 and sum(ms.LAUNCHES.values()) == 2
     _close(row, ms.milnce_stream_plain(*arrays, 5)[0])
     _close(col, ms.milnce_stream_plain(*arrays, 5)[1])

@@ -9,9 +9,9 @@ Covered: K in {1, 5}, an uneven last chunk, a batch off the 8-row grid,
 and chunk >= Bg; and past the kernels' held depth (D = 1000, 1024), the
 plain stream against ``milnce_loss_chunked(backend='scan')``, the stream
 JAX's ``auto`` takes at a depth its Pallas kernel cannot hold; and the
-plain backward with its logits summed over the deep backward's depth
-parts (``deep_parts``, the cluster path's order) against the JAX Pallas
-stream in interpret mode at D = 769 and 1024.  The CUDA kernels
+plain forward and backward with their logits summed over the deep
+paths' depth parts (``deep_parts``, the kernels' order) against the JAX
+Pallas stream in interpret mode at D = 769, 1024 and 4608.  The CUDA kernels
 themselves run only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``); here the wrappers must refuse CPU tensors rather
 than compute anything, and the launch plans are checked as pure
@@ -253,12 +253,14 @@ def test_rows_launch_plan_shapes_and_refusal():
                                      + 3 * 256 * 32 + 2 * 32 + 32 * 256)
     # the card's own resident count, where it is asked, sizes the wave
     assert ms.rows_plan(128, 40960, 1024, sms=132, clusters=30).nsplit == 7
-    # the slab path, kept past the cluster's reach, on request at D = 1024
+    # the slab path, kept past the cluster's reach, on request at D = 1024:
+    # the logits summed over the same parts, the finished parts' tile
     slab = ms.rows_plan(128, 40960, 1024, sms=132, slab=True)
     assert (slab.dmax, slab.mode, slab.nz, slab.nsplit, slab.tps,
-            slab.smem_bytes) == (768, "deep_slab", 2, 16, 10, 143680)
+            slab.smem_bytes, slab.parts) == (768, "deep_slab", 2, 16, 10,
+                                             176448, recipe.parts)
     assert slab.smem_bytes == 4 * (4 * (8 * 256 + 4) + 3 * (256 + 32) * 32
-                                   + 2 * 32)
+                                   + 2 * 32 + 32 * 256)
 
 
 def _pad(r, sn):
@@ -310,8 +312,9 @@ def test_cols_launch_plan_shapes_and_refusal():
         512, "deep", 2, 4 * (32 * 516 + 4 * (8 * 128 + 4) + 3 * 128 * 32
                              + 2 * 32 + 32 * 128))
     slab = ms.cols_plan(4, 8, 769, sms=132, slab=True)
-    assert (slab.dmax, slab.mode, slab.nz, slab.smem_bytes) == (
-        768, "deep_slab", 2, 4 * (4 * (8 * 128 + 4) + 3 * 8 * 768 + 2 * 32))
+    assert (slab.dmax, slab.mode, slab.nz, slab.smem_bytes, slab.parts) == (
+        768, "deep_slab", 2, 4 * (4 * (8 * 128 + 4) + 3 * 8 * 768 + 2 * 32
+                                  + 32 * 128), deep.parts)
 
 
 @pytest.mark.parametrize("d", [769, 1000, 1024, 2048, 4096, 4097])
@@ -335,18 +338,21 @@ def test_deep_backward_parts_and_plans(d):
             plan = plan_of(r, c, d, sms=132)
             assert (plan.dmax, plan.mode, plan.nz) == _bwd_instance(d)
             assert plan.smem_bytes <= 232448
+            # both deep paths sum the logits over the same parts
+            assert plan.parts == tuple(parts)
             if d <= ms.CLUSTER_REACH:
-                assert plan.parts == tuple(parts) and plan.nz <= 8
+                assert plan.nz <= 8
                 assert plan.clusters == ms.H100_CLUSTERS[plan.nz]
             else:
-                assert plan.parts == () and plan.clusters == 0
+                assert plan.clusters == 0
             _one_wave(plan)
             slab = plan_of(r, c, d, sms=132, slab=True)
             assert (slab.mode, slab.dmax) == ("deep_slab", 768)
+            assert slab.parts == tuple(parts)
             assert slab.smem_bytes <= 232448
-    assert ms.launch_key("lse_bwd_rows", d) == (
-        "lse_bwd_rows_deep" if d <= 4096 else "lse_bwd_rows_deep_slab")
-    assert ms.launch_key("lse_fwd", d) == "lse_fwd_deep"
+    for name in ms.KERNELS:
+        assert ms.launch_key(name, d) == (
+            f"{name}_deep" if d <= 4096 else f"{name}_deep_slab")
 
 
 def test_row_sum_renormalization_recovers_the_gradient():
@@ -372,14 +378,15 @@ def test_row_sum_renormalization_recovers_the_gradient():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("d", [769, 1024])
+@pytest.mark.parametrize("d", [769, 1024, 4608])
 def test_partwise_plain_matches_jax_pallas_stream(d):
-    """The plain backward with the logits summed part by part in rank
-    order (the cluster path's arithmetic, :func:`deep_parts`) against the
-    JAX package's ``milnce_stream_pallas`` (interpret mode): values and
-    the four gradients, local rows apart from the gathered ones, an
-    uneven last chunk; the JAX chunked-loss tolerances (rtol 2e-6 on the
-    values, atol 2e-6 on the gradients)."""
+    """The plain forward and backward with the logits summed part by part
+    in rank order (the deep paths' arithmetic, :func:`deep_parts`: 2
+    parts, and at D = 4608, past the cluster path's reach, the slab
+    path's 9) against the JAX package's ``milnce_stream_pallas``
+    (interpret mode): values and the four gradients, local rows apart
+    from the gathered ones, an uneven last chunk; the JAX chunked-loss
+    tolerances (rtol 2e-6 on the values, atol 2e-6 on the gradients)."""
     b, bg, k, chunk = 4, 8, 3, 3
     rng = np.random.RandomState(d)
     v, t, v_all, t_all = (rng.randn(n, d).astype(np.float32) * d ** -0.25
@@ -393,8 +400,9 @@ def test_partwise_plain_matches_jax_pallas_stream(d):
     tv, tt, tva, tta = map(torch.from_numpy, (v, t, v_all, t_all))
     gr, gc = torch.from_numpy(g_row), torch.from_numpy(g_col)
     ck, parts = chunk * k, ms.deep_parts(d)
-    assert len(parts) == 2
-    trow, tcol = ms.lse_plain(tv, tta, ck), ms.lse_plain(tt, tva, chunk)
+    assert len(parts) == -(-d // 512) and len(parts) in (2, 9)
+    trow = ms.lse_plain(tv, tta, ck, parts)
+    tcol = ms.lse_plain(tt, tva, chunk, parts)
     got = (ms.lse_bwd_rows_plain(tv, tta, trow, gr, ck, parts),
            ms.lse_bwd_rows_plain(tt, tva, tcol, gc, chunk, parts),
            ms.lse_bwd_cols_plain(tt, tva, tcol, gc, chunk, parts),
@@ -406,14 +414,27 @@ def test_partwise_plain_matches_jax_pallas_stream(d):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-6)
 
 
+def _fwd_instance(d):
+    """(dmax, mode, nz, (bm, bn)) a forward plan must take at depth d: the
+    held instances up to STREAM_DMAX, the cluster path (parts of <= 512,
+    <= 8 of them, in 32 x 256 tiles) up to CLUSTER_REACH,
+    the slab path (the 768 instance's tiles, one block a (row tile,
+    split)) past it."""
+    if d > ms.CLUSTER_REACH:
+        return ms.STREAM_DMAX, "deep_slab", 1, (32, 256)
+    if d > ms.STREAM_DMAX:
+        return ms.CLUSTER_DMAX, "deep", -(-d // ms.CLUSTER_DMAX), (32, 256)
+    dmax = min(x for x in ms.ROWS_INSTANCES if d <= x)
+    return dmax, "held", 1, ms.FWD_TILES[dmax]
+
+
 @pytest.mark.parametrize("r", [1, 33, 64, 128, 200, 640, 2048])
 @pytest.mark.parametrize("c", [1, 40, 257, 8191, 40960])
-@pytest.mark.parametrize("d", [13, 512, 700, 768, 1000, 2048])
+@pytest.mark.parametrize("d", [13, 512, 700, 768, 1000, 2048, 4096, 4097])
 def test_fwd_launch_plan_covers_every_tile_once(r, c, d):
     plan = ms.fwd_plan(r, c, d, sms=132)
-    assert (plan.dmax, plan.mode, plan.nz) == (*ms.check_depth("lse_fwd", d),
-                                               1)
-    assert (plan.bm, plan.bn) == ms.FWD_TILES[plan.dmax]
+    assert (plan.dmax, plan.mode, plan.nz, (plan.bm, plan.bn)) == (
+        _fwd_instance(d))
     assert plan.threads == 256
     # 256 threads, each 8 owned rows by 4 streamed rows
     assert plan.bm * plan.bn // plan.threads == 32
@@ -427,8 +448,66 @@ def test_fwd_launch_plan_covers_every_tile_once(r, c, d):
     assert all(len(plan.tiles(s)) > 0 for s in range(plan.nsplit))
     assert max(len(plan.tiles(s)) for s in range(plan.nsplit)) == plan.tps
     assert plan.scratch == (plan.nsplit, r)
-    assert plan.row_tiles * plan.nsplit <= max(132, plan.row_tiles)
+    _one_wave(plan)
     assert plan.smem_bytes <= 232448
+    assert plan.parts == (() if plan.mode == "held"
+                          else tuple(ms.deep_parts(d)))
+
+
+@pytest.mark.parametrize("d", [769, 1000, 1024, 2048, 4096, 4097, 4608])
+def test_fwd_deep_paths_plans(d):
+    """The forward past STREAM_DMAX: up to CLUSTER_REACH clusters of nz =
+    len(deep_parts(d)) blocks, each holding its part (at most 512 deep) of
+    32 owned rows beside the ring of 256-row streamed tiles and a (32,
+    256) tile of partial logits, the wave the card's resident clusters (the H100's
+    where no card is asked, the count given where it is); ``slab`` gives
+    the slab path, past CLUSTER_REACH the only one, summing the logits
+    over the same parts."""
+    parts = tuple(ms.deep_parts(d))
+    for r, c in ((128, 40960), (640, 8192), (4, 8)):
+        slab = ms.fwd_plan(r, c, d, sms=132, slab=True)
+        assert (slab.dmax, slab.mode, slab.nz, slab.bm, slab.bn,
+                slab.parts, slab.clusters) == (768, "deep_slab", 1, 32, 256,
+                                               parts, 0)
+        assert slab.smem_bytes == 4 * (3 * (256 + 32) * 32 + 32 * 256)
+        plan = ms.fwd_plan(r, c, d, sms=132)
+        if d > ms.CLUSTER_REACH:
+            assert plan == slab
+            continue
+        nz = len(parts)
+        assert (plan.dmax, plan.mode, plan.nz, plan.bm, plan.bn, plan.parts,
+                plan.clusters) == (512, "deep", nz, 32, 256, parts,
+                                   ms.H100_CLUSTERS[nz])
+        assert plan.smem_bytes == 4 * (32 * 516 + 3 * 256 * 32 + 32 * 256)
+        assert plan.smem_bytes == 197120
+        assert plan.row_tiles * plan.nsplit <= max(plan.clusters,
+                                                   plan.row_tiles)
+        asked = ms.fwd_plan(r, c, d, sms=132, clusters=7)
+        assert asked.clusters == 7
+        assert asked.row_tiles * asked.nsplit <= max(7, asked.row_tiles)
+    # the deep recipe's two launches at D = 1024: clusters of 2 blocks,
+    # 66 resident, 64 and 60 of them in the one wave
+    if d == 1024:
+        rows_call = ms.fwd_plan(128, 40960, d, sms=132)
+        assert (rows_call.row_tiles, rows_call.col_tiles, rows_call.nsplit,
+                rows_call.tps) == (4, 160, 16, 10)
+        cols_call = ms.fwd_plan(640, 8192, d, sms=132)
+        assert (cols_call.row_tiles, cols_call.col_tiles, cols_call.nsplit,
+                cols_call.tps) == (20, 32, 3, 11)
+
+
+def test_forward_modes_launch_keys():
+    """Each forward mode counts under its own key, as the backward's do:
+    ``lse_fwd`` held, ``lse_fwd_deep`` on the cluster path up to
+    CLUSTER_REACH, ``lse_fwd_deep_slab`` past it."""
+    assert {k for k in ms.LAUNCHES if k.startswith("lse_fwd")} == {
+        "lse_fwd", "lse_fwd_deep", "lse_fwd_deep_slab"}
+    for d, key in ((768, "lse_fwd"), (769, "lse_fwd_deep"),
+                   (4096, "lse_fwd_deep"), (4097, "lse_fwd_deep_slab"),
+                   (4608, "lse_fwd_deep_slab")):
+        assert ms.launch_key("lse_fwd", d) == key
+        plan = ms.fwd_plan(4, 8, d, sms=132)
+        assert ms._counter("lse_fwd", plan) == key
 
 
 def test_fwd_launch_plan_shapes_and_refusal():
@@ -453,11 +532,15 @@ def test_fwd_launch_plan_shapes_and_refusal():
                                                               197120)
     assert 4 * (64 * 772 + 3 * 128 * 32) > 232448
     assert ms.fwd_plan(4, 8, ms.STREAM_DMAX, sms=132).mode == "held"
-    # past it the deep mode: the same tiles, A streamed beside B in each
-    # of the three stages, no A tile held
+    # past it the cluster path: parts of at most 512 in 32 x 256 tiles
     deep = ms.fwd_plan(4, 8, ms.STREAM_DMAX + 1, sms=132)
-    assert (deep.dmax, deep.mode, deep.bm, deep.bn, deep.smem_bytes) == (
-        768, "deep", 32, 256, 4 * 3 * (256 + 32) * 32)
+    assert (deep.dmax, deep.mode, deep.bm, deep.bn, deep.nz, deep.parts) == (
+        512, "deep", 32, 256, 2, ((0, 416), (416, 353)))
+    # the slab path: the 768 instance's tiles, A streamed beside B in each
+    # of the three stages, no A tile held, the finished parts' logits
+    slab = ms.fwd_plan(4, 8, ms.STREAM_DMAX + 1, sms=132, slab=True)
+    assert (slab.dmax, slab.mode, slab.bm, slab.bn, slab.smem_bytes) == (
+        768, "deep_slab", 32, 256, 4 * (3 * (256 + 32) * 32 + 32 * 256))
     with pytest.raises(ValueError, match="lse_fwd: depth 0"):
         ms.fwd_plan(4, 8, 0, sms=132)
 
@@ -475,5 +558,4 @@ def test_stream_refuses_the_depth_before_any_launch():
         assert ms.check_depth("milnce_stream_cuda", d)[1] == mode
     assert all(n == 0 for n in ms.LAUNCHES.values())
     assert set(ms.LAUNCHES) == {f"{k}{m}" for k in ms.KERNELS
-                                for m in ("", "_deep")} | {
-        "lse_bwd_rows_deep_slab", "lse_bwd_cols_deep_slab"}
+                                for m in ("", "_deep", "_deep_slab")}

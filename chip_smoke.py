@@ -215,6 +215,20 @@ Phases, each fatal on failure:
    resume-2d -- the small model: 1-D (two ranks) for 2 steps, resumed for
                1 on the grid, resumed for 1 in one process: losses within
                rel 2e-4 of an uninterrupted 1-D run, cuDNN deterministic.
+   analysis -- graftlint on the card: (a) Passes 1 and 3 over the port's
+               tree, no finding; (b) one train-full step (full width,
+               batch 16, the stream kernels, the finite guard) traced
+               under ``analysis/optrace.py``: no float64, no host sync,
+               no collective, and its kernel launches by name equal to the
+               launch counters; (c) 3 steps under
+               ``torch.cuda.set_sync_debug_mode("error")``, where any sync
+               raises; (d) train-full and train-full-remat planned on
+               meta (``memplan.what_if_step``) within 10 % of the card's
+               peak for the same step; (e) train-full's guarded and plain
+               steps in turns, windows of 8 steps back to back with one
+               sync, and one profiled guarded step's idle share and
+               optimizer time, beside phase 7's loop and PR 19's
+               (measured only).
    softdtw-sp -- ``softdtw_seq_parallel`` (the full D on every rank) and
                ``softdtw_seq_parallel_rows`` (a rank's rows alone) on two
                gloo ranks on the one card at (2, 2048, 2048), gamma 0.1,
@@ -542,18 +556,10 @@ def phase_parity():
 
 
 def _time_ms(fn, reps=20, warm=3):
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median ms of a call on the card (``utils/timing.py::event_ms``)."""
+    from milnce_tpu_torch.utils.timing import event_ms
+
+    return event_ms(fn, reps=reps, warm=warm, device="cuda")
 
 
 def _plan_line(plan):
@@ -840,7 +846,8 @@ def _device_kernels(fn, key, reps=20):
     """Mean device time (ms) per call of ``fn`` of the kernels whose name
     holds ``key`` (the kernel alone, or with key '' every kernel the call
     launches), and those kernels' names: ``rows_probe.device_kernels``,
-    which takes only a profiler session that recorded every launch."""
+    the mean of a session's recorded launches times the launches a
+    call."""
     from milnce_tpu_torch.ops.rows_probe import device_kernels
 
     return device_kernels(fn, key, reps, log)
@@ -1177,7 +1184,7 @@ def _gc_run(loss_name, micro_batches, counter, poison=""):
         out["ref"].append(float(steps[1](video, text, start)))
         model, optimizer = models[0]
         out["states"].append(dict(
-            skipped=skipped,
+            skipped=int(skipped),
             params=[p.detach().clone() for p in model.parameters()],
             moments=[t.clone() for st in optimizer.state.values()
                      for k, t in st.items() if k.startswith("exp_avg")],
@@ -1382,7 +1389,7 @@ def phase_train(work):
     if emb.shape != (2, 512) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"video embedding {tuple(emb.shape)} not finite")
     run["tracked"] = _tracked(res.model)
-    run["idle"] = _profile_step(res.model, cfg)
+    run["idle"], _ = _profile_step(res.model, cfg)
     del run["res"]      # the later phases' peak memory holds no stale model
     return run
 
@@ -1413,7 +1420,7 @@ def phase_train_gc(train, work):
                       {k: 2 for k in ms.KERNELS}, root=f"{work}/train-gc",
                       batch=GC_BATCH, accum=GC_ACCUM)
     names = [r["name"] for r in _read_events(run["cfg"].train.log_root)]
-    run["idle"] = _profile_step(run["res"].model, run["cfg"])
+    run["idle"], _ = _profile_step(run["res"].model, run["cfg"])
     clips, clips0 = run["sps"] * GC_BATCH, train["sps"] * TRAIN_BATCH
     log(f"  train-full-gc: {run['sps']:.4f} steps/s, {clips:.2f} clips/s "
         f"against train-full's {clips0:.2f} ({clips / clips0:.4f}x); peak "
@@ -2738,7 +2745,8 @@ def phase_ddp1(train, work):
     cfg.parallel.coordinator_address = f"file://{work}/ddp1-profile"
     ranks = initialize_distributed(cfg.parallel)
     try:
-        run["idle"] = _profile_step(run["res"].model, cfg, ranks.group)
+        run["idle"], _ = _profile_step(run["res"].model, cfg,
+                                        ranks.group)
     finally:
         ranks.close()
     err = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
@@ -3940,6 +3948,156 @@ def phase_softdtw_sp():
         raise AssertionError("softdtw-sp differs from the kernels")
 
 
+PLAN_TOLERANCE = 0.10        # memplan.PEAK_TOLERANCE, the JAX planner's
+# train-full before the guard repair, a run of the loop that synced every
+# step (steps/s, idle share of an unguarded profiled step; H100 80GB HBM3,
+# 700 W)
+BEFORE_SPS, BEFORE_IDLE = 2.7870, 0.022
+WINDOW = 8                   # steps a timed window of (e)
+
+
+def _analysis_step(cfg, seed=0):
+    """train-full's model (seed ``seed``), fused Adam, DeviceLR and guarded
+    step on the card, and one batch of its inputs there; -> (model,
+    optimizer, lr, step, inputs)."""
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.train.schedule import build_schedule_total
+    from milnce_tpu_torch.train.state import build_optimizer
+    from milnce_tpu_torch.train.step import make_train_step
+
+    model = build_model(cfg.model, seed=seed).to("cuda")
+    optimizer, lr = build_optimizer(model, cfg.optim,
+                                    build_schedule_total(cfg.optim, 100))
+    step = make_train_step(model, optimizer, cfg.loss, finite_guard=True,
+                           lr_scheduler=lr)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, batch = cfg.data, cfg.train.batch_size
+    inputs = (torch.randint(0, 255, (batch, d.num_frames, d.video_size,
+                                     d.video_size, 3), generator=gen,
+                            dtype=torch.uint8, device="cuda"),
+              torch.randint(1, cfg.model.vocab_size,
+                            (batch * d.num_candidates, d.max_words),
+                            generator=gen, device="cuda",
+                            dtype=torch.int32),
+              torch.zeros(batch, device="cuda"))
+    return model, optimizer, lr, step, inputs
+
+
+def _window_sps(step, inputs, n=WINDOW) -> float:
+    """Steps/s of ``n`` steps enqueued back to back after one warm step,
+    with one sync at the end: no host read between them."""
+    step(*inputs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        step(*inputs)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t)
+
+
+def _step_peak(step, inputs, base: int) -> int:
+    """The bytes allocated at the peak of one step, less ``base`` (what
+    the process held before the step's model was built)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*inputs)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_analysis(train):
+    """(a)-(e) of the module docstring's analysis phase."""
+    from milnce_tpu_torch.analysis import memplan
+    from milnce_tpu_torch.analysis.astlint import lint_paths_full
+    from milnce_tpu_torch.analysis.optrace import trace_call
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    findings, graph = lint_paths_full(["milnce_tpu_torch"])
+    active = [f for f in findings if not f.suppressed]
+    log(f"  (a) passes 1+3: {len(active)} findings, "
+        f"{len(findings) - len(active)} audited suppressions, "
+        f"{len(graph.edges)} lock-order edges, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if active:
+        raise AssertionError("graftlint findings:\n" + "\n".join(
+            f.format() for f in active))
+    cfg = _full_cfg("milnce", _stream_loss)
+    base = torch.cuda.memory_allocated()
+    model, optimizer, lr, step, inputs = _analysis_step(cfg)
+    step(*inputs)                                   # builds Adam's moments
+    torch.cuda.synchronize()
+    ms.reset_launches()
+    trace, _ = trace_call(step, inputs, model=model, optimizer=optimizer)
+    torch.cuda.synchronize()
+    counted = {k: n for k, n in ms.LAUNCHES.items() if n}
+    per_step = {k: 2 for k in ms.KERNELS}     # phase 7's launches a step
+    f64 = [op.name for op in trace.ops
+           if any(str(d) == "torch.float64" for d, _ in op.inputs
+                  + op.outputs)]
+    syncs = [f"{op.name} @ {op.owner}" for op in trace.syncs()]
+    backward = sum(1 for op in trace.ops if op.owner.startswith("backward"))
+    log(f"  (b) traced step: {len(trace.ops)} events ({backward} in the "
+        f"backward), kernels {trace.kernels()}, counters {counted}, "
+        f"train-full's per step {per_step}, collectives "
+        f"{trace.collectives()}, host syncs {syncs}, float64 ops "
+        f"{len(f64)}")
+    if (f64 or syncs or trace.collectives() or trace.kernels() != counted
+            or counted != per_step):
+        raise AssertionError("the traced train-full step breaks an "
+                             "invariant (above)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            step(*inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  (c) 3 guarded steps under set_sync_debug_mode('error'): no sync")
+    peaks = {"train-full": _step_peak(step, inputs, base)}
+    steps = {"guarded": step, "plain": make_train_step(
+        model, optimizer, cfg.loss, lr_scheduler=lr)}
+    sps = {k: [] for k in steps}
+    for name in ("guarded", "plain", "plain", "guarded"):
+        sps[name].append(_window_sps(steps[name], inputs))
+    idle, groups = _profile_step(model, cfg, finite_guard=True)
+    guarded, plain = (statistics.mean(sps[k]) for k in ("guarded", "plain"))
+    log(f"  (e) train-full, windows of {WINDOW} steps back to back with one "
+        f"sync, in turns G P P G: guarded {guarded:.4f} steps/s "
+        f"({', '.join(f'{x:.4f}' for x in sps['guarded'])}), plain "
+        f"{plain:.4f} ({', '.join(f'{x:.4f}' for x in sps['plain'])}), "
+        f"guarded/plain {guarded / plain:.4f}; one profiled guarded step: "
+        f"idle share {idle:.3f}, optimizer group "
+        f"{groups.get('optimizer', 0.0):.2f} ms; phase 7's loop (which "
+        f"syncs every step for its on_step) {train['sps']:.4f} steps/s; "
+        f"PR 19's loop {BEFORE_SPS} steps/s, idle share {BEFORE_IDLE} of an "
+        "unguarded step (measured only)")
+    del model, optimizer, lr, step, steps, inputs, trace
+    torch.cuda.empty_cache()
+    remat = _full_cfg("milnce", _stream_loss)
+    remat.model.remat = True
+    base = torch.cuda.memory_allocated()
+    model, optimizer, lr, step, inputs = _analysis_step(remat)
+    step(*inputs)
+    peaks["train-full-remat"] = _step_peak(step, inputs, base)
+    del model, optimizer, lr, step, inputs
+    torch.cuda.empty_cache()
+    for name, c in (("train-full", cfg), ("train-full-remat", remat)):
+        t1 = time.perf_counter()
+        plan = memplan.what_if_step(TRAIN_BATCH, c.data.num_frames,
+                                    c.data.video_size, c, entry=name)
+        err = (plan.peak_bytes - peaks[name]) / peaks[name]
+        log(f"  (d) {plan.summary()}; the card's step peak "
+            f"{peaks[name] / 2 ** 30:.4f} GiB; plan/card - 1 = {err:+.4f} "
+            f"(limit {PLAN_TOLERANCE}); planned in "
+            f"{time.perf_counter() - t1:.1f} s")
+        if abs(err) > PLAN_TOLERANCE:
+            raise AssertionError(f"{name}: the static plan misses the "
+                                 "card's peak by more than 10 %")
+    log(f"  analysis phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "softdtw" in low:
@@ -3958,12 +4116,13 @@ def _kernel_group(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def _profile_step(model, cfg, group=None):
+def _profile_step(model, cfg, group=None, finite_guard=False):
     """One more full-width train step of ``cfg.train.batch_size`` clips
-    under torch.profiler (the grad-cache step under ``train.grad_accum``),
-    after the counted run (its launches are not in the counts), over
-    ``group``'s ranks when given: device time by kernel group and the
-    device's idle share of the step, which it returns."""
+    under torch.profiler (the grad-cache step under ``train.grad_accum``;
+    the finite guard's under ``finite_guard``), after the counted run (its
+    launches are not in the counts), over ``group``'s ranks when given:
+    device time by kernel group and the device's idle share of the step.
+    -> (idle share, {kernel group: device ms})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3974,12 +4133,12 @@ def _profile_step(model, cfg, group=None):
 
     optimizer, lr = build_optimizer(model, cfg.optim,
                                     build_schedule_total(cfg.optim, 100))
+    kw = dict(lr_scheduler=lr, group=group, finite_guard=finite_guard)
     if cfg.train.grad_accum > 1:
         step = make_grad_cache_step(model, optimizer, cfg.train.grad_accum,
-                                    cfg.loss, lr_scheduler=lr, group=group)
+                                    cfg.loss, **kw)
     else:
-        step = make_train_step(model, optimizer, cfg.loss, lr_scheduler=lr,
-                               group=group)
+        step = make_train_step(model, optimizer, cfg.loss, **kw)
     gen = torch.Generator(device="cuda").manual_seed(0)
     d, batch = cfg.data, cfg.train.batch_size
     video = torch.randint(0, 255, (batch, d.num_frames, d.video_size,
@@ -4015,7 +4174,7 @@ def _profile_step(model, cfg, group=None):
         log(f"    {grp:32s} {ms_:9.2f} ms  {ms_ / busy:.3f}")
     for dev, key, count in sorted(rows, reverse=True)[:12]:
         log(f"    top: {dev:9.2f} ms x{count:<4d} {key[:100]}")
-    return idle
+    return idle, groups
 
 
 def main() -> int:
@@ -4119,6 +4278,9 @@ def main() -> int:
         log("== resume-2d (small model: 1-D, resumed on the grid, resumed "
             "in one process)")
         phase_resume_2d(work)
+    log("== analysis (graftlint: AST passes, a traced train-full step, "
+        "sync debug mode, the static plan against the card's peak)")
+    phase_analysis(train)
     log("== softdtw-sp (two gloo ranks on one card, (2, 2048, 2048))")
     phase_softdtw_sp()
     log("== cuDNN autotuning (measured only)")

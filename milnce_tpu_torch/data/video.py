@@ -500,7 +500,7 @@ def eval_windows(decoder: ClipDecoder, path: str, start: float, end: float,
     """``num_clip`` deterministic center-cropped windows linspaced over
     [start, end] (youcook_loader.py:52-57) -> (num_clip, T, H, W, 3) u8."""
     num_sec = num_frames / float(fps)
-    starts = np.linspace(start, max(start, end - num_sec), num_clip)
+    starts = np.linspace(start, max(start, end - num_sec), num_clip)  # graftlint: disable=GL004(host clip start times in seconds, handed to the decoder as Python floats)
     clips = [pad_or_trim(decoder.decode(path, float(s), num_sec, fps, size,
                                         0.5, 0.5, False, False), num_frames)
              for s in starts]

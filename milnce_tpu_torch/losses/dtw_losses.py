@@ -117,7 +117,7 @@ def sdtw_negative_loss(video_seq: torch.Tensor, text_seq: torch.Tensor,
     # zero, not -inf: parity with loss.py:84 (zeros still contribute
     # exp(0) = 1 to the sum)
     pairwise = torch.where(same_clip, 0.0, pairwise)
-    negative = torch.exp(pairwise).sum(dim=1).reshape(b, n).sum(dim=1)
+    negative = torch.exp(pairwise).sum(dim=1).reshape(b, n).sum(dim=1)  # graftlint: disable=GL017(reference parity: loss.py:84 exponentiates raw frame dots; the cosine-normalized frames of the DTW family bound them to [-1, 1])
     return torch.mean(pos + negative / max(b - 1, 1))
 
 

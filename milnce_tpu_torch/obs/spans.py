@@ -154,7 +154,7 @@ class SpanRecorder:
     def __del__(self):
         try:
             self.close()
-        except Exception:  # interpreter teardown: close is best-effort
+        except Exception:  # graftlint: disable=GL007(interpreter-teardown finalizer: close is best-effort, raising only makes unraisable-exception noise)
             pass
 
 

@@ -99,11 +99,27 @@ def current_stream(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
+# Callables of one argument, the launch's name, called at every launch a
+# wrapper makes (after its check) and at every launch a wrapper plans on
+# the ``meta`` device in its stead: the op trace's (analysis/optrace.py)
+# view of the hand kernels, which no dispatch mode sees.
+LAUNCH_HOOKS: list = []
+
+
+def note_launch(name: str) -> None:
+    """Tell the launch hooks of a launch of ``name``."""
+    for hook in LAUNCH_HOOKS:
+        hook(name)
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a C entry point returned a CUDA error (a refused launch
-    never runs, and a later synchronize does not report it)."""
+    never runs, and a later synchronize does not report it); else note
+    the launch of ``name`` to the launch hooks."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    if LAUNCH_HOOKS:
+        note_launch(name)
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:

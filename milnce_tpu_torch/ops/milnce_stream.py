@@ -39,7 +39,14 @@ parts when given them (``parts``).
 ``LAUNCHES`` counts kernel launches, one per launch, under the kernel's
 name, the cluster path's under the name with ``_deep`` added and the
 slab path's with ``_deep_slab``, so a run can show that it went through
-the kernels.
+the kernels; ``cuda_build.check_launch`` hands the same name to the op
+trace's launch hooks.
+
+On the ``meta`` device (the memory planner, ``analysis/memplan.py``) the
+kernel path runs as on the card with the launch left out: the same plan
+(an H100's SM count and resident clusters), the same scratch and output
+allocations, and the launch noted to the hooks (``cuda_build.
+note_launch``), not counted in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -190,7 +197,7 @@ def _lib(defines=()) -> ctypes.CDLL:
 
 def _check_operands(name: str, a, b, *rows) -> None:
     for x in (a, b, *rows):
-        if not x.is_cuda:
+        if not (x.is_cuda or x.is_meta):
             raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                              f"one on {x.device}")
         if x.dtype != torch.float32:
@@ -398,13 +405,21 @@ def cols_plan(r: int, c: int, d: int, sms: int, clusters: int | None = None,
     return _bwd_plan("lse_bwd_cols", c, r, d, sms, 128, clusters, slab)
 
 
+H100_SMS = 132                     # an H100 80GB HBM3's SMs: meta's plan
+
+
 def _sms(device) -> int:
+    if torch.device(device).type == "meta":
+        return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_smem(name: str, query, need: int, device) -> None:
     """Raise unless the library's instance takes ``need`` bytes of shared
-    memory, as the plan says (``query()``), and the card allows them."""
+    memory, as the plan says (``query()``), and the card allows them
+    (nothing to ask on meta)."""
+    if torch.device(device).type == "meta":
+        return
     if query() != need:
         raise RuntimeError(f"{name}: the launch plan's shared memory "
                            "disagrees with the kernel's")
@@ -418,15 +433,28 @@ def _check_smem(name: str, query, need: int, device) -> None:
 
 def _vec(a, b) -> bool:
     """Whether the kernel may copy both operands in 16-byte chunks."""
+    if a.is_meta:
+        return a.shape[1] % 4 == 0
     return (a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
             and b.data_ptr() % 16 == 0)
+
+
+def _lib_of(x: torch.Tensor):
+    """The kernel library for a launch on ``x``'s device (None on meta:
+    nothing is built or launched there)."""
+    return None if x.is_meta else _lib()
+
+
+def _count(name: str, plan: RowsPlan, x: torch.Tensor) -> None:
+    if not x.is_meta:
+        LAUNCHES[_counter(name, plan)] += 1
 
 
 def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32."""
     _check_operands("lse_fwd", a, b)
-    out, plan = launch_fwd(_lib(), a, b)
-    LAUNCHES[_counter("lse_fwd", plan)] += 1
+    out, plan = launch_fwd(_lib_of(a), a, b)
+    _count("lse_fwd", plan, a)
     return out
 
 
@@ -462,11 +490,15 @@ def launch_fwd(lib, a, b, _plan: RowsPlan | None = None
     _check_smem("lse_fwd", lambda: lib.milnce_fwd_smem(
         plan.dmax, plan.bm, plan.bn, code), plan.smem_bytes, a.device)
     part_m, part_s = torch.empty((2, *plan.scratch), device=a.device)
-    err = lib.milnce_lse_fwd(a.data_ptr(), b.data_ptr(), part_m.data_ptr(),
-                             part_s.data_ptr(), r, c, d, plan.dmax, plan.bm,
-                             plan.bn, code, _kw(plan), plan.nsplit, plan.tps,
-                             int(_vec(a, b)), cuda_build.current_stream(a))
-    cuda_build.check_launch("lse_fwd", err)
+    if a.is_meta:
+        cuda_build.note_launch(_counter("lse_fwd", plan))
+    else:
+        err = lib.milnce_lse_fwd(
+            a.data_ptr(), b.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+            r, c, d, plan.dmax, plan.bm, plan.bn, code, _kw(plan),
+            plan.nsplit, plan.tps, int(_vec(a, b)),
+            cuda_build.current_stream(a))
+        cuda_build.check_launch(_counter("lse_fwd", plan), err)
     m = part_m.amax(dim=0)
     return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0)), plan
 
@@ -480,16 +512,16 @@ def _lse_bwd_rows_and_sums(a, b, lse, g):
     """:func:`lse_bwd_rows` and, on the cluster path, s_r = sum_j exp(a_r .
     b_j - lse_r) over the kernel's own logits (else None)."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
-    out, plan, sums = launch_bwd(_lib(), a, b, lse, g, cols=False)
-    LAUNCHES[_counter("lse_bwd_rows", plan)] += 1
+    out, plan, sums = launch_bwd(_lib_of(a), a, b, lse, g, cols=False)
+    _count("lse_bwd_rows", plan, a)
     return out, sums
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
     """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r."""
     _check_operands("lse_bwd_cols", a, b, lse, g)
-    out, plan, _ = launch_bwd(_lib(), a, b, lse, g, cols=True)
-    LAUNCHES[_counter("lse_bwd_cols", plan)] += 1
+    out, plan, _ = launch_bwd(_lib_of(a), a, b, lse, g, cols=True)
+    _count("lse_bwd_cols", plan, a)
     return out
 
 
@@ -499,7 +531,10 @@ _CLUSTERS: dict = {}
 def card_clusters(lib, name: str, nz: int, device) -> int:
     """How many clusters of ``nz`` blocks of ``lib``'s cluster path of
     kernel ``name`` the card of ``device`` keeps resident at once
-    (``cudaOccupancyMaxActiveClusters``); raises if it holds none."""
+    (``cudaOccupancyMaxActiveClusters``); raises if it holds none.  On
+    meta: an H100's (:data:`H100_CLUSTERS`)."""
+    if torch.device(device).type == "meta":
+        return H100_CLUSTERS[nz]
     with torch.cuda.device(device):
         key = (torch.cuda.current_device(), name, nz)
         if key not in _CLUSTERS:
@@ -546,13 +581,15 @@ def launch_bwd(lib, a, b, lse, g, cols: bool, _plan: RowsPlan | None = None
     part = torch.empty(plan.scratch, device=a.device)
     sums = (torch.empty(plan.scratch[:2], device=a.device)
             if plan.mode == "deep" and not cols else None)
-    err = lib.milnce_lse_bwd(a.data_ptr(), b.data_ptr(), lse.data_ptr(),
-                             g.data_ptr(), part.data_ptr(),
-                             None if sums is None else sums.data_ptr(), r, c,
-                             d, int(cols), plan.dmax, plan.bn, code, _kw(plan),
-                             plan.nsplit, plan.tps, int(_vec(a, b)),
-                             cuda_build.current_stream(a))
-    cuda_build.check_launch(name, err)
+    if a.is_meta:
+        cuda_build.note_launch(_counter(name, plan))
+    else:
+        err = lib.milnce_lse_bwd(
+            a.data_ptr(), b.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            part.data_ptr(), None if sums is None else sums.data_ptr(), r, c,
+            d, int(cols), plan.dmax, plan.bn, code, _kw(plan), plan.nsplit,
+            plan.tps, int(_vec(a, b)), cuda_build.current_stream(a))
+        cuda_build.check_launch(_counter(name, plan), err)
     grad = part[0] if plan.nsplit == 1 else part.sum(dim=0)
     return grad, plan, None if sums is None else sums.sum(dim=0)
 
@@ -599,7 +636,8 @@ def milnce_stream_cuda(v, t, v_all, t_all, chunk: int):
 
 
 def milnce_stream(v, t, v_all, t_all, chunk: int):
-    """The plain stream for CPU tensors, the kernels for CUDA tensors."""
-    if v.is_cuda:
+    """The plain stream for CPU tensors, the kernels for CUDA tensors (and
+    their plan on meta)."""
+    if v.is_cuda or v.is_meta:
         return milnce_stream_cuda(v, t, v_all, t_all, chunk)
     return milnce_stream_plain(v, t, v_all, t_all, chunk)

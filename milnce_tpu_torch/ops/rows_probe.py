@@ -40,7 +40,6 @@ printing nothing, without a card.
 
 from __future__ import annotations
 
-import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -49,6 +48,7 @@ import numpy as np
 import torch
 
 from milnce_tpu_torch.ops import milnce_stream as ms
+from milnce_tpu_torch.utils.timing import event_ms
 
 VARIANTS = {"full": (), "skip 1": ("ROWS_SKIP=1",), "skip 2": ("ROWS_SKIP=2",),
             "skip 4": ("ROWS_SKIP=4",), "skip 3": ("ROWS_SKIP=3",)}
@@ -62,18 +62,8 @@ F32_FLOPS = 67e12                  # one H100 SXM, f32 outside tensor cores
 
 
 def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median ms of a call on the card (``utils/timing.py::event_ms``)."""
+    return event_ms(fn, reps=reps, warm=warm, device="cuda")
 
 
 PAD_CYCLES = 20_000_000            # ~10 ms of a spinning kernel at 1.98 GHz
@@ -101,27 +91,45 @@ def _profiled(fn, calls: int, key: str) -> dict:
             and "spin_kernel" not in e.key}
 
 
+MAX_DROPPED = 2                    # launches a session may lose at its edges
+
+
+def session_ms(got: dict, reps: int):
+    """The device ms a call of one profiler session's ``got`` ({name:
+    (launches, device us)} over ``reps`` calls), or None when the session
+    does not count.  Each kernel's launches a call are its count over
+    ``reps`` rounded, at least one; the session counts only if no kernel
+    lost more than :data:`MAX_DROPPED` of them (the profiler on some
+    cards drops a launch at a session's start, at random) and none has a
+    launch more than ``reps`` times that (a stray launch would enter the
+    mean).  A kernel's time a call is then the mean of its recorded
+    launches times its launches a call, so a dropped launch cannot read
+    as a faster call."""
+    per_call = {k: max(1, round(n / reps)) for k, (n, _) in got.items()}
+    if not got or not all(0 <= reps * per_call[k] - n <= MAX_DROPPED
+                          for k, (n, _) in got.items()):
+        return None
+    return sum(us / n * per_call[k] for k, (n, us) in got.items()) / 1e3
+
+
 def device_kernels(fn, key: str, reps: int = 20, log=print):
     """Mean device time (ms) per call of ``fn`` of the CUDA kernels whose
     name holds ``key`` (every kernel of the call with key ''), from
     torch.profiler, without the host time of its wrapper, and those
-    kernels' names.  A session of ``reps`` calls counts only if it
-    recorded, of every kernel, ``reps`` times the launches of a session of
-    one call just before it (so that a dropped launch cannot read as a
-    faster call); else both run again, up to five times, and then it
-    raises, as it does when no kernel matched (a renamed kernel cannot
-    read as 0 ms)."""
+    kernels' names.  One session of ``reps`` calls, read by
+    :func:`session_ms`; a session that does not count runs again, up to
+    five times, and then it raises, as it does when no kernel matched (a
+    renamed kernel cannot read as 0 ms)."""
     fn()
     torch.cuda.synchronize()
     for session in range(5):
-        one, many = _profiled(fn, 1, key), _profiled(fn, reps, key)
-        if one and one.keys() == many.keys() and all(
-                many[k][0] == reps * one[k][0] for k in one):
-            return sum(t for _, t in many.values()) / 1e3 / reps, sorted(many)
+        got = _profiled(fn, reps, key)
+        t = session_ms(got, reps)
+        if t is not None:
+            return t, sorted(got)
         log(f"  (profiler session {session + 1}, kernels holding {key!r}: "
-            f"{ {k: n for k, (n, _) in many.items()} } launches in {reps} "
-            f"calls against { {k: n for k, (n, _) in one.items()} } in one;"
-            " profiling again)")
+            f"{ {k: n for k, (n, _) in got.items()} } launches in {reps} "
+            "calls; profiling again)")
     raise AssertionError(f"the profiler recorded no steady count of the "
                          f"CUDA kernels whose name holds {key!r} in five "
                          "sessions")
@@ -153,14 +161,14 @@ ACCURACY_SHAPES = [(4, 8, 3, 769), (33, 300, 3, 1000), (8, 64, 2, 2048),
 
 def _backward_f64(a, b, g):
     """dA and dB of sum_r g_r logsumexp_j a_r . b_j in float64."""
-    a, b, g = a.double(), b.double(), g.double()
+    a, b, g = a.double(), b.double(), g.double()  # graftlint: disable=GL004(the float64 yardstick the kernels' f32 error is read against)
     x = a @ b.T
     w = torch.exp(x - torch.logsumexp(x, dim=1, keepdim=True)) * g[:, None]
     return w @ b, w.T @ a
 
 
 def _err64(got, want) -> str:
-    return f"{float((got.double() - want).abs().max()):.2e}"
+    return f"{float((got.double() - want).abs().max()):.2e}"  # graftlint: disable=GL004(error against the float64 yardstick)
 
 
 def accuracy() -> None:
@@ -180,7 +188,7 @@ def accuracy() -> None:
                 g = torch.tensor(rng.standard_normal(r, np.float32),
                                  device="cuda")
                 want = _backward_f64(a, bm, g)
-                lse64 = torch.logsumexp(a.double() @ bm.double().T, dim=1)
+                lse64 = torch.logsumexp(a.double() @ bm.double().T, dim=1)  # graftlint: disable=GL004(the float64 yardstick)
                 got, fwd = {}, []
                 paths = (("slab", True),) if d > ms.CLUSTER_REACH else (
                     ("cluster", False), ("slab", True))
@@ -208,7 +216,7 @@ def accuracy() -> None:
                                 ms.lse_bwd_cols_plain(a, bm, lse_p, g, 4096)]
                 errs = ", ".join(
                     f"{path} " + " ".join(
-                        f"{float((x.double() - w).abs().max()):.2e}"
+                        f"{float((x.double() - w).abs().max()):.2e}"  # graftlint: disable=GL004(error against the float64 yardstick)
                         for x, w in zip(outs, want))
                     for path, outs in got.items())
                 limit = " ".join(f"{1e-5 + 1e-4 * float(w.abs().max()):.2e}"

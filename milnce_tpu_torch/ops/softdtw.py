@@ -190,7 +190,8 @@ class SoftDTW:
         self.backend = backend
 
     def _dp(self, D: torch.Tensor) -> torch.Tensor:
-        if self.backend == "cuda" or (self.backend == "auto" and D.is_cuda):
+        if self.backend == "cuda" or (self.backend == "auto"
+                                      and (D.is_cuda or D.is_meta)):
             from milnce_tpu_torch.ops.softdtw_cuda import softdtw_cuda
 
             return softdtw_cuda(D, self.gamma, self.bandwidth)

@@ -339,6 +339,9 @@ def _launch_fwd(D: torch.Tensor, gamma: float, bandwidth: int):
     r = torch.empty((bsz, n + m + 1, n + 1), dtype=torch.float32,
                     device=D.device)
     value = torch.empty(bsz, dtype=torch.float32, device=D.device)
+    if D.is_meta:                       # the planner: no build, no launch
+        cuda_build.note_launch("softdtw_fwd")
+        return value, r
     err = _lib().softdtw_fwd(D.data_ptr(), r.data_ptr(), value.data_ptr(),
                              bsz, n, m, gamma, 1.0 / gamma, bandwidth,
                              plan.rows, plan.threads, plan.blocks,
@@ -361,10 +364,14 @@ def _launch_bwd(r: torch.Tensor, g: torch.Tensor, gamma: float,
     """One launch of the backward kernel, without the operand checks."""
     bsz, n_diag, n1 = r.shape
     n, m = n1 - 1, n_diag - n1
-    plan = bwd_plan(bsz, n, m, _smem_optin(r.device.index))
+    plan = bwd_plan(bsz, n, m, cuda_build.SM90_SMEM_OPTIN if r.is_meta
+                    else _smem_optin(r.device.index))
     grad = torch.empty((bsz, n, m), dtype=torch.float32, device=r.device)
     scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32,
                            device=r.device) if plan.ring == "global" else None)
+    if r.is_meta:                       # the planner: no build, no launch
+        cuda_build.note_launch("softdtw_bwd")
+        return grad
     err = _lib().softdtw_bwd(
         r.data_ptr(), g.data_ptr(), g.stride(0), grad.data_ptr(),
         None if scratch is None else scratch.data_ptr(), bsz, n, m,
@@ -430,7 +437,7 @@ def softdtw_cuda(D: torch.Tensor, gamma: float,
         raise ValueError(f"softdtw_fwd: expected a non-empty (B, N, M) cost, "
                          f"got {tuple(D.shape)}")
     check_bandwidth(D.shape[1], D.shape[2], int(bandwidth))
-    if not D.is_cuda:
+    if not (D.is_cuda or D.is_meta):
         raise ValueError("soft-DTW backend 'cuda' takes CUDA tensors, got "
                          f"one on {D.device} (use backend 'scan' or 'auto')")
     return _SoftDTWCuda.apply(D, float(gamma), int(bandwidth))

@@ -259,13 +259,22 @@ def reduce_flag(flag: bool, group) -> bool:
     return bool(box.item())
 
 
+def reduce_flag_device(flag: torch.Tensor, group) -> torch.Tensor:
+    """The MAX of a 0-d flag tensor over the ranks of ``group``, in place
+    and on its device: no host read (the JAX 2-D guarded step's one extra
+    psum).  No group is a pass-through."""
+    if group is not None:
+        dist.all_reduce(flag.view(1), op=dist.ReduceOp.MAX, group=group)
+    return flag
+
+
 def gather_floats(value: float, group) -> list:
     """Every rank's ``value`` in rank order, on every rank (one float a
     rank, so that rank 0 can feed the straggler policy).  No group gives
     ``[value]``."""
     if group is None:
         return [float(value)]
-    x = torch.tensor([float(value)], dtype=torch.float64,
+    x = torch.tensor([float(value)], dtype=torch.float64,  # graftlint: disable=GL004(one host float a rank, gathered as it is: the straggler policy reads seconds)
                      device=_verdict_device(group))
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)

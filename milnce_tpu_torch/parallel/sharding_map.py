@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from milnce_tpu_torch.parallel.dist import all_reduce_flat
+from milnce_tpu_torch.train.state import load_optimizer_state
 from milnce_tpu_torch.utils.torch_convert import flax_location
 
 # Elements, not bytes: 65536 f32 elements = 256 KiB a replica; below it
@@ -312,7 +313,9 @@ class ShardedPlacement:
     def load_full_state(self, model: torch.nn.Module, optimizer,
                         model_sd: dict, opt_sd: dict) -> None:
         """Load full-tensor state (any layout's checkpoint) into this
-        rank's slices."""
+        rank's slices.  A sliced optimizer tensor is made contiguous, as
+        its parameter's slice is: the fused optimizer on the card takes
+        a parameter's moments only at its strides."""
         local = {k: (self._local(v, self._names[k]) if k in self._names
                      else v) for k, v in model_sd.items()}
         model.load_state_dict(local)
@@ -324,8 +327,8 @@ class ShardedPlacement:
             full = None if d is None else p.shape[:d] + (
                 p.shape[d] * self.grid.model_size,) + p.shape[d + 1:]
             state[idx] = {
-                key: (self._local(val, d) if d is not None
+                key: (self._local(val, d).contiguous() if d is not None
                       and torch.is_tensor(val) and val.shape == full
                       else val)
                 for key, val in st.items()}
-        optimizer.load_state_dict({**opt_sd, "state": state})
+        load_optimizer_state(optimizer, {**opt_sd, "state": state})

@@ -33,6 +33,7 @@ import torch
 
 from milnce_tpu_torch.obs import metrics as obs_metrics
 from milnce_tpu_torch.resilience import faults
+from milnce_tpu_torch.train.state import load_optimizer_state
 
 # Transient-save-failure telemetry: nonzero retries on a healthy store is
 # the early-warning signal for flaky storage.
@@ -209,6 +210,6 @@ def load_train_state(state: dict, model, optimizer, lr_scheduler,
                                   state["optimizer"])
     else:
         model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        load_optimizer_state(optimizer, state["optimizer"])
     lr_scheduler.load_state_dict(state["scheduler"])
     return int(state["step"])

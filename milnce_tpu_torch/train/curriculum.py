@@ -338,7 +338,7 @@ def trial_step(step_fn, model, video, text, start) -> None:
 
 def preflight_stages(step_fn, model, optimizer, stages, *, world: int,
                      num_candidates: int, max_words: int, vocab_size: int,
-                     budget_bytes: int, device) -> list:
+                     budget_bytes: int, device, static_plan=None) -> list:
     """Run one trial forward and backward (:func:`trial_step`) per stage
     at its ``(batch / world, frames, res, res, 3)`` uint8 input, read the
     card's peak allocation (``reset_peak_memory_stats`` before,
@@ -347,8 +347,12 @@ def preflight_stages(step_fn, model, optimizer, stages, *, world: int,
     stage's peak passes ``budget_bytes`` — at startup, with the stage
     named, never an OOM at a mid-run boundary.  An out-of-memory error
     inside the trial is that same refusal.  Every rank of a group runs
-    it (the forward's collectives need all of them).  Returns the
-    per-stage verdict strings for the run log."""
+    it (the forward's collectives need all of them).  ``static_plan(b,
+    stage)``, when given, plans the stage's step at local batch ``b``
+    (``analysis/memplan.py::what_if_step`` on meta) and its verdict is
+    printed beside the trial's, as the JAX pre-flight prints its plan; the
+    trial stays the decision, and a planner failure is a note.  Returns
+    the per-stage verdict strings for the run log."""
     gen = torch.Generator().manual_seed(0)
     moments = 0
     if not optimizer.state:
@@ -377,6 +381,8 @@ def preflight_stages(step_fn, model, optimizer, stages, *, world: int,
         msg = (f"{entry}: {oom}" if oom else
                f"{entry}: peak {peak / 2 ** 30:.3f} GiB of "
                f"{budget_gib:.3f} GiB budget")
+        if static_plan is not None:
+            msg += f"; {_static_verdict(static_plan, b, st, budget_gib)}"
         notes.append(msg)
         if oom or peak > budget_bytes:
             raise ValueError(
@@ -384,6 +390,18 @@ def preflight_stages(step_fn, model, optimizer, stages, *, world: int,
                 "batch/resolution, enable remat/grad_accum, or raise the "
                 "budget (MILNCE_HBM_GIB)")
     return notes
+
+
+def _static_verdict(static_plan, b: int, stage, budget_gib: float) -> str:
+    """The static plan's verdict on one stage, or why there is none."""
+    from milnce_tpu_torch.analysis.memplan import budget_verdict
+
+    try:
+        plan = static_plan(b, stage)
+    except Exception as exc:            # a planner limit, not a verdict
+        return (f"static plan failed ({type(exc).__name__}: {exc}), "
+                "advisory only")
+    return budget_verdict(plan, budget_gib)[1]
 
 
 # ---------------------------------------------------------------------

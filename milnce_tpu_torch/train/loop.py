@@ -727,13 +727,16 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
         # step 1: an over-budget stage is refused now, not at its boundary
         budget = curriculum.hbm_budget_bytes(device)
         if budget:
+            from milnce_tpu_torch.analysis.memplan import what_if_step
             for note in curriculum.preflight_stages(
                     step_fn, model, optimizer, plan.stages,
                     world=ranks.world,
                     num_candidates=cfg.data.num_candidates,
                     max_words=cfg.data.max_words,
                     vocab_size=cfg.model.vocab_size, budget_bytes=budget,
-                    device=device):
+                    device=device, static_plan=lambda b, st: what_if_step(
+                        b, st.num_frames, st.resolution, cfg,
+                        entry=f"stage {st.label()}")):
                 log(f"curriculum pre-flight: {note}")
         else:
             log("curriculum pre-flight skipped: no allocator peak to read "
@@ -775,12 +778,17 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     # The finite guard's display window, as the JAX loop keeps it: a
     # skipped step's loss stays out of the sum and the count, a window
     # with no applied update has a NaN mean, and ``consec`` counts the
-    # skipped steps since the last applied one, across windows.
+    # skipped steps since the last applied one, across windows.  With the
+    # guard on, the step's verdict stays on the device: the window's
+    # valid count, ``consec`` and the run's skipped total accumulate there
+    # (``guard``: valid, consec, skipped) and are read at display cadence,
+    # in the ``sync`` span, as the JAX loop's ``_fetch_guard_window``.
     guard_on = cfg.train.finite_guard
     steps = skipped = window = valid = consec = rollbacks = 0
     opt_step = resume_step          # batches consumed, restored ones too
     last_rollback = None            # (steps, skipped) at the last rollback
     running = torch.zeros((), device=device)
+    guard = torch.zeros(3, dtype=torch.int32, device=device)
     last = torch.zeros((), device=device)
     fn_s = 0.0                      # the window's time in the step function
     eval_every = max(1, cfg.train.batch_size // 512)
@@ -793,7 +801,8 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     timer = StepTimer(clips_per_step=plan.stages[stage_idx].batch_size)
 
     def result(drained: bool = False) -> TrainResult:
-        return TrainResult(steps, float(last), skipped, rollbacks, model,
+        total = int(guard[2]) if guard_on else 0  # graftlint: disable=GL001(run end: read once, when the run returns)
+        return TrainResult(steps, float(last), total, rollbacks, model,  # graftlint: disable=GL001(run end, as the line above)
                            ranks.rank, stage_idx, drained, placement)
 
     for epoch in range(start_epoch, cfg.optim.epochs):
@@ -851,14 +860,13 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                     t_fn = time.perf_counter()
                     out = step_fn(video, text, batch["start"])
                     fn_s += time.perf_counter() - t_fn
-                last, skip = out if guard_on else (out, 0)
-                skipped += skip
-                if skip:
-                    consec += 1
+                if guard_on:
+                    last, skip = out
+                    _guard_acc(running, guard, last, skip)
                 else:
+                    last = out
                     running += last
                     valid += 1
-                    consec = 0
                 steps += 1
                 seg_done += 1
                 obs.steps = steps
@@ -868,11 +876,13 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                 if on_step is not None:
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
-                    on_step(opt_step, time.perf_counter() - t0, float(last),
+                    on_step(opt_step, time.perf_counter() - t0, float(last),  # graftlint: disable=GL001(only with a caller's on_step, which asks for each step's time and loss)
                             t0 - t_wait)
                 if window == cfg.train.n_display or steps == max_steps:
                     with rec.span("sync", cause="display", step=opt_step):
-                        mean_loss = (float(running) / valid if valid
+                        if guard_on:
+                            valid, consec, skipped = guard.tolist()  # graftlint: disable=GL001(display cadence, in the sync span: the guard's window)
+                        mean_loss = (float(running) / valid if valid  # graftlint: disable=GL001(display cadence, in the sync span: the window's loss)
                                      else math.nan)
                     elapsed = timer.elapsed_s
                     ep_start = plan.epoch_start_step(epoch)
@@ -942,7 +952,9 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                             f"checkpoint {latest}, resuming at step "
                             f"{opt_step} past the poisoned data window")
                         consec = 0
+                        guard[1] = 0
                     running.zero_()
+                    guard[0] = 0
                     window = valid = 0
                     fn_s = 0.0
                     timer.reset()
@@ -964,13 +976,26 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
                                if ranks.group is not None else ""))
                     label, force = stop_save_label_planned(epoch, opt_step,
                                                            plan)
-                    save(label, force=force, drained=bool(stopping))
-                    return result(drained=bool(stopping))
+                    save(label, force=force, drained=stopping)
+                    return result(drained=stopping)
             # the segment's end (a stage boundary or the epoch's tail):
             # its readers retire now, before the next stage's start
             prefetch.close()
         save(epoch + 1)
     return result()
+
+
+def _guard_acc(running: torch.Tensor, guard: torch.Tensor,
+               loss: torch.Tensor, skip: torch.Tensor) -> None:
+    """One guarded step into the display window, on the device (the JAX
+    loop's ``_guard_acc``): an applied step's loss into ``running`` and
+    its count into ``guard[0]``; ``guard[1]`` the skipped steps since the
+    last applied one; ``guard[2]`` the run's skipped total."""
+    keep = skip == 0
+    running += torch.where(keep, loss, torch.zeros_like(loss))
+    consec = guard[1]
+    guard += torch.stack([keep.to(guard.dtype), (consec + 1) * skip - consec,
+                          skip])
 
 
 def _feed_straggler(policy: StragglerPolicy, ranks: Ranks, step_s: float,
@@ -1028,7 +1053,8 @@ def _roll_back(manager, consec, opt_step, steps, skipped, last_rollback,
                 "with ZERO applied updates since the previous rollback — "
                 "the failure is persistent, halting instead of rolling back "
                 "in a loop")
+    # graftlint: disable=GL001(a checkpoint label on the host, at the breaker's display cadence)
     with rec.span("ckpt.restore", label=int(latest)):
         load_train_state(manager.restore(latest, map_location=device), model,
                          optimizer, lr_scheduler, placement)
-    return int(latest)
+    return int(latest)  # graftlint: disable=GL001(a checkpoint label on the host)

@@ -28,9 +28,10 @@ batch, as the JAX step's ``shard_map`` body does:
 
 With no group, nothing of that runs: the gradients are autograd's.  With
 the finite guard on, a non-finite gradient keeps the parameters, the
-Adam moments and the BatchNorm statistics as they were and the schedule
-does not advance; the caller's step count still does, as in the JAX
-step.  An armed ``grad.nonfinite`` fault (``resilience/faults.py``, read
+Adam moments and step counts and the BatchNorm statistics as they were
+and the schedule does not advance; the caller's step count still does,
+as in the JAX step.  The guard reads nothing on the host: ``skipped``
+comes back as a 0-d int32 on the device (:class:`_Update`).  An armed ``grad.nonfinite`` fault (``resilience/faults.py``, read
 when the step is built) multiplies the reduced gradients by NaN on its
 scheduled optimizer steps, numbered ``first_step + 1, first_step + 2,
 ...`` by the step itself, skipped steps included (the JAX
@@ -65,7 +66,7 @@ from milnce_tpu_torch.losses.dtw_losses import (cdtw_batch_loss, sdtw_3_loss,
 from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
 from milnce_tpu_torch.models.s3dg import BatchNorm3d, frozen_running_stats
 from milnce_tpu_torch.parallel.dist import (all_gather_tiled, all_reduce_flat,
-                                            reduce_flag)
+                                            reduce_flag_device)
 from milnce_tpu_torch.resilience import faults
 
 KNOWN_LOSSES = ("milnce", "cdtw", "sdtw_cidm", "sdtw_negative", "sdtw_3")
@@ -124,7 +125,17 @@ class _Update:
     MIL-NCE, MEAN for the DTW family), the ``grad.nonfinite`` poison, the
     finite guard, the optimizer and the schedule, then the BatchNorm
     statistics averaged over the group.  It counts the optimizer steps
-    (skipped ones too) from ``first_step``."""
+    (skipped ones too) from ``first_step``.
+
+    The guard is the JAX ``_all_finite``/``_select_tree`` with no host
+    sync: one fused multi-tensor check of the reduced gradients writes a
+    0-d device verdict (1.0 = a non-finite value), agreed over the model
+    axis on the 2-D layout (one flag all-reduce, the JAX
+    ``_uniform_finite_verdict``).  The fused optimizer takes it as
+    ``found_inf`` and then moves no parameter, moment or step count; the
+    schedule's count advances by ``1 - verdict``; the buffers are
+    selected back to their pre-step values on the device.  The collectives
+    are the plain step's, whatever the verdict."""
 
     def __init__(self, model, optimizer, finite_guard, lr_scheduler, group,
                  mean, first_step, placement=None):
@@ -132,15 +143,43 @@ class _Update:
         self.optimizer, self.lr_scheduler = optimizer, lr_scheduler
         self.finite_guard, self.group, self.mean = finite_guard, group, mean
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
-        self.buffers = list(model.buffers())
         self.running = _running_stats(model)
         self.poison = faults.device_schedule("grad.nonfinite")
         self.count = int(first_step)
+        self.by_dtype = {}          # the buffers the guard restores
+        for buf in model.buffers():
+            self.by_dtype.setdefault(buf.dtype, []).append(buf)
+        if finite_guard and not optimizer.defaults.get("fused"):
+            raise ValueError("the finite guard needs a fused optimizer "
+                             "(train/state.py::build_optimizer): it hands "
+                             "its verdict in as found_inf")
+        self._one = None
 
     def save(self):
-        """The buffers the guard restores on a skip (None: guard off)."""
-        return ([b.clone() for b in self.buffers] if self.finite_guard
-                else None)
+        """The buffers the guard restores on a skip, one flat copy a
+        dtype (None: guard off)."""
+        if not self.finite_guard:
+            return None
+        return {dt: torch.cat([b.reshape(-1) for b in bufs])
+                for dt, bufs in self.by_dtype.items()}
+
+    def _nonfinite(self, grads):
+        """1.0 when any gradient holds a NaN or an infinity, else 0.0: a
+        0-d float32 on the gradients' device, from one fused check."""
+        found = torch.zeros((), device=grads[0].device)
+        if self._one is None or self._one.device != found.device:
+            self._one = torch.ones((), device=found.device)
+        torch._amp_foreach_non_finite_check_and_unscale_(grads, found,
+                                                         self._one)
+        return found
+
+    def _restore(self, saved, skip) -> None:
+        """Each buffer back to its saved value where ``skip`` holds."""
+        for dt, bufs in self.by_dtype.items():
+            now = torch.cat([b.reshape(-1) for b in bufs])
+            keep = torch.where(skip, saved[dt], now)
+            torch._foreach_copy_(bufs, [part.view_as(b) for part, b in zip(
+                keep.split([b.numel() for b in bufs]), bufs)])
 
     def __call__(self, loss, saved):
         self.count += 1
@@ -151,24 +190,25 @@ class _Update:
             all_reduce_flat(grads, self.group, mean=self.mean)
         if self.poison is not None and self.poison.scheduled(self.count):
             torch._foreach_mul_(grads, float("nan"))
+        found = None
         if self.finite_guard:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            found = self._nonfinite(grads)
             if self.placement is not None:
-                finite = not reduce_flag(not finite,
-                                         self.placement.grid.model_group)
-            if not finite:
-                with torch.no_grad():
-                    for buf, old in zip(self.buffers, saved):
-                        buf.copy_(old)
-                return loss.detach(), 1
+                reduce_flag_device(found, self.placement.grid.model_group)
+        # set either way: an unguarded step must not read a verdict that a
+        # guarded one left on the same optimizer
+        self.optimizer.found_inf = found
         self.optimizer.step()
         if self.lr_scheduler is not None:
-            self.lr_scheduler.step()
+            self.lr_scheduler.advance(None if found is None else 1.0 - found)
         if self.group is not None:
             with torch.no_grad():
                 all_reduce_flat(self.running, self.group, mean=True)
-        return (loss.detach(), 0) if self.finite_guard else loss.detach()
+        if found is None:
+            return loss.detach()
+        with torch.no_grad():
+            self._restore(saved, found > 0)
+        return loss.detach(), found.to(torch.int32)
 
 
 def make_train_step(model, optimizer, loss_cfg=None,
@@ -176,7 +216,9 @@ def make_train_step(model, optimizer, loss_cfg=None,
                     group=None, first_step: int = 0, placement=None):
     """-> ``step(video_u8, text_ids, start)`` returning the loss (a 0-d
     tensor on the device), or ``(loss, skipped)`` with ``finite_guard``,
-    where ``skipped`` is 1 when the update was dropped.  ``group``: the
+    where ``skipped`` (a 0-d int32 on the device) is 1 when the update was
+    dropped.  ``optimizer``/``lr_scheduler``: ``train/state.py::
+    build_optimizer``'s (fused, and a :class:`DeviceLR`).  ``group``: the
     ranks stepping the global batch together (None = this process
     alone).  ``first_step``: optimizer steps already taken (a resumed
     run's), from which the ``grad.nonfinite`` fault counts.  A bad loss

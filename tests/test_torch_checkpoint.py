@@ -9,6 +9,7 @@ losses equal the uninterrupted run's to rel 1e-6 (float32 on the CPU is
 deterministic; the bound only absorbs printing through ``float``).
 """
 
+import copy
 import os
 
 import numpy as np
@@ -360,3 +361,85 @@ def test_reference_pth_loads_as_the_jax_converter_reads_it(tmp_path, flavor):
     for key, val in sd.items():
         if not key.endswith("num_batches_tracked"):
             torch.testing.assert_close(got[key], val, rtol=0, atol=0)
+
+
+# ------------------------------------- an unfused optimizer's checkpoint
+def _unfused_checkpoint(name):
+    """A checkpoint as an unfused optimizer writes it (its groups save
+    ``fused`` None), after one update of a tiny model."""
+    from milnce_tpu_torch.config import LossConfig
+    from milnce_tpu_torch.train.state import trainable_parameters
+    from milnce_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(3)
+    model = S3D(**_DIMS)
+    params = trainable_parameters(model)
+    opt = (torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+           if name == "adam" else
+           torch.optim.SGD(params, lr=1e-3, momentum=0.9))
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda _n: 1.0)
+    make_train_step(model, opt, LossConfig(milnce_impl="dense"))(*_inputs(0))
+    sched.step()
+    assert all(g["fused"] is None for g in opt.state_dict()["param_groups"])
+    return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+            "scheduler": sched.state_dict(), "step": 1, "epoch": 0}
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 255, (4, 4, 32, 32, 3),
+                                          dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 32, (8, 5))),
+            torch.zeros(4))
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_guarded_step_resumes_an_unfused_optimizer_checkpoint(name):
+    """``load_train_state`` keeps ``build_optimizer``'s fused form over a
+    checkpoint that an unfused optimizer wrote, so the finite guard's
+    ``found_inf`` is taken: the resumed guarded step applies its update,
+    equal to that of the same checkpoint saved with fused groups, and a
+    poisoned step after it moves nothing."""
+    from milnce_tpu_torch.config import LossConfig, OptimConfig
+    from milnce_tpu_torch.train.schedule import build_schedule
+    from milnce_tpu_torch.train.state import build_optimizer
+    from milnce_tpu_torch.train.step import make_train_step
+
+    state = _unfused_checkpoint(name)
+    fused_sd = {**state["optimizer"], "param_groups": [
+        {**g, "fused": True, "foreach": None}
+        for g in state["optimizer"]["param_groups"]]}
+    runs = []
+    for opt_sd in (state["optimizer"], fused_sd):
+        model = S3D(**_DIMS)
+        cfg = OptimConfig(name=name, warmup_steps=1)
+        optimizer, sched = build_optimizer(model, cfg,
+                                           build_schedule(cfg, 10))
+        # a copy each: the load keeps the saved moments' storage, and
+        # the step updates them in place
+        assert ckpt.load_train_state(copy.deepcopy(
+            {**state, "optimizer": opt_sd}), model, optimizer, sched) == 1
+        assert all(g["fused"] and g["foreach"] is None
+                   for g in optimizer.param_groups)
+        assert sched.last_epoch == 1
+        step = make_train_step(model, optimizer,
+                               LossConfig(milnce_impl="dense"),
+                               finite_guard=True, lr_scheduler=sched,
+                               first_step=1)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loss, skipped = step(*_inputs(1))
+        assert int(skipped) == 0 and torch.isfinite(loss)
+        assert sched.last_epoch == 2
+        after = {k: v.clone() for k, v in model.state_dict().items()}
+        assert not torch.equal(after["text_module.fc1.weight"],
+                               before["text_module.fc1.weight"])
+        hook = model.register_forward_hook(
+            lambda _m, _i, out: tuple(x * float("nan") for x in out))
+        _, skipped = step(*_inputs(2))
+        hook.remove()
+        assert int(skipped) == 1 and sched.last_epoch == 2
+        for key, val in after.items():
+            assert torch.equal(model.state_dict()[key], val), key
+        runs.append(after)
+    for key, val in runs[1].items():
+        assert torch.equal(runs[0][key], val), key

@@ -54,6 +54,11 @@ def test_port_package_exists():
                      "native/bench_reader.py", "parallel/mesh.py",
                      "parallel/sharding_map.py", "ops/softdtw_sp.py",
                      "analysis/__init__.py", "analysis/lockrt.py",
+                     "analysis/rules.py", "analysis/astlint.py",
+                     "analysis/concurrency.py", "analysis/optrace.py",
+                     "analysis/trace_invariants.py", "analysis/memplan.py",
+                     "analysis/numerics.py", "analysis/report.py",
+                     "analysis/__main__.py", "utils/timing.py",
                      "serving/__init__.py", "serving/export.py",
                      "serving/cache.py", "serving/batcher.py",
                      "serving/engine.py", "serving/index.py",

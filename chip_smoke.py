@@ -36,6 +36,19 @@ Phases, each fatal on failure:
                cluster path (the wrapper's private plan argument) and
                each plan names its mode, nz and the clusters the card
                keeps resident.
+   kernels (bf16) -- each MIL-NCE kernel's bf16 mode (the gathered
+               operand B bf16, widened to f32 on the copy; the local A
+               f32) against its plain twin on the same operands, both
+               directions of a step at the recipe shape, train-full's,
+               a ragged one (D = 13), ``split`` (lse_bwd_cols's split
+               partials), D = 1024 (cluster paths) and D = 4608 (slab
+               paths): the lse and dA within the f32 limit, the bf16 dB
+               within it plus one bf16 ulp of each element; the stream
+               end to end under the ``_bf16`` launch keys with bf16
+               gradients; then timed as above at the recipe shape, held at
+               D = 512 and on the cluster and slab paths at D = 1024,
+               beside the f32 mode (library: one f32 call on the upcast
+               operands).
 4. soft-DTW -- each soft-DTW kernel alone against its plain version (the
                forward's value and table; the backward's grad_D, fed the
                same table, under a random cotangent and under a stride-0
@@ -58,6 +71,17 @@ Phases, each fatal on failure:
                run their deep mode (the run the deep launches are
                counted on), and at 4608, where the backward runs its
                slab paths (the run the slab launches are counted on).
+   reference-bf16 -- the small model at ``model.dtype = bfloat16``
+               (cuDNN deterministic), chunked MIL-NCE on the kernels' bf16
+               mode against the same model on the plain twins: one step's
+               gradients, all together, within 0.1 of the bf16 noise (the
+               plain twins' distance from the f32 model's; the kernels'
+               gathered gradients off by 8 unit roundoffs, a planted
+               fault, must read above it), three losses
+               within 4 bf16 unit roundoffs (2^-8) relative, each
+               ``_bf16`` kernel twice a step; at embedding 512, 1024 (the
+               deep ``_bf16`` launches are counted on it) and 4608 (the
+               slab paths').
 6. dtw-ref  -- the same small model with each DTW loss (cdtw, sdtw_cidm,
                sdtw_negative, sdtw_3) on the soft-DTW kernels against the
                plain recurrence: one step's gradients, three steps' losses.
@@ -149,7 +173,14 @@ Phases, each fatal on failure:
                f32 with planted duplicates (ties across the 10th place):
                the top-10 of 16 queries equal a float64 exhaustive ranking
                on the host, ties by the lower row; ms a query batch beside
-               its bound; recompiles 0; peak device memory.
+               its bound; recompiles 0; peak device memory.  serve (bf16):
+               an engine with ``dtype="bfloat16"`` on the same export
+               (every float leaf bf16 on the card): each embedding row at
+               buckets 1 and 16 within ``SERVE_BF16_REL`` of the f32
+               engine's (a planted fault in each tower's last layer
+               above it), ms a call beside f32's, and the index answering
+               its bf16 queries with the exact top-10 of a float64
+               ranking of them.
    serve-live -- serving's second half on serve-full's export:
                ``milnce-serve-torch`` as a subprocess on 127.0.0.1 with a
                live index booted from a snapshot of 1,000,000 seeded unit
@@ -238,6 +269,12 @@ Phases, each fatal on failure:
                and grad_D a rank holds (rows-local: half) and its peak.
 11. cudnn   -- train-full again with ``cudnn.benchmark = True``, steps/s
                beside phase 7's (measured only; the default stays off).
+   train-full-bf16 -- phase 7's config and seed at ``model.dtype =
+               bfloat16``: every loss finite, each ``_bf16`` kernel twice a
+               step, the live MFU gauge equal to the formula over the
+               card's bf16 peak; steps/s, peak memory, data wait, idle
+               share of a profiled step and MFU beside phase 7's
+               (measured only).
 12. sdtw_3  -- train-full with ``sdtw_3`` on the soft-DTW kernels, each
                kernel's launch count checked; one more step profiled.
 
@@ -287,6 +324,9 @@ SOURCES = {"lse_fwd": _STREAM_CU, "lse_bwd_rows": _STREAM_CU,
            "lse_fwd_deep_slab": _STREAM_CU,
            "lse_bwd_rows_deep_slab": _STREAM_CU,
            "lse_bwd_cols_deep_slab": _STREAM_CU,
+           **{f"{name}{mode}_bf16": _STREAM_CU
+              for mode in ("", "_deep", "_deep_slab")
+              for name in ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")},
            "softdtw_fwd": "milnce_tpu_torch/csrc/softdtw.cu",
            "softdtw_bwd": "milnce_tpu_torch/csrc/softdtw.cu"}
 REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
@@ -298,6 +338,10 @@ REPLACES = {"lse_fwd": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_fwd_deep_slab": "milnce_tpu/ops/milnce_pallas.py:131",
             "lse_bwd_rows_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
             "lse_bwd_cols_deep_slab": "milnce_tpu/ops/milnce_pallas.py:210",
+            **{f"{name}{mode}_bf16": f"milnce_tpu/ops/milnce_pallas.py:{line}"
+               for mode in ("", "_deep", "_deep_slab")
+               for name, line in (("lse_fwd", 131), ("lse_bwd_rows", 210),
+                                  ("lse_bwd_cols", 210))},
             "softdtw_fwd": "milnce_tpu/ops/softdtw_pallas.py:282 (B3), "
                            ":63 (B5), :106 (B7)",
             "softdtw_bwd": "milnce_tpu/ops/softdtw_pallas.py:340 (B4), "
@@ -555,6 +599,101 @@ def phase_parity():
     return worst
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of each element of ``x`` (2^(floor(log2 |x|) - 7);
+    that of the smallest normal at 0)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def phase_parity_bf16():
+    """The bf16 mode of each MIL-NCE kernel (a bf16 gathered operand B,
+    widened to f32 on the copy) against its plain twin on the same
+    operands: the local A upcast to f32 as ``_StreamCuda`` does, B bf16.
+    Both directions of a step at the recipe shape, train-full's own shape,
+    a ragged one (D = 13, R = 33: the scalar copies), ``split`` (B = 2048
+    against Bg = 40: lse_bwd_cols's f32 partials, summed, then rounded),
+    the cluster path at D = 1024 and the slab path at D = 4608.  The lse
+    and lse_bwd_rows's f32 dA within the f32 limit ``1e-5 min(1,
+    max|plain|) + 1e-4 max|plain|``; lse_bwd_cols's bf16 dB within that
+    plus one bf16 ulp of each |plain| element (the two round one f32 sum
+    each, and the sums part in the last f32 bits).  Then the stream end
+    to end (autograd, bf16 leaves): its launches 2 + 2 + 2 under the
+    ``_bf16`` keys, and every gradient in its leaf's dtype.  Returns the
+    worst error of each ``_bf16`` key."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    bf16 = torch.bfloat16
+    cases = [("recipe", 128, 8192, 5, 512, False),
+             ("train", TRAIN_BATCH, TRAIN_BATCH, 5, 512, True),
+             ("d13-r33", 33, 8191, 1, 13, False),
+             ("split", 2048, 40, 1, 512, False),
+             ("deep-d1024", 128, 8192, 5, DEEP_D, False),
+             ("deep-d4608", 4, 8, 3, SLAB_D, False)]
+    worst = {k: 0.0 for k in ms.LAUNCHES if k.endswith("_bf16")}
+    for i, (label, b, bg, k, d, shared) in enumerate(cases):
+        v, t, v_all, t_all = (x.to(bf16) for x in
+                              _case(b, bg, k, d, 300 + i, shared))
+        g = torch.Generator(device="cuda").manual_seed(50 + i)
+        g_row = torch.randn(b, device="cuda", generator=g)
+        g_col = torch.randn(b * k, device="cuda", generator=g)
+        parts = ms.deep_parts(d) if d > ms.STREAM_DMAX else None
+        chunk = min(bg, 1000)
+        for a, bm, gg, width in ((v.float(), t_all, g_row, chunk * k),
+                                 (t.float(), v_all, g_col, chunk)):
+            ms.reset_launches()
+            lse = ms.lse_fwd(a, bm)
+            rows = ms.lse_bwd_rows(a, bm, lse, gg)
+            cols = ms.lse_bwd_cols(a, bm, lse, gg)
+            torch.cuda.synchronize()
+            keys = [ms.launch_key(n, d, bf16) for n in ms.KERNELS]
+            if {kk: n for kk, n in ms.LAUNCHES.items() if n} != dict.fromkeys(
+                    keys, 1):
+                raise AssertionError(f"{label}: launches {ms.LAUNCHES}")
+            if rows.dtype != torch.float32 or cols.dtype != bf16:
+                raise AssertionError(f"{label}: dtypes {rows.dtype} "
+                                     f"{cols.dtype}")
+            want = (ms.lse_plain(a, bm, width, parts),
+                    ms.lse_bwd_rows_plain(a, bm, lse, gg, width, parts),
+                    ms.lse_bwd_cols_plain(a, bm, lse, gg, width, parts))
+            for key, got, w in zip(keys, (lse, rows, cols), want):
+                err, lim = _err(got.float(), w.float(), scaled=True)
+                excess = (got.float() - w.float()).abs() - lim
+                if got.dtype == bf16:
+                    excess = excess - _bf16_ulp(w)
+                ok = (float(excess.max()) <= 0
+                      and bool(torch.isfinite(got).all()))
+                log(f"  [bf16 {label} R={a.shape[0]} C={bm.shape[0]} D={d}] "
+                    f"{key:24s} max_abs_err {err:.3e} (limit {lim:.3e}"
+                    f"{' + 1 bf16 ulp of |plain|' if got.dtype == bf16 else ''}"
+                    f", max|plain| {float(w.float().abs().max()):.3e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"bf16 {label} {key}: kernel "
+                                         "disagrees with its plain version")
+                worst[key] = max(worst[key], err)
+        ms.reset_launches()
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (v, t, v_all, t_all)]
+        if shared:
+            leaves[2], leaves[3] = leaves[0], leaves[1]
+        row, col = ms.milnce_stream_cuda(*leaves, chunk)
+        uniq = leaves[:2] if shared else leaves
+        grads = torch.autograd.grad((row, col), uniq, (g_row, g_col))
+        torch.cuda.synchronize()
+        keys = [ms.launch_key(n, d, bf16) for n in ms.KERNELS]
+        if ({kk: n for kk, n in ms.LAUNCHES.items() if n}
+                != dict.fromkeys(keys, 2)
+                or any(gr.dtype != bf16 for gr in grads)
+                or row.dtype != torch.float32):
+            raise AssertionError(f"bf16 {label}: the stream's launches "
+                                 f"{ms.LAUNCHES} or dtypes "
+                                 f"{[gr.dtype for gr in grads]}")
+        log(f"  [bf16 {label}] the stream: launches 2 + 2 + 2 "
+            f"({', '.join(keys)}), lse f32, gradients bf16")
+    return worst
+
+
 def _time_ms(fn, reps=20, warm=3):
     """Median ms of a call on the card (``utils/timing.py::event_ms``)."""
     from milnce_tpu_torch.utils.timing import event_ms
@@ -587,7 +726,20 @@ def _bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(d=512):
+def _stream_bytes(name, r, c, d, dtype=torch.float32):
+    """Bytes one launch of MIL-NCE kernel ``name`` must move for A (r, d)
+    f32 and B (c, d) of ``dtype``, each read once: the forward writes the
+    lse (r), the backward reads lse and g (r each) and writes dA (f32) or
+    dB (B's dtype)."""
+    eb = torch.finfo(dtype).bits // 8
+    ins = 4 * r * d + eb * c * d
+    if name == "lse_fwd":
+        return ins + 4 * r
+    out = 4 * r * d if name == "lse_bwd_rows" else eb * c * d
+    return ins + 4 * 2 * r + out
+
+
+def phase_timing(d=512, dtype=torch.float32):
     """Times of each kernel's pair of launches per step (rows direction +
     columns direction) at the recipe shape with embedding ``d`` (past
     768, the deep mode's cluster path, keyed ``<kernel>_deep``; there
@@ -600,13 +752,19 @@ def phase_timing(d=512):
     split partials included) and on the device (torch.profiler: the
     kernel alone; every kernel of the wrapper's call, the combination of
     the partials included; and every kernel of the library call, which
-    the whole call is compared with)."""
+    the whole call is compared with).  With ``dtype`` bf16 the gathered
+    operands (B) are bf16 and each kernel runs its bf16 mode (keyed
+    ``<kernel>_bf16``; its bound counts 2 bytes an element of B); the
+    plain twins take the bf16 B, the library call one f32 PyTorch call on
+    the upcast operands (upcast before the timing)."""
     from milnce_tpu_torch.losses.milnce_chunked import milnce_default_chunk
     from milnce_tpu_torch.ops import milnce_stream as ms
 
     b, bg, k = 128, 8192, 5
     chunk = milnce_default_chunk(b, k, bg)
     v, t, v_all, t_all = _case(b, bg, k, d, 7, False)
+    v_all, t_all = v_all.to(dtype), t_all.to(dtype)
+    wide = {id(v_all): v_all.float(), id(t_all): t_all.float()}
     row = ms.lse_fwd(v, t_all)
     col = ms.lse_fwd(t, v_all)
     g_row = torch.full((b,), 1.0 / b, device="cuda")
@@ -614,10 +772,11 @@ def phase_timing(d=512):
     pairs = [(v, t_all, row, g_row, chunk * k), (t, v_all, col, g_col, chunk)]
 
     def dense_w(a, bm, lse, g):
+        bm = wide.get(id(bm), bm)         # the operands upcast beforehand
         return torch.exp(a @ bm.T - lse[:, None]) * g[:, None]
 
     def rows_library(a, bm, lse, g):
-        return dense_w(a, bm, lse, g) @ bm
+        return dense_w(a, bm, lse, g) @ wide.get(id(bm), bm)
 
     def cols_library(a, bm, lse, g):
         return dense_w(a, bm, lse, g).T @ a
@@ -645,35 +804,34 @@ def phase_timing(d=512):
     # the plain twins sum the deep paths' parts as the kernels do
     parts = ms.deep_parts(d) if d > ms.STREAM_DMAX else None
     # kernel: (its wrapper, the card's plan, plain, library call, FLOPs per
-    # logit and depth, floats read and written besides A and B)
+    # logit and depth)
     funcs = {
         "lse_fwd": (
             lambda a, bm, lse, g: ms.lse_fwd(a, bm),
             lambda r, c: ms.card_fwd_plan(lib, r, c, d, "cuda"),
             lambda a, bm, lse, g, w: ms.lse_plain(a, bm, w, parts),
-            lambda a, bm, lse, g: torch.logsumexp(a @ bm.T, dim=1),
-            2, lambda r, c: r),
+            lambda a, bm, lse, g: torch.logsumexp(
+                a @ wide.get(id(bm), bm).T, dim=1),
+            2),
         "lse_bwd_rows": (
             ms.lse_bwd_rows,
             lambda r, c: ms.card_bwd_plan(lib, False, r, c, d, "cuda"),
-            lambda *x: ms.lse_bwd_rows_plain(*x, parts), rows_library, 4,
-            lambda r, c: 2 * r + r * d),
+            lambda *x: ms.lse_bwd_rows_plain(*x, parts), rows_library, 4),
         "lse_bwd_cols": (
             ms.lse_bwd_cols,
             lambda r, c: ms.card_bwd_plan(lib, True, r, c, d, "cuda"),
-            lambda *x: ms.lse_bwd_cols_plain(*x, parts), cols_library, 4,
-            lambda r, c: 2 * r + c * d)}
-    # key: (call, kernel, plan, plain, library call, FLOPs, floats besides)
+            lambda *x: ms.lse_bwd_cols_plain(*x, parts), cols_library, 4)}
+    # key: (call, kernel, plan, plain, library call, FLOPs)
     kernels = {}
-    for name, (kern, plan_of, plain, library, per, extra) in funcs.items():
-        kernels[ms.launch_key(name, d)] = (kern, name, plan_of, plain,
-                                           library, per, extra)
-        if ms.launch_key(name, d).endswith("_deep"):
+    for name, (kern, plan_of, plain, library, per) in funcs.items():
+        kernels[ms.launch_key(name, d, dtype)] = (kern, name, plan_of, plain,
+                                                  library, per)
+        if ms.launch_mode(name, d)[1] == "deep":
             run, slab_plan = slab(name)
-            kernels[name + "_deep_slab"] = (run, name, slab_plan, plain,
-                                            library, per, extra)
+            kernels[ms.launch_key(name, d, dtype, slab=True)] = (
+                run, name, slab_plan, plain, library, per)
     out = {}
-    for key, (kern, name, plan_of, _, library, per, extra) in kernels.items():
+    for key, (kern, name, plan_of, _, library, per) in kernels.items():
         for a, bm, lse, g, _ in pairs:
             r, c = a.shape[0], bm.shape[0]
             plan = plan_of(r, c)
@@ -684,8 +842,8 @@ def phase_timing(d=512):
             dev_c = _device_ms(lambda: kern(a, bm, lse, g), "")
             dev_l = _device_ms(lambda: library(a, bm, lse, g), "")
             flops = per * r * c * d
-            bound_ms, bound_by = _bound(
-                flops, 4 * (r * d + c * d + extra(r, c)))
+            bound_ms, bound_by = _bound(flops, _stream_bytes(name, r, c, d,
+                                                             dtype))
             log(f"  {key} launch R={r} C={c} D={d}: kernel "
                 f"{ms_k:.4f} ms, "
                 f"{flops / ms_k / 1e9:.2f} TFLOP/s, {bound_ms / ms_k:.3f} of "
@@ -695,17 +853,13 @@ def phase_timing(d=512):
                 f"of the bound), whole call {dev_c:.4f} ms, library "
                 f"{dev_l:.4f} ms, call/library {dev_c / dev_l:.3f} | plan: "
                 f"{_plan_line(plan)}")
-    for key, (kern, name, _, plain, library, _, _) in kernels.items():
+    for key, (kern, name, _, plain, library, _) in kernels.items():
         flops = nbytes = 0
         for a, bm, *_ in pairs:
             r, c = a.shape[0], bm.shape[0]
-            if name == "lse_fwd":
-                flops += 2 * r * c * d
-                nbytes += 4 * (r * d + c * d + r)
-            else:                   # recompute the logits + one product
-                flops += 4 * r * c * d
-                out_rows = r if name == "lse_bwd_rows" else c
-                nbytes += 4 * (r * d + c * d + 2 * r + out_rows * d)
+            # the backward recomputes the logits + one product
+            flops += (2 if name == "lse_fwd" else 4) * r * c * d
+            nbytes += _stream_bytes(name, r, c, d, dtype)
         bound_ms, bound_by = _bound(flops, nbytes)
 
         def pair_k(kern=kern):
@@ -1020,6 +1174,177 @@ def phase_reference(dim=512):
     return launches
 
 
+# reference-bf16's limits, from bf16's unit roundoff 2^-8.  The kernels and
+# the plain twins compute the same f32 lse and gradients from the same bf16
+# embeddings (to f32 summation order), so a bf16 embedding gradient they
+# hand back differs in its last bit at most, in a few elements: each loss of
+# three steps within REF_BF16_ULPS unit roundoffs of itself.  The bf16
+# backward carries such a last-bit difference on and rounds it at every op
+# after (to a few % of a gradient in places, so no limit per tensor in unit
+# roundoffs holds), so the parameter gradients' difference is held to the
+# bf16 rounding noise itself: over all the gradients, within REF_BF16_NOISE
+# of the bf16 model's distance from the f32 model's on the same weights and
+# clips.  On an H100 the sound runs read 0.030-0.032 of it; a planted fault,
+# the kernels' bf16 gathered gradient off by 8 unit roundoffs
+# (REF_BF16_FAULT), must read above the limit, or the check could not see
+# one.
+REF_BF16_ULPS = 4
+REF_BF16_NOISE = 0.1
+REF_BF16_FAULT = 2.0 ** -5
+
+
+@contextlib.contextmanager
+def _cols_off(ms, rel):
+    """The stream's gathered gradients (``lse_bwd_cols``, which
+    ``_StreamCuda`` looks up at each call) scaled by 1 + ``rel`` in their
+    dtype: a planted fault."""
+    kernel = ms.lse_bwd_cols
+    ms.lse_bwd_cols = lambda a, b, lse, g: (
+        kernel(a, b, lse, g).float() * (1 + rel)).to(b.dtype)
+    try:
+        yield
+    finally:
+        ms.lse_bwd_cols = kernel
+
+
+def phase_reference_bf16(dim=512):
+    """The small model with ``model.dtype = bfloat16`` (f32 weights, bf16
+    compute) and embedding ``dim`` (past 768 the kernels' deep mode, past
+    4096 the slab paths), cuDNN deterministic, chunked MIL-NCE on the
+    stream kernels' bf16 mode against the same model on the plain twins
+    (``scan``), so
+    that the stream is the only difference: (1) one step's parameter
+    gradients, all together, no farther from the plain twins' than
+    REF_BF16_NOISE times the plain twins' distance from the f32 model's
+    (same weights, the clip divided by 255 in f32), the bf16 rounding
+    noise, while the kernels with a planted fault (:func:`_cols_off` by
+    REF_BF16_FAULT) read above it; (2) three training steps' losses within
+    REF_BF16_ULPS x 2^-8 relative; (3) the kernels' run launched each
+    ``_bf16`` kernel twice a step, the plain run none.  Returns the
+    kernels' run's launches."""
+    from milnce_tpu_torch.losses.milnce_chunked import build_milnce_loss
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.ops import milnce_stream as ms
+
+    eps = 2.0 ** -8
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _small_cfg("chunked", "cuda", dim)
+        cfg.model.dtype = "bfloat16"
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        d = cfg.data
+        video = torch.randint(0, 256, (cfg.train.batch_size, d.num_frames,
+                                       d.video_size, d.video_size, 3),
+                              generator=gen, device="cuda",
+                              dtype=torch.uint8)
+        text = torch.randint(1, cfg.model.vocab_size,
+                             (cfg.train.batch_size * d.num_candidates,
+                              d.max_words), generator=gen, device="cuda")
+        grads = {}
+        for label, dtype, backend in (("f32", "float32", "scan"),
+                                      ("plain", "bfloat16", "scan"),
+                                      ("kernels", "bfloat16", "cuda"),
+                                      ("fault", "bfloat16", "cuda")):
+            cfg.model.dtype, cfg.loss.milnce_backend = dtype, backend
+            model = build_model(cfg.model, seed=3).cuda().train()
+            clip = video.to(model.compute_dtype or torch.float32) / 255
+            with (_cols_off(ms, REF_BF16_FAULT) if label == "fault"
+                  else contextlib.nullcontext()):
+                build_milnce_loss(cfg.loss)(*model(clip, text)).backward()
+            grads[label] = {n: p.grad for n, p in model.named_parameters()
+                            if p.grad is not None}
+
+        def dist(a, b):
+            return math.sqrt(sum(float((grads[a][n] - g).double().pow(2)
+                                       .sum()) for n, g in grads[b].items()))
+
+        d_kp, d_pf = dist("kernels", "plain"), dist("plain", "f32")
+        d_fault = dist("fault", "plain")
+        worst = max((float((grads["kernels"][n] - g).norm())
+                     / float((g - grads["f32"][n]).norm()), n)
+                    for n, g in grads["plain"].items())
+        log(f"  bf16 model, D={dim}, one step's gradients, "
+            f"{len(grads['plain'])} "
+            f"tensors: |kernels - plain| {d_kp:.4e} against the bf16 noise "
+            f"|plain - f32| {d_pf:.4e}: {d_kp / d_pf:.4f} (limit "
+            f"{REF_BF16_NOISE}); the worst tensor {worst[1]} at "
+            f"{worst[0]:.4f} of its own noise; a planted fault (the "
+            f"gathered gradients scaled by 1 + 2^{math.log2(REF_BF16_FAULT):g}"
+            f") {d_fault / d_pf:.4f}, which must exceed the limit")
+        runs, launches = {}, {}
+        for backend in ("scan", "cuda"):
+            run_cfg = _small_cfg("chunked", backend, dim)
+            run_cfg.model.dtype = "bfloat16"
+            losses = []
+            ms.reset_launches()
+            _run_training(run_cfg, log=lambda _m: None,
+                          on_step=lambda _s, _t, loss, _w: losses.append(loss))
+            launches[backend] = {k: n for k, n in ms.LAUNCHES.items() if n}
+            runs[backend] = losses
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lp, lk = runs["scan"], runs["cuda"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    want = {ms.launch_key(name, dim, torch.bfloat16): 2 * 3
+            for name in ms.KERNELS}
+    log(f"  bf16 model, D={dim}: losses plain {lp} kernels {lk}; max rel diff "
+        f"{err:.2e} (limit {REF_BF16_ULPS * eps:.2e}); launches: kernels' "
+        f"run {launches['cuda']}, plain run {launches['scan']}")
+    if not (d_kp <= REF_BF16_NOISE * d_pf < d_fault
+            and len(lk) == len(lp) == 3
+            and err <= REF_BF16_ULPS * eps and all(map(math.isfinite, lk))
+            and launches["cuda"] == want and not launches["scan"]):
+        raise AssertionError("the bf16 kernels disagree with the plain twins "
+                             "in the small model")
+    return launches["cuda"]
+
+
+def phase_train_bf16(train):
+    """train-full-bf16: phase 7's config and seed with ``model.dtype =
+    bfloat16`` through ``run_training`` (batch 16, 4 steps, chunked MIL-NCE
+    on the stream kernels' bf16 mode): every loss finite, each ``_bf16``
+    kernel twice a step and no f32 one; the live MFU gauge equal to the
+    roofline formula over the card's dense bf16 peak; steps/s, peak
+    memory, the data wait, the idle share of one more profiled step and
+    the MFU beside phase 7's f32 figures (measured only: no limit on
+    speed).  Returns the run's figures."""
+    from milnce_tpu_torch.obs import metrics as obs_metrics
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.utils.roofline import (device_peak_flops, mfu,
+                                                 train_step_flops)
+
+    run = _train_full("milnce", _stream_loss, (ms, sd),
+                      {ms.launch_key(k, 512, torch.bfloat16): 2
+                       for k in ms.KERNELS}, dtype="bfloat16")
+    reg = obs_metrics.registry()
+    live = reg.gauge("milnce_train_mfu").value
+    clips = reg.gauge("milnce_train_clips_per_sec").value
+    name = torch.cuda.get_device_name(0)
+    peak16 = device_peak_flops(name, "bfloat16")
+    peak32 = device_peak_flops(name, "float32")
+    flops = train_step_flops(TRAIN_BATCH, 32, 224, 5, 20)
+    want = mfu(flops, clips / TRAIN_BATCH, peak16, 1)
+    run["idle"], _ = _profile_step(run["res"].model, run["cfg"])
+    del run["res"]
+    run["mfu"] = mfu(flops, run["sps"], peak16, 1)
+    log(f"  live MFU gauge {live:.6f} against {flops / 1e12:.4f} TFLOP a "
+        f"step x {clips / TRAIN_BATCH:.4f} steps/s (last display) / "
+        f"{peak16 / 1e12:g} TFLOP/s (bf16) = {want:.6f}")
+    log(f"  train-full-bf16 against train-full (f32, phase 7): steps/s "
+        f"{run['sps']:.4f} / {train['sps']:.4f} "
+        f"({run['sps'] / train['sps']:.4f}x); peak memory "
+        f"{run['peak'] / 2 ** 30:.3f} / {train['peak'] / 2 ** 30:.3f} GiB; "
+        f"data wait {run['wait']:.4f} / {train['wait']:.4f} s a step; idle "
+        f"share {run['idle']:.3f} / {train['idle']:.3f}; MFU at steps/s "
+        f"after the first step {run['mfu']:.6f} of the bf16 peak / "
+        f"{mfu(flops, train['sps'], peak32, 1):.6f} of the f32 peak; "
+        f"losses {run['losses']}")
+    if abs(live - want) > 1e-12 * want:
+        raise AssertionError(f"MFU gauge {live} != {want}")
+    return run
+
+
 def phase_dtw_reference():
     """The small model with each DTW loss, the soft-DTW kernels
     (sdtw_backend=cuda) against the plain recurrence (scan), cuDNN held
@@ -1310,9 +1635,10 @@ def _full_cfg(loss_name, edit, batch=TRAIN_BATCH, accum=1):
 
 
 def _train_full(loss_name, edit, counters, per_step, store=None, root=None,
-                batch=TRAIN_BATCH, accum=1, remat=False):
+                batch=TRAIN_BATCH, accum=1, remat=False, dtype="float32"):
     """``run_training`` on ``_full_cfg(loss_name, edit, batch, accum)``
-    (with ``model.remat`` if ``remat``), every launch counter reset just
+    (with ``model.remat`` if ``remat``, ``model.dtype`` ``dtype``), every
+    launch counter reset just
     before and read just after; with ``store``, through
     the distributed path: a group of one rank that meets at that
     ``file://`` rendezvous (NCCL on the card); with ``root``, checkpoints
@@ -1325,6 +1651,7 @@ def _train_full(loss_name, edit, counters, per_step, store=None, root=None,
     the run's wall time (host clock around ``run_training``)."""
     cfg = _full_cfg(loss_name, edit, batch, accum)
     cfg.model.remat = remat
+    cfg.model.dtype = dtype
     if store is not None:
         cfg.parallel.coordinator_address = f"file://{store}"
         cfg.parallel.num_processes, cfg.parallel.process_id = 1, 0
@@ -1737,6 +2064,15 @@ def phase_eval(ckpt_dir, workdir):
 
 # ------------------------------------------------------------ serve-full
 SERVE_MAX_BATCH = 16      # the engine's ladder: 1, 2, 4, 8, 16
+# serve (bf16): a row of the bf16 engine's embeddings within this relative
+# distance (L2) of the f32 engine's, four bf16 unit roundoffs (2^-8), both
+# towers.  On an H100 the sound rows read 3.2e-3-3.7e-3 (under one unit
+# roundoff: the roundings of ~20 layers do not add in the worst case); a
+# planted fault, each tower's last layer off by 8 unit roundoffs
+# (SERVE_BF16_FAULT), must read above the limit.
+SERVE_BF16_REL = 4 * 2.0 ** -8
+SERVE_BF16_FAULT = 2.0 ** -5
+SERVE_BF16_BUCKETS = (1, 16)
 SERVE_CLIPS = 64          # clips embedded through the video batcher
 SERVE_DISTINCT = 48       # distinct captions among the 64 queries
 SERVE_QUERIES = 64
@@ -2050,7 +2386,8 @@ def phase_serve_full(ckpt_dir, workdir, card):
         f"{top[2] * 1e3:.3f} ms a call at bucket {top[0]} ({top[0] / top[1]:.2f}"
         f" videos/s, {top[0] / top[2]:.1f} texts/s); index {q_s * 1e3:.3f} ms "
         f"a batch of {INDEX_QUERIES}; peak {peak / 2 ** 30:.3f} GiB")
-    ok = (exact and worst <= 1 and batched_err <= 1
+    bf16_ok = _serve_bf16(out, engine, index, corpus, words, rng, shape, card)
+    ok = (exact and worst <= 1 and batched_err <= 1 and bf16_ok
           and not passes[1]["calls"] and passes[1]["hits"] == SERVE_QUERIES
           and ranking_ok and across >= 2
           and engine.recompiles() == 0 and index.recompiles() == 0
@@ -2061,6 +2398,98 @@ def phase_serve_full(ckpt_dir, workdir, card):
     if not ok:
         raise AssertionError("serve-full failed its checks")
     return out, clip_emb
+
+
+def _serve_bf16(out, engine, index, corpus, words, rng, shape, card):
+    """serve (bf16): ``InferenceEngine.from_export(dtype="bfloat16")`` on
+    serve-full's export (every float leaf cast to bf16 on the card, the
+    model computing in bf16) beside the f32 ``engine``: at buckets
+    SERVE_BF16_BUCKETS each row of its video and text embeddings within
+    SERVE_BF16_REL (relative L2) of the f32 engine's, and ms a call of
+    each, the two engines in turns (f32, bf16, bf16, f32); at the top
+    bucket a planted fault (each tower's last layer, video ``fc`` and text
+    ``fc2``, its weight rows and bias scaled by 1 + SERVE_BF16_FAULT and
+    1 - SERVE_BF16_FAULT in turn, then restored) above the limit; then
+    ``index``
+    (serve-full's corpus, ties planted) answers INDEX_QUERIES bf16 text
+    queries (float32 arrays of bf16 values) with the exact top-INDEX_K of
+    a float64 ranking of the same queries on the host.  Returns whether
+    every check held."""
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    bf16 = InferenceEngine.from_export(out, device="cuda", dtype="bfloat16",
+                                       max_batch=SERVE_MAX_BATCH,
+                                       min_bucket=1)
+    dtypes = {p.dtype for p in bf16.model.parameters()} | {
+        b.dtype for b in bf16.model.buffers() if b.is_floating_point()}
+    log(f"  serve (bf16): engine boot {time.perf_counter() - t0:.2f} s, "
+        f"its parameters and statistics {sorted(map(str, dtypes))}")
+    ok = dtypes == {torch.bfloat16}
+
+    def worst_rel(e16, e32):
+        return float((np.linalg.norm(e16 - e32, axis=1)
+                      / np.linalg.norm(e32, axis=1)).max())
+
+    top = {}      # entry: (the top bucket's rows, their f32 embeddings)
+    for b in SERVE_BF16_BUCKETS:
+        rows = {"video": rng.integers(0, 256, (b,) + shape, dtype=np.uint8),
+                "text": words[:b]}
+        for entry, x in rows.items():
+            f32_fn = getattr(engine, f"embed_{entry}")
+            bf_fn = getattr(bf16, f"embed_{entry}")
+            e32, e16 = f32_fn(x), bf_fn(x)
+            top[entry] = x, e32
+            rel = worst_rel(e16, e32)
+            reps = 5 if entry == "video" else 20
+            t32a, t16a = _timed(lambda: f32_fn(x), reps), _timed(
+                lambda: bf_fn(x), reps)
+            t16b, t32b = _timed(lambda: bf_fn(x), reps), _timed(
+                lambda: f32_fn(x), reps)
+            t32, t16 = (t32a + t32b) / 2, (t16a + t16b) / 2
+            ok = ok and rel <= SERVE_BF16_REL and np.isfinite(e16).all()
+            log(f"  serve (bf16) bucket {b:2d} {entry}: worst row's relative "
+                f"distance from f32 {rel:.4e} (limit "
+                f"{SERVE_BF16_REL:.4e}); ms a call bf16 "
+                f"{t16 * 1e3:.3f} ({t16a * 1e3:.3f}, {t16b * 1e3:.3f}) "
+                f"against f32 {t32 * 1e3:.3f} ({t32a * 1e3:.3f}, "
+                f"{t32b * 1e3:.3f}), bf16/f32 {t16 / t32:.3f}")
+    for entry, layer in (("video", bf16.model.fc),
+                         ("text", bf16.model.text_module.fc2)):
+        x, e32 = top[entry]
+        keep = [p.detach().clone() for p in layer.parameters()]
+        turn = 1 - 2 * (torch.arange(layer.out_features, device="cuda") % 2)
+        scale = (1 + SERVE_BF16_FAULT * turn).to(torch.bfloat16)
+        with torch.no_grad():
+            layer.weight.mul_(scale[:, None])
+            layer.bias.mul_(scale)
+        try:
+            rel = worst_rel(getattr(bf16, f"embed_{entry}")(x), e32)
+        finally:
+            with torch.no_grad():
+                for p, k in zip(layer.parameters(), keep):
+                    p.copy_(k)
+        ok = ok and rel > SERVE_BF16_REL
+        log(f"  serve (bf16) bucket {SERVE_BF16_BUCKETS[-1]:2d} {entry}, a "
+            f"planted fault (the last layer's outputs scaled by 1 +- "
+            f"2^{math.log2(SERVE_BF16_FAULT):g} in turn): worst row's "
+            f"relative distance from f32 {rel:.4e}, which must exceed the "
+            f"limit")
+    q = bf16.embed_text(words[:INDEX_QUERIES])
+    widened = torch.from_numpy(q)
+    ok = ok and torch.equal(widened.bfloat16().float(), widened)
+    scores = np.concatenate([q.astype(np.float64) @ corpus[i:i + 65536]
+                             .astype(np.float64).T
+                             for i in range(0, INDEX_ROWS, 65536)], axis=1)
+    host = _host_ranking(scores, INDEX_K)
+    _, got = index.topk(q)
+    ranked = np.array_equal(got, host)
+    ok = ok and ranked and bf16.recompiles() == 0
+    log(f"  serve (bf16) on {card}: the {INDEX_ROWS}-row index's top-"
+        f"{INDEX_K} of {INDEX_QUERIES} bf16 queries equal the float64 host "
+        f"ranking: {ranked}; recompiles {bf16.recompiles()}")
+    del bf16
+    return ok
 
 
 SERVE_LIVE_ROWS = 1_000_000   # seeded unit rows in the live index's snapshot
@@ -4213,6 +4642,13 @@ def main() -> int:
     times = phase_timing()
     log(f"== MIL-NCE kernel timing, deep mode (D = {DEEP_D})")
     times.update(phase_timing(DEEP_D))
+    log("== MIL-NCE kernels (bf16) vs plain")
+    worst.update(phase_parity_bf16())
+    log("== MIL-NCE kernel timing (bf16 gathered operands)")
+    times.update(phase_timing(512, torch.bfloat16))
+    log(f"== MIL-NCE kernel timing (bf16 gathered operands), deep mode (D = "
+        f"{DEEP_D})")
+    times.update(phase_timing(DEEP_D, torch.bfloat16))
     log("== soft-DTW kernels vs plain")
     worst.update(phase_softdtw_parity())
     log("== soft-DTW kernel timing")
@@ -4223,6 +4659,13 @@ def main() -> int:
     deep_launches = phase_reference(DEEP_D)
     log(f"== reference at embedding {SLAB_D} (the slab paths)")
     slab_launches = phase_reference(SLAB_D)
+    log("== reference-bf16 (small model at model.dtype bfloat16, the "
+        "kernels' bf16 mode vs the plain twins)")
+    phase_reference_bf16()
+    log(f"== reference-bf16 at embedding {DEEP_D} and {SLAB_D} (the bf16 "
+        "mode's deep and slab paths)")
+    bf16_deep = {**phase_reference_bf16(DEEP_D),
+                 **phase_reference_bf16(SLAB_D)}
     log("== dtw reference (small model, soft-DTW cuda vs scan)")
     phase_dtw_reference()
     log("== gc-ref (small model, grad-cache step vs its one-graph form)")
@@ -4235,6 +4678,7 @@ def main() -> int:
                          if k.endswith("_deep")})
         launches.update({k: n for k, n in slab_launches.items()
                          if k.endswith("_deep_slab")})
+        launches.update(bf16_deep)
         log("== data alone (loader + prefetch, no step)")
         phase_data_alone()
         log("== ddp-1 (train-full through the distributed path, one rank)")
@@ -4285,6 +4729,9 @@ def main() -> int:
     phase_softdtw_sp()
     log("== cuDNN autotuning (measured only)")
     phase_cudnn_benchmark(train["sps"])
+    log("== train-full-bf16 (train-full at model.dtype bfloat16)")
+    launches.update({k: n for k, n in phase_train_bf16(train)[
+        "launches"].items() if k.endswith("_bf16") and n})
     log("== train (full width, sdtw_3)")
     sdtw_launches = phase_train_sdtw3()
     launches.update({k: sdtw_launches[k] for k in ("softdtw_fwd",
@@ -4293,6 +4740,9 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=worst[name], **times[name])
                for name in SOURCES]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched by their runs: {idle}")
     log(json.dumps({"kernels": kernels}))
     return _finish(card, t0)
 

@@ -1,4 +1,5 @@
-// Streamed MIL-NCE logsumexp kernels for Hopper (sm_90a), f32.
+// Streamed MIL-NCE logsumexp kernels for Hopper (sm_90a), f32 arithmetic
+// on f32 or bf16 gathered operands.
 //
 // Replaces the two Pallas TPU kernels of milnce_tpu/ops/milnce_pallas.py:
 //   _fwd_kernel (B1)  -> lse_fwd
@@ -118,10 +119,29 @@
 //
 // Plain SIMT f32 FMAs: no tensor cores (wgmma would need TF32 or bf16,
 // which the f32 reference does not allow), no TMA.
+//
+// The bf16 mode (a bf16 model, JAX model.dtype = bfloat16), in every path:
+// the gathered operand B arrives bf16, as the TPU kernels take their chunks
+// (milnce_pallas.py pads v_all / t_all uncast and upcasts each chunk in the
+// kernel); A, lse and g stay f32.  Every kernel is a template on B's element
+// type TB: a copy of B widens it to f32 on the way into shared memory (one
+// 8-byte load of 4 elements, stored as a float4: copy4 / copy4_fast), so the
+// tiles, swizzles, plans and products are the f32 mode's, and every sum
+// stays f32 (no bf16 tensor-core product: A is f32).  Those copies are
+// synchronous: a thread waits for its bf16 loads of a stage before it runs
+// the FMAs of the current one, where the f32 mode's cp.async copies run
+// under them.
+// lse_bwd_cols writes dB in bf16, each f32 sum rounded once
+// (milnce_pallas.py rounds once a chunk), when its plan has one split; with
+// more, the splits' f32 partials are summed and rounded by the wrapper.
+// The cluster path's exchange of partial logits stays f32.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -221,28 +241,87 @@ __device__ __forceinline__ void cp16(float* dst, const float* src) {
                    smem_addr(dst)), "l"(src) : "memory");
 }
 
-// Four floats of row ``row`` of the row-major (nrows, D) matrix ``m``, at
-// depths k .. k + 3, into 16-byte aligned shared ``dst``; zeros past the
-// last row and past D.  VEC (D % 4 == 0 and ``m`` 16-byte aligned): one
-// 16-byte cp.async.cg; otherwise four 4-byte copies, zero-filled past D.
-template <bool VEC>
-__device__ __forceinline__ void copy4(float* dst, const float* __restrict__ m,
+// The bf16 element type of a gathered operand (T = bf16 below): widened to
+// f32 when it is copied into shared memory, so every tile, swizzle and
+// product downstream is the f32 one.
+using bf16 = __nv_bfloat16;
+
+// Four bf16 bits (two 32-bit words) widened to four floats.
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float widen1(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+
+// A gradient's f32 sums stored as the output element type: f32 as they are,
+// bf16 each rounded once to nearest.  put4 writes four at a 4-element
+// aligned ``p`` (one 16-byte store of f32, one 8-byte store of bf16).
+__device__ __forceinline__ void put1(float* p, float x) { *p = x; }
+
+__device__ __forceinline__ void put1(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void put4(float* p, float x0, float x1, float x2,
+                                     float x3) {
+  *reinterpret_cast<float4*>(p) = make_float4(x0, x1, x2, x3);
+}
+
+__device__ __forceinline__ void put4(bf16* p, float x0, float x1, float x2,
+                                     float x3) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x2, x3);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// Four whole elements at ``src`` into 16-byte aligned shared ``dst``: f32
+// by one 16-byte cp.async.cg; bf16 by one 8-byte load, widened and stored
+// (a synchronous copy: the stage it fills is read after the next barrier).
+__device__ __forceinline__ void copy4_fast(float* dst, const float* src) {
+  cp16(dst, src);
+}
+
+__device__ __forceinline__ void copy4_fast(float* dst, const bf16* src) {
+  *reinterpret_cast<float4*>(dst) =
+      widen4(__ldg(reinterpret_cast<const uint2*>(src)));
+}
+
+// Four elements of row ``row`` of the row-major (nrows, D) matrix ``m``, at
+// depths k .. k + 3, as floats into 16-byte aligned shared ``dst``; zeros
+// past the last row and past D.  VEC (D % 4 == 0 and ``m`` aligned to four
+// elements' bytes): copy4_fast; otherwise element by element, zero-filled
+// past D (f32: four 4-byte cp.async copies).
+template <bool VEC, typename T>
+__device__ __forceinline__ void copy4(float* dst, const T* __restrict__ m,
                                       int row, int nrows, int k, int D) {
   if (row >= nrows || k >= D) {
     *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
-  const float* src = m + (size_t)row * D + k;
+  const T* src = m + (size_t)row * D + k;
   if (VEC) {
-    cp16(dst, src);
+    copy4_fast(dst, src);
     return;
   }
+  if constexpr (std::is_same_v<T, bf16>) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const bool ok = k + e < D;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst + e)), "l"(ok ? src + e : m),
-                 "r"(ok ? 4 : 0) : "memory");
+    for (int e = 0; e < 4; ++e) dst[e] = k + e < D ? widen1(src + e) : 0.f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = k + e < D;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_addr(dst + e)), "l"(ok ? src + e : m),
+                   "r"(ok ? 4 : 0) : "memory");
+    }
   }
 }
 
@@ -296,9 +375,9 @@ __device__ __forceinline__ void add_part(float (&acc)[MI][4], float4* Ps,
 
 // The block's owned tile: rows row0 .. row0 + M - 1 of O, depths k0 ..
 // k0 + n_k RB_K - 1, into Os (row stride LDA), zero past NO and past D.
-template <bool VEC, int M>
+template <bool VEC, int M, typename T>
 __device__ __forceinline__ void load_owned(float* Os, int LDA,
-                                           const float* __restrict__ O,
+                                           const T* __restrict__ O,
                                            int row0, int NO, int n_k, int D,
                                            int k0 = 0) {
   const int a4 = n_k * (RB_K / 4);
@@ -310,9 +389,9 @@ __device__ __forceinline__ void load_owned(float* Os, int LDA,
 
 // The deep mode's slab of the owned rows: O[row0 : +M, k0 : +RB_K] into st,
 // swizzled (s_at) as the streamed slab is, zero past NO and D.
-template <bool VEC, int M>
+template <bool VEC, int M, typename T>
 __device__ __forceinline__ void copy_owned_slab(float* st,
-                                                const float* __restrict__ O,
+                                                const T* __restrict__ O,
                                                 int row0, int NO, int k0,
                                                 int D) {
   constexpr int Q = RB_K / 4;
@@ -324,19 +403,19 @@ __device__ __forceinline__ void copy_owned_slab(float* st,
 // One logits slab: S[col0 : +SN, k0 : +RB_K] into ring stage st, swizzled
 // (s_at).  ``fast``: the SN rows lie inside NS and VEC holds, so whole
 // 16-byte chunks inside D go without checks.
-template <bool VEC, int SN>
+template <bool VEC, int SN, typename T>
 __device__ __forceinline__ void copy_logits_slab(float* st,
-                                                 const float* __restrict__ S,
+                                                 const T* __restrict__ S,
                                                  int col0, int NS, int k0,
                                                  int D, bool fast) {
   constexpr int Q = RB_K / 4;
   const int tid = threadIdx.x;
   if (fast && k0 + RB_K <= D) {
-    const float* src = S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
+    const T* src = S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
 #pragma unroll
     for (int m = 0; m < SN * Q / RB_T; ++m)
-      cp16(st + s_at(tid / Q + m * (RB_T / Q), tid % Q),
-           src + (size_t)m * (RB_T / Q) * D);
+      copy4_fast(st + s_at(tid / Q + m * (RB_T / Q), tid % Q),
+                 src + (size_t)m * (RB_T / Q) * D);
   } else {
 #pragma unroll
     for (int m = 0; m < SN * Q / RB_T; ++m) {
@@ -368,12 +447,19 @@ __device__ __forceinline__ void copy_logits_slab(float* st,
 // (kw, the part width, a multiple of RB_K); thread tid writes its partial
 // logits acc[i] to float4 i RB_T + tid of its partial tile and reads the
 // same float4 of every block's tile.
+//
+// TB, the gathered operand's element type (float or bf16): the streamed S
+// in lse_bwd_rows, the owned O in lse_bwd_cols, widened to f32 as it is
+// copied (copy4); every product and sum stays f32.  ``part`` is f32 but
+// for lse_bwd_cols with TB = bf16 and one split (gridDim.y 1), where it is
+// dB in bf16, each f32 sum rounded once.
 template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB,
-          bool CLUSTER = false>
+          bool CLUSTER = false, typename TB = float>
 __global__ void __launch_bounds__(RB_T, 1)
-lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
+lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
+               const std::conditional_t<OWN_COLS, float, TB>* __restrict__ S,
                const float* __restrict__ lse, const float* __restrict__ g,
-               float* __restrict__ part, int NO, int NS, int D, int tps,
+               void* __restrict__ part, int NO, int NS, int D, int tps,
                int kw, float* __restrict__ sums) {
   using I = Inst<DMAX, SN, SLAB, CLUSTER>;
   constexpr int DV = I::DV, LDA = I::LDA, NB = I::NB;
@@ -432,7 +518,7 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
           if (q < d4) {
             float* dst = st + n * DMAX + 4 * q;
             if (fast)
-              cp16(dst, S + (size_t)(col0 + n0 + n) * D + z0 + 4 * q);
+              copy4_fast(dst, S + (size_t)(col0 + n0 + n) * D + z0 + 4 * q);
             else
               copy4<VEC>(dst, S, col0 + n0 + n, NS, z0 + 4 * q, D);
           }
@@ -607,25 +693,36 @@ lse_bwd_kernel(const float* __restrict__ O, const float* __restrict__ S,
     }
   }
 
+  // the block's rows of the gradient into ``rows`` ((NO, D), f32 or bf16),
+  // each f32 sum stored once: dB as bf16 where B is bf16 and one split
+  // covers its columns (lse_bwd_cols), else this split's f32 partial
+  const auto store = [&](auto* rows) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + rg + 4 * i;
-    if (r >= NO) continue;
-    float* dst = part + ((size_t)blockIdx.y * NO + r) * D + z0;
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + rg + 4 * i;
+      if (r >= NO) continue;
+      auto* dst = rows + (size_t)r * D + z0;
 #pragma unroll
-    for (int v = 0; v < DV; ++v) {
-      const int d = dx + 256 * v;
-      if ((D & 3) == 0 && d + 4 <= DZ) {
-        *reinterpret_cast<float4*>(dst + d) =
-            make_float4(out[i][4 * v], out[i][4 * v + 1], out[i][4 * v + 2],
-                        out[i][4 * v + 3]);
-      } else {
+      for (int v = 0; v < DV; ++v) {
+        const int d = dx + 256 * v;
+        if ((D & 3) == 0 && d + 4 <= DZ) {
+          put4(dst + d, out[i][4 * v], out[i][4 * v + 1], out[i][4 * v + 2],
+               out[i][4 * v + 3]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (d + e < DZ) dst[d + e] = out[i][4 * v + e];
+          for (int e = 0; e < 4; ++e)
+            if (d + e < DZ) put1(dst + d + e, out[i][4 * v + e]);
+        }
       }
     }
+  };
+  if constexpr (OWN_COLS && std::is_same_v<TB, bf16>) {
+    if (gridDim.y == 1) {
+      store(static_cast<bf16*>(part));
+      return;
+    }
   }
+  store(static_cast<float*>(part) + (size_t)blockIdx.y * NO * D);
 }
 
 // ------------------------------------------------------------------ lse_fwd
@@ -685,9 +782,10 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   m = mn;
 }
 
-template <int DMAX, bool VEC, int FM, int SN, int MODE>
+// TB, B's element type (float or bf16), widened to f32 as it is copied.
+template <int DMAX, bool VEC, int FM, int SN, int MODE, typename TB = float>
 __global__ void __launch_bounds__(RB_T, 1)
-lse_fwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
+lse_fwd_kernel(const float* __restrict__ A, const TB* __restrict__ B,
                float* __restrict__ part_m, float* __restrict__ part_s, int R,
                int C, int D, int tps, int kw) {
   using I = FwdInst<DMAX, FM, SN, MODE>;
@@ -914,7 +1012,8 @@ bool parts_ok(int mode, int D, int kw) {
 }
 
 struct FwdLaunch {
-  const float *A, *B;
+  const float* A;
+  const void* B;              // float or bf16 (TB)
   float *part_m, *part_s;
   int R, C, D, nsplit, tps, kw;
   cudaStream_t stream;
@@ -922,23 +1021,24 @@ struct FwdLaunch {
 
 // One forward launch; the cluster path's (cudaLaunchKernelEx) returns its
 // error if refused: nothing falls back to the slab path.
-template <int DMAX, bool VEC, int FM, int SN, int MODE>
+template <int DMAX, bool VEC, int FM, int SN, int MODE, typename TB>
 int launch_fwd_inst(const FwdLaunch& a) {
-  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN, MODE>;
+  const auto kernel = lse_fwd_kernel<DMAX, VEC, FM, SN, MODE, TB>;
   const size_t smem = FwdInst<DMAX, FM, SN, MODE>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nz = MODE == CLUSTER_PATH ? (a.D + a.kw - 1) / a.kw : 1;
   const dim3 grid((a.R + FM - 1) / FM, a.nsplit, nz);
+  const TB* B = static_cast<const TB*>(a.B);
   if (MODE == CLUSTER_PATH) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(grid, smem, a.stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, kernel, a.A, a.B, a.part_m, a.part_s, a.R,
+    err = cudaLaunchKernelEx(&cfg, kernel, a.A, B, a.part_m, a.part_s, a.R,
                              a.C, a.D, a.tps, a.kw);
     if (err != cudaSuccess) return (int)err;
   } else {
-    kernel<<<grid, RB_T, smem, a.stream>>>(a.A, a.B, a.part_m, a.part_s, a.R,
+    kernel<<<grid, RB_T, smem, a.stream>>>(a.A, B, a.part_m, a.part_s, a.R,
                                            a.C, a.D, a.tps, a.kw);
   }
   return (int)cudaGetLastError();
@@ -947,39 +1047,50 @@ int launch_fwd_inst(const FwdLaunch& a) {
 // The forward's instances, (DMAX, FM, SN, MODE) for each depth bound: 64
 // owned rows by 128-row tiles (8 x 4 logits a thread), 32 by 256 at D <=
 // 768, on the slab path (any D) and on the cluster path (parts of at most
-// 512; 1-2 % faster there than 64 by 128, PERF.md).
+// 512; 1-2 % faster there than 64 by 128, PERF.md).  Each for B in f32
+// and in bf16.
 #define ROWS_FWD_INSTANCES(X)                                              \
   X(256, 64, 128, HELD) X(512, 64, 128, HELD) X(768, 32, 256, HELD)        \
   X(768, 32, 256, SLAB_PATH) X(512, 32, 256, CLUSTER_PATH)
 
 struct Launch {
-  const float *O, *S, *lse, *g;
-  float *part, *sums;
+  const void *O, *S;          // the gathered one (O in cols, S in rows) TB
+  const float *lse, *g;
+  void* part;                 // f32, or dB in bf16 (bf16 B, one split)
+  float* sums;
   int NO, NS, D, nsplit, tps, kw;
   cudaStream_t stream;
 };
 
-template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB = false>
+// The kernel's operand pointers for mode OWN_COLS and element type TB.
+template <bool OWN_COLS, typename TB>
+using OwnedT = std::conditional_t<OWN_COLS, TB, float>;
+template <bool OWN_COLS, typename TB>
+using StreamedT = std::conditional_t<OWN_COLS, float, TB>;
+
+template <int DMAX, bool VEC, bool OWN_COLS, int SN, bool SLAB, typename TB>
 int launch_inst(const Launch& a) {
-  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN, SLAB>;
+  const auto kernel = lse_bwd_kernel<DMAX, VEC, OWN_COLS, SN, SLAB, false, TB>;
   const size_t smem = Inst<DMAX, SN, SLAB>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.NO + RB_M - 1) / RB_M, a.nsplit,
             SLAB ? (a.D + DMAX - 1) / DMAX : 1);
-  kernel<<<grid, RB_T, smem, a.stream>>>(a.O, a.S, a.lse, a.g, a.part, a.NO,
-                                         a.NS, a.D, a.tps, a.kw, nullptr);
+  kernel<<<grid, RB_T, smem, a.stream>>>(
+      static_cast<const OwnedT<OWN_COLS, TB>*>(a.O),
+      static_cast<const StreamedT<OWN_COLS, TB>*>(a.S), a.lse, a.g, a.part,
+      a.NO, a.NS, a.D, a.tps, a.kw, nullptr);
   return (int)cudaGetLastError();
 }
 
 // The cluster path: parts of kw depths, nz = ceil(D / kw) of them (checked
 // by parts_ok).  A refused launch returns its error; nothing falls back to
 // the slab path.
-template <bool VEC, bool OWN_COLS, int SN>
+template <bool VEC, bool OWN_COLS, int SN, typename TB>
 int launch_cluster(const Launch& a) {
   const auto kernel =
-      lse_bwd_kernel<CLUSTER_DMAX, VEC, OWN_COLS, SN, false, true>;
+      lse_bwd_kernel<CLUSTER_DMAX, VEC, OWN_COLS, SN, false, true, TB>;
   const size_t smem = Inst<CLUSTER_DMAX, SN, false, true>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -988,38 +1099,41 @@ int launch_cluster(const Launch& a) {
   const cudaLaunchConfig_t cfg = cluster_config(
       dim3((a.NO + RB_M - 1) / RB_M, a.nsplit, (a.D + a.kw - 1) / a.kw), smem,
       a.stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, a.O, a.S, a.lse, a.g, a.part, a.NO,
-                           a.NS, a.D, a.tps, a.kw, a.sums);
+  err = cudaLaunchKernelEx(&cfg, kernel,
+                           static_cast<const OwnedT<OWN_COLS, TB>*>(a.O),
+                           static_cast<const StreamedT<OWN_COLS, TB>*>(a.S),
+                           a.lse, a.g, a.part, a.NO, a.NS, a.D, a.tps, a.kw,
+                           a.sums);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // ``deep`` picks the mode; ``dmax`` the held instance (256, 512 or 768, at
 // least D), 512 on the cluster path, 768 on the slab path (any D); ``vec``:
-// D % 4 == 0 and O, S 16-byte aligned.
-template <bool OWN_COLS, int SN>
+// D % 4 == 0 and O, S aligned to four elements' bytes.
+template <bool OWN_COLS, int SN, typename TB>
 int launch(const Launch& a, int dmax, int deep, int vec) {
   if (deep == CLUSTER_PATH) {
     if (dmax != CLUSTER_DMAX) return (int)cudaErrorInvalidValue;
-    return vec ? launch_cluster<true, OWN_COLS, SN>(a)
-               : launch_cluster<false, OWN_COLS, SN>(a);
+    return vec ? launch_cluster<true, OWN_COLS, SN, TB>(a)
+               : launch_cluster<false, OWN_COLS, SN, TB>(a);
   }
   if (deep == SLAB_PATH) {
     if (dmax != 768) return (int)cudaErrorInvalidValue;
-    return vec ? launch_inst<768, true, OWN_COLS, SN, true>(a)
-               : launch_inst<768, false, OWN_COLS, SN, true>(a);
+    return vec ? launch_inst<768, true, OWN_COLS, SN, true, TB>(a)
+               : launch_inst<768, false, OWN_COLS, SN, true, TB>(a);
   }
   if (deep != HELD || a.D > dmax) return (int)cudaErrorInvalidValue;
   switch (dmax) {
     case 256:
-      return vec ? launch_inst<256, true, OWN_COLS, SN>(a)
-                 : launch_inst<256, false, OWN_COLS, SN>(a);
+      return vec ? launch_inst<256, true, OWN_COLS, SN, false, TB>(a)
+                 : launch_inst<256, false, OWN_COLS, SN, false, TB>(a);
     case 512:
-      return vec ? launch_inst<512, true, OWN_COLS, SN>(a)
-                 : launch_inst<512, false, OWN_COLS, SN>(a);
+      return vec ? launch_inst<512, true, OWN_COLS, SN, false, TB>(a)
+                 : launch_inst<512, false, OWN_COLS, SN, false, TB>(a);
     case 768:
-      return vec ? launch_inst<768, true, OWN_COLS, SN>(a)
-                 : launch_inst<768, false, OWN_COLS, SN>(a);
+      return vec ? launch_inst<768, true, OWN_COLS, SN, false, TB>(a)
+                 : launch_inst<768, false, OWN_COLS, SN, false, TB>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1047,7 +1161,8 @@ size_t smem_bytes(int dmax, int deep) {
 extern "C" {
 
 // Dynamic shared memory of the forward instance (dmax, fm, sn, mode)
-// (bytes), 0 for one that has no instance.
+// (bytes), 0 for one that has no instance.  The bf16 mode's is the same:
+// B is widened to f32 as it is copied.
 size_t milnce_fwd_smem(int dmax, int fm, int sn, int mode) {
 #define ROWS_FWD_SMEM(DM, M, N, MODE)                         \
   if (dmax == DM && fm == M && sn == N && mode == rows::MODE) \
@@ -1058,7 +1173,9 @@ size_t milnce_fwd_smem(int dmax, int fm, int sn, int mode) {
 }
 
 // How many clusters of nz blocks of the forward's cluster path the current
-// card keeps resident at once; minus a CUDA error if the query fails.
+// card keeps resident at once; minus a CUDA error if the query fails.  The
+// f32 instance's; the bf16 one has the same shared memory and one block
+// an SM as well.
 int milnce_fwd_clusters(int nz) {
 #define ROWS_FWD_CLUSTERS(DM, M, N, MODE)                                   \
   if (rows::MODE == rows::CLUSTER_PATH)                                    \
@@ -1070,31 +1187,40 @@ int milnce_fwd_clusters(int nz) {
   return 0;
 }
 
-// One forward launch for A (R, D), B (C, D): part_m, part_s (nsplit, R) on
-// the instance (dmax, fm, sn, mode): mode 0 held, D <= dmax; 1 the cluster
-// path and 2 the slab path, any D, their logits summed over depth parts of
-// ``kw``; ``vec``: D % 4 == 0 and A, B 16-byte aligned.
-int milnce_lse_fwd(const float* A, const float* B, float* part_m,
+// One forward launch for A (R, D) f32, B (C, D) f32 or, with ``bf16``,
+// bf16: part_m, part_s (nsplit, R) on the instance (dmax, fm, sn, mode):
+// mode 0 held, D <= dmax; 1 the cluster path and 2 the slab path, any D,
+// their logits summed over depth parts of ``kw``; ``vec``: D % 4 == 0, A
+// 16-byte and B four elements' bytes aligned.
+int milnce_lse_fwd(const float* A, const void* B, float* part_m,
                    float* part_s, int R, int C, int D, int dmax, int fm,
                    int sn, int mode, int kw, int nsplit, int tps, int vec,
-                   void* stream) {
+                   int bf16, void* stream) {
   if ((mode == rows::HELD && D > dmax) || !rows::parts_ok(mode, D, kw))
     return (int)cudaErrorInvalidValue;
   const rows::FwdLaunch a = {A, B, part_m, part_s, R, C, D, nsplit, tps, kw,
                              (cudaStream_t)stream};
+#define ROWS_FWD_LAUNCH_T(DM, M, N, MODE, T)                              \
+  return vec ? rows::launch_fwd_inst<DM, true, M, N, rows::MODE, T>(a)   \
+             : rows::launch_fwd_inst<DM, false, M, N, rows::MODE, T>(a);
 #define ROWS_FWD_LAUNCH(DM, M, N, MODE)                                   \
-  if (dmax == DM && fm == M && sn == N && mode == rows::MODE)            \
-    return vec ? rows::launch_fwd_inst<DM, true, M, N, rows::MODE>(a)    \
-               : rows::launch_fwd_inst<DM, false, M, N, rows::MODE>(a);
+  if (dmax == DM && fm == M && sn == N && mode == rows::MODE) {          \
+    if (bf16) {                                                          \
+      ROWS_FWD_LAUNCH_T(DM, M, N, MODE, rows::bf16)                      \
+    }                                                                    \
+    ROWS_FWD_LAUNCH_T(DM, M, N, MODE, float)                             \
+  }
   ROWS_FWD_INSTANCES(ROWS_FWD_LAUNCH)
 #undef ROWS_FWD_LAUNCH
+#undef ROWS_FWD_LAUNCH_T
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of the backward instance in mode ``deep`` (0 held,
 // D <= dmax; 1 the cluster path, parts of at most dmax = 512; 2 the slab
 // path, gradient slabs of dmax = 768) for streamed tiles of ``sn`` rows
-// (bytes), 0 for one that has no instance.  Both modes share it.
+// (bytes), 0 for one that has no instance.  Both modes and both element
+// types share it.
 size_t milnce_bwd_rows_smem(int dmax, int sn, int deep) {
   return sn == 128 ? rows::smem_bytes<128>(dmax, deep)
                    : sn == 256 ? rows::smem_bytes<256>(dmax, deep) : 0;
@@ -1102,7 +1228,8 @@ size_t milnce_bwd_rows_smem(int dmax, int sn, int deep) {
 
 // How many clusters of nz blocks the cluster path's instance for own_cols
 // (sn 256 without, 128 with) can keep resident on the current card at once;
-// minus a CUDA error if the query fails.
+// minus a CUDA error if the query fails.  The f32 instance's, as in
+// milnce_fwd_clusters.
 int milnce_bwd_clusters(int own_cols, int nz) {
   using rows::CLUSTER_DMAX, rows::Inst, rows::lse_bwd_kernel;
   return own_cols
@@ -1116,30 +1243,36 @@ int milnce_bwd_clusters(int own_cols, int nz) {
                    Inst<CLUSTER_DMAX, 256, false, true>::SMEM, nz);
 }
 
-// One backward launch for A (R, D), B (C, D): part (nsplit, R, D) of dA
-// (own_cols 0, lse_bwd_rows, sn 256) or part (nsplit, C, D) of dB
-// (own_cols 1, lse_bwd_cols, sn 128), lse and g of length R, in mode
-// ``deep`` (0 held, 1 the cluster path, 2 the slab path, gradient slabs of
-// dmax = 768 over grid z; both deep paths sum the logits over depth parts
-// of ``kw``).  ``sums`` (nsplit, R),
-// written by lse_bwd_rows on the cluster path only (else NULL): each
-// split's sum over its columns of exp(A_r . B_j - lse_r).
-int milnce_lse_bwd(const float* A, const float* B, const float* lse,
-                   const float* g, float* part, float* sums, int R, int C,
+// One backward launch for A (R, D) f32, B (C, D) f32 or, with ``bf16``,
+// bf16: part (nsplit, R, D) f32 of dA (own_cols 0, lse_bwd_rows, sn 256)
+// or part (nsplit, C, D) of dB (own_cols 1, lse_bwd_cols, sn 128), f32,
+// but bf16 (C, D) where B is bf16 and nsplit is 1, lse and g of
+// length R, in mode ``deep`` (0 held, 1 the cluster path, 2 the slab
+// path, gradient slabs of dmax = 768 over grid z; both deep paths sum the
+// logits over depth parts of ``kw``).  ``sums`` (nsplit, R), written by
+// lse_bwd_rows on the cluster path only (else NULL): each split's sum
+// over its columns of exp(A_r . B_j - lse_r).
+int milnce_lse_bwd(const float* A, const void* B, const float* lse,
+                   const float* g, void* part, float* sums, int R, int C,
                    int D, int own_cols, int dmax, int sn, int deep, int kw,
-                   int nsplit, int tps, int vec, void* stream) {
+                   int nsplit, int tps, int vec, int bf16,
+                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (!rows::parts_ok(deep, D, kw)) return (int)cudaErrorInvalidValue;
   if (sums && (own_cols || deep != rows::CLUSTER_PATH))
     return (int)cudaErrorInvalidValue;
   if (!own_cols) {
     if (sn != 256) return (int)cudaErrorInvalidValue;
-    return rows::launch<false, 256>({A, B, lse, g, part, sums, R, C, D,
-                                     nsplit, tps, kw, s}, dmax, deep, vec);
+    const rows::Launch a = {A, B, lse, g, part, sums, R, C, D, nsplit, tps,
+                            kw, s};
+    return bf16 ? rows::launch<false, 256, rows::bf16>(a, dmax, deep, vec)
+                : rows::launch<false, 256, float>(a, dmax, deep, vec);
   }
   if (sn != 128) return (int)cudaErrorInvalidValue;
-  return rows::launch<true, 128>({B, A, lse, g, part, nullptr, C, R, D,
-                                  nsplit, tps, kw, s}, dmax, deep, vec);
+  const rows::Launch a = {B, A, lse, g, part, nullptr, C, R, D, nsplit, tps,
+                          kw, s};
+  return bf16 ? rows::launch<true, 128, rows::bf16>(a, dmax, deep, vec)
+              : rows::launch<true, 128, float>(a, dmax, deep, vec);
 }
 
 }  // extern "C"

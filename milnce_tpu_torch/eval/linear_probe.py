@@ -29,7 +29,7 @@ def extract_probe_features(model, source, device, batch_videos: int = 8):
         videos = torch.from_numpy(np.stack(buf)).to(device)  # (B,C,T,H,W,3)
         b, c = videos.shape[:2]
         out = video_fn(videos.reshape((-1,) + videos.shape[2:]))
-        feats.append(out.cpu().numpy().reshape(b, c, -1))
+        feats.append(out.cpu().float().numpy().reshape(b, c, -1))
         for label, spl in buf_meta:
             labels.append(label)
             splits.append(spl)

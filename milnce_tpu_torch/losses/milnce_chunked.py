@@ -12,6 +12,10 @@ deep mode (each kernel split over a thread-block cluster by depth).
 Semantics are identical to
 :func:`milnce_tpu_torch.losses.milnce.milnce_loss`, across ranks too:
 the stream runs the local rows and columns against the gathered arrays.
+A bf16 model's embeddings are gathered in bf16 and stay bf16 into the
+stream (the kernels' bf16 mode), which upcasts the local ones; the
+positive bag's dot products are taken in bf16, then cast to f32, as in
+the JAX loss.
 """
 
 from __future__ import annotations

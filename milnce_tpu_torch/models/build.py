@@ -18,6 +18,7 @@ import torch
 
 from milnce_tpu_torch.config import ModelConfig
 from milnce_tpu_torch.models.initializers import init_weights
+from milnce_tpu_torch.models.precision import torch_dtype
 from milnce_tpu_torch.models.s3dg import S3D, BatchNorm3d
 
 
@@ -35,10 +36,9 @@ def load_word2vec_table(path: str) -> np.ndarray:
 def build_model(cfg: ModelConfig, seed: int = 0, group=None) -> S3D:
     """Build the S3D on the CPU with weights drawn from ``seed``; the
     caller moves it to its device.  ``group``: the ranks that sync
-    BatchNorm under ``cfg.sync_batchnorm``."""
-    if cfg.dtype != "float32":
-        raise ValueError(f"model.dtype={cfg.dtype!r}: the torch port runs "
-                         "float32 only")
+    BatchNorm under ``cfg.sync_batchnorm``.  ``cfg.dtype`` is the compute
+    dtype (float32 or bfloat16); the weights are f32 either way."""
+    dtype = torch_dtype(cfg.dtype)
     table = None
     vocab_size = cfg.vocab_size
     if cfg.word2vec_path and os.path.exists(cfg.word2vec_path):
@@ -52,7 +52,7 @@ def build_model(cfg: ModelConfig, seed: int = 0, group=None) -> S3D:
                 vocab_size=vocab_size,
                 word_embedding_dim=cfg.word_embedding_dim,
                 text_hidden_dim=cfg.text_hidden_dim,
-                conv_impl=cfg.conv_impl, remat=cfg.remat)
+                conv_impl=cfg.conv_impl, remat=cfg.remat, dtype=dtype)
     init_weights(model, cfg.weight_init, torch.Generator().manual_seed(seed))
     if table is not None:
         with torch.no_grad():

@@ -21,6 +21,12 @@ the port follows the JAX model:
 - ``space_to_depth`` orders the new channels ``(t2, h2, w2, C)``, the
   JAX model's channels-last order.
 
+``dtype`` is the compute dtype (JAX ``ModelConfig.dtype``, "for MXU
+speed"): a bf16 model keeps f32 parameters and BatchNorm statistics and
+computes in bf16 as the Flax modules do (``models/precision.py`` says
+where: BatchNorm normalizes in f32 and casts its output; the means over
+(T, H, W) accumulate in f32).  Its embeddings come out bf16.
+
 ``remat=True`` recomputes each Inception block in the backward instead
 of keeping its activations (the JAX model's ``nn.remat(InceptionBlock)``)
 through ``torch.utils.checkpoint`` called inside ``S3D``'s forward, so
@@ -41,6 +47,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from milnce_tpu_torch.models.conv3d import Conv3D
+from milnce_tpu_torch.models.precision import (Dense, cast, mean,
+                                               set_compute_dtype, widen)
 from milnce_tpu_torch.models.text import SentenceEmbedding
 from milnce_tpu_torch.parallel.dist import all_reduce_sum
 
@@ -60,12 +68,19 @@ class BatchNorm3d(nn.BatchNorm3d):
     does) and folds the *biased* variance into ``running_var`` (torch
     folds the unbiased one).  Eval mode is torch's.
 
+    Whatever the input's dtype, the statistics and the normalization run
+    in f32 from the f32 (or upcast) parameters and running statistics,
+    and the output is cast to ``compute_dtype`` (Flax ``BatchNorm(dtype=
+    bf16)``: f32 reductions, ``x - mean`` and the scale in f32).
+
     ``group`` (set by ``models/build.py`` under ``model.sync_batchnorm``)
     takes the train-mode statistics over the batches of every rank, as
     the JAX model's ``bn_axis_name`` does: two-pass, the global mean
     first, then the global centred sum of squares, each an all-reduce
     whose backward sums the cotangents.  ``nn.SyncBatchNorm`` is not
     used: it folds the unbiased variance."""
+
+    compute_dtype = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -75,15 +90,21 @@ class BatchNorm3d(nn.BatchNorm3d):
         self.fold = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return cast(self._normalize(widen(x)), self.compute_dtype)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, widen(self.running_mean),
+                                widen(self.running_var), widen(self.weight),
+                                widen(self.bias), training=False,
+                                eps=self.eps)
         if self.group is not None:
             return self._forward_synced(x)
         out = F.batch_norm(x, None, None, self.weight, self.bias,
                            training=True, eps=self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
-            self._fold(mean, var)
+            var, mu = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
+            self._fold(mu, var)
         return out
 
     def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,14 +149,15 @@ def frozen_running_stats(module: nn.Module):
 
 
 class SelfGating(nn.Module):
-    """Squeeze over (T, H, W) -> fc -> sigmoid -> channel rescale."""
+    """Squeeze over (T, H, W) -> fc -> sigmoid -> channel rescale, in the
+    input's dtype (the fc's compute dtype)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.fc = nn.Linear(channels, channels)
+        self.fc = Dense(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weights = torch.sigmoid(self.fc(x.mean(dim=(2, 3, 4))))
+        weights = torch.sigmoid(self.fc(mean(x, (2, 3, 4))))
         return weights[:, :, None, None, None] * x
 
 
@@ -258,13 +280,16 @@ class S3D(nn.Module):
     'sequence' -> (video sequence (B, T', D), text (B', D)).
     Train or eval behaviour (BatchNorm) follows ``module.train()``.
     ``remat``: recompute each Inception block in the backward (module
-    docstring); only where a backward can follow (train mode, grad on)."""
+    docstring); only where a backward can follow (train mode, grad on).
+    ``dtype``: the compute dtype (module docstring), ``compute_dtype``
+    of the model and of every module that computes (None for float32:
+    the parameters' dtype)."""
 
     def __init__(self, num_classes: int = 512, gating: bool = True,
                  use_space_to_depth: bool = False, inception_blocks: int = 9,
                  vocab_size: int = 66250, word_embedding_dim: int = 300,
                  text_hidden_dim: int = 2048, conv_impl: str = "native",
-                 remat: bool = False):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if not 1 <= inception_blocks <= 9:
             raise ValueError(
@@ -288,10 +313,12 @@ class S3D(nn.Module):
             self.add_module(name, block)
             self.block_names.append(name)
             channels = block.output_dim
-        self.fc = nn.Linear(channels, num_classes)
+        self.fc = Dense(channels, num_classes)
         self.text_module = SentenceEmbedding(num_classes, vocab_size,
                                              word_embedding_dim,
                                              text_hidden_dim)
+        self.compute_dtype = None
+        set_compute_dtype(self, dtype)
 
     def _trunk(self, video: torch.Tensor) -> torch.Tensor:
         net = video.permute(0, 4, 1, 2, 3)                # NDHWC -> NCDHW
@@ -320,14 +347,14 @@ class S3D(nn.Module):
 
     def forward_video(self, video: torch.Tensor,
                       mixed5c: bool = False) -> torch.Tensor:
-        net = self._trunk(video).mean(dim=(2, 3, 4))
+        net = mean(self._trunk(video), (2, 3, 4))
         return net if mixed5c else self.fc(net)
 
     def forward_video_sequence(self, video: torch.Tensor) -> torch.Tensor:
         """Temporal sequence of frame-group embeddings, the view the
         soft-DTW losses align: mixed_5c pooled over space only, then
         ``fc`` -> (B, T', num_classes).  No parameter of its own."""
-        net = self._trunk(video).mean(dim=(3, 4))         # (B, C, T')
+        net = mean(self._trunk(video), (3, 4))            # (B, C, T')
         return self.fc(net.transpose(1, 2))
 
     def forward_text(self, tokens: torch.Tensor) -> torch.Tensor:

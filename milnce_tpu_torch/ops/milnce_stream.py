@@ -36,11 +36,23 @@ logit as the parts' chains summed in rank order, so the forward's and the
 backward's logits are equal bit for bit; the plain twins sum the same
 parts when given them (``parts``).
 
+The bf16 mode (a bf16 model, JAX ``model.dtype = bfloat16``): the
+gathered operands ``v_all``/``t_all`` stay bf16, as the JAX kernels take
+them (``milnce_tpu/ops/milnce_pallas.py`` pads them uncast and upcasts
+each chunk inside the kernel); the local ``v``/``t`` are upcast to f32.
+Each kernel widens the bf16 operand to f32 as it copies it on chip, and
+every product and sum stays f32 (no bf16 tensor-core product: A is
+f32).  ``lse_bwd_cols`` writes the gathered gradients in bf16, each f32
+sum rounded once; ``g_v``/``g_t`` come back in the local operands' dtype.
+The plain twins follow the same contract: each block upcast to f32, the
+gathered gradients rounded to their operand's dtype a block at a time.
+
 ``LAUNCHES`` counts kernel launches, one per launch, under the kernel's
 name, the cluster path's under the name with ``_deep`` added and the
-slab path's with ``_deep_slab``, so a run can show that it went through
-the kernels; ``cuda_build.check_launch`` hands the same name to the op
-trace's launch hooks.
+slab path's with ``_deep_slab``, each with ``_bf16`` after it in the bf16
+mode, so a run can show that it went through the kernels and in which
+mode; ``cuda_build.check_launch`` hands the same name to the op trace's
+launch hooks.
 
 On the ``meta`` device (the memory planner, ``analysis/memplan.py``) the
 kernel path runs as on the card with the launch left out: the same plan
@@ -61,8 +73,10 @@ from milnce_tpu_torch.ops import cuda_build
 from milnce_tpu_torch.ops.softdtw import BIG
 
 KERNELS = ("lse_fwd", "lse_bwd_rows", "lse_bwd_cols")
-LAUNCHES = {f"{name}{mode}": 0 for mode in ("", "_deep", "_deep_slab")
-            for name in KERNELS}
+# the gathered operand's dtypes the kernels take, and the key suffix of each
+ELEMENT_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+LAUNCHES = {f"{name}{mode}{elem}": 0 for elem in ELEMENT_SUFFIX.values()
+            for mode in ("", "_deep", "_deep_slab") for name in KERNELS}
 
 
 def reset_launches() -> None:
@@ -179,8 +193,8 @@ _I = ctypes.c_int
 def _lib(defines=()) -> ctypes.CDLL:
     lib = cuda_build.load("milnce_stream", defines)
     if not getattr(lib, "_milnce_typed", False):
-        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 11, _P]
-        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 11,
+        lib.milnce_lse_fwd.argtypes = [_P, _P, _P, _P, *[_I] * 12, _P]
+        lib.milnce_lse_bwd.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 12,
                                        _P]
         lib.milnce_bwd_clusters.argtypes = [_I, _I]
         lib.milnce_fwd_clusters.argtypes = [_I]
@@ -196,12 +210,19 @@ def _lib(defines=()) -> ctypes.CDLL:
 
 
 def _check_operands(name: str, a, b, *rows) -> None:
+    """A and the per-row vectors f32; B (the gathered operand) f32 or
+    bf16."""
     for x in (a, b, *rows):
         if not (x.is_cuda or x.is_meta):
             raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                              f"one on {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+        if x is b:
+            if x.dtype not in ELEMENT_SUFFIX:
+                raise TypeError(f"{name}: the kernel takes a float32 or "
+                                f"bfloat16 B, got {x.dtype}")
+        elif x.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes a float32 A, lse and "
+                            f"g, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
@@ -319,11 +340,19 @@ def launch_mode(name: str, d: int, slab: bool = False
             1 if name == "lse_fwd" else -(-d // STREAM_DMAX))
 
 
-def launch_key(name: str, d: int) -> str:
+def launch_key(name: str, d: int, dtype=torch.float32,
+               slab: bool = False) -> str:
     """The ``LAUNCHES`` key under which a launch of kernel ``name`` at
-    depth ``d`` counts."""
-    mode = launch_mode(name, d)[1]
-    return name if mode == "held" else f"{name}_{mode}"
+    depth ``d`` (``slab`` as in :func:`launch_mode`) with a gathered
+    operand of ``dtype`` counts."""
+    return _key(name, launch_mode(name, d, slab)[1], dtype)
+
+
+def _key(name: str, mode: str, dtype) -> str:
+    """The ``LAUNCHES`` key of a launch of ``name`` in ``mode`` (a plan's)
+    with a gathered operand of ``dtype``."""
+    mode = "" if mode == "held" else f"_{mode}"
+    return f"{name}{mode}{ELEMENT_SUFFIX[dtype]}"
 
 
 def _plan(dmax: int, owned: int, streamed: int, d: int, sms: int, bm: int,
@@ -432,11 +461,13 @@ def _check_smem(name: str, query, need: int, device) -> None:
 
 
 def _vec(a, b) -> bool:
-    """Whether the kernel may copy both operands in 16-byte chunks."""
+    """Whether the kernel may copy both operands four elements at a time:
+    16-byte chunks of f32, 8-byte ones of bf16 (widened on the copy), so D
+    a multiple of 4 and each base aligned to four elements' bytes."""
     if a.is_meta:
         return a.shape[1] % 4 == 0
     return (a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0
-            and b.data_ptr() % 16 == 0)
+            and b.data_ptr() % (4 * b.element_size()) == 0)
 
 
 def _lib_of(x: torch.Tensor):
@@ -445,21 +476,19 @@ def _lib_of(x: torch.Tensor):
     return None if x.is_meta else _lib()
 
 
-def _count(name: str, plan: RowsPlan, x: torch.Tensor) -> None:
-    if not x.is_meta:
-        LAUNCHES[_counter(name, plan)] += 1
+def _count(name: str, plan: RowsPlan, a: torch.Tensor,
+           b: torch.Tensor) -> None:
+    if not a.is_meta:
+        LAUNCHES[_key(name, plan.mode, b.dtype)] += 1
 
 
 def lse_fwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32."""
+    """Kernel: lse_r = logsumexp_j a_r . b_j, (R,) f32; A f32, B f32 or
+    bf16."""
     _check_operands("lse_fwd", a, b)
     out, plan = launch_fwd(_lib_of(a), a, b)
-    _count("lse_fwd", plan, a)
+    _count("lse_fwd", plan, a, b)
     return out
-
-
-def _counter(name: str, plan: RowsPlan) -> str:
-    return name if plan.mode == "held" else f"{name}_{plan.mode}"
 
 
 def card_fwd_plan(lib, r: int, c: int, d: int, device) -> RowsPlan:
@@ -491,14 +520,14 @@ def launch_fwd(lib, a, b, _plan: RowsPlan | None = None
         plan.dmax, plan.bm, plan.bn, code), plan.smem_bytes, a.device)
     part_m, part_s = torch.empty((2, *plan.scratch), device=a.device)
     if a.is_meta:
-        cuda_build.note_launch(_counter("lse_fwd", plan))
+        cuda_build.note_launch(_key("lse_fwd", plan.mode, b.dtype))
     else:
         err = lib.milnce_lse_fwd(
             a.data_ptr(), b.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
             r, c, d, plan.dmax, plan.bm, plan.bn, code, _kw(plan),
             plan.nsplit, plan.tps, int(_vec(a, b)),
-            cuda_build.current_stream(a))
-        cuda_build.check_launch(_counter("lse_fwd", plan), err)
+            int(b.dtype == torch.bfloat16), cuda_build.current_stream(a))
+        cuda_build.check_launch(_key("lse_fwd", plan.mode, b.dtype), err)
     m = part_m.amax(dim=0)
     return m + torch.log((part_s * torch.exp(part_m - m)).sum(dim=0)), plan
 
@@ -513,15 +542,16 @@ def _lse_bwd_rows_and_sums(a, b, lse, g):
     b_j - lse_r) over the kernel's own logits (else None)."""
     _check_operands("lse_bwd_rows", a, b, lse, g)
     out, plan, sums = launch_bwd(_lib_of(a), a, b, lse, g, cols=False)
-    _count("lse_bwd_rows", plan, a)
+    _count("lse_bwd_rows", plan, a, b)
     return out, sums
 
 
 def lse_bwd_cols(a, b, lse, g) -> torch.Tensor:
-    """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r."""
+    """Kernel: dB (C, D) = sum_r exp(a_r . b_j - lse_r) g_r a_r, in B's
+    dtype (bf16: each f32 sum rounded once)."""
     _check_operands("lse_bwd_cols", a, b, lse, g)
     out, plan, _ = launch_bwd(_lib_of(a), a, b, lse, g, cols=True)
-    _count("lse_bwd_cols", plan, a)
+    _count("lse_bwd_cols", plan, a, b)
     return out
 
 
@@ -570,7 +600,9 @@ def launch_bwd(lib, a, b, lse, g, cols: bool, _plan: RowsPlan | None = None
     replaces the plan (a timing of the slab path at a depth the cluster
     path takes).  Returns the gradient, the plan and, for dA on the
     cluster path, the sums (R,) of the weights before g over each row
-    (else None)."""
+    (else None).  dA is f32; dB is in B's dtype: with a bf16 B and one
+    split the kernel writes it in bf16, with more the f32 sum of the
+    splits is rounded once."""
     name = "lse_bwd_cols" if cols else "lse_bwd_rows"
     (r, d), c = a.shape, b.shape[0]
     plan = _plan or card_bwd_plan(lib, cols, r, c, d, a.device)
@@ -578,26 +610,41 @@ def launch_bwd(lib, a, b, lse, g, cols: bool, _plan: RowsPlan | None = None
     _check_smem(name, lambda: lib.milnce_bwd_rows_smem(plan.dmax, plan.bn,
                                                        code),
                 plan.smem_bytes, a.device)
-    part = torch.empty(plan.scratch, device=a.device)
+    bf16 = b.dtype == torch.bfloat16
+    # the kernel writes dB in bf16 itself where B is bf16 and one split
+    # covers the columns
+    out16 = cols and bf16 and plan.nsplit == 1
+    part = torch.empty(plan.scratch[1:] if out16 else plan.scratch,
+                       dtype=b.dtype if out16 else torch.float32,
+                       device=a.device)
     sums = (torch.empty(plan.scratch[:2], device=a.device)
             if plan.mode == "deep" and not cols else None)
     if a.is_meta:
-        cuda_build.note_launch(_counter(name, plan))
+        cuda_build.note_launch(_key(name, plan.mode, b.dtype))
     else:
         err = lib.milnce_lse_bwd(
             a.data_ptr(), b.data_ptr(), lse.data_ptr(), g.data_ptr(),
             part.data_ptr(), None if sums is None else sums.data_ptr(), r, c,
             d, int(cols), plan.dmax, plan.bn, code, _kw(plan), plan.nsplit,
-            plan.tps, int(_vec(a, b)), cuda_build.current_stream(a))
-        cuda_build.check_launch(_counter(name, plan), err)
-    grad = part[0] if plan.nsplit == 1 else part.sum(dim=0)
+            plan.tps, int(_vec(a, b)), int(bf16),
+            cuda_build.current_stream(a))
+        cuda_build.check_launch(_key(name, plan.mode, b.dtype), err)
+    if out16:
+        grad = part
+    else:
+        grad = part[0] if plan.nsplit == 1 else part.sum(dim=0)
+        if cols:
+            grad = grad.to(b.dtype)
     return grad, plan, None if sums is None else sums.sum(dim=0)
 
 
 class _StreamCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, t, v_all, t_all):
-        v, t = v.contiguous(), t.contiguous()
+        """The local v, t upcast to f32 (as the JAX kernels pad
+        ``v.astype(f32)``); v_all, t_all in their own dtype, f32 or bf16."""
+        ctx.dtypes = v.dtype, t.dtype
+        v, t = v.float().contiguous(), t.float().contiguous()
         v_all, t_all = v_all.contiguous(), t_all.contiguous()
         row = lse_fwd(v, t_all)
         col = lse_fwd(t, v_all)
@@ -622,7 +669,8 @@ class _StreamCuda(torch.autograd.Function):
             g_v, g_row = g_v / s_row[:, None], g_row / s_row
         if s_col is not None:
             g_t, g_col = g_t / s_col[:, None], g_col / s_col
-        return (g_v, g_t, lse_bwd_cols(t, v_all, col, g_col),
+        return (g_v.to(ctx.dtypes[0]), g_t.to(ctx.dtypes[1]),
+                lse_bwd_cols(t, v_all, col, g_col),
                 lse_bwd_cols(v, t_all, row, g_row))
 
 

@@ -14,7 +14,11 @@ is no length cap.
 ``SoftDTW(backend=...)`` picks the recurrence: ``scan`` the plain one on
 any device, ``cuda`` the hand-written kernels of ``ops/softdtw_cuda.py``
 (CUDA tensors only; a CPU tensor raises), ``auto`` the kernels for CUDA
-tensors and the plain recurrence for CPU tensors.
+tensors and the plain recurrence for CPU tensors.  The kernels take D in
+f32 (a bf16 model's costs are cast, as the JAX Pallas kernel casts them),
+and ``auto`` on a CPU tensor widens a 16-bit cost to f32 too, so a bf16
+model's DTW losses are the same function on both devices; ``scan`` keeps
+the input's dtype, as the JAX ``lax.scan`` does.
 """
 
 from __future__ import annotations
@@ -195,6 +199,9 @@ class SoftDTW:
             from milnce_tpu_torch.ops.softdtw_cuda import softdtw_cuda
 
             return softdtw_cuda(D, self.gamma, self.bandwidth)
+        if self.backend == "auto" and D.dtype in (torch.bfloat16,
+                                                  torch.float16):
+            D = D.float()
         return softdtw_scan(D, self.gamma, self.bandwidth)
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,11 @@ Frozen params: the engine takes the model (and optionally Flax-shaped
 ``{'params', 'batch_stats'}`` variables, loaded into it with a strict
 ``load_state_dict``), moves it to its device once and keeps it in eval
 mode; no optimizer state exists here (see ``serving/export.py``).
+``dtype="bfloat16"`` (``serve.dtype``) serves a bf16 model as the JAX
+engine does: the model computes in bf16 and every float leaf, parameters
+and BatchNorm statistics, is cast to bf16 on the device; the embeddings
+come back as float32 arrays of the bf16 values.  An export whose model
+config says bfloat16 computes in bf16 over its f32 arrays without it.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 a ``cuda`` request without a card raises, nothing falls back.
 """
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from milnce_tpu_torch.analysis.lockrt import make_lock
+from milnce_tpu_torch.models.precision import torch_dtype
 from milnce_tpu_torch.obs import spans as obs_spans
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.serving.batcher import pad_rows
@@ -114,11 +120,12 @@ def load_serving_model(export_dir: str, dtype: str = ""):
     serves through :class:`~milnce_tpu_torch.quant.quantize.QuantizedModel`
     (int8 resident, dequantized inside every call).
 
+    ``dtype`` overrides the exported model's compute dtype (the engine's
+    ``cast_dtype`` then casts the variables, as the JAX engine's does).
     Refused, each with its reason: a ``dtype`` override on a v2 artifact
     (its int8 weights and f32 scales are its precision contract, as in
-    JAX); a ``dtype`` other than float32, until a bf16 model has its own
-    parity argument; a model config the port's ``build_model`` refuses
-    (``conv_impl_map``)."""
+    JAX); a model config the port's ``build_model`` refuses (a dtype
+    other than float32 or bfloat16, ``conv_impl_map``)."""
     from milnce_tpu_torch.config import ModelConfig
     from milnce_tpu_torch.models.build import build_model
     from milnce_tpu_torch.serving.export import (QUANT_FORMAT_VERSION,
@@ -136,12 +143,11 @@ def load_serving_model(export_dir: str, dtype: str = ""):
                 "precision contract")
         meta, variables = load_quantized_checkpoint(export_dir)
     else:
-        if dtype and dtype != "float32":
-            raise ValueError(
-                f"dtype={dtype!r}: the torch port serves float32 only — a "
-                "bfloat16 model needs its own parity argument first")
         meta, variables = load_inference_checkpoint(export_dir)
-    model = build_model(ModelConfig(**meta["model"]))
+    model_cfg = ModelConfig(**meta["model"])
+    if dtype:
+        model_cfg.dtype = dtype
+    model = build_model(model_cfg)
     return model, variables, meta
 
 
@@ -156,6 +162,10 @@ class InferenceEngine:
       serves ``QuantizedModel(model, variables)``: int8 on the device,
       dequantized inside every call.  None serves the model's own
       weights.
+    - ``cast_dtype``: optional float dtype ('bfloat16') the frozen
+      parameters and BatchNorm statistics are cast to at load (the JAX
+      engine's ``cast_dtype``); the model must be built with the matching
+      compute dtype (:meth:`from_export` wires both).
     - ``text_words`` / ``video_shape``: the fixed per-row input shapes
       ((W,) token ids / (T, H, W, 3) uint8 frames); requests with any
       other trailing shape are rejected.
@@ -166,7 +176,7 @@ class InferenceEngine:
     def __init__(self, model, variables=None, *, device="cuda",
                  text_words: int, video_shape: Sequence[int],
                  max_batch: int = 64, min_bucket: int = 0,
-                 precompile: bool = True,
+                 cast_dtype: Optional[str] = None, precompile: bool = True,
                  dispatch_lock=None):
         self.device = serving_device(device)
         self._dispatch_lock = (dispatch_lock if dispatch_lock is not None
@@ -183,6 +193,8 @@ class InferenceEngine:
             from milnce_tpu_torch.utils.torch_convert import load_jax_variables
 
             load_jax_variables(model, variables)
+        if cast_dtype:
+            model = model.to(torch_dtype(cast_dtype))
         # one explicit move at boot; steady state never moves params
         self.model = model.to(self.device).eval()
         self._text_fn = make_text_embed_fn(self.model)
@@ -214,8 +226,9 @@ class InferenceEngine:
     # ---- entries ---------------------------------------------------------
 
     def embed_text(self, token_ids: np.ndarray) -> np.ndarray:
-        """(n, W) int32 token ids -> (n, D) float32 embeddings; n is
-        padded to the bucket internally and unpadded on return."""
+        """(n, W) int32 token ids -> (n, D) float32 embeddings (a bf16
+        model's values, widened); n is padded to the bucket internally and
+        unpadded on return."""
         rows = np.ascontiguousarray(token_ids, dtype=np.int32)
         if rows.ndim != 2 or rows.shape[1] != self.text_words:
             raise ValueError(f"expected (n, {self.text_words}) token ids, "
@@ -249,7 +262,7 @@ class InferenceEngine:
         # both legs of the request are explicit copies, next to its work
         with self._dispatch_lock:
             x = torch.from_numpy(rows).to(self.device)
-            out = fn(x).to("cpu").numpy()
+            out = fn(x).to("cpu").float().numpy()
         with self._stats_lock:
             self._calls[(entry, bucket)] = \
                 self._calls.get((entry, bucket), 0) + 1
@@ -318,10 +331,13 @@ class InferenceEngine:
                     max_batch: int = 64, min_bucket: int = 0,
                     precompile: bool = True) -> "InferenceEngine":
         """Build model + engine from a ``milnce-export`` directory (either
-        package's); refusals as :func:`load_serving_model`."""
+        package's).  ``dtype`` overrides the exported compute dtype
+        ('bfloat16' builds the model at bf16 AND casts the frozen
+        parameters and statistics; '' keeps the exported dtype); refusals
+        as :func:`load_serving_model`."""
         model, variables, meta = load_serving_model(export_dir, dtype)
         return cls(model, variables, device=device,
                    text_words=meta["tokenizer"]["max_words"],
                    video_shape=meta["video_shape"],
                    max_batch=max_batch, min_bucket=min_bucket,
-                   precompile=precompile)
+                   cast_dtype=(dtype or None), precompile=precompile)

@@ -14,9 +14,11 @@ torch checkpoint, no model code at read time.
 The keys are the JAX package's: the port's ``state_dict`` (which keeps
 the reference PyTorch names and layouts) is mapped to Flax paths by
 ``utils/torch_convert.py::torch_state_dict_to_flax`` and back by
-``flax_to_torch_state_dict``.  Float leaves are stored float32; a
-lower precision would be a LOAD-time decision, which the port refuses
-until it has its own parity argument (``engine.load_serving_model``).
+``flax_to_torch_state_dict``.  Float leaves are stored float32; casting
+to bf16 is a LOAD-time decision (``InferenceEngine.from_export(dtype=
+'bfloat16')``), so one artifact serves both precisions, as in JAX.  The
+metadata's model config keeps the run's ``dtype``: an export of a bf16
+run (``--model.dtype bfloat16``) computes in bf16 over its f32 arrays.
 
 Besides the f32 format (v1) this module writes and reads the quantized
 edge-tier artifact (v2: int8 params, their f32 scales under the

@@ -815,18 +815,19 @@ class ReplicaPool:
                       video_shape: Sequence[int], max_batch: int,
                       min_bucket: int, precompile: bool,
                       **pool_kwargs) -> "ReplicaPool":
-        """One engine per ``(model, variables, class)`` spec, each on its
-        device from :meth:`partition_devices`, over its own copy of the
-        model and with its OWN dispatch lock (named ``serving.replica<i>.
-        dispatch`` — distinct order classes for the runtime sanitizer)."""
+        """One engine per ``(model, variables, cast_dtype, class)`` spec,
+        each on its device from :meth:`partition_devices`, over its own
+        copy of the model and with its OWN dispatch lock (named
+        ``serving.replica<i>.dispatch`` — distinct order classes for the
+        runtime sanitizer)."""
         devs = cls.partition_devices(devices, len(specs))
         engines = [InferenceEngine(
             copy.deepcopy(m), v, device=dev, text_words=text_words,
             video_shape=video_shape, max_batch=max_batch,
-            min_bucket=min_bucket, precompile=precompile,
+            min_bucket=min_bucket, cast_dtype=cast, precompile=precompile,
             dispatch_lock=make_lock(f"serving.replica{i}.dispatch"))
-            for i, (dev, (m, v, _)) in enumerate(zip(devs, specs))]
-        return cls(engines, classes=[c for _, _, c in specs], **pool_kwargs)
+            for i, (dev, (m, v, cast, _)) in enumerate(zip(devs, specs))]
+        return cls(engines, classes=[c for *_, c in specs], **pool_kwargs)
 
     @classmethod
     def build(cls, model, variables, n_replicas: int, *, text_words: int,
@@ -835,7 +836,7 @@ class ReplicaPool:
               precompile: bool = True, **pool_kwargs) -> "ReplicaPool":
         """``n_replicas`` engines over ``model``, one device each."""
         return cls._over_devices(
-            [(model, variables, F32_CLASS)] * n_replicas, devices,
+            [(model, variables, None, F32_CLASS)] * n_replicas, devices,
             text_words=text_words, video_shape=video_shape,
             max_batch=max_batch, min_bucket=min_bucket,
             precompile=precompile, **pool_kwargs)
@@ -862,7 +863,7 @@ class ReplicaPool:
         from milnce_tpu_torch.serving.engine import load_serving_model
 
         model, variables, meta = load_serving_model(export_dir, dtype)
-        specs = [(model, variables, F32_CLASS)] * n_replicas
+        specs = [(model, variables, dtype or None, F32_CLASS)] * n_replicas
         if edge_export_dir and edge_replicas:
             emodel, evars, emeta = load_serving_model(edge_export_dir)
             if (emeta["tokenizer"]["max_words"]
@@ -875,7 +876,7 @@ class ReplicaPool:
                     f"{emeta['tokenizer']['max_words']} vs "
                     f"{meta['tokenizer']['max_words']}, video_shape "
                     f"{emeta['video_shape']} vs {meta['video_shape']}")
-            specs += [(emodel, evars, edge_class)] * edge_replicas
+            specs += [(emodel, evars, None, edge_class)] * edge_replicas
         return cls._over_devices(
             specs, devices, text_words=meta["tokenizer"]["max_words"],
             video_shape=meta["video_shape"], max_batch=max_batch,

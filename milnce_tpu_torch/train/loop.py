@@ -28,7 +28,8 @@ on the process-wide registry; the EWMA step-time spike detector
 (``train.capture_*``, also armed by SIGUSR1); ``train.trace_dir``; and
 at the end the goodput ledger, ``GOODPUT.json`` (rank r:
 ``GOODPUT.p{r}.json``) beside the stream.  The ``step`` span holds the
-step's device work: the finite guard reads its verdict on the host.
+step's device work; the finite guard keeps its window on the device and
+the loop reads it at the display cadence, in the ``sync`` span.
 
 Across ranks, rank 0 logs, saves the checkpoints and runs the eval while
 the others wait at a barrier; every rank restores on resume and on a
@@ -397,7 +398,7 @@ class _RunObs:
         # dtype
         self.peak = device_peak_flops(
             torch.cuda.get_device_name(device) if device.type == "cuda"
-            else device.type)
+            else device.type, cfg.model.dtype)
         self.n_cards = ranks.world
         self.cfg = cfg
         self.step_flops = None

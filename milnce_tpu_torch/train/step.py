@@ -3,12 +3,17 @@
 
 A step takes the uint8 ``(B, T, H, W, 3)`` clip, the ``(B*K, W)`` token
 ids and the ``(B,)`` f32 clip start times already on the device, divides
-the clip by 255 there, runs both towers in train mode, the loss and the
-backward, then the optimizer.  ``loss.name`` picks the loss: ``milnce``
-scores pooled embeddings; the DTW family (``cdtw``, ``sdtw_cidm``,
-``sdtw_negative``, ``sdtw_3``) runs the model with ``mode="sequence"``
-and scores the (B, T', D) video sequences against the (B, K, D)
-candidate-text sequences; only ``sdtw_cidm`` reads ``start``.
+the clip by 255 there in the model's compute dtype, runs both towers in
+train mode, the loss and the backward, then the optimizer.  ``loss.name``
+picks the loss: ``milnce`` scores pooled embeddings; the DTW family
+(``cdtw``, ``sdtw_cidm``, ``sdtw_negative``, ``sdtw_3``) runs the model
+with ``mode="sequence"`` and scores the (B, T', D) video sequences
+against the (B, K, D) candidate-text sequences; only ``sdtw_cidm`` reads
+``start``.  A bf16
+model (``model.dtype = bfloat16``) hands the losses bf16 embeddings and
+gets f32 parameter gradients back through its casts, so the reduction,
+the finite guard and the fused optimizer run in f32 as for an f32
+model.
 
 Across the ranks of a ``group`` each rank steps its shard of the global
 batch, as the JAX step's ``shard_map`` body does:
@@ -109,8 +114,12 @@ def _sequence_loss(loss_cfg, v_seq, t_seq, start, group=None):
 
 
 def _normalize(video_u8: torch.Tensor, model) -> torch.Tensor:
-    """uint8 clip -> [0, 1] in the model's dtype (float32 in training)."""
-    dtype = next(model.parameters()).dtype
+    """uint8 clip -> [0, 1] in the model's compute dtype (else its
+    parameters'), divided in it (a bf16 model: ``u8.astype(bf16) / 255``
+    in bf16, as the JAX step normalizes straight into the compute
+    dtype)."""
+    dtype = (getattr(model, "compute_dtype", None)
+             or next(model.parameters()).dtype)
     return video_u8.to(dtype) / 255.0
 
 

@@ -29,19 +29,29 @@ H100_HBM_BYTES = 3.35e12
 # SXM card's name ("NVIDIA H100 80GB HBM3") matches only the last key.
 PEAK_F32_FLOPS_BY_NAME = {"h100 pcie": 51e12, "h100 nvl": 60e12,
                           "h100": H100_F32_FLOPS}
+# dense bf16 tensor-core FLOP/s (the same data sheet, without sparsity):
+# the peak of a bf16 model, as the JAX package's MFU divides by the TPU's
+# dense bf16 rate
+H100_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS_BY_NAME = {"h100 pcie": 756e12, "h100 nvl": 835e12,
+                           "h100": H100_BF16_FLOPS}
+PEAK_FLOPS_BY_DTYPE = {"float32": PEAK_F32_FLOPS_BY_NAME,
+                       "bfloat16": PEAK_BF16_FLOPS_BY_NAME}
 
 
-def device_peak_flops(device_name: str = "") -> Optional[float]:
-    """Peak FLOP/s of one card for the dtype the port's model runs in (f32,
-    TF32 off), for a ``torch.cuda.get_device_name()`` naming an H100;
-    None for any other card or the CPU, and the MFU gauge stays unset.
-    ``MILNCE_PEAK_FLOPS`` overrides, as in the JAX package: how hermetic
-    CPU tests get a deterministic MFU denominator."""
+def device_peak_flops(device_name: str = "",
+                      dtype: str = "float32") -> Optional[float]:
+    """Peak FLOP/s of one card for the model's compute ``dtype``
+    (``ModelConfig.dtype``): f32 outside the tensor cores (TF32 off) or
+    bf16 on the tensor cores, for a ``torch.cuda.get_device_name()``
+    naming an H100; None for any other card or the CPU, and the MFU gauge
+    stays unset.  ``MILNCE_PEAK_FLOPS`` overrides, as in the JAX package:
+    how hermetic CPU tests get a deterministic MFU denominator."""
     env = os.environ.get("MILNCE_PEAK_FLOPS", "")
     if env:
         return float(env)
     name = device_name.lower()
-    for key, val in PEAK_F32_FLOPS_BY_NAME.items():
+    for key, val in PEAK_FLOPS_BY_DTYPE[dtype].items():
         if key in name:
             return val
     return None

@@ -8,7 +8,8 @@ at import).  On the card:
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-4 * max|plain| (f32; the stream
 sums in another order over up to Bg*K columns, the soft-DTW kernels
-repeat their plain versions' arithmetic).
+repeat their plain versions' arithmetic); a bf16 gradient that plus one
+bf16 ulp (both round one f32 sum).
 """
 
 import dataclasses
@@ -256,6 +257,46 @@ def test_auto_stream_launches_the_kernels_or_refuses_the_depth(cuda, d):
     assert ms.LAUNCHES[name] == 2 and sum(ms.LAUNCHES.values()) == 2
     _close(row, ms.milnce_stream_plain(*arrays, 5)[0])
     _close(col, ms.milnce_stream_plain(*arrays, 5)[1])
+
+
+@pytest.mark.parametrize("d", [512, 13, 1024, 4608])
+def test_bf16_mode_matches_the_plain_twins(cuda, d):
+    """The stream on bf16 operands (a bf16 model's embeddings) launches
+    the kernels' bf16 mode, held, on the cluster path or on the slab
+    path, under the ``_bf16`` keys, and agrees with the plain twins on
+    the same operands: the lse within the f32 limit, every gradient bf16
+    and within one bf16 ulp of the plain twins' (each an f32 sum rounded
+    once in both) plus the f32 limit."""
+    rng = np.random.default_rng(d)
+    bf16 = torch.bfloat16
+    arrays = [torch.tensor(rng.standard_normal((n, d), np.float32)
+                           * d ** -0.25, device=cuda).to(bf16)
+              for n in (4, 12, 8, 24)]
+    g = [torch.tensor(rng.standard_normal(n, np.float32), device=cuda)
+         for n in (4, 12)]
+    out = {}
+    for name, stream in (("kernels", ms.milnce_stream_cuda),
+                         ("plain", ms.milnce_stream_plain)):
+        leaves = [x.clone().requires_grad_() for x in arrays]
+        ms.reset_launches()
+        row, col = stream(*leaves, 3)
+        grads = torch.autograd.grad((row, col), leaves, g)
+        out[name] = (row, col, grads, dict(ms.LAUNCHES))
+    row, col, grads, launches = out["kernels"]
+    row, col = row.detach(), col.detach()
+    keys = {ms.launch_key(k, d, bf16) for k in ms.KERNELS}
+    assert {k for k, n in launches.items() if n} == keys
+    assert all(launches[k] == 2 for k in keys)
+    assert not any(out["plain"][3].values())
+    _close(row, out["plain"][0].detach())
+    _close(col, out["plain"][1].detach())
+    for got, want in zip(grads, out["plain"][2]):
+        assert got.dtype == want.dtype == bf16
+        got, want = got.float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -126))) - 7)
+        lim = 1e-5 + 1e-4 * float(want.abs().max())
+        assert bool(((got - want).abs() <= ulp + lim).all())
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):

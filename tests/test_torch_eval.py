@@ -98,6 +98,28 @@ def test_retrieval_metrics_match_jax(n, levels):
     assert compute_retrieval_metrics(sim) == jax_compute_retrieval_metrics(sim)
 
 
+def test_bf16_window_mean_is_numpys_over_ml_dtypes():
+    """A bf16 model's clip embeddings are pooled over the windows as the
+    JAX eval pools its bf16 arrays (``np.mean`` over
+    ``ml_dtypes.bfloat16``: each partial sum rounded to bf16), bit for
+    bit; their similarity is the f32 product in both (numpy's product of
+    two bf16 arrays is f32)."""
+    import ml_dtypes
+
+    from milnce_tpu_torch.eval.retrieval import _window_mean
+
+    rng = np.random.default_rng(21)
+    clips = rng.standard_normal((9, 4, 16)).astype(np.float32)
+    want = clips.astype(ml_dtypes.bfloat16).mean(axis=1)
+    got = _window_mean(torch.from_numpy(clips).bfloat16())
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    text = rng.standard_normal((9, 16)).astype(ml_dtypes.bfloat16)
+    sim = text @ want.T
+    assert sim.dtype == np.float32
+    np.testing.assert_array_equal(text.astype(np.float32) @ got.T, sim)
+
+
 # --------------------------------------------------- retrieval embeddings
 def _vocab(rows, field):
     words = sorted({w for r in rows for w in Tokenizer.split(r[field])})

@@ -501,13 +501,19 @@ def test_forward_modes_launch_keys():
     ``lse_fwd`` held, ``lse_fwd_deep`` on the cluster path up to
     CLUSTER_REACH, ``lse_fwd_deep_slab`` past it."""
     assert {k for k in ms.LAUNCHES if k.startswith("lse_fwd")} == {
-        "lse_fwd", "lse_fwd_deep", "lse_fwd_deep_slab"}
+        f"lse_fwd{m}{e}" for m in ("", "_deep", "_deep_slab")
+        for e in ("", "_bf16")}
     for d, key in ((768, "lse_fwd"), (769, "lse_fwd_deep"),
                    (4096, "lse_fwd_deep"), (4097, "lse_fwd_deep_slab"),
                    (4608, "lse_fwd_deep_slab")):
         assert ms.launch_key("lse_fwd", d) == key
         plan = ms.fwd_plan(4, 8, d, sms=132)
-        assert ms._counter("lse_fwd", plan) == key
+        assert ms._key("lse_fwd", plan.mode, torch.float32) == key
+        assert ms.launch_key("lse_fwd", d, torch.bfloat16) == key + "_bf16"
+        assert ms._key("lse_fwd", plan.mode, torch.bfloat16) == key + "_bf16"
+        if d > ms.STREAM_DMAX:
+            assert ms.launch_key("lse_fwd", d, torch.bfloat16, slab=True) == (
+                "lse_fwd_deep_slab_bf16")
 
 
 def test_fwd_launch_plan_shapes_and_refusal():
@@ -557,5 +563,6 @@ def test_stream_refuses_the_depth_before_any_launch():
             ms.milnce_stream_cuda(v, t, v, t, 2)
         assert ms.check_depth("milnce_stream_cuda", d)[1] == mode
     assert all(n == 0 for n in ms.LAUNCHES.values())
-    assert set(ms.LAUNCHES) == {f"{k}{m}" for k in ms.KERNELS
-                                for m in ("", "_deep", "_deep_slab")}
+    assert set(ms.LAUNCHES) == {f"{k}{m}{e}" for k in ms.KERNELS
+                                for m in ("", "_deep", "_deep_slab")
+                                for e in ("", "_bf16")}

@@ -936,3 +936,34 @@ def test_multi_card_groups_and_missing_cards_are_refused():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ReplicaPool.partition_devices(None, 1)
+
+
+def test_pool_serves_bfloat16_and_keeps_the_edge_at_its_precision(
+        mixed_stack):
+    """``serve.dtype`` reaches every f32-class replica, as the JAX pool's
+    ``from_export(dtype=...)``: bf16 parameters and BatchNorm statistics,
+    embeddings equal to one bf16 engine's on the same export; the int8
+    edge replica keeps its own precision."""
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+
+    pool = ReplicaPool.from_export(
+        mixed_stack["f32_dir"], 2, dtype="bfloat16", max_batch=8,
+        devices=["cpu"] * 3, edge_export_dir=mixed_stack["q_dir"],
+        edge_replicas=1)
+    try:
+        for r in pool.replicas:
+            model = r.engine.model
+            floats = {t.dtype for t in [*model.parameters(),
+                                        *model.buffers()]
+                      if t.is_floating_point()}
+            assert floats == ({torch.bfloat16} if r.cls == "f32"
+                              else {torch.float32}), r.cls
+        one = InferenceEngine.from_export(mixed_stack["f32_dir"],
+                                          device="cpu", dtype="bfloat16",
+                                          max_batch=8, precompile=False)
+        tokens = np.random.default_rng(9).integers(
+            1, 64, (3, _WORDS)).astype(np.int32)
+        np.testing.assert_array_equal(pool.embed_text(tokens, cls="f32"),
+                                      one.embed_text(tokens))
+    finally:
+        pool.close()

@@ -47,6 +47,8 @@ from milnce_tpu_torch.train.schedule import build_schedule
 from milnce_tpu_torch.train.state import build_optimizer
 from milnce_tpu_torch.utils.torch_convert import torch_state_dict_to_flax
 
+from torch_bf16_close import assert_bf16_close
+
 torch.set_num_threads(1)         # six test workers share the cores
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -330,10 +332,75 @@ def test_corpus_snapshot_round_trips_between_packages(writer, tmp_path):
                                        export.INDEX_METADATA_FILE]
 
 
+def test_port_serves_an_f32_export_at_bfloat16(port_export, inputs):
+    """One f32 artifact serves both precisions, as in JAX
+    (``tests/test_export.py::test_bf16_cast_is_a_load_time_decision``):
+    ``dtype='bfloat16'`` builds the model at bf16 and casts every float
+    leaf, parameters and BatchNorm statistics, at load.  Its embeddings
+    (float32 arrays of bf16 values) against the JAX engine's at bf16:
+    within 8 bf16 unit roundoffs of their largest magnitude (ten bf16
+    layers, each rounding at every op) and no farther from the f32
+    engine's in norm than 2x JAX's (``tests/torch_bf16_close.py``)."""
+    ids, clips = inputs
+    port = InferenceEngine.from_export(port_export, device="cpu", max_batch=4,
+                                       dtype="bfloat16", precompile=False)
+    assert {p.dtype for p in port.model.parameters()} == {torch.bfloat16}
+    assert {b.dtype for b in port.model.buffers()
+            if b.is_floating_point()} == {torch.bfloat16}
+    f32 = InferenceEngine.from_export(port_export, device="cpu", max_batch=4,
+                                      precompile=False)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jx = JaxEngine.from_export(port_export, mesh, max_batch=4,
+                               dtype="bfloat16", precompile=False)
+    for entry, rows in (("text", ids), ("video", clips)):
+        got = getattr(port, f"embed_{entry}")(rows)
+        want = np.asarray(getattr(jx, f"embed_{entry}")(rows))
+        assert got.dtype == np.float32 and str(want.dtype) == "bfloat16"
+        widened = torch.from_numpy(got)
+        assert torch.equal(widened.bfloat16().float(), widened), entry
+        assert_bf16_close(got, want, getattr(f32, f"embed_{entry}")(rows), 8,
+                          entry)
+
+
+def test_bf16_run_export_computes_in_bf16_over_f32_arrays(port_export,
+                                                          inputs, tmp_path):
+    """The export of a bf16 run (its model config's ``dtype`` bfloat16)
+    keeps f32 arrays; both engines build the model at bf16 from the
+    metadata and, with no override, serve it over the f32 weights (as
+    the JAX engine does: ``cast_dtype`` only with a ``dtype``).  The
+    port's embeddings against the JAX engine's within the bf16 limits of
+    :func:`test_port_serves_an_f32_export_at_bfloat16`."""
+    meta, variables = export.load_inference_checkpoint(port_export)
+    out = export.export_inference_checkpoint(
+        str(tmp_path / "bf16-run"), variables["params"],
+        variables["batch_stats"],
+        ModelConfig(**dict(meta["model"], dtype="bfloat16")),
+        max_words=meta["tokenizer"]["max_words"],
+        video_shape=meta["video_shape"])
+    assert _meta(out)["model"]["dtype"] == "bfloat16"
+    assert {str(a.dtype) for a in _arrays(out).values()} == {"float32"}
+    ids, clips = inputs
+    port = InferenceEngine.from_export(out, device="cpu", max_batch=4,
+                                       precompile=False)
+    assert port.model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in port.model.parameters()} == {torch.float32}
+    f32 = InferenceEngine.from_export(port_export, device="cpu", max_batch=4,
+                                      precompile=False)
+    jx = _jax_engine(out)
+    for entry, rows in (("text", ids), ("video", clips)):
+        got = getattr(port, f"embed_{entry}")(rows)
+        want = np.asarray(getattr(jx, f"embed_{entry}")(rows))
+        assert str(want.dtype) == "bfloat16", entry
+        assert_bf16_close(got, want, getattr(f32, f"embed_{entry}")(rows), 8,
+                          entry)
+
+
 def test_port_refuses_v2_and_bfloat16(port_export, tmp_path):
     """Since the port has ``quant/`` it serves a v2 artifact (int8
-    resident); what stays refused is a dtype override on one, as in JAX,
-    and a bfloat16 model."""
+    resident); what stays refused is a dtype override on one (bfloat16
+    included), as in JAX; a bfloat16 model is served
+    (:func:`test_port_serves_an_f32_export_at_bfloat16`), a dtype the port
+    has no model for is refused."""
     out = str(tmp_path / "v2")
     export.export_quantized_checkpoint(
         out, _qvariables(port_export), ModelConfig(**_MODEL),
@@ -346,11 +413,11 @@ def test_port_refuses_v2_and_bfloat16(port_export, tmp_path):
                                         precompile=False)
     engine = InferenceEngine.from_export(out, device="cpu", max_batch=2)
     assert {b.dtype for b in engine.model.buffers()} >= {torch.int8}
-    with pytest.raises(ValueError, match="bfloat16"):
-        load_serving_model(port_export, dtype="bfloat16")
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="float16"):
+        load_serving_model(port_export, dtype="float16")
+    with pytest.raises(ValueError, match="float16"):
         InferenceEngine.from_export(port_export, device="cpu",
-                                    dtype="bfloat16", precompile=False)
+                                    dtype="float16", precompile=False)
 
 
 def test_port_refuses_a_conv_impl_map(jax_export_dir, tmp_path):

@@ -43,7 +43,9 @@ Phases, each fatal on failure:
                a ragged one (D = 13), ``split`` (lse_bwd_cols's split
                partials), D = 1024 (cluster paths) and D = 4608 (slab
                paths): the lse and dA within the f32 limit, the bf16 dB
-               within it plus one bf16 ulp of each element; the stream
+               within it plus one bf16 ulp of each element, and every
+               output equal bit for bit to the f32 mode's on B widened
+               (dB rounded to bf16); the stream
                end to end under the ``_bf16`` launch keys with bf16
                gradients; then timed as above at the recipe shape, held at
                D = 512 and on the cluster and slab paths at D = 1024,
@@ -617,7 +619,10 @@ def phase_parity_bf16():
     and lse_bwd_rows's f32 dA within the f32 limit ``1e-5 min(1,
     max|plain|) + 1e-4 max|plain|``; lse_bwd_cols's bf16 dB within that
     plus one bf16 ulp of each |plain| element (the two round one f32 sum
-    each, and the sums part in the last f32 bits).  Then the stream end
+    each, and the sums part in the last f32 bits).  Each output also
+    equals, bit for bit, the f32 mode's on B widened to f32 (dB rounded
+    to bf16): the bf16 mode stages the same numbers in shared memory and
+    runs the same FMAs in the same order.  Then the stream end
     to end (autograd, bf16 leaves): its launches 2 + 2 + 2 under the
     ``_bf16`` keys, and every gradient in its leaf's dtype.  Returns the
     worst error of each ``_bf16`` key."""
@@ -631,6 +636,7 @@ def phase_parity_bf16():
              ("deep-d1024", 128, 8192, 5, DEEP_D, False),
              ("deep-d4608", 4, 8, 3, SLAB_D, False)]
     worst = {k: 0.0 for k in ms.LAUNCHES if k.endswith("_bf16")}
+    lib = ms._lib()
     for i, (label, b, bg, k, d, shared) in enumerate(cases):
         v, t, v_all, t_all = (x.to(bf16) for x in
                               _case(b, bg, k, d, 300 + i, shared))
@@ -672,6 +678,22 @@ def phase_parity_bf16():
                     raise AssertionError(f"bf16 {label} {key}: kernel "
                                          "disagrees with its plain version")
                 worst[key] = max(worst[key], err)
+            # the f32 mode on B widened (uncounted launches): each output
+            # bit for bit, dB rounded to bf16
+            wide = bm.float()
+            f32_mode = (ms.launch_fwd(lib, a, wide)[0],
+                        ms.launch_bwd(lib, a, wide, lse, gg, False)[0],
+                        ms.launch_bwd(lib, a, wide, lse, gg, True)[0].to(bf16))
+            for key, got, w in zip(keys, (lse, rows, cols), f32_mode):
+                same = got.dtype == w.dtype and torch.equal(got, w)
+                log(f"  [bf16 {label} R={a.shape[0]} C={bm.shape[0]} D={d}] "
+                    f"{key:24s} = the f32 mode on B widened, bit for bit: "
+                    f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError(
+                        f"bf16 {label} {key}: not the f32 mode on B widened "
+                        f"(max diff "
+                        f"{float((got.float() - w.float()).abs().max())})")
         ms.reset_launches()
         leaves = [x.detach().clone().requires_grad_(True)
                   for x in (v, t, v_all, t_all)]

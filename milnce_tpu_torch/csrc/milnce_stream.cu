@@ -125,12 +125,23 @@
 // (milnce_pallas.py pads v_all / t_all uncast and upcasts each chunk in the
 // kernel); A, lse and g stay f32.  Every kernel is a template on B's element
 // type TB: a copy of B widens it to f32 on the way into shared memory (one
-// 8-byte load of 4 elements, stored as a float4: copy4 / copy4_fast), so the
-// tiles, swizzles, plans and products are the f32 mode's, and every sum
-// stays f32 (no bf16 tensor-core product: A is f32).  Those copies are
-// synchronous: a thread waits for its bf16 loads of a stage before it runs
-// the FMAs of the current one, where the f32 mode's cp.async copies run
-// under them.
+// 8-byte load of 4 elements, stored as a float4), so the tiles, swizzles,
+// plans and products are the f32 mode's, and every sum stays f32 (no bf16
+// tensor-core product: A is f32).  Each stage holds the numbers the f32
+// mode's holds for B widened, and the FMAs run in the same order, so every
+// output equals the f32 mode's on the widened B bit for bit.  Where B is
+// streamed (lse_fwd, lse_bwd_rows) its fast copies (whole 4-element chunks
+// inside C and D) are staged in registers, as cp.async stages the f32
+// mode's: right after a stage's barrier each thread issues its 8-byte loads
+// of the slab bound for the ring stage just freed (fetch_logits,
+// fetch_product: 8 or 4 a logits slab, NB DMAX / 4 / RB_T a product slab),
+// runs the current stage's FMAs while they are in flight, then widens and
+// stores them (land_logits, land_product) before the next barrier.  The
+// other copies stay synchronous: copy4 past the streamed rows (a ragged
+// last tile) or past D (the last logits slab where D % 32 != 0; every copy
+// where D % 4 != 0), and the bf16 owned B of lse_bwd_cols (load_owned once
+// a block on the held and cluster paths, copy_owned_slab a stage on the
+// slab path).
 // lse_bwd_cols writes dB in bf16, each f32 sum rounded once
 // (milnce_pallas.py rounds once a chunk), when its plan has one split; with
 // more, the splits' f32 partials are summed and rounded by the wrapper.
@@ -254,6 +265,16 @@ __device__ __forceinline__ float4 widen4(uint2 u) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
+// Four bf16 elements at p (8 bytes) as their bits, and those bits
+// widened into four floats at 16-byte aligned shared dst.
+__device__ __forceinline__ uint2 ldg8(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+
+__device__ __forceinline__ void st_widened(float* dst, uint2 u) {
+  *reinterpret_cast<float4*>(dst) = widen4(u);
+}
+
 __device__ __forceinline__ float widen1(const bf16* p) {
   return __uint_as_float(
       (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
@@ -290,8 +311,7 @@ __device__ __forceinline__ void copy4_fast(float* dst, const float* src) {
 }
 
 __device__ __forceinline__ void copy4_fast(float* dst, const bf16* src) {
-  *reinterpret_cast<float4*>(dst) =
-      widen4(__ldg(reinterpret_cast<const uint2*>(src)));
+  st_widened(dst, ldg8(src));
 }
 
 // Four elements of row ``row`` of the row-major (nrows, D) matrix ``m``, at
@@ -425,6 +445,61 @@ __device__ __forceinline__ void copy_logits_slab(float* st,
   }
 }
 
+// The fast copies of a bf16 streamed operand, in two halves: fetch issues
+// the thread's 8-byte loads of a slab into registers r right after the
+// stage barrier, land widens them and stores them into the slab's ring
+// stage after the current stage's FMAs, which run while the loads are in
+// flight.  Each lands where copy4_fast would have stored it.
+// A logits slab, S[col0 : +SN, k0 : +RB_K], every chunk inside NS and D.
+template <int SN, int N>
+__device__ __forceinline__ void fetch_logits(uint2 (&r)[N],
+                                             const bf16* __restrict__ S,
+                                             int col0, int k0, int D) {
+  constexpr int Q = RB_K / 4;
+  const int tid = threadIdx.x;
+  const bf16* src = S + (size_t)(col0 + tid / Q) * D + k0 + 4 * (tid % Q);
+#pragma unroll
+  for (int m = 0; m < SN * Q / RB_T; ++m)
+    r[m] = ldg8(src + (size_t)m * (RB_T / Q) * D);
+}
+
+template <int SN, int N>
+__device__ __forceinline__ void land_logits(const uint2 (&r)[N], float* st) {
+  constexpr int Q = RB_K / 4;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int m = 0; m < SN * Q / RB_T; ++m)
+    st_widened(st + s_at(tid / Q + m * (RB_T / Q), tid % Q), r[m]);
+}
+
+// A product slab, S[n0 : +NB, z0 : z0 + 4 d4], every row inside NS, at
+// row stride DMAX in the stage.
+template <int DMAX, int NB, int N>
+__device__ __forceinline__ void fetch_product(uint2 (&r)[N],
+                                              const bf16* __restrict__ S,
+                                              int n0, int z0, int d4, int D) {
+  constexpr int Q = DMAX / 4;
+#pragma unroll
+  for (int m = 0; m < NB * Q / RB_T; ++m) {
+    const int l = threadIdx.x + m * RB_T, n = l / Q, q = l % Q;
+    if (q < d4) r[m] = ldg8(S + (size_t)(n0 + n) * D + z0 + 4 * q);
+  }
+}
+
+template <int DMAX, int NB, int N>
+__device__ __forceinline__ void land_product(const uint2 (&r)[N], float* st,
+                                             int d4) {
+  constexpr int Q = DMAX / 4;
+#pragma unroll
+  for (int m = 0; m < NB * Q / RB_T; ++m) {
+    const int l = threadIdx.x + m * RB_T, n = l / Q, q = l % Q;
+    if (q < d4) st_widened(st + n * DMAX + 4 * q, r[m]);
+  }
+}
+
+// What a thread's registers hold between fetch and land.
+enum Staged { NOTHING = 0, LOGITS_SLAB = 1, PRODUCT_SLAB = 2 };
+
 // Two lane layouts.  The product: lane l of warp w is (rg, x) = (l / 8,
 // l % 8); the thread owns rows rg + 4 i (i < 8) and depths 4 (8 w + x) +
 // 256 v + e (v < DV, e < 4).  The logits: lane l is (lrg, lx) = (l / XL,
@@ -496,6 +571,14 @@ lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
   // The O tile; its copies join the first stage's group.
   if (!SLAB) load_owned<VEC, RB_M>(Os, LDA, O, row0, NO, n_k, D, kz);
 
+  // A bf16 S (lse_bwd_rows): its fast copies staged in registers (fetch
+  // in issue_next, land after the stage's FMAs).
+  constexpr bool STAGED = !OWN_COLS && std::is_same_v<TB, bf16>;
+  constexpr int LQ = SN * (RB_K / 4) / RB_T, PQ = NB * (DMAX / 4) / RB_T;
+  uint2 staged[STAGED ? (LQ > PQ ? LQ : PQ) : 1];
+  int staged_what = NOTHING;
+  float* staged_st = ring;
+
   // The next slab to copy: tile it, part ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
   auto issue_next = [&]() {
@@ -505,28 +588,50 @@ lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
       // whole 16-byte chunks inside NS and D: copies without checks
       const bool fast = VEC && col0 + SN <= NS;
       if (ip < n_k) {
-        copy_logits_slab<VEC, SN>(st, S, col0, NS, kz + ip * RB_K, D, fast);
+        const int k0 = kz + ip * RB_K;
+        if (STAGED && fast && k0 + RB_K <= D) {
+          if constexpr (STAGED) fetch_logits<SN>(staged, S, col0, k0, D);
+          staged_what = LOGITS_SLAB, staged_st = st;
+        } else {
+          copy_logits_slab<VEC, SN>(st, S, col0, NS, k0, D, !STAGED && fast);
+        }
         if (SLAB)
           copy_owned_slab<VEC, RB_M>(st + SN * RB_K, O, row0, NO, ip * RB_K,
                                      D);
       } else {                // S[col0 + n0 : +NB, z0 : z0 + DZ], stride DMAX
         const int n0 = (ip - n_k) * NB;
         constexpr int Q = DMAX / 4;
+        if (STAGED && fast) {
+          if constexpr (STAGED)
+            fetch_product<DMAX, NB>(staged, S, col0 + n0, z0, d4, D);
+          staged_what = PRODUCT_SLAB, staged_st = st;
+        } else {
 #pragma unroll
-        for (int m = 0; m < NB * Q / RB_T; ++m) {
-          const int l = tid + m * RB_T, n = l / Q, q = l % Q;
-          if (q < d4) {
-            float* dst = st + n * DMAX + 4 * q;
-            if (fast)
-              copy4_fast(dst, S + (size_t)(col0 + n0 + n) * D + z0 + 4 * q);
-            else
-              copy4<VEC>(dst, S, col0 + n0 + n, NS, z0 + 4 * q, D);
+          for (int m = 0; m < NB * Q / RB_T; ++m) {
+            const int l = tid + m * RB_T, n = l / Q, q = l % Q;
+            if (q < d4) {
+              float* dst = st + n * DMAX + 4 * q;
+              if (!STAGED && fast)
+                copy4_fast(dst, S + (size_t)(col0 + n0 + n) * D + z0 + 4 * q);
+              else
+                copy4<VEC>(dst, S, col0 + n0 + n, NS, z0 + 4 * q, D);
+            }
           }
         }
       }
     }
     if (++ip == per_tile) ip = 0, ++it;
     if (++is_ == RB_STAGES) is_ = 0;
+  };
+  // The staged slab into its stage (read after the next barrier).
+  auto land = [&]() {
+    if constexpr (STAGED) {
+      if (staged_what == LOGITS_SLAB)
+        land_logits<SN>(staged, staged_st);
+      else if (staged_what == PRODUCT_SLAB)
+        land_product<DMAX, NB>(staged, staged_st, d4);
+      staged_what = NOTHING;
+    }
   };
 
   float acc[MI][4];           // logits of the current tile
@@ -540,6 +645,7 @@ lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
 #pragma unroll
   for (int s = 0; s < RB_STAGES - 1; ++s) {
     issue_next();
+    land();
     cp_commit();
   }
   // The slab to compute: tile ct, part cp, ring stage cs; kp, SLAB: the
@@ -547,7 +653,7 @@ lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
   for (int ct = 0, cp = 0, cs = 0, kp = 0; ct < ntile;) {
     cp_wait<RB_STAGES - 2>();
     __syncthreads();          // stage cs has landed, the one before is free
-    issue_next();
+    issue_next();             // into the one before (STAGED: fetched)
     cp_commit();
     const float* st = ring + cs * I::STAGE;
     if (cp < n_k) {
@@ -660,6 +766,7 @@ lse_bwd_kernel(const std::conditional_t<OWN_COLS, TB, float>* __restrict__ O,
         }
       }
     }
+    land();                   // STAGED: the fetched slab, under this one
     if (++cp == per_tile) cp = 0, ++ct;
     if (++cs == RB_STAGES) cs = 0;
   }
@@ -814,19 +921,38 @@ lse_fwd_kernel(const float* __restrict__ A, const TB* __restrict__ B,
   // The A tile; its copies join the first stage's group.
   if (!SLAB) load_owned<VEC, FM>(As, LDA, A, row0, R, n_k, D, kz);
 
+  // A bf16 B: its fast copies staged in registers (fetch in issue_next,
+  // land after the stage's FMAs).
+  constexpr bool STAGED = std::is_same_v<TB, bf16>;
+  uint2 staged[STAGED ? SN * (RB_K / 4) / RB_T : 1];
+  bool fetched = false;
+  float* staged_st = ring;
+
   // The next slab to copy: tile it, slab ip, ring stage is_.
   int it = 0, ip = 0, is_ = 0;
   auto issue_next = [&]() {
     if (it < ntile && !(ROWS_SKIP & 4)) {
-      const int col0 = (t_first + it) * SN;
-      copy_logits_slab<VEC, SN>(ring + is_ * STAGE, B, col0, C,
-                                kz + ip * RB_K, D, VEC && col0 + SN <= C);
+      float* st = ring + is_ * STAGE;
+      const int col0 = (t_first + it) * SN, k0 = kz + ip * RB_K;
+      const bool fast = VEC && col0 + SN <= C;
+      if (STAGED && fast && k0 + RB_K <= D) {
+        if constexpr (STAGED) fetch_logits<SN>(staged, B, col0, k0, D);
+        fetched = true, staged_st = st;
+      } else {
+        copy_logits_slab<VEC, SN>(st, B, col0, C, k0, D, !STAGED && fast);
+      }
       if (SLAB)
-        copy_owned_slab<VEC, FM>(ring + is_ * STAGE + SN * RB_K, A, row0, R,
-                                 ip * RB_K, D);
+        copy_owned_slab<VEC, FM>(st + SN * RB_K, A, row0, R, ip * RB_K, D);
     }
     if (++ip == n_k) ip = 0, ++it;
     if (++is_ == RB_STAGES) is_ = 0;
+  };
+  // The staged slab into its stage (read after the next barrier).
+  auto land = [&]() {
+    if constexpr (STAGED) {
+      if (fetched) land_logits<SN>(staged, staged_st);
+      fetched = false;
+    }
   };
 
   float acc[8][TN];           // logits of the current tile
@@ -837,6 +963,7 @@ lse_fwd_kernel(const float* __restrict__ A, const TB* __restrict__ B,
 #pragma unroll
   for (int st = 0; st < RB_STAGES - 1; ++st) {
     issue_next();
+    land();
     cp_commit();
   }
   // The slab to compute: tile ct, slab cp, ring stage cs; kp, SLAB: the
@@ -844,7 +971,7 @@ lse_fwd_kernel(const float* __restrict__ A, const TB* __restrict__ B,
   for (int ct = 0, cp = 0, cs = 0, kp = 0; ct < ntile;) {
     cp_wait<RB_STAGES - 2>();
     __syncthreads();          // stage cs has landed, the one before is free
-    issue_next();
+    issue_next();             // into the one before (STAGED: fetched)
     cp_commit();
     const float* st = ring + cs * STAGE;
     if (cp == 0) {
@@ -928,6 +1055,7 @@ lse_fwd_kernel(const float* __restrict__ A, const TB* __restrict__ B,
         }
       }
     }
+    land();                   // STAGED: the fetched slab, under this one
     if (++cp == n_k) cp = 0, ++ct;
     if (++cs == RB_STAGES) cs = 0;
   }

@@ -42,8 +42,10 @@ them (``milnce_tpu/ops/milnce_pallas.py`` pads them uncast and upcasts
 each chunk inside the kernel); the local ``v``/``t`` are upcast to f32.
 Each kernel widens the bf16 operand to f32 as it copies it on chip, and
 every product and sum stays f32 (no bf16 tensor-core product: A is
-f32).  ``lse_bwd_cols`` writes the gathered gradients in bf16, each f32
-sum rounded once; ``g_v``/``g_t`` come back in the local operands' dtype.
+f32), so each output equals the f32 mode's on the operand widened, bit
+for bit (dB rounded to bf16).  ``lse_bwd_cols`` writes the gathered
+gradients in bf16, each f32 sum rounded once; ``g_v``/``g_t`` come back
+in the local operands' dtype.
 The plain twins follow the same contract: each block upcast to f32, the
 gathered gradients rounded to their operand's dtype a block at a time.
 

@@ -27,6 +27,12 @@ partial builds compute wrong values; only the full one is checked,
 against ``lse_plain``, ``lse_bwd_rows_plain`` and
 ``lse_bwd_cols_plain``.
 
+``--dtype bf16`` times the bf16 mode instead: B (the gathered operand)
+in bf16, each kernel on its bf16 instances, the five builds as above
+and the f32 mode's full build beside them on ``B.float()``; the full
+bf16 build is checked equal, bit for bit, to the f32 mode on
+``B.float()`` (``lse_bwd_cols``'s dB: the f32 mode's rounded to bf16).
+
 ``--accuracy`` instead prints the clusters of 1 to 8 blocks the card
 keeps resident, for each kernel's cluster path, and the deep forward's and backward's error against float64 on
 both paths (the cluster path and the slab path, the backward given the
@@ -147,6 +153,14 @@ def _check(name, got, want) -> None:
         raise AssertionError(f"{name}: full build disagrees: {err} > {lim}")
 
 
+def _same(name, got, want) -> None:
+    """The bf16 mode's output equals the f32 mode's on B widened."""
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"{name}: the bf16 mode is not the f32 mode on "
+                             f"B widened, bit for bit (max diff {err})")
+
+
 def _line(label, fn, key, flops) -> str:
     t, dev = _time_ms(fn), _device_ms(fn, key)
     return (f"  {label:22s} {t:.4f} ms a call, {dev:.4f} ms on the device "
@@ -240,6 +254,11 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         accuracy()
         return 0
+    if sys.argv[1:] not in ([], ["--dtype", "bf16"]):
+        print("usage: rows_probe [--accuracy | --dtype bf16]",
+              file=sys.stderr)
+        return 2
+    bf16 = sys.argv[1:] == ["--dtype", "bf16"]
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = list(pool.map(ms._lib, VARIANTS.values()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -247,6 +266,9 @@ def main() -> int:
     for r, c, d in SHAPES:
         a = torch.randn((r, d), generator=gen, device="cuda") * d ** -0.25
         b = torch.randn((c, d), generator=gen, device="cuda") * d ** -0.25
+        b16 = b.to(torch.bfloat16) if bf16 else None
+        if bf16:                  # the f32 mode on B widened: B's values
+            b = b16.float()
         lse = torch.logsumexp(a @ b.T, dim=1)
         g = torch.full((r,), 1.0 / r, device="cuda")
         plan = ms.card_fwd_plan(libs[0], r, c, d, "cuda")
@@ -255,19 +277,29 @@ def main() -> int:
                ms.lse_plain(a, b, 4096, parts))
         print(f"lse_fwd R={r} C={c} D={d}: {plan}")
         flops = 2 * r * c * d
-        for label, lib in zip(LABELS["lse_fwd"], libs):
-            print(_line(label, lambda: ms.launch_fwd(lib, a, b),
+        if bf16:
+            _same("lse_fwd", ms.launch_fwd(libs[0], a, b16)[0],
+                  ms.launch_fwd(libs[0], a, b)[0])
+            print(_line("f32 mode, full", lambda: ms.launch_fwd(libs[0], a, b),
                         "lse_fwd_kernel", flops))
-        print(_line("full, every kernel", lambda: ms.launch_fwd(libs[0], a, b),
-                    "", flops))
+        bt = b16 if bf16 else b   # the B each build is timed on
+        for label, lib in zip(LABELS["lse_fwd"], libs):
+            print(_line(label, lambda: ms.launch_fwd(lib, a, bt),
+                        "lse_fwd_kernel", flops))
+        print(_line("full, every kernel",
+                    lambda: ms.launch_fwd(libs[0], a, bt), "", flops))
         if plan.mode == "deep":
             slab = ms.fwd_plan(r, c, d, sms, slab=True)
             _check("lse_fwd slab path", ms.launch_fwd(
                 libs[0], a, b, _plan=slab)[0],
                 ms.lse_plain(a, b, 4096, parts))
+            if bf16:
+                _same("lse_fwd slab path",
+                      ms.launch_fwd(libs[0], a, b16, _plan=slab)[0],
+                      ms.launch_fwd(libs[0], a, b, _plan=slab)[0])
             print(f"  slab path: {slab}")
             print(_line("slab path", lambda: ms.launch_fwd(
-                libs[0], a, b, _plan=slab), "lse_fwd_kernel", flops))
+                libs[0], a, bt, _plan=slab), "lse_fwd_kernel", flops))
         print(_line("library call", lambda: torch.logsumexp(a @ b.T, 1), "",
                     flops))
         flops = 4 * r * c * d
@@ -278,9 +310,15 @@ def main() -> int:
                    plain(a, b, lse, g, 4096))
             print(f"{name} R={r} C={c} D={d}: "
                   f"{ms.card_bwd_plan(libs[0], cols, r, c, d, 'cuda')}")
+            if bf16:
+                _same(name, ms.launch_bwd(libs[0], a, b16, lse, g, cols)[0],
+                      ms.launch_bwd(libs[0], a, b, lse, g, cols)[0].to(
+                          torch.bfloat16 if cols else torch.float32))
+                print(_line("f32 mode, full", lambda: ms.launch_bwd(
+                    libs[0], a, b, lse, g, cols), "lse_bwd_kernel", flops))
             for label, lib in zip(LABELS["lse_bwd"], libs):
                 print(_line(label,
-                            lambda: ms.launch_bwd(lib, a, b, lse, g, cols),
+                            lambda: ms.launch_bwd(lib, a, bt, lse, g, cols),
                             "lse_bwd_kernel", flops))
     return 0
 

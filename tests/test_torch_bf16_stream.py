@@ -9,7 +9,9 @@ compute in f32, so the lse (f32) agree to f32 summation order, rtol 1e-5;
 all four gradients come back bf16 in both, each an f32 sum rounded once,
 so they agree within one bf16 ulp of each element (two where the local
 operand is also the gathered one: its two bf16 gradients are added in
-bf16 in both frameworks).
+bf16 in both frameworks).  The plain twins on a bf16 B equal them on
+B widened to f32, bit for bit: the contract the card's bf16 kernels
+keep against their f32 mode (``tests/test_torch_cuda.py``).
 
 The MFU gauge: a bf16 model's divides by the card's dense bf16
 tensor-core rate, an f32 model's by 67 TFLOP/s (f32 without tensor
@@ -25,7 +27,9 @@ import jax.numpy as jnp
 
 from milnce_tpu.ops.milnce_pallas import milnce_stream_pallas
 from milnce_tpu_torch.config import tiny_preset
-from milnce_tpu_torch.ops.milnce_stream import milnce_stream_plain
+from milnce_tpu_torch.ops.milnce_stream import (lse_bwd_cols_plain,
+                                                lse_bwd_rows_plain, lse_plain,
+                                                milnce_stream_plain)
 from milnce_tpu_torch.parallel.dist import Ranks
 from milnce_tpu_torch.train import loop
 from milnce_tpu_torch.train.curriculum import flat_stages
@@ -95,6 +99,33 @@ def test_bf16_stream_matches_the_pallas_kernel(case):
         got = got.float().numpy()
         want = np.asarray(want.astype(jnp.float32))
         assert (np.abs(got - want) <= ulps * bf16_ulp(want)).all(), name
+
+
+@pytest.mark.parametrize("r,c,d,width,parts", [
+    (4, 24, 16, 9, None), (7, 13, 40, 5, ((0, 32), (32, 8))),
+    (3, 30, 24, 64, None)], ids=["ragged", "parts", "one-block"])
+def test_bf16_b_is_the_f32_b_widened_in_the_plain_twins(r, c, d, width,
+                                                        parts):
+    """The contract the card's bf16 mode keeps, on the plain twins: a bf16
+    gathered operand B gives what its f32 widening gives, bit for bit (the
+    lse and dA; dB rounded to bf16 a block at a time, the f32 one's
+    rounded once), since each block is widened before any arithmetic."""
+    rng = np.random.default_rng(r + c + d)
+    a = torch.tensor(rng.standard_normal((r, d)).astype(np.float32))
+    b16 = torch.tensor(rng.standard_normal((c, d)).astype(np.float32)
+                       * d ** -0.25).to(torch.bfloat16)
+    b = b16.float()
+    g = torch.tensor(rng.standard_normal(r).astype(np.float32))
+    lse = lse_plain(a, b16, width, parts)
+    assert lse.dtype == torch.float32
+    assert torch.equal(lse, lse_plain(a, b, width, parts))
+    da = lse_bwd_rows_plain(a, b16, lse, g, width, parts)
+    assert da.dtype == torch.float32
+    assert torch.equal(da, lse_bwd_rows_plain(a, b, lse, g, width, parts))
+    db = lse_bwd_cols_plain(a, b16, lse, g, width, parts)
+    assert db.dtype == torch.bfloat16
+    assert torch.equal(db, lse_bwd_cols_plain(a, b, lse, g, width,
+                                              parts).to(torch.bfloat16))
 
 
 # ------------------------------------------------------------ the MFU peak

@@ -299,6 +299,51 @@ def test_bf16_mode_matches_the_plain_twins(cuda, d):
         assert bool(((got - want).abs() <= ulp + lim).all())
 
 
+@pytest.mark.parametrize("r,c,d,mode", [
+    (128, 4096, 512, "held"), (640, 8192, 512, "held"),
+    (33, 1000, 512, "held"), (2048, 40, 512, "held"), (5, 300, 700, "held"),
+    (33, 300, 13, "held"), (128, 4096, 1024, "deep"), (33, 300, 769, "deep"),
+    (16, 600, 2048, "deep"), (128, 4096, 1024, "deep_slab"),
+    (4, 24, 4608, "deep_slab")],
+    ids=["recipe-rows", "recipe-cols", "ragged", "split", "d700", "d13",
+         "cluster-d1024", "cluster-d769", "cluster-d2048", "slab-d1024",
+         "slab-d4608"])
+def test_bf16_mode_equals_the_f32_mode_on_b_widened(cuda, r, c, d, mode):
+    """Each bf16 launch (B bf16) against the f32 mode on ``B.float()``,
+    bit for bit: the lse, dA and the cluster path's row sums equal, dB the
+    f32 mode's rounded to bf16.  The bf16 mode stages the same numbers in
+    shared memory and runs the same FMAs in the same order, on the held
+    path (ragged last tiles, split columns, D not a multiple of 32 or of
+    4), the cluster path and the slab path."""
+    rng = np.random.default_rng(r + c + d)
+    a = torch.tensor(rng.standard_normal((r, d), np.float32) * d ** -0.25,
+                     device=cuda)
+    b16 = torch.tensor(rng.standard_normal((c, d), np.float32) * d ** -0.25,
+                       device=cuda).to(torch.bfloat16)
+    b = b16.float()
+    g = torch.tensor(rng.standard_normal(r, np.float32), device=cuda)
+    lib = ms._lib()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slab = mode == "deep_slab"
+    plan = ms.fwd_plan(r, c, d, sms, slab=True) if slab else None
+    lse, got_plan = ms.launch_fwd(lib, a, b16, _plan=plan)
+    want, want_plan = ms.launch_fwd(lib, a, b, _plan=plan)
+    assert got_plan == want_plan and got_plan.mode == mode
+    assert torch.equal(lse, want)
+    for cols, plan_of in ((False, ms.rows_plan), (True, ms.cols_plan)):
+        plan = plan_of(r, c, d, sms, slab=True) if slab else None
+        got, got_plan, got_sums = ms.launch_bwd(lib, a, b16, lse, g, cols,
+                                                _plan=plan)
+        want, want_plan, want_sums = ms.launch_bwd(lib, a, b, lse, g, cols,
+                                                   _plan=plan)
+        assert got_plan == want_plan and got_plan.mode == mode
+        assert got.dtype == (torch.bfloat16 if cols else torch.float32)
+        assert torch.equal(got, want.to(got.dtype))
+        assert (got_sums is None) == (want_sums is None)
+        if got_sums is not None:
+            assert torch.equal(got_sums, want_sums)
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     a = torch.zeros(4, 8, device=cuda)
     with pytest.raises(TypeError, match="float32"):

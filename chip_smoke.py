@@ -183,6 +183,18 @@ Phases, each fatal on failure:
                above it), ms a call beside f32's, and the index answering
                its bf16 queries with the exact top-10 of a float64
                ranking of them.
+   serve-group -- the same export and corpus over the device group
+               ``["cuda:0", "cuda:0"]`` (one card named twice, so one
+               card runs the whole group path): the group engine (ladder
+               2-16) at every bucket within 1e-5 + 1e-4 max|e| of the
+               one-card engine on the same rows; the index over the
+               group returns the one-card index's top-10, the float64
+               ranking's; a live index over the group booted short of
+               the corpus ingests the rest and answers the same; a pool
+               of two such groups survives ``serve.replica_dead`` (one
+               whole group quarantined, its request requeued, rankings
+               identical).  Measured, in turns with one card: ms a
+               bucket-16 video and text call, ms a query batch.
    serve-live -- serving's second half on serve-full's export:
                ``milnce-serve-torch`` as a subprocess on 127.0.0.1 with a
                live index booted from a snapshot of 1,000,000 seeded unit
@@ -284,12 +296,15 @@ Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
 
+``python3 chip_smoke.py --serve-group``, on a machine with two cards or
+more, runs only the device phase and serve-group over ``["cuda:0",
+"cuda:1"]`` on a seeded full-width export (serving builds no kernel).
 ``python3 chip_smoke.py --ddp-2``, on a machine with two cards or more,
 runs only the device, build and ddp-2 phases: ddp-2's comparison over
 NCCL with a rank a card beside its gloo one.  ``--fsdp-2d``, on four
 cards or more, runs only the device, build and fsdp-2d phases, over
 NCCL with a rank a card: the (2 x 2) grid against the 4-way 1-D layout.
-Neither prints a kernels line.
+None of the three prints a kernels line.
 """
 
 from __future__ import annotations
@@ -2345,27 +2360,8 @@ def phase_serve_full(ckpt_dir, workdir, card):
         f"ladder sweep, grown by {grown / 2 ** 20:.1f} MiB over the batched "
         f"and cached passes")
 
-    # the corpus: seeded unit rows, the clips in the middle
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    unit = torch.randn((INDEX_ROWS, clip_emb.shape[1]), generator=gen,
-                       device="cuda")
-    unit /= unit.norm(dim=1, keepdim=True)
-    corpus = unit.cpu().numpy()
-    del unit
-    mid = INDEX_ROWS // 2
-    corpus[mid:mid + SERVE_CLIPS] = clip_emb
     q = passes[0]["replies"][:INDEX_QUERIES]
-    t0 = time.perf_counter()
-    scores = np.concatenate([q.astype(np.float64) @ corpus[i:i + 65536]
-                             .astype(np.float64).T
-                             for i in range(0, INDEX_ROWS, 65536)], axis=1)
-    plants = _plant_ties(corpus, scores, INDEX_K,
-                         range(mid, mid + SERVE_CLIPS))
-    host = _host_ranking(scores, INDEX_K)
-    t_host = time.perf_counter() - t0
-    across = sum(p[1] == INDEX_K - 1 for p in plants)
-    log(f"  host ranking (float64, {INDEX_ROWS} rows): {t_host:.2f} s; "
-        f"planted ties {plants} ({across} across the k-th place)")
+    corpus, host, across = _index_corpus(clip_emb, q)
     t0 = time.perf_counter()
     index = DeviceRetrievalIndex(corpus, k=INDEX_K,
                                  query_buckets=engine.buckets, device="cuda")
@@ -2380,15 +2376,16 @@ def phase_serve_full(ckpt_dir, workdir, card):
     from milnce_tpu_torch.serving.index import exact_topk
 
     qd = torch.from_numpy(q).cuda()
-    sc = qd @ index._corpus.T
+    corpus_d = index._shards[0][0]          # the one card's shard
+    sc = qd @ corpus_d.T
     cols = torch.arange(INDEX_ROWS, device="cuda")[None]
-    parts = {"matmul": lambda: qd @ index._corpus.T,
+    parts = {"matmul": lambda: qd @ corpus_d.T,
              "exact selection": lambda: exact_topk(sc, cols, INDEX_K),
              "f32 topk": lambda: torch.topk(sc, INDEX_K, dim=1),
              "stable sort": lambda: torch.sort(sc, dim=1, descending=True,
                                                stable=True)}
     part_ms = {name: _time_ms(fn) for name, fn in parts.items()}
-    del qd, sc, cols
+    del qd, sc, cols, corpus_d
     bound = INDEX_ROWS * clip_emb.shape[1] * 4 / H100_HBM_BYTES * 1e3
     peak = torch.cuda.max_memory_allocated()
     launches = {**ms.LAUNCHES, **sd.LAUNCHES}
@@ -2414,12 +2411,276 @@ def phase_serve_full(ckpt_dir, workdir, card):
           and ranking_ok and across >= 2
           and engine.recompiles() == 0 and index.recompiles() == 0
           and not any(launches.values()))
-    del engine, index, corpus, scores
-    gc.collect()
-    torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("serve-full failed its checks")
+    log(f"== serve-group (serve-full's export and index over the device "
+        f"group {list(SERVE_GROUP)}: one card named twice)")
+    phase_serve_group(out, engine, index, corpus, host, q, SERVE_GROUP, card)
+    del engine, index, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
     return out, clip_emb
+
+
+def _index_corpus(clip_emb, q):
+    """The index's corpus: INDEX_ROWS seeded unit rows (made on the card)
+    with ``clip_emb`` in the middle, ties planted for the queries ``q``
+    across the INDEX_K-th place.  Returns (corpus, the float64 host
+    ranking of ``q``, the plants across the k-th place)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    unit = torch.randn((INDEX_ROWS, clip_emb.shape[1]), generator=gen,
+                       device="cuda")
+    unit /= unit.norm(dim=1, keepdim=True)
+    corpus = unit.cpu().numpy()
+    del unit
+    mid = INDEX_ROWS // 2
+    corpus[mid:mid + len(clip_emb)] = clip_emb
+    t0 = time.perf_counter()
+    scores = _host_scores(q, corpus)
+    plants = _plant_ties(corpus, scores, INDEX_K,
+                         range(mid, mid + len(clip_emb)))
+    host = _host_ranking(scores, INDEX_K)
+    across = sum(p[1] == INDEX_K - 1 for p in plants)
+    log(f"  host ranking (float64, {INDEX_ROWS} rows): "
+        f"{time.perf_counter() - t0:.2f} s; planted ties {plants} ({across} "
+        f"across the k-th place)")
+    return corpus, host, across
+
+
+SERVE_GROUP = ("cuda:0", "cuda:0")   # the default run's group: one card twice
+SERVE_GROUP_DEAD = 20                # the dispatch serve.replica_dead kills
+SERVE_GROUP_INGEST = 4096            # the corpus's last rows, ingested live
+
+
+def phase_serve_group(export_dir, engine, index, corpus, host, q, group,
+                      card):
+    """serve-group: the export served over the device ``group`` beside
+    the one-card ``engine`` and ``index`` on the same export and corpus.
+    ``InferenceEngine.from_export(device=group)``: both entries at every
+    bucket of its ladder within ``1e-5 + 1e-4 max|e|`` of the one-card
+    engine's on the same rows (the limit printed); a
+    ``DeviceRetrievalIndex`` of ``corpus`` over ``group`` whose top-INDEX_K
+    of ``q`` equal the one-card index's and the float64 ``host`` ranking;
+    a ``LiveRetrievalIndex`` over ``group`` booted on all but the last
+    SERVE_GROUP_INGEST rows of ``corpus``, which it then ingests, whose
+    top-INDEX_K at generation 1 equal the ``host`` ranking;
+    a pool of two such groups (``ReplicaPool.from_export`` over ``group``
+    twice, so ``partition_devices`` makes the groups) under
+    ``serve.replica_dead`` mid-traffic: one whole group dead and
+    quarantined, its request requeued, every ranking unchanged; no hand
+    kernel launched.  Measured, one card and the group in turns (one,
+    group, group, one): ms a bucket-16 video and text call, ms a query
+    batch of INDEX_QUERIES; and the host's ms to copy one bucket-16 video
+    shard up and to launch its forward.  Each check fatal; returns the
+    figures."""
+    import threading
+
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.resilience import faults
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.export import read_export_metadata
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+    from milnce_tpu_torch.serving.pool import QUARANTINED, ReplicaPool
+
+    group = list(group)
+    ms.reset_launches()
+    sd.reset_launches()
+    t0 = time.perf_counter()
+    eng = InferenceEngine.from_export(export_dir, device=group,
+                                      max_batch=SERVE_MAX_BATCH, min_bucket=1)
+    log(f"  group engine over {group}: boot (load, {len(eng.models)} model "
+        f"copies, warm-up sweep of {eng.buckets}) "
+        f"{time.perf_counter() - t0:.2f} s")
+    meta = read_export_metadata(export_dir)
+    shape = tuple(meta["video_shape"])
+    words, vocab = meta["tokenizer"]["max_words"], meta["model"]["vocab_size"]
+    rng = np.random.default_rng(24)
+    checks, m, worst, top = {}, {}, 0.0, {}
+    for b in eng.buckets:
+        rows = {"video": rng.integers(0, 256, (b,) + shape, dtype=np.uint8),
+                "text": rng.integers(1, vocab, (b, words), dtype=np.int32)}
+        for entry, x in rows.items():
+            got = getattr(eng, f"embed_{entry}")(x)
+            want = getattr(engine, f"embed_{entry}")(x)
+            limit = 1e-5 + 1e-4 * float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            worst = max(worst, err / limit)
+            log(f"  bucket {b:2d} {entry}: max |group - one card| {err:.3e} "
+                f"(limit 1e-5 + 1e-4 max|e| = {limit:.3e})")
+            top[entry] = x
+    checks["every bucket = the one-card engine"] = worst <= 1
+    # where a group call's host time goes: a shard's pageable copy and its
+    # forward's launches, both on the host before the next card starts
+    shard = np.split(top["video"], len(group))[0]
+    parts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd = torch.from_numpy(shard).to(group[0])
+        t1 = time.perf_counter()
+        y = eng._fns["video"][0](xd)
+        t2 = time.perf_counter()
+        y.cpu()
+        parts.append((t1 - t0, t2 - t1, time.perf_counter() - t0))
+    m["shard"] = [statistics.median(p[i] for p in parts) * 1e3
+                  for i in range(3)]
+    log(f"  a bucket-{eng.buckets[-1]} video shard of {len(shard)} rows on "
+        f"{group[0]}, host clock: its pageable copy {m['shard'][0]:.3f} "
+        f"ms, its forward's launches {m['shard'][1]:.3f} ms, the whole "
+        f"shard {m['shard'][2]:.3f} ms")
+    for entry, reps in (("video", 5), ("text", 20)):
+        one_fn = getattr(engine, f"embed_{entry}")
+        grp_fn = getattr(eng, f"embed_{entry}")
+        x = top[entry]
+        one_a, grp_a = _timed(lambda: one_fn(x), reps), _timed(
+            lambda: grp_fn(x), reps)
+        grp_b, one_b = _timed(lambda: grp_fn(x), reps), _timed(
+            lambda: one_fn(x), reps)
+        m[entry] = ((one_a + one_b) / 2 * 1e3, (grp_a + grp_b) / 2 * 1e3)
+        log(f"  bucket {eng.buckets[-1]} {entry}: ms a call one card "
+            f"{m[entry][0]:.3f} ({one_a * 1e3:.3f}, {one_b * 1e3:.3f}), "
+            f"group {m[entry][1]:.3f} ({grp_a * 1e3:.3f}, "
+            f"{grp_b * 1e3:.3f}), group/one {m[entry][1] / m[entry][0]:.3f}")
+
+    t0 = time.perf_counter()
+    gidx = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                query_buckets=eng.buckets, device=group)
+    t_index = time.perf_counter() - t0
+    _, i_grp = gidx.topk(q)
+    _, i_one = index.topk(q)
+    checks["index = one card = host ranking"] = (
+        np.array_equal(i_grp, i_one) and np.array_equal(i_grp, host))
+    one_a, grp_a = _timed(lambda: index.topk(q), 20, 3), _timed(
+        lambda: gidx.topk(q), 20, 3)
+    grp_b, one_b = _timed(lambda: gidx.topk(q), 20, 3), _timed(
+        lambda: index.topk(q), 20, 3)
+    m["index"] = ((one_a + one_b) / 2 * 1e3, (grp_a + grp_b) / 2 * 1e3)
+    log(f"  index over {group}: {[c.shape[0] for c, _, _ in gidx._shards]} "
+        f"rows a card, built in {t_index:.2f} s; top-{INDEX_K} of "
+        f"{len(q)} queries equal the one-card index's and the host's: "
+        f"{checks['index = one card = host ranking']}; ms a batch one card "
+        f"{m['index'][0]:.3f} ({one_a * 1e3:.3f}, {one_b * 1e3:.3f}), group "
+        f"{m['index'][1]:.3f} ({grp_a * 1e3:.3f}, {grp_b * 1e3:.3f})")
+    del eng
+
+    # the live index over the group: booted short of the corpus, the rest
+    # ingested (each card's shard on its own copy stream), one swap
+    live = LiveRetrievalIndex(corpus[:-SERVE_GROUP_INGEST], k=INDEX_K,
+                              query_buckets=gidx.query_buckets, device=group)
+    try:
+        live.add(corpus[-SERVE_GROUP_INGEST:])
+        flushed = live.flush(timeout=120.0)
+        _, i_live, gen = live.topk_with_gen(q)
+        checks["live index over the group = host ranking"] = (
+            flushed and gen == 1 and np.array_equal(i_live, host))
+        log(f"  live index over {group}: {SERVE_GROUP_INGEST} rows ingested "
+            f"into {live.stats()['shard_rows']} rows a card, generation "
+            f"{gen}; top-{INDEX_K} equal the host's: "
+            f"{checks['live index over the group = host ranking']}")
+    finally:
+        live.close()
+        del live
+
+    tokens = rng.integers(1, vocab, (INDEX_QUERIES, words), dtype=np.int32)
+    pool = ReplicaPool.from_export(
+        export_dir, 2, devices=group * 2, max_batch=SERVE_MAX_BATCH,
+        min_bucket=1, probe_interval_s=0.2, max_requeues=2)
+    try:
+        groups = [[str(d) for d in r.engine.group] for r in pool.replicas]
+        before = gidx.topk(pool.embed_text(tokens))[1]
+        errors, lock = [], threading.Lock()
+
+        def client(n):
+            for _ in range(n):
+                try:
+                    same = np.array_equal(
+                        gidx.topk(pool.embed_text(tokens))[1], before)
+                except Exception as exc:    # noqa: BLE001 - counted
+                    same = f"{type(exc).__name__}: {exc}"
+                with lock:
+                    if same is not True:
+                        errors.append(same)
+
+        with faults.armed(f"serve.replica_dead@{SERVE_GROUP_DEAD}"):
+            threads = [threading.Thread(target=client,
+                                        args=(POOL_REQUESTS // 4,))
+                       for _ in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        time.sleep(0.5)                  # a few probe intervals
+        dead = [r for r in pool.replicas if r.engine.dead]
+        after = gidx.topk(pool.embed_text(tokens))[1]
+        counts = pool.counts()
+        checks["replica_dead: a whole group quarantined, requeued, rankings "
+               "identical"] = (
+            not errors and len(dead) == 1
+            and pool._replica_state(dead[0]) == QUARANTINED
+            and counts["requeued"] >= 1 and counts["recoveries"] == 0
+            and np.array_equal(after, before))
+        log(f"  pool of two groups {groups}: errors {errors[:3]}, dead "
+            f"{[r.rid for r in dead]}, counts {counts}")
+    finally:
+        pool.close()
+    launches = {**ms.LAUNCHES, **sd.LAUNCHES}
+    checks["no hand kernel launched"] = not any(launches.values())
+    log(f"  serve-group on {card} over {group}: video "
+        f"{m['video'][1]:.3f} ms a call at bucket {SERVE_MAX_BATCH} (one "
+        f"card {m['video'][0]:.3f}), text {m['text'][1]:.3f} (one card "
+        f"{m['text'][0]:.3f}); index {m['index'][1]:.3f} ms a batch of "
+        f"{len(q)} (one card {m['index'][0]:.3f}); checks {checks}")
+    del gidx
+    if not all(checks.values()):
+        raise AssertionError(f"serve-group failed its checks: {checks}")
+    return m
+
+
+def phase_serve_group_cards(work, card, group=("cuda:0", "cuda:1")):
+    """``--serve-group``: a seeded full-width model exported, served on
+    cuda:0 alone (ladder 1-16, SERVE_CLIPS clips embedded, an index of
+    the clips padded with seeded unit rows to INDEX_ROWS, ties planted,
+    its top-INDEX_K of INDEX_QUERIES caption queries against the float64
+    host ranking) and by :func:`phase_serve_group` over ``group``."""
+    from milnce_tpu_torch.config import full_preset
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.serving import export
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.utils.torch_convert import torch_state_dict_to_flax
+
+    cfg = full_preset()
+    d = cfg.data
+    shape = (d.num_frames, d.video_size, d.video_size, 3)
+    tree = torch_state_dict_to_flax({
+        k: v.numpy() for k, v in build_model(cfg.model, seed=0)
+        .state_dict().items()})
+    out = export.export_inference_checkpoint(
+        f"{work}/export", tree["params"], tree["batch_stats"], cfg.model,
+        max_words=d.max_words, video_shape=shape)
+    engine = InferenceEngine.from_export(out, device="cuda:0",
+                                         max_batch=SERVE_MAX_BATCH,
+                                         min_bucket=1)
+    rng = np.random.default_rng(16)
+    clip_emb = np.concatenate([engine.embed_video(rng.integers(
+        0, 256, (SERVE_MAX_BATCH,) + shape, dtype=np.uint8))
+        for _ in range(SERVE_CLIPS // SERVE_MAX_BATCH)])
+    q = engine.embed_text(rng.integers(1, cfg.model.vocab_size,
+                                       (INDEX_QUERIES, d.max_words),
+                                       dtype=np.int32))
+    corpus, host, across = _index_corpus(clip_emb, q)
+    index = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                 query_buckets=engine.buckets,
+                                 device="cuda:0")
+    ranked = np.array_equal(index.topk(q)[1], host)
+    log(f"  one card (cuda:0): top-{INDEX_K} against the host ranking: "
+        f"equal {ranked}")
+    if not (ranked and across >= 2):
+        raise AssertionError("serve-group: the one-card index failed")
+    return phase_serve_group(out, engine, index, corpus, host, q, group,
+                             card)
 
 
 def _serve_bf16(out, engine, index, corpus, words, rng, shape, card):
@@ -2583,10 +2844,11 @@ def _stop_service(proc, timeout=300):
 
 
 def _metric(text, name):
-    for line in text.splitlines():
-        if line.startswith(name + " "):
-            return float(line.split()[1])
-    return float("nan")
+    """The value of metric ``name`` in a Prometheus scrape, summed over
+    its labelled children (one a card for the device-memory gauges)."""
+    values = [float(line.split()[-1]) for line in text.splitlines()
+              if line.startswith((name + " ", name + "{"))]
+    return sum(values) if values else float("nan")
 
 
 def _host_scores(q, corpus):
@@ -4641,6 +4903,15 @@ def main() -> int:
     t0 = time.perf_counter()
     log("== device")
     card = phase_device()
+    if sys.argv[1:] == ["--serve-group"]:
+        # serving launches no hand kernel: no build
+        if torch.cuda.device_count() < 2:
+            raise SystemExit("--serve-group needs 2 cards")
+        with tempfile.TemporaryDirectory() as work:
+            log("== serve-group (a seeded full-width export over cuda:0 "
+                "and cuda:1, against cuda:0 alone)")
+            phase_serve_group_cards(work, card)
+        return _finish(card, t0)
     log("== build")
     phase_build()
     if sys.argv[1:] == ["--fsdp-2d"]:

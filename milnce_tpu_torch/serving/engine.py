@@ -6,35 +6,43 @@ The engine packages the port's embed towers (``train/step.py``
 eval-mode entries offline eval uses, so served numbers ARE eval
 numbers) behind the JAX engine's discipline:
 
+- **a group of devices**: the engine serves on an ordered list of
+  devices in one process, as the JAX engine serves over its mesh's data
+  axis: one copy of the model on each, every bucket's rows split into
+  ``len(group)`` equal contiguous shards in order.  One device is the
+  group of one.  The list may name one card more than once.
 - **bucket ladder**: batch entries exist only at a power-of-two ladder
-  of batch sizes (the ladder of a one-device data axis: the engine runs
-  on one device).  Requests are padded UP to the smallest bucket that
+  of batch sizes, each divisible by the group's size, so every bucket
+  shards evenly.  Requests are padded UP to the smallest bucket that
   fits, so the towers only ever see ``len(buckets) x 2`` input shapes.
 - **warm-up at start-up**: every (entry, bucket) pair runs once in
   ``__init__`` (cuDNN's kernels chosen, the caching allocator's blocks
   carved), so first-request latency is steady-state latency.
-- **explicit transfers**: each request's rows go to the device with one
-  explicit copy and its embeddings come back with one, both under the
-  dispatch lock; nothing else crosses.
+- **explicit transfers**: each shard of a request's rows goes to its
+  device with one explicit copy and its embeddings come back with one,
+  all under the dispatch lock; nothing else crosses.
 - **recompile accounting**: :meth:`recompiles` counts the (entry, input
   shape) pairs that reached the device after the warm-up sweep and were
   not part of it — 0 for the life of a healthy process.
 
 Frozen params: the engine takes the model (and optionally Flax-shaped
 ``{'params', 'batch_stats'}`` variables, loaded into it with a strict
-``load_state_dict``), moves it to its device once and keeps it in eval
-mode; no optimizer state exists here (see ``serving/export.py``).
+``load_state_dict``), moves a copy to each device of its group once and
+keeps them in eval mode; no optimizer state exists here (see
+``serving/export.py``).
 ``dtype="bfloat16"`` (``serve.dtype``) serves a bf16 model as the JAX
 engine does: the model computes in bf16 and every float leaf, parameters
 and BatchNorm statistics, is cast to bf16 on the device; the embeddings
 come back as float32 arrays of the bf16 values.  An export whose model
 config says bfloat16 computes in bf16 over its f32 arrays without it.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
-a ``cuda`` request without a card raises, nothing falls back.
+a ``cuda`` request without a card, or naming a card that is not there,
+raises, and nothing falls back to the CPU or narrows a group.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -65,14 +73,40 @@ class ReplicaDead(RuntimeError):
 DEVICE_DISPATCH_LOCK = make_lock("serving.device_dispatch")
 
 
-def serving_device(device) -> torch.device:
-    """``device`` as a torch device; ``cuda`` without a card raises
-    instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"serving device {device!r} requested but no "
+def serving_group(devices) -> list:
+    """One device, or an ordered list of them (a group; it may name one
+    card more than once), as a list of torch devices of one type.  Checked
+    before anything loads: ``cuda`` without a card raises instead of
+    falling back to the CPU, and so does a card that is not there; nothing
+    narrows the group."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    group = [torch.device(d) for d in devices]
+    if not group:
+        raise ValueError("an empty device group")
+    cards = [d for d in group if d.type == "cuda"]
+    if cards and not torch.cuda.is_available():
+        raise RuntimeError(f"serving device {cards[0]} requested but no "
                            "CUDA device is visible (pass device='cpu')")
-    return dev
+    count = torch.cuda.device_count() if cards else 0
+    missing = [str(d) for d in cards
+               if d.index is not None and d.index >= count]
+    if missing:
+        raise RuntimeError(f"serving devices {missing} requested but only "
+                           f"{count} CUDA devices are visible")
+    if len({d.type for d in group}) > 1:
+        raise ValueError(f"a device group mixes device types: {group}")
+    return group
+
+
+def refuse_two_groups(group: list, process_group) -> None:
+    """A process group of ranks AND a device group in each rank is
+    multi-host serving, which the port does not serve."""
+    if process_group is not None and len(group) > 1:
+        raise ValueError(
+            f"a device group of {len(group)} devices together with a "
+            "process group (group=) is multi-host serving, which is not "
+            "ported: pass one of the two")
 
 
 def bucket_ladder(n_dev: int, min_bucket: int, max_batch: int) -> tuple:
@@ -155,7 +189,10 @@ class InferenceEngine:
     """Bucketed embed entries over frozen params, warmed at start-up.
 
     - ``model``: the port's S3D; the engine owns it from here (moves it
-      to ``device``, keeps it in eval mode).
+      to the group's first device and a copy to each other one, keeps
+      them in eval mode).
+    - ``device``: one device or an ordered group of them (see the module
+      docstring); ``self.device`` is the group's first.
     - ``variables``: optional Flax-shaped ``{'params': ..., 'batch_stats':
       ...}`` (an export's arrays, or the JAX package's variables), loaded
       into ``model``; with ``'quant_scales'`` (a v2 artifact) the engine
@@ -178,10 +215,11 @@ class InferenceEngine:
                  max_batch: int = 64, min_bucket: int = 0,
                  cast_dtype: Optional[str] = None, precompile: bool = True,
                  dispatch_lock=None):
-        self.device = serving_device(device)
+        self.group = serving_group(device)
+        self.device = self.group[0]
         self._dispatch_lock = (dispatch_lock if dispatch_lock is not None
                                else DEVICE_DISPATCH_LOCK)
-        self.buckets = bucket_ladder(1, min_bucket, max_batch)
+        self.buckets = bucket_ladder(len(self.group), min_bucket, max_batch)
         self.max_batch = self.buckets[-1]
         self.text_words = int(text_words)
         self.video_shape = tuple(int(d) for d in video_shape)
@@ -195,10 +233,14 @@ class InferenceEngine:
             load_jax_variables(model, variables)
         if cast_dtype:
             model = model.to(torch_dtype(cast_dtype))
-        # one explicit move at boot; steady state never moves params
-        self.model = model.to(self.device).eval()
-        self._text_fn = make_text_embed_fn(self.model)
-        self._video_fn = make_video_embed_fn(self.model)
+        # one explicit move at boot, a copy a shard; steady state never
+        # moves params
+        copies = [model] + [copy.deepcopy(model) for _ in self.group[1:]]
+        self.models = [m.to(dev).eval() for m, dev in zip(copies,
+                                                          self.group)]
+        self.model = self.models[0]
+        self._fns = {"text": [make_text_embed_fn(m) for m in self.models],
+                     "video": [make_video_embed_fn(m) for m in self.models]}
         # Bookkeeping shared by the batcher worker, request threads and
         # health readers — guarded by its own tiny lock, NEVER the
         # dispatch lock (stats reads must not contend with device work).
@@ -233,7 +275,7 @@ class InferenceEngine:
         if rows.ndim != 2 or rows.shape[1] != self.text_words:
             raise ValueError(f"expected (n, {self.text_words}) token ids, "
                              f"got {rows.shape}")
-        return self._run("text", self._text_fn, rows)
+        return self._run("text", rows)
 
     def embed_video(self, video_u8: np.ndarray) -> np.ndarray:
         """(n, T, H, W, 3) uint8 frames -> (n, D) float32 embeddings."""
@@ -241,9 +283,9 @@ class InferenceEngine:
         if clips.shape[1:] != self.video_shape:
             raise ValueError(f"expected (n,) + {self.video_shape} uint8 "
                              f"video, got {clips.shape}")
-        return self._run("video", self._video_fn, clips)
+        return self._run("video", clips)
 
-    def _run(self, entry: str, fn, rows: np.ndarray) -> np.ndarray:
+    def _run(self, entry: str, rows: np.ndarray) -> np.ndarray:
         n = rows.shape[0]
         bucket = self.bucket_for(n)
         rows = pad_rows(rows, bucket)
@@ -259,10 +301,17 @@ class InferenceEngine:
             self.kill()
             raise ReplicaDead("injected fault at serve.replica_dead — "
                               "this replica is now permanently dead")
-        # both legs of the request are explicit copies, next to its work
+        # both legs of the request are explicit copies, next to its work:
+        # every shard goes up and every card's forward is launched before
+        # anything is read back, so the cards run side by side; the one
+        # sync of the call is the first read back below (reading shard i
+        # before shard i+1 is launched would run the cards one by one)
+        shards = np.split(rows, len(self.group))
         with self._dispatch_lock:
-            x = torch.from_numpy(rows).to(self.device)
-            out = fn(x).to("cpu").float().numpy()
+            outs = [fn(torch.from_numpy(x).to(dev)) for fn, x, dev in
+                    zip(self._fns[entry], shards, self.group)]
+            out = np.concatenate([o.to("cpu").float().numpy()
+                                  for o in outs])
         with self._stats_lock:
             self._calls[(entry, bucket)] = \
                 self._calls.get((entry, bucket), 0) + 1
@@ -331,12 +380,14 @@ class InferenceEngine:
                     max_batch: int = 64, min_bucket: int = 0,
                     precompile: bool = True) -> "InferenceEngine":
         """Build model + engine from a ``milnce-export`` directory (either
-        package's).  ``dtype`` overrides the exported compute dtype
-        ('bfloat16' builds the model at bf16 AND casts the frozen
-        parameters and statistics; '' keeps the exported dtype); refusals
-        as :func:`load_serving_model`."""
+        package's) on ``device``, one device or a group.  ``dtype``
+        overrides the exported compute dtype ('bfloat16' builds the model
+        at bf16 AND casts the frozen parameters and statistics; '' keeps
+        the exported dtype); refusals as :func:`load_serving_model`, and a
+        missing card before anything loads."""
+        group = serving_group(device)
         model, variables, meta = load_serving_model(export_dir, dtype)
-        return cls(model, variables, device=device,
+        return cls(model, variables, device=group,
                    text_words=meta["tokenizer"]["max_words"],
                    video_shape=meta["video_shape"],
                    max_batch=max_batch, min_bucket=min_bucket,

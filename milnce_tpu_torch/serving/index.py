@@ -1,6 +1,7 @@
 """Device-resident retrieval index: corpus embeddings on the card (row
-shards over a process group's ranks, when given one), dot-product +
-exact top-k retrieval (port of ``milnce_tpu/serving/index.py``).
+shards over the cards of a device group, or over a process group's
+ranks), dot-product + exact top-k retrieval (port of
+``milnce_tpu/serving/index.py``).
 
 Offline eval materializes the full T x V similarity matrix on host
 (``eval/retrieval.py``) — fine for a 1k-video benchmark, hopeless for a
@@ -15,11 +16,14 @@ The retrieval program (the JAX ``shard_map`` body, step for step):
 2. pad rows are masked to -inf and each shard takes a LOCAL top-k,
    shifted to global row indices by the shard's rank — per shard only
    (Q, k) survives, not (Q, R_local);
-3. with a group, the per-shard candidate lists ride ONE all-gather each
-   for scores and indices (``parallel/dist.py::all_gather_tiled``), and
-   a final top-k over the ``W * k`` candidates is exact — every true
-   global winner is necessarily some shard's local winner.  Without a
-   group the index is one shard.
+3. the per-shard candidate lists meet on one device and a final top-k
+   over the ``n * k`` candidates is exact — every true global winner is
+   necessarily some shard's local winner.  Over a device group (the
+   JAX mesh's data axis, in one process: :func:`group_topk`) each card's
+   (Q, k) lists are copied to the group's first card and concatenated in
+   shard order; over a process group they ride ONE all-gather each for
+   scores and indices (``parallel/dist.py::all_gather_tiled``).  One
+   device and no process group is one shard.
 
 Ties break by the lower row index, as ``lax.top_k`` breaks them:
 ``torch.topk`` promises no order among equal values, so the selection
@@ -43,7 +47,8 @@ import torch.distributed as dist
 from milnce_tpu_torch.analysis.lockrt import make_lock
 from milnce_tpu_torch.parallel.dist import all_gather_tiled
 from milnce_tpu_torch.serving.batcher import pad_rows
-from milnce_tpu_torch.serving.engine import DEVICE_DISPATCH_LOCK, serving_device
+from milnce_tpu_torch.serving.engine import (DEVICE_DISPATCH_LOCK,
+                                             refuse_two_groups, serving_group)
 
 
 def _order_key(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -91,6 +96,39 @@ def make_topk_fn(k: int, group=None):
     return local_topk
 
 
+def group_topk(fn, shards, queries: np.ndarray, k: int
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX ``shard_map`` body over a device group, in one process:
+    ``fn`` (one shard's program, :func:`make_topk_fn`) on every shard
+    ``(corpus, valid, start)`` on its card, all launched before anything
+    is read back; with more than one shard, each one's (Q, k) candidates
+    are copied to the first shard's card, concatenated in shard order and
+    one exact top-k taken over the ``n * k`` (ties by the lower row,
+    across shard boundaries too).  Returns host ((Q, k) float32 scores,
+    (Q, k) int32 rows); the read back is the call's one sync."""
+    on = {c.device: torch.from_numpy(queries).to(c.device)
+          for c, _, _ in shards}
+    parts = [fn(c, v, s, on[c.device]) for c, v, s in shards]
+    if len(parts) > 1:
+        first = shards[0][0].device
+        parts = [exact_topk(torch.cat([s.to(first) for s, _ in parts], 1),
+                            torch.cat([i.to(first) for _, i in parts], 1),
+                            k)]
+    scores, idx = parts[0]
+    return scores.to("cpu").numpy(), idx.to("cpu").numpy().astype(np.int32)
+
+
+def shard_tensors(emb: np.ndarray, shard: int, rows: int, device) -> tuple:
+    """Shard ``shard`` of ``emb`` at ``rows`` rows a shard on ``device``:
+    (``(rows, D)`` corpus padded with zero rows, ``(1,)`` int32 valid
+    rows, ``(1,)`` int64 first global row)."""
+    lo = shard * rows
+    corpus, valid = shard_corpus(emb[lo:lo + rows], 1, rows)
+    return (torch.from_numpy(corpus).to(device),
+            torch.from_numpy(valid).to(device),
+            torch.tensor([lo], device=device))
+
+
 def shard_corpus(emb: np.ndarray, n_data: int, rows: int
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Pad ``(size, D)`` embeddings to ``rows`` rows per data shard ->
@@ -116,13 +154,18 @@ class DeviceRetrievalIndex:
     - ``k``: retrieval depth;
     - ``query_buckets``: the query-batch ladder to warm (share the
       engine's so batcher output feeds straight through);
-    - ``device``: ``cuda`` unless the caller passes ``cpu``.
+    - ``device``: ``cuda`` unless the caller passes ``cpu``; a list of
+      devices is a device group, and shard r of ``max(ceil(N / n), k)``
+      rows lives on its r-th device, the JAX mesh's geometry.  A device
+      group together with ``group=`` is refused.
     """
 
     def __init__(self, embeddings: np.ndarray, *, k: int = 10,
                  query_buckets: Sequence[int] = (8,), device="cuda",
                  group=None, precompile: bool = True):
-        self.device = serving_device(device)
+        self.devices = serving_group(device)
+        refuse_two_groups(self.devices, group)
+        self.device = self.devices[0]
         emb = np.ascontiguousarray(embeddings, dtype=np.float32)
         if emb.ndim != 2:
             raise ValueError(f"expected (N, D) embeddings, got {emb.shape}")
@@ -132,17 +175,14 @@ class DeviceRetrievalIndex:
             raise ValueError(f"k={k} outside [1, corpus size {self.size}]")
         self.query_buckets = tuple(sorted(int(b) for b in query_buckets))
         if group is None:
-            n_data, rank = 1, 0
+            n_data, mine = len(self.devices), range(len(self.devices))
         else:
-            n_data, rank = dist.get_world_size(group), dist.get_rank(group)
+            n_data, mine = dist.get_world_size(group), [dist.get_rank(group)]
         # Pad the corpus so rows split evenly AND every shard holds at
         # least k rows (the local top-k needs k <= local extent).
         rows = max(-(-self.size // n_data), self.k)
-        corpus, valid = shard_corpus(emb[rank * rows:(rank + 1) * rows], 1,
-                                     rows)
-        self._corpus = torch.from_numpy(corpus).to(self.device)  # resident
-        self._valid = torch.from_numpy(valid).to(self.device)
-        self._start = torch.tensor([rank * rows], device=self.device)
+        self._shards = [shard_tensors(emb, r, rows, dev)   # resident
+                        for r, dev in zip(mine, self.devices)]
         self._fn = make_topk_fn(self.k, group)
         # call accounting is hit straight off concurrent request threads
         # — its own lock, never the dispatch lock
@@ -174,11 +214,7 @@ class DeviceRetrievalIndex:
         # serialized dispatch: see DEVICE_DISPATCH_LOCK in engine.py —
         # index queries come straight off request threads
         with DEVICE_DISPATCH_LOCK:
-            qd = torch.from_numpy(q).to(self.device)
-            scores, idx = self._fn(self._corpus, self._valid, self._start,
-                                   qd)
-            scores = scores.to("cpu").numpy()
-            idx = idx.to("cpu").numpy().astype(np.int32)
+            scores, idx = group_topk(self._fn, self._shards, q, self.k)
         with self._stats_lock:
             self._calls += 1
             self._shapes.add(q.shape)

@@ -8,21 +8,23 @@ This module is its double-buffered twin:
   a host-side pending buffer and returns at once — no device work, no
   lock shared with the query path beyond a pointer read;
 - a **background builder thread** drains the buffer, concatenates the
-  grown corpus on the host, copies its shard to the device and performs
+  grown corpus on the host, copies each shard to its device and performs
   an **atomic generation swap** — one reference assignment under
-  ``serving.live_index.state``.  Queries capture the generation
-  reference once per call, so every query is answered by exactly ONE
-  generation, and the old generation's tensors are freed once the last
-  in-flight query drops them;
+  ``serving.live_index.state``, made once every shard's copy has
+  finished.  A generation holds every shard's tensors, and queries
+  capture the generation reference once per call, so every query is
+  answered by exactly ONE generation on every card, and the old
+  generation's tensors are freed once the last in-flight query drops
+  them;
 - **publication after the copy**: the builder copies a generation on a
-  side stream of its own (on ``cuda``), outside the dispatch lock and
-  through two pinned staging slots, so the copy is an asynchronous DMA
-  and queries keep running meanwhile; it then waits for the copy's event
-  and marks the tensors as used on the query stream (``record_stream``)
-  before it publishes.  A query on another thread can never read a
-  half-copied corpus, and the allocator does not hand a freed
-  generation's blocks back to the side stream while a query stream
-  could still read them;
+  side stream of each card's own (on ``cuda``), outside the dispatch
+  lock and through two pinned staging slots, so the copy is an
+  asynchronous DMA and queries keep running meanwhile; it then waits for
+  each card's copy and marks the tensors as used on that card's query
+  stream (``record_stream``) before it publishes.  A query on another
+  thread can never read a half-copied corpus, and the allocator does not
+  hand a freed generation's blocks back to the side stream while a query
+  stream could still read them;
 - **the rung rule**: per-shard row capacity rides the same power-of-two
   rung rule as the engine's bucket ladder (:func:`shard_rung`), so a
   swap within a rung re-uses the same shapes.  Crossing a rung is a
@@ -46,10 +48,12 @@ corpus as ``corpus.npz`` + ``index_meta.json`` — the JAX package's
 files, so a snapshot opens in either package; :meth:`restore` boots a
 new index from one, generation counter preserved, bit-exact.
 
-With ``group=`` the corpus rows shard over the group's ranks as in
-``DeviceRetrievalIndex``: every rank ingests the same rows, and a query
+``device`` may be a device group: the corpus rows shard over its
+cards as in ``DeviceRetrievalIndex`` (``shard_rung(size, n, k, floor)``
+rows a card, the JAX mesh's geometry).  With ``group=`` they shard over
+the group's ranks instead: every rank ingests the same rows, and a query
 is a collective, so the ranks must query the same generation (flush on
-every rank before querying).
+every rank before querying).  The two together are refused.
 """
 
 from __future__ import annotations
@@ -67,10 +71,12 @@ from milnce_tpu_torch.obs import metrics as obs_metrics
 from milnce_tpu_torch.obs import spans as obs_spans
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.serving.batcher import pad_rows
-from milnce_tpu_torch.serving.engine import DEVICE_DISPATCH_LOCK, serving_device
+from milnce_tpu_torch.serving.engine import (DEVICE_DISPATCH_LOCK,
+                                             refuse_two_groups, serving_group)
 from milnce_tpu_torch.serving.export import (export_corpus_snapshot,
                                              load_corpus_snapshot)
-from milnce_tpu_torch.serving.index import make_topk_fn, shard_corpus
+from milnce_tpu_torch.serving.index import (group_topk, make_topk_fn,
+                                            shard_tensors)
 
 # Builder idle poll (bounds close() latency) and the backoff before a
 # FAILED build is retried without a fresh ingest/flush signal.
@@ -115,18 +121,16 @@ class _Generation:
     written once by the builder (or ``__init__``) before publication and
     only ever read afterwards — the atomic-swap contract."""
 
-    __slots__ = ("gen", "host", "size", "rows", "corpus", "valid", "start",
-                 "built_mono")
+    __slots__ = ("gen", "host", "size", "rows", "shards", "built_mono")
 
-    def __init__(self, gen: int, host: np.ndarray, rows: int,
-                 corpus, valid, start):
+    def __init__(self, gen: int, host: np.ndarray, rows: int, shards: list):
         self.gen = int(gen)
         self.host = host                 # (size, D) f32 — snapshot/rebuild
         self.size = int(host.shape[0])
         self.rows = int(rows)            # per-shard capacity (the rung)
-        self.corpus = corpus             # device, (rows, D): this shard
-        self.valid = valid               # device, (1,) int32
-        self.start = start               # device, (1,): first global row
+        # every shard this process holds, each on its device: (corpus
+        # (rows, D), valid (1,) int32, start (1,) first global row)
+        self.shards = shards
         self.built_mono = time.monotonic()
 
 
@@ -139,7 +143,7 @@ class LiveRetrievalIndex:
     / ``restore``.  ``embeddings=None`` boots an EMPTY index (``dim``
     required); queries refuse until the corpus holds at least ``k`` rows,
     but ingest works from the first second.  ``device`` is ``cuda``
-    unless the caller passes ``cpu``.
+    unless the caller passes ``cpu``, or a device group.
     """
 
     def __init__(self, embeddings: Optional[np.ndarray] = None, *,
@@ -149,7 +153,9 @@ class LiveRetrievalIndex:
                  precompile: bool = True, group=None,
                  registry: Optional[obs_metrics.MetricsRegistry] = None,
                  recorder: Optional[obs_spans.SpanRecorder] = None):
-        self.device = serving_device(device)
+        self.devices = serving_group(device)
+        refuse_two_groups(self.devices, group)
+        self.device = self.devices[0]
         if embeddings is None:
             if dim is None:
                 raise ValueError("an empty live index needs dim= (the "
@@ -166,15 +172,17 @@ class LiveRetrievalIndex:
             raise ValueError(f"k={k} < 1")
         self.query_buckets = tuple(sorted(int(b) for b in query_buckets))
         if group is None:
-            self._n_data, self._rank = 1, 0
+            self._n_data = len(self.devices)
+            self._mine = range(self._n_data)
         else:
             self._n_data = dist.get_world_size(group)
-            self._rank = dist.get_rank(group)
+            self._mine = [dist.get_rank(group)]
         self._min_shard_rows = int(min_shard_rows)
         self._fn = make_topk_fn(self.k, group)
-        # the builder's copies run on a stream of their own (cuda)
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        # each card's generation copies run on a stream of its own (cuda)
+        self._copy_streams = {dev: torch.cuda.Stream(dev)
+                              for dev in dict.fromkeys(self.devices)
+                              if dev.type == "cuda"}
         self._stage = None        # the builder's pinned slots (cuda)
         self._recorder = recorder
         reg = registry if registry is not None \
@@ -234,55 +242,62 @@ class LiveRetrievalIndex:
     # ---- geometry / device copies ----------------------------------------
 
     def _make_generation(self, gen: int, host: np.ndarray) -> _Generation:
-        """Pad this rank's shard of ``host`` to its rung and copy it to
-        the device; returns only once the copy has finished there."""
+        """Pad each of this process's shards of ``host`` to its rung and
+        copy it to its device; returns only once every copy has finished
+        there, so the generation it builds is whole on every card."""
         rows = shard_rung(host.shape[0], self._n_data, self.k,
                           self._min_shard_rows)
-        lo = self._rank * rows
-        mine = host[lo:lo + rows]
-        start = np.asarray([lo], np.int64)
-        if self._copy_stream is None:
-            corpus, valid = shard_corpus(mine, 1, rows)
-            tensors = [torch.from_numpy(a).to(self.device)
-                       for a in (corpus, valid, start)]
-        else:
-            tensors = self._upload(mine, rows, start)
-        return _Generation(gen, host, rows, *tensors)
+        return _Generation(gen, host, rows, [
+            self._copy_shard(host, r, rows, dev)
+            for r, dev in zip(self._mine, self.devices)])
 
-    def _upload(self, mine: np.ndarray, rows: int, start: np.ndarray
-                ) -> list:
-        """Copy this rank's rows up on the builder's own stream through
+    def _copy_shard(self, host: np.ndarray, shard: int, rows: int,
+                    device) -> tuple:
+        """Shard ``shard`` of ``host`` on ``device``, the copy finished."""
+        if device.type != "cuda":
+            return shard_tensors(host, shard, rows, device)
+        lo = shard * rows
+        return self._upload(host[lo:lo + rows], rows,
+                            np.asarray([lo], np.int64), device)
+
+    def _upload(self, mine: np.ndarray, rows: int, start: np.ndarray,
+                device) -> tuple:
+        """Copy one shard's rows up on its card's copy stream through the
         two pinned staging slots, zeroing the pad rows on the card.  A
         copy from pinned memory is a true asynchronous DMA, so the queries
         go on beside it; a pageable source would be staged through the
         driver's buffers, which the queries' own copies share.  Returns
         (corpus, valid, start) once the copy is whole on the device, each
-        marked as used by the query stream from then on."""
+        marked as used by the card's query stream from then on."""
         if self._stage is None:
             chunk = max(1, _STAGE_BYTES // (4 * self.dim))
-            self._stage = [(torch.empty((chunk, self.dim),
+            self._stage = [[torch.empty((chunk, self.dim),
                                         dtype=torch.float32,
-                                        pin_memory=True),
-                            torch.cuda.Event()) for _ in range(2)]
+                                        pin_memory=True), None]
+                           for _ in range(2)]
         chunk = self._stage[0][0].shape[0]
         n = mine.shape[0]
-        query_stream = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
+        stream = self._copy_streams[device]
+        query_stream = torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
             corpus = torch.empty((rows, self.dim), dtype=torch.float32,
-                                 device=self.device)
+                                 device=device)
             corpus[n:].zero_()
             for j, a in enumerate(range(0, n, chunk)):
-                buf, free = self._stage[j % 2]
-                free.synchronize()       # the slot's last copy has left it
+                slot = self._stage[j % 2]
+                if slot[1] is not None:
+                    slot[1].synchronize()  # the slot's last copy has left
                 b = min(n, a + chunk)
-                buf.numpy()[:b - a] = mine[a:b]
-                corpus[a:b].copy_(buf[:b - a], non_blocking=True)
-                free.record(self._copy_stream)
-            tensors = [corpus] + [torch.from_numpy(x).to(self.device)
-                                  for x in (np.asarray([n], np.int32),
-                                            start)]
+                slot[0].numpy()[:b - a] = mine[a:b]
+                corpus[a:b].copy_(slot[0][:b - a], non_blocking=True)
+                # an event of this card's: the slots serve every card
+                slot[1] = torch.cuda.Event()
+                slot[1].record(stream)
+            tensors = (corpus,) + tuple(
+                torch.from_numpy(x).to(device)
+                for x in (np.asarray([n], np.int32), start))
             done = torch.cuda.Event()
-            done.record(self._copy_stream)
+            done.record(stream)
         done.synchronize()               # the copy is whole on the device
         for t in tensors:                # used by queries from now on
             t.record_stream(query_stream)
@@ -290,10 +305,7 @@ class LiveRetrievalIndex:
 
     def _dispatch(self, g: _Generation, q_padded: np.ndarray):
         with DEVICE_DISPATCH_LOCK:
-            qd = torch.from_numpy(q_padded).to(self.device)
-            scores, idx = self._fn(g.corpus, g.valid, g.start, qd)
-            scores = scores.to("cpu").numpy()
-            idx = idx.to("cpu").numpy().astype(np.int32)
+            scores, idx = group_topk(self._fn, g.shards, q_padded, self.k)
         with self._state_lock:
             self._shapes.add((g.rows, q_padded.shape))
         return scores, idx

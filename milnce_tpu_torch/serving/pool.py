@@ -6,10 +6,11 @@ the same states, routing, counters and events).
 Without a pool every request funnels through ONE
 :class:`~milnce_tpu_torch.serving.engine.InferenceEngine` behind ONE
 dispatch lock: a single wedged dispatch or slow replica stalls the
-entire service.  The pool owns N engines — a replica is ONE device in
-the port (the port's engine serves on one device; on the CPU every
-replica is ``cpu``, as every JAX CPU replica is one virtual device) —
-each with its OWN model copy, its OWN dispatch lock
+entire service.  The pool owns N engines — a replica is one engine over
+a group of devices, as a JAX replica is one engine over a mesh (the
+devices split into even contiguous groups; on the CPU every replica is
+one ``cpu`` device, as every JAX CPU replica is one virtual device) —
+each with its OWN model copies, its OWN dispatch lock
 (``serving.replica<i>.dispatch``), its own bounded work queue and
 worker thread, and a per-replica health state machine:
 
@@ -88,7 +89,8 @@ import numpy as np
 from milnce_tpu_torch.analysis.lockrt import make_lock
 from milnce_tpu_torch.obs import metrics as obs_metrics
 from milnce_tpu_torch.obs import spans as obs_spans
-from milnce_tpu_torch.serving.engine import InferenceEngine, ReplicaDead
+from milnce_tpu_torch.serving.engine import (InferenceEngine, ReplicaDead,
+                                             serving_group)
 
 SERVING = "SERVING"
 DEGRADED = "DEGRADED"
@@ -188,7 +190,7 @@ class ReplicaPool:
 
     ``engines`` may be real :class:`InferenceEngine` replicas
     (:meth:`build` / :meth:`from_export` construct them, one device
-    each) or engine-shaped test doubles — the pool only needs the
+    group each) or engine-shaped test doubles — the pool only needs the
     embed/bucket surface.
     """
 
@@ -764,23 +766,21 @@ class ReplicaPool:
         for r in self.replicas:
             self._drain_closed(r)
 
-    # ---- construction over devices ---------------------------------------
+    # ---- construction over device groups ---------------------------------
 
     @staticmethod
     def partition_devices(devices: Sequence, n_replicas: int) -> list:
-        """The device of each of ``n_replicas`` engines: the port's engine
-        serves on one device, so a replica is one device.
+        """The device group of each of ``n_replicas`` engines, JAX's
+        grouping: on cards the devices split into ``n_replicas`` even
+        contiguous groups (an uneven split is refused); on the CPU (every
+        device ``cpu``) every group is a single device, as JAX does on
+        its CPU backend.  Fewer devices than replicas are refused ("a
+        replica needs at least one card").
 
         ``devices`` is an explicit list, which may name one device more
-        than once (several replicas on one card, each with its own model
-        copy and dispatch lock), or None for every visible CUDA card.  On
-        the CPU (every device ``cpu``) the first ``n_replicas`` are taken,
-        as JAX does there.  On cards JAX splits the devices into
-        ``n_replicas`` even groups, each one engine over a mesh: a split
-        that is uneven is refused as in JAX, and one whose groups would
-        hold more than one card is refused because a multi-card engine is
-        not ported.  Fewer devices than replicas are refused ("a replica
-        needs at least one card")."""
+        than once (several replicas, or several shards of one group, on
+        one card, each with its own model copy), or None for every
+        visible CUDA card."""
         import torch
 
         if n_replicas < 1:
@@ -796,37 +796,42 @@ class ReplicaPool:
             raise ValueError(f"{n_replicas} replicas > {len(devices)} "
                              "devices — a replica needs at least one card")
         if all(torch.device(d).type == "cpu" for d in devices):
-            return devices[:n_replicas]
+            return [[devices[i]] for i in range(n_replicas)]
         if len(devices) % n_replicas:
             raise ValueError(
                 f"{len(devices)} devices do not split evenly into "
                 f"{n_replicas} replica groups")
-        if len(devices) > n_replicas:
-            raise ValueError(
-                f"{len(devices)} cards over {n_replicas} replicas would make "
-                f"groups of {len(devices) // n_replicas} cards: the torch "
-                "port's engine serves on one card, so a replica is one card "
-                "(a multi-card engine is not ported); serve as many replicas "
-                "as cards, or name one card a replica in devices=")
-        return devices
+        size = len(devices) // n_replicas
+        return [devices[i * size:(i + 1) * size] for i in range(n_replicas)]
 
     @classmethod
-    def _over_devices(cls, specs: Sequence, devices, *, text_words: int,
-                      video_shape: Sequence[int], max_batch: int,
-                      min_bucket: int, precompile: bool,
-                      **pool_kwargs) -> "ReplicaPool":
+    def _groups(cls, devices, n_replicas: int) -> list:
+        """:meth:`partition_devices`, each group checked as the engine
+        checks it (a card that is not there raises) before anything
+        loads."""
+        groups = cls.partition_devices(devices, n_replicas)
+        for group in groups:
+            serving_group(group)
+        return groups
+
+    @classmethod
+    def _over_groups(cls, specs: Sequence, groups: Sequence, *,
+                     text_words: int, video_shape: Sequence[int],
+                     max_batch: int, min_bucket: int, precompile: bool,
+                     **pool_kwargs) -> "ReplicaPool":
         """One engine per ``(model, variables, cast_dtype, class)`` spec,
-        each on its device from :meth:`partition_devices`, over its own
-        copy of the model and with its OWN dispatch lock (named
-        ``serving.replica<i>.dispatch`` — distinct order classes for the
-        runtime sanitizer)."""
-        devs = cls.partition_devices(devices, len(specs))
+        each over its device group, over its own copy of the model and
+        with its OWN dispatch lock (named ``serving.replica<i>.dispatch``
+        — distinct order classes for the runtime sanitizer).  The largest
+        group sets every replica's ladder floor, so every replica serves
+        the same buckets (JAX's rule)."""
+        floor = max(min_bucket, max(len(g) for g in groups))
         engines = [InferenceEngine(
-            copy.deepcopy(m), v, device=dev, text_words=text_words,
+            copy.deepcopy(m), v, device=group, text_words=text_words,
             video_shape=video_shape, max_batch=max_batch,
-            min_bucket=min_bucket, cast_dtype=cast, precompile=precompile,
+            min_bucket=floor, cast_dtype=cast, precompile=precompile,
             dispatch_lock=make_lock(f"serving.replica{i}.dispatch"))
-            for i, (dev, (m, v, cast, _)) in enumerate(zip(devs, specs))]
+            for i, (group, (m, v, cast, _)) in enumerate(zip(groups, specs))]
         return cls(engines, classes=[c for *_, c in specs], **pool_kwargs)
 
     @classmethod
@@ -834,9 +839,11 @@ class ReplicaPool:
               video_shape: Sequence[int], max_batch: int = 64,
               min_bucket: int = 0, devices=None,
               precompile: bool = True, **pool_kwargs) -> "ReplicaPool":
-        """``n_replicas`` engines over ``model``, one device each."""
-        return cls._over_devices(
-            [(model, variables, None, F32_CLASS)] * n_replicas, devices,
+        """``n_replicas`` engines over ``model``, one device group each
+        (:meth:`partition_devices` over ``devices``)."""
+        return cls._over_groups(
+            [(model, variables, None, F32_CLASS)] * n_replicas,
+            cls._groups(devices, n_replicas),
             text_words=text_words, video_shape=video_shape,
             max_batch=max_batch, min_bucket=min_bucket,
             precompile=precompile, **pool_kwargs)
@@ -850,7 +857,7 @@ class ReplicaPool:
                     edge_class: str = EDGE_CLASS,
                     **pool_kwargs) -> "ReplicaPool":
         """Pooled twin of ``InferenceEngine.from_export``: one frozen
-        export served by ``n_replicas`` engines, one device each
+        export served by ``n_replicas`` engines, one device group each
         (:meth:`partition_devices` over ``devices``, default every CUDA
         card; ``devices=["cpu"] * n`` on the CPU).
 
@@ -862,6 +869,8 @@ class ReplicaPool:
         max_words, video shape); every replica serves the same ladder."""
         from milnce_tpu_torch.serving.engine import load_serving_model
 
+        groups = cls._groups(devices, n_replicas + (
+            edge_replicas if edge_export_dir else 0))
         model, variables, meta = load_serving_model(export_dir, dtype)
         specs = [(model, variables, dtype or None, F32_CLASS)] * n_replicas
         if edge_export_dir and edge_replicas:
@@ -877,7 +886,7 @@ class ReplicaPool:
                     f"{meta['tokenizer']['max_words']}, video_shape "
                     f"{emeta['video_shape']} vs {meta['video_shape']}")
             specs += [(emodel, evars, None, edge_class)] * edge_replicas
-        return cls._over_devices(
-            specs, devices, text_words=meta["tokenizer"]["max_words"],
+        return cls._over_groups(
+            specs, groups, text_words=meta["tokenizer"]["max_words"],
             video_shape=meta["video_shape"], max_batch=max_batch,
             min_bucket=min_bucket, precompile=precompile, **pool_kwargs)

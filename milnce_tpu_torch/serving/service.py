@@ -854,10 +854,11 @@ def serve_http(service: RetrievalService, host: str = "127.0.0.1",
     return server
 
 
-def _device_memory_gauges(reg, device) -> None:
-    """The card's memory as the caching allocator sees it (a live
+def _device_memory_gauges(reg, cards) -> None:
+    """Each card's memory as the caching allocator sees it (a live
     index's rung crossing holds two generations until the old one's last
-    query ends) — read at scrape time."""
+    query ends), one child a card labelled by it — read at scrape
+    time."""
     import torch
 
     for name, fn, help_ in (
@@ -867,8 +868,11 @@ def _device_memory_gauges(reg, device) -> None:
              "bytes of device memory the caching allocator holds"),
             ("max_reserved", torch.cuda.max_memory_reserved,
              "peak bytes the caching allocator has held")):
-        reg.gauge(f"milnce_serve_device_memory_{name}_bytes", help_,
-                  fn=lambda fn=fn: float(fn(device)))
+        fam = reg.gauge(f"milnce_serve_device_memory_{name}_bytes", help_,
+                        labels=("card",))
+        for card in dict.fromkeys(cards):
+            fam.labels(card=card).bind(
+                lambda fn=fn, card=card: float(fn(card)))
 
 
 def main(argv=None) -> None:
@@ -876,16 +880,23 @@ def main(argv=None) -> None:
     (either package's), the JAX ``milnce-serve``'s flags.
 
     Same CLI grammar as the trainer (``--preset`` + ``--serve.*`` /
-    ``--parallel.*`` overrides — config.py).  It serves on the CUDA card
-    unless ``--parallel.platform cpu``, and refuses to start without a
-    card otherwise.  Pooled (``--serve.replicas`` > 1 or an edge tier):
-    one replica a card on ``cuda`` (more replicas than cards are
-    refused), every replica ``cpu`` on the CPU.  The corpus comes from
+    ``--parallel.*`` overrides — config.py).  It serves on every visible
+    CUDA card, as ``milnce-serve``'s mesh spans every device, unless
+    ``--parallel.platform cpu`` (one CPU device), and refuses to start
+    without a card otherwise.  With one replica the engine spans every
+    card as one group.  Pooled (``--serve.replicas`` > 1 or an edge
+    tier): the cards split into one even contiguous group a replica
+    (``ReplicaPool.partition_devices``: an uneven split and more
+    replicas than cards are refused), every replica one ``cpu`` device on
+    the CPU.  The index, frozen or live, shards its rows over every card
+    in both modes.  The corpus comes from
     ``--serve.corpus_npz`` (a (N, D) float32 embedding matrix); without
     it the service starts embed-only (query requests 400 until an index
     exists).  SIGTERM/SIGINT shut down gracefully: the live index is
     flushed, then snapshotted to ``--serve.index_snapshot_dir``."""
     import os
+
+    import torch
 
     from milnce_tpu_torch.config import parse_cli
     from milnce_tpu_torch.data.tokenizer import Tokenizer
@@ -901,9 +912,12 @@ def main(argv=None) -> None:
     if not s.export_dir:
         raise SystemExit("--serve.export_dir is required (a milnce-export "
                          "artifact directory)")
-    # the port's device choice: the card unless --parallel.platform cpu;
-    # 'cuda' without a card raises here, before anything loads
+    # the port's device choice: every visible card (the JAX service's
+    # mesh over jax.devices()) unless --parallel.platform cpu; 'cuda'
+    # without a card raises here, before anything loads
     device = resolve_device(cfg.parallel.platform)
+    group = ([device] if device.type == "cpu" else
+             [f"cuda:{i}" for i in range(torch.cuda.device_count())])
     edge = bool(s.edge_export_dir) and s.edge_replicas > 0
     if s.edge_replicas > 0 and not s.edge_export_dir:
         raise SystemExit("--serve.edge_replicas needs "
@@ -928,7 +942,7 @@ def main(argv=None) -> None:
             registry=obs_metrics.registry())
     else:
         engine = InferenceEngine.from_export(
-            s.export_dir, device=device, dtype=s.dtype,
+            s.export_dir, device=group, dtype=s.dtype,
             max_batch=s.max_batch, min_bucket=s.min_bucket)
     # sentence requests need a vocab: --serve.token_dict_path wins, else
     # the path the export recorded; with neither, token_ids-only
@@ -965,7 +979,7 @@ def main(argv=None) -> None:
         from milnce_tpu_torch.serving.export import INDEX_METADATA_FILE
         from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
 
-        live_kwargs = dict(query_buckets=engine.buckets, device=device,
+        live_kwargs = dict(query_buckets=engine.buckets, device=group,
                            min_shard_rows=s.index_min_shard_rows,
                            registry=obs_metrics.registry())
         snap = s.index_snapshot_dir
@@ -983,13 +997,13 @@ def main(argv=None) -> None:
     elif corpus is not None:
         index = DeviceRetrievalIndex(corpus, k=s.topk,
                                      query_buckets=engine.buckets,
-                                     device=device)
+                                     device=group)
     # run identity for every snapshot/event this process emits; the
     # service joins no process group, so its rank is the launcher's
     obs_runctx.set_run_context(obs_runctx.auto_run_id("serve-"),
                                int(os.environ.get("RANK", 0)))
     if device.type == "cuda":
-        _device_memory_gauges(obs_metrics.registry(), device)
+        _device_memory_gauges(obs_metrics.registry(), group)
     capture = None
     if s.capture_dir:
         capture = OwnedCapture(ProfilerCapture(
@@ -1018,7 +1032,7 @@ def main(argv=None) -> None:
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
     print(f"milnce-serve-torch: listening on http://{s.host}:"
-          f"{server.server_address[1]} (device {device}, buckets "
+          f"{server.server_address[1]} (devices {group}, buckets "
           f"{engine.buckets}, replicas={s.replicas}"
           + (f"+{s.edge_replicas} edge" if edge else "") + ", "
           f"index={'none' if index is None else index.size}, "

@@ -18,11 +18,13 @@ of ``tests/test_quant.py``, on the CPU.
   is not ported.
 - Replica classes: an f32 and an int8 edge replica from exports; class
   pins strict; the serving contract checked.
-- ``partition_devices``: one device a replica; more replicas than
-  devices, an uneven split, groups of more than one card, and ``cuda``
-  without a card are refused.
+- ``partition_devices``: JAX's grouping (one device a replica on the
+  CPU, even contiguous groups of cards); more replicas than devices, an
+  uneven split, a card that is not there and ``cuda`` without a card are
+  refused; a pool of two group engines survives ``serve.replica_dead``.
 """
 
+import copy
 import json
 import os
 import threading
@@ -908,10 +910,20 @@ class TestReplicaClasses:
 # ---------------------------------------------------------------------------
 
 def test_partition_devices_one_device_a_replica():
-    assert ReplicaPool.partition_devices(["cpu"] * 3, 2) == ["cpu", "cpu"]
-    assert ReplicaPool.partition_devices(["cuda:0"] * 3, 3) == ["cuda:0"] * 3
+    """JAX's grouping: on the CPU one device a replica; on cards even
+    contiguous groups, one card named more than once included."""
+    assert ReplicaPool.partition_devices(["cpu"] * 3, 2) == [["cpu"],
+                                                            ["cpu"]]
+    assert ReplicaPool.partition_devices(["cuda:0"] * 3, 3) == [
+        ["cuda:0"]] * 3
     assert ReplicaPool.partition_devices(["cuda:0", "cuda:1"], 2) == [
-        "cuda:0", "cuda:1"]
+        ["cuda:0"], ["cuda:1"]]
+    cards = [f"cuda:{i}" for i in range(4)]
+    assert ReplicaPool.partition_devices(cards, 2) == [
+        ["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]]
+    assert ReplicaPool.partition_devices(cards, 1) == [cards]
+    assert ReplicaPool.partition_devices(["cuda:0"] * 4, 2) == [
+        ["cuda:0", "cuda:0"]] * 2
 
 
 @pytest.mark.parametrize("devices,n,match", [
@@ -925,17 +937,89 @@ def test_partition_devices_refusals(devices, n, match):
         ReplicaPool.partition_devices(devices, n)
 
 
-def test_multi_card_groups_and_missing_cards_are_refused():
-    # where JAX would make one engine over a group of cards, the port
-    # refuses rather than leave cards idle
-    for devices, n in ((["cuda:0", "cuda:1"], 1),
-                       ([f"cuda:{i}" for i in range(4)], 2)):
-        with pytest.raises(ValueError,
-                           match="multi-card engine is not ported"):
+def test_multi_card_groups_and_missing_cards_are_refused(tmp_path):
+    # groups of cards split evenly or not at all; a card that is not
+    # there is refused before anything loads (the export does not exist),
+    # and nothing narrows the group or falls back to the CPU
+    for devices, n in ((["cuda:0", "cuda:1", "cuda:2"], 2),
+                       ([f"cuda:{i}" for i in range(6)], 4)):
+        with pytest.raises(ValueError, match="do not split evenly"):
             ReplicaPool.partition_devices(devices, n)
+    missing = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(RuntimeError,
+                       match="no CUDA device|CUDA devices are visible"):
+        ReplicaPool.from_export(str(tmp_path / "absent"), 2,
+                                devices=["cpu", "cpu", missing, missing])
+    with pytest.raises(RuntimeError,
+                       match="no CUDA device|CUDA devices are visible"):
+        ReplicaPool.build(_model(), None, 1, text_words=_WORDS,
+                          video_shape=_VIDEO, devices=[missing])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ReplicaPool.partition_devices(None, 1)
+
+
+def test_pool_of_group_engines_survives_replica_dead():
+    """Two replicas, each an engine over a group of two ``cpu`` devices:
+    ``serve.replica_dead`` mid-traffic kills one whole group, which
+    quarantines and stays so; its request is requeued and every ranking
+    stays the same."""
+    from milnce_tpu_torch.analysis.lockrt import make_lock
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+
+    model = _model()
+    engines = [InferenceEngine(
+        copy.deepcopy(model), device=["cpu"] * 2, text_words=_WORDS,
+        video_shape=_VIDEO, max_batch=8, min_bucket=2,
+        dispatch_lock=make_lock(f"serving.replica{i}.dispatch"))
+        for i in range(2)]
+    assert all(len(e.models) == 2 and e.buckets == (2, 4, 8)
+               for e in engines)
+    pool = ReplicaPool(engines, probe_interval_s=0.1, max_requeues=2,
+                       registry=obs_metrics.MetricsRegistry())
+    rng = np.random.default_rng(3)
+    clips = rng.integers(0, 256, (13,) + _VIDEO, dtype=np.uint8)
+    corpus = np.concatenate([engines[0].embed_video(clips[:8]),
+                             engines[1].embed_video(clips[8:])])
+    index = DeviceRetrievalIndex(corpus, k=3, query_buckets=pool.buckets,
+                                 device=["cpu"] * 2)
+    tokens = rng.integers(1, 64, (3, _WORDS)).astype(np.int32)
+    try:
+        before = index.topk(pool.embed_text(tokens))[1]
+        errors, lock = [], threading.Lock()
+
+        def client(n):
+            for _ in range(n):
+                try:
+                    same = np.array_equal(
+                        index.topk(pool.embed_text(tokens))[1], before)
+                except Exception as exc:    # noqa: BLE001 - counted
+                    same = f"{type(exc).__name__}: {exc}"
+                with lock:
+                    if same is not True:
+                        errors.append(same)
+
+        with faults.armed("serve.replica_dead@5"):
+            threads = [threading.Thread(target=client, args=(6,))
+                       for _ in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        dead = [r for r in pool.replicas if r.engine.dead]
+        assert len(dead) == 1
+        assert pool.counts()["requeued"] >= 1
+        time.sleep(0.3)                  # a few probe intervals
+        assert pool._replica_state(dead[0]) == QUARANTINED
+        assert pool.counts()["recoveries"] == 0
+        for _ in range(3):
+            assert np.array_equal(index.topk(pool.embed_text(tokens))[1],
+                                  before)
+    finally:
+        pool.close()
 
 
 def test_pool_serves_bfloat16_and_keeps_the_edge_at_its_precision(

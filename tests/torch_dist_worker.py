@@ -469,8 +469,9 @@ def index_topk_cases(rank, world, group, emb, queries, k, buckets):
     index = DeviceRetrievalIndex(emb, k=k, query_buckets=buckets,
                                  device="cpu", group=group)
     scores, idx = index.topk(queries)
-    return dict(scores=scores, idx=idx, valid=int(index._valid[0]),
-                rows=int(index._corpus.shape[0]),
+    (corpus, valid, _), = index._shards          # the rank's one shard
+    return dict(scores=scores, idx=idx, valid=int(valid[0]),
+                rows=int(corpus.shape[0]),
                 recompiles=index.recompiles())
 
 

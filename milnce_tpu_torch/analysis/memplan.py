@@ -113,9 +113,12 @@ EXPECTED_PEAK_BYTES = {
     'train_step_milnce@W2': 10581596,
     'train_step_milnce_guarded@W2': 10590012,
     'grad_cache_step_milnce@W2': 10590396,
-    'train_step_milnce_2d': 9032608,
-    'train_step_milnce_2d_guarded': 9041024,
-    'grad_cache_2d': 9216796,
+    'train_step_milnce_2d': 8778400,
+    'train_step_milnce_2d_guarded': 8786816,
+    'grad_cache_2d': 9030940,
+    'train_step_milnce_2d_fused': 9032608,
+    'train_step_milnce_2d_guarded_fused': 9041024,
+    'grad_cache_2d_fused': 9216796,
 }
 EXPECTED_TOP_CONTRIBUTORS = {
     'train_step_milnce': [
@@ -202,6 +205,21 @@ EXPECTED_TOP_CONTRIBUTORS = {
         'cat f32[192,64,1,3,3]',
     ],
     'grad_cache_2d': [
+        'cat f32[128,96,1,3,3]',
+        'cat f32[192,192,3,1,1]',
+        'cat f32[192,64,1,3,3]',
+    ],
+    'train_step_milnce_2d_fused': [
+        'cat f32[128,96,1,3,3]',
+        'cat f32[192,192,3,1,1]',
+        'cat f32[192,64,1,3,3]',
+    ],
+    'train_step_milnce_2d_guarded_fused': [
+        'cat f32[128,96,1,3,3]',
+        'cat f32[192,192,3,1,1]',
+        'cat f32[192,64,1,3,3]',
+    ],
+    'grad_cache_2d_fused': [
         'cat f32[128,96,1,3,3]',
         'cat f32[192,192,3,1,1]',
         'cat f32[192,64,1,3,3]',

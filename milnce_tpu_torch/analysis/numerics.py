@@ -273,19 +273,40 @@ EXPECTED_DTYPE_CENSUS = {
     },
     'train_step_milnce_2d': {
         'bool': 385,
-        'f32': 37540928,
+        'f32': 37486848,
         'i32': 96,
         'i64': 328416,
         'u8': 24576,
     },
     'train_step_milnce_2d_guarded': {
         'bool': 386,
-        'f32': 37599184,
+        'f32': 37545104,
         'i32': 100,
         'i64': 329088,
         'u8': 24576,
     },
     'grad_cache_2d': {
+        'bool': 386,
+        'f32': 47303376,
+        'i32': 196,
+        'i64': 657152,
+        'u8': 49152,
+    },
+    'train_step_milnce_2d_fused': {
+        'bool': 385,
+        'f32': 37540928,
+        'i32': 96,
+        'i64': 328416,
+        'u8': 24576,
+    },
+    'train_step_milnce_2d_guarded_fused': {
+        'bool': 386,
+        'f32': 37599184,
+        'i32': 100,
+        'i64': 329088,
+        'u8': 24576,
+    },
+    'grad_cache_2d_fused': {
         'bool': 386,
         'f32': 47357456,
         'i32': 196,
@@ -334,6 +355,9 @@ EXPECTED_CASTS = {
     'train_step_milnce_2d': {'u8->f32 _to_copy @ arg0': 1},
     'train_step_milnce_2d_guarded': {'f32->i32 _to_copy @ entry': 1, 'u8->f32 _to_copy @ arg0': 1},
     'grad_cache_2d': {'f32->i32 _to_copy @ entry': 1, 'u8->f32 _to_copy @ arg0': 4},
+    'train_step_milnce_2d_fused': {'u8->f32 _to_copy @ arg0': 1},
+    'train_step_milnce_2d_guarded_fused': {'f32->i32 _to_copy @ entry': 1, 'u8->f32 _to_copy @ arg0': 1},
+    'grad_cache_2d_fused': {'f32->i32 _to_copy @ entry': 1, 'u8->f32 _to_copy @ arg0': 4},
 }
 
 

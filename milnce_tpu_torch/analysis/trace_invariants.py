@@ -11,7 +11,11 @@ theirs back.  The checks:
 - **collectives** — the per-call multiset of c10d collectives equals
   ``EXPECTED_COLLECTIVES`` (the guarded step's equals the plain step's on
   one process and at W = 2, and has one flag all-reduce more on the 2-D
-  grid);
+  grid).  The 2-D entries reduce a leaf at a time (the default
+  ``parallel.overlap_grad_reduce``): an all-reduce a replicated leaf with
+  a gradient and a reduce-scatter a sharded one; their ``_fused`` twins
+  reduce the replicated leaves in one flat all-reduce, the grad-cache
+  step's census equal to the plain step's in both forms;
 - **scan-reduction-free** — in the grad-cache step the gradients are
   all-reduced once per optimizer step, never once per microbatch;
 - **no-host-sync** — a training entry's steady-state step makes no
@@ -75,9 +79,12 @@ EXPECTED_COLLECTIVES = {
     'train_step_milnce@W2': {'allgather_': 2, 'allreduce_': 5},
     'train_step_milnce_guarded@W2': {'allgather_': 2, 'allreduce_': 5},
     'grad_cache_step_milnce@W2': {'allgather_': 2, 'allreduce_': 5},
-    'train_step_milnce_2d': {'allgather_': 22, 'allreduce_': 5, '_reduce_scatter_base_': 19},
-    'train_step_milnce_2d_guarded': {'allgather_': 22, 'allreduce_': 6, '_reduce_scatter_base_': 19},
-    'grad_cache_2d': {'allgather_': 22, 'allreduce_': 6, '_reduce_scatter_base_': 19},
+    'train_step_milnce_2d': {'allgather_': 22, 'allreduce_': 37, '_reduce_scatter_base_': 19},
+    'train_step_milnce_2d_guarded': {'allgather_': 22, 'allreduce_': 38, '_reduce_scatter_base_': 19},
+    'grad_cache_2d': {'allgather_': 22, 'allreduce_': 38, '_reduce_scatter_base_': 19},
+    'train_step_milnce_2d_fused': {'allgather_': 22, 'allreduce_': 5, '_reduce_scatter_base_': 19},
+    'train_step_milnce_2d_guarded_fused': {'allgather_': 22, 'allreduce_': 6, '_reduce_scatter_base_': 19},
+    'grad_cache_2d_fused': {'allgather_': 22, 'allreduce_': 6, '_reduce_scatter_base_': 19},
 }
 EXPECTED_LAUNCHES = {
     'train_step_milnce': {},
@@ -100,6 +107,9 @@ EXPECTED_LAUNCHES = {
     'train_step_milnce_2d': {},
     'train_step_milnce_2d_guarded': {},
     'grad_cache_2d': {},
+    'train_step_milnce_2d_fused': {},
+    'train_step_milnce_2d_guarded_fused': {},
+    'grad_cache_2d_fused': {},
 }
 
 
@@ -212,10 +222,11 @@ def tiny_inputs(seed: int, batch: int = B, frames: int = FRAMES,
 
 
 def build_train_step(cfg, guard: bool, accum: int = 1, group=None,
-                     model_size: int = 0, device="cpu"):
+                     model_size: int = 0, device="cpu", overlap: bool = True):
     """The tiny model (seed 0), its optimizer and the train step of
     ``cfg``; ``model_size`` > 1 puts it on the (W / m, m) grid of
-    ``group``.  -> (model, optimizer, step)."""
+    ``group``, its gradients reduced a leaf at a time during the backward
+    (``overlap``) or fused after it.  -> (model, optimizer, step)."""
     from milnce_tpu_torch.models.build import build_model
     from milnce_tpu_torch.train.schedule import build_schedule
     from milnce_tpu_torch.train.state import build_optimizer
@@ -232,7 +243,8 @@ def build_train_step(cfg, guard: bool, accum: int = 1, group=None,
         grid = build_mesh(ParallelConfig(model_axis="model",
                                          model_parallel_size=model_size),
                           group)
-        placement = ShardedPlacement(model, grid, group, min_size=256)
+        placement = ShardedPlacement(model, grid, group, min_size=256,
+                                     overlap=overlap)
     optimizer, lr = build_optimizer(model, cfg.optim,
                                     build_schedule(cfg.optim, 10))
     kw = dict(finite_guard=guard, lr_scheduler=lr, group=group,
@@ -280,14 +292,16 @@ def _kernel_cfg(cfg):
 
 def train_entry(name: str, cfg, guard: bool = False, accum: int = 1,
                 group=None, model_size: int = 0, wrap=None,
-                kernels: bool = False, shapes=None) -> EntryRun:
+                kernels: bool = False, shapes=None,
+                overlap: bool = True) -> EntryRun:
     """Warm, trace and re-run one train step.  ``wrap(step)`` wraps the
     traced call (the instrumented entry); ``kernels``: also plan it on
     meta on the kernel path for its launches; ``shapes``: a list of
-    (batch, frames, size) stages run in order, the last traced."""
+    (batch, frames, size) stages run in order, the last traced;
+    ``overlap``: the 2-D grid's reduction form."""
     torch.manual_seed(0)
     model, optimizer, step = build_train_step(cfg, guard, accum, group,
-                                              model_size)
+                                              model_size, overlap=overlap)
     call = wrap(step) if wrap is not None else step
     world = 1 if group is None else torch.distributed.get_world_size(group)
     stages = shapes or [(B // world, FRAMES, SIZE)]
@@ -555,12 +569,23 @@ def _group_entries(group) -> dict:
         "grad_cache_2d": lambda: train_entry(
             "grad_cache_2d", cfg(), True, accum=2, group=group,
             model_size=2),
+        "train_step_milnce_2d_fused": lambda: train_entry(
+            "train_step_milnce_2d_fused", cfg(), group=group, model_size=2,
+            overlap=False),
+        "train_step_milnce_2d_guarded_fused": lambda: train_entry(
+            "train_step_milnce_2d_guarded_fused", cfg(), True, group=group,
+            model_size=2, overlap=False),
+        "grad_cache_2d_fused": lambda: train_entry(
+            "grad_cache_2d_fused", cfg(), True, accum=2, group=group,
+            model_size=2, overlap=False),
     }
 
 
 GROUP_ENTRIES = ("train_step_milnce@W2", "train_step_milnce_guarded@W2",
                  "grad_cache_step_milnce@W2", "train_step_milnce_2d",
-                 "train_step_milnce_2d_guarded", "grad_cache_2d")
+                 "train_step_milnce_2d_guarded", "grad_cache_2d",
+                 "train_step_milnce_2d_fused",
+                 "train_step_milnce_2d_guarded_fused", "grad_cache_2d_fused")
 
 
 def _group_rank(rank: int, world: int, store: str, names, out: str) -> None:

@@ -235,9 +235,12 @@ class ParallelConfig:
     in a torch.distributed group (parallel/dist.py), as the reference's
     NCCL/TCP rendezvous (main_distributed.py:50-75) did; and the 2-D
     layout's data_axis, model_axis, model_parallel_size, fsdp_min_size
-    and sharding_map (parallel/mesh.py, parallel/sharding_map.py).  It
-    does not read overlap_grad_reduce: its sharded gradients are reduced
-    a leaf at a time and its replicated ones in one flat all-reduce."""
+    and sharding_map (parallel/mesh.py, parallel/sharding_map.py), with
+    overlap_grad_reduce: on the 2-D layout True gives every leaf's
+    gradient a collective of its own, issued as the gradient becomes
+    final during the backward, and False reduces after the backward,
+    the replicated leaves in one flat all-reduce; the 1-D layout keeps
+    its one flat all-reduce under both."""
 
     data_axis: str = "data"             # batch-sharded axis (DP + global negatives)
     model_axis: Optional[str] = None    # FSDP/model axis: set (with
@@ -289,10 +292,10 @@ class ParallelConfig:
                                         # over the FIRST N local devices.
     group_timeout_s: float = 7200.0     # the port's process group: how
                                         # long a collective or barrier
-                                        # waits before the run fails.  Rank
-                                        # 0's in-training eval runs while
-                                        # the other ranks wait at a
-                                        # barrier, so it must fit in here
+                                        # waits before the run fails (a
+                                        # checkpoint save, which the other
+                                        # ranks wait out at a barrier,
+                                        # must fit in here)
 
 
 @dataclass

@@ -9,14 +9,18 @@
 newest label is read) or a reference ``.pth``/``.pth.tar`` file, either
 flavor (the DDP ``state_dict`` wrapper or the upstream flat
 S3D_HowTo100M table, the latter with ``--space_to_depth``).  Orbax
-checkpoints of the JAX package are not read.  Runs on the CUDA card
-unless ``--platform cpu``; without a card it refuses.
+checkpoints of the JAX package are not read.  Runs over every visible
+CUDA card (a device group, ``eval/shards.py``), as the JAX CLI builds its
+mesh over every local device, unless ``--platform cpu`` (one device);
+without a card it refuses.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from milnce_tpu_torch.config import DataConfig, ModelConfig
 from milnce_tpu_torch.data.datasets import build_tokenizer
@@ -45,6 +49,15 @@ def load_weights(ckpt: str, model) -> str:
     return f"loaded reference checkpoint from {ckpt}"
 
 
+def eval_devices(platform: str) -> list:
+    """``--platform`` -> the eval's device group: every visible card for
+    ``cuda`` (refused without one), the one CPU device for ``cpu``."""
+    device = resolve_device(platform)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="milnce-tpu-torch eval")
     p.add_argument("task", choices=["youcook", "msrvtt", "hmdb"])
@@ -71,10 +84,13 @@ def main(argv=None):
                    help="deterministic in-memory decoder (no ffmpeg/videos); "
                         "hermetic CLI smoke only")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device (cuda refuses to run without a card)")
+                   help="cuda: every visible card (refuses to run without "
+                        "one); cpu: one device")
     args = p.parse_args(argv)
-    device = resolve_device(args.platform)
+    devices = eval_devices(args.platform)
+    device = devices[0]
     print(disable_tf32())
+    print(f"eval devices: {', '.join(str(d) for d in devices)}")
 
     data_cfg = DataConfig(fps=args.fps, num_frames=args.num_frames,
                           video_size=args.video_size, max_words=args.max_words)
@@ -92,7 +108,7 @@ def main(argv=None):
     tokenizer = (None if args.task == "hmdb"
                  else build_tokenizer(model_cfg, args.max_words))
     metrics = evaluate_task(
-        args.task, model, device, data_cfg=data_cfg, csv_path=args.csv,
+        args.task, model, devices, data_cfg=data_cfg, csv_path=args.csv,
         video_root=args.video_root, tokenizer=tokenizer,
         num_clip=args.num_windows, batch_size=args.batch_size,
         decoder=decoder, max_words=args.max_words)

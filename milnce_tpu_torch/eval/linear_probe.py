@@ -6,7 +6,10 @@ per-window features with ``mixed5c=True``, per official split fit
 ``LinearSVC(C=100)`` on training videos (each window a sample, labels
 repeated), sum the decision scores over a test video's windows, argmax
 -> top-1 accuracy.  sklearn runs on the host and is imported only where
-the probe is fitted.
+the probe is fitted.  The features are extracted over a device group and
+a process group as the JAX version extracts them over its mesh
+(``eval/shards.py``: each batch padded with its last sample to the shard
+count; every rank ends with every video's features).
 """
 
 from __future__ import annotations
@@ -14,36 +17,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from milnce_tpu_torch.eval.shards import EvalShards
 from milnce_tpu_torch.train.step import make_video_embed_fn
 
 
-def extract_probe_features(model, source, device, batch_videos: int = 8):
-    """Returns (features (N, num_clip, 1024), labels (N,), splits (N, 3))."""
-    video_fn = make_video_embed_fn(model, mixed5c=True)
-    feats, labels, splits = [], [], []
-    buf, buf_meta = [], []
+def extract_probe_features(model, source, device, batch_videos: int = 8,
+                           process_group=None):
+    """Returns (features (N, num_clip, 1024), labels (N,), splits (N, 3)).
+    ``device``: one device or a group; ``process_group``: the ranks that
+    share the source."""
+    shards = EvalShards(model, device, process_group)
+    video_fns = [make_video_embed_fn(m, mixed5c=True) for m in shards.models]
 
-    def flush():
-        if not buf:
-            return
-        videos = torch.from_numpy(np.stack(buf)).to(device)  # (B,C,T,H,W,3)
+    def launch(j, samples):
+        videos = torch.from_numpy(np.stack([s["video"] for s in samples])
+                                  ).to(shards.devices[j])   # (b,C,T,H,W,3)
         b, c = videos.shape[:2]
-        out = video_fn(videos.reshape((-1,) + videos.shape[2:]))
-        feats.append(out.cpu().float().numpy().reshape(b, c, -1))
-        for label, spl in buf_meta:
-            labels.append(label)
-            splits.append(spl)
-        buf.clear()
-        buf_meta.clear()
+        out = video_fns[j](videos.reshape((-1,) + videos.shape[2:]))
+        return (out.reshape(b, c, -1), [s["label"] for s in samples],
+                np.stack([s["splits"] for s in samples]))
 
-    for i in range(len(source)):
-        s = source.sample(i)
-        buf.append(s["video"])
-        buf_meta.append((s["label"], s["splits"]))
-        if len(buf) == batch_videos:
-            flush()
-    flush()
-    return (np.concatenate(feats), np.asarray(labels), np.stack(splits))
+    def land(outs):
+        feats, labels, splits = outs
+        return feats.cpu().float().numpy(), labels, splits
+
+    feats, labels, splits = shards.run(source, batch_videos, launch, land)
+    return feats, np.asarray(labels), splits
 
 
 def linear_probe_accuracy(features: np.ndarray, labels: np.ndarray,
@@ -78,6 +77,8 @@ def linear_probe_accuracy(features: np.ndarray, labels: np.ndarray,
     return accs
 
 
-def evaluate_linear_probe(model, source, device, C: float = 100.0) -> dict:
-    feats, labels, splits = extract_probe_features(model, source, device)
+def evaluate_linear_probe(model, source, device, C: float = 100.0,
+                          process_group=None) -> dict:
+    feats, labels, splits = extract_probe_features(
+        model, source, device, process_group=process_group)
     return linear_probe_accuracy(feats, labels, splits, C)

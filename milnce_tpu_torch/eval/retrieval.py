@@ -5,8 +5,11 @@ Shape of the reference eval scripts (eval_msrvtt.py:57-76): batched
 no-grad forward of both towers, mean-pool the ``num_windows_test`` clip
 embeddings per video on the host (window ensembling, eval_msrvtt.py:
 68-69), then the full T x V dot-product matrix -> R@k / MedR.  Clips
-reach the device as uint8 and are divided by 255 there.  The JAX version
-pads each batch to its mesh's size; on one device that is the identity.
+reach the device as uint8 and are divided by 255 there.  As the JAX
+version over its mesh, the batches run over a device group and a process
+group (``eval/shards.py``): the batch size rounded to the shard count,
+the last batch padded with its last sample, every rank ending with every
+sample's embeddings.
 
 A bf16 model's embeddings are bf16, and the JAX version takes its window
 mean in bf16 too (numpy over ``ml_dtypes.bfloat16``: the windows added
@@ -22,38 +25,37 @@ import numpy as np
 import torch
 
 from milnce_tpu_torch.eval.metrics import compute_retrieval_metrics
+from milnce_tpu_torch.eval.shards import EvalShards
 from milnce_tpu_torch.train.step import make_text_embed_fn, make_video_embed_fn
 
 
-def extract_retrieval_embeddings(model, source, device, batch_size: int = 16):
+def extract_retrieval_embeddings(model, source, device, batch_size: int = 16,
+                                 process_group=None):
     """Iterate an eval source ({'video': (C,T,H,W,3) u8, 'text': (1,W)}),
-    return (text_embds (N,D), video_embds (N,D)) with window-mean pooling."""
-    video_fn = make_video_embed_fn(model)
-    text_fn = make_text_embed_fn(model)
-    v_out, t_out = [], []
-    buf_v, buf_t = [], []
+    return (text_embds (N,D), video_embds (N,D)) with window-mean pooling.
+    ``device``: one device or a group; ``process_group``: the ranks that
+    share the source (each returns every sample's embeddings)."""
+    shards = EvalShards(model, device, process_group)
+    video_fns = [make_video_embed_fn(m) for m in shards.models]
+    text_fns = [make_text_embed_fn(m) for m in shards.models]
 
-    def flush():
-        if not buf_v:
-            return
-        videos = torch.from_numpy(np.stack(buf_v)).to(device)  # (B,C,T,H,W,3)
-        texts = torch.from_numpy(np.stack(buf_t)).to(device)   # (B,1,W)
+    def launch(j, samples):
+        dev = shards.devices[j]
+        videos = torch.from_numpy(np.stack([s["video"] for s in samples])
+                                  ).to(dev)                 # (b,C,T,H,W,3)
+        texts = torch.from_numpy(np.stack([s["text"] for s in samples])
+                                 ).to(dev)                  # (b,1,W)
         b, c = videos.shape[:2]
-        clip_embd = video_fn(videos.reshape((-1,) + videos.shape[2:]))
-        v_out.append(_window_mean(clip_embd.cpu().reshape(b, c, -1)))
-        t_embd = text_fn(texts.reshape(-1, texts.shape[-1]))
-        t_out.append(t_embd.cpu().float().numpy().reshape(b, -1))
-        buf_v.clear()
-        buf_t.clear()
+        clip_embd = video_fns[j](videos.reshape((-1,) + videos.shape[2:]))
+        t_embd = text_fns[j](texts.reshape(-1, texts.shape[-1]))
+        return clip_embd.reshape(b, c, -1), t_embd.reshape(b, -1)
 
-    for i in range(len(source)):
-        s = source.sample(i)
-        buf_v.append(s["video"])
-        buf_t.append(s["text"])
-        if len(buf_v) == batch_size:
-            flush()
-    flush()
-    return np.concatenate(t_out), np.concatenate(v_out)
+    def land(outs):
+        clip_embd, t_embd = outs
+        return t_embd.cpu().float().numpy(), _window_mean(clip_embd.cpu())
+
+    t, v = shards.run(source, shards.round(batch_size), launch, land)
+    return t, v
 
 
 def _window_mean(clips: torch.Tensor) -> np.ndarray:
@@ -69,6 +71,8 @@ def _window_mean(clips: torch.Tensor) -> np.ndarray:
     return (acc / clips.shape[1]).float().numpy()
 
 
-def evaluate_retrieval(model, source, device, batch_size: int = 16) -> dict:
-    t, v = extract_retrieval_embeddings(model, source, device, batch_size)
+def evaluate_retrieval(model, source, device, batch_size: int = 16,
+                       process_group=None) -> dict:
+    t, v = extract_retrieval_embeddings(model, source, device, batch_size,
+                                        process_group)
     return compute_retrieval_metrics(t @ v.T)

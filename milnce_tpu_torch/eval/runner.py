@@ -13,8 +13,11 @@ EVAL_TASKS = ("hmdb", "youcook", "msrvtt")
 def evaluate_task(task: str, model, device, *, data_cfg: DataConfig,
                   csv_path: str, video_root: str, tokenizer=None,
                   num_clip: int = 4, batch_size: int = 16,
-                  decoder=None, max_words: int = 30) -> dict:
-    """Run one downstream eval task on ``device``; returns its metrics
+                  decoder=None, max_words: int = 30,
+                  process_group=None) -> dict:
+    """Run one downstream eval task on ``device`` (one device or a group)
+    over the ranks of ``process_group`` (None: this process alone, every
+    rank of it else, each getting the same metrics); returns its metrics
     dict (R@k/MedR for retrieval, per-split accuracy for the probe).
 
     ``tokenizer`` is required for the retrieval tasks; ``decoder=None``
@@ -28,7 +31,8 @@ def evaluate_task(task: str, model, device, *, data_cfg: DataConfig,
 
         source = HMDBSource(csv_path, video_root, data_cfg,
                             num_clip=num_clip, decoder=decoder)
-        return evaluate_linear_probe(model, source, device)
+        return evaluate_linear_probe(model, source, device,
+                                     process_group=process_group)
 
     from milnce_tpu_torch.eval.retrieval import evaluate_retrieval
 
@@ -37,4 +41,5 @@ def evaluate_task(task: str, model, device, *, data_cfg: DataConfig,
     cls = YouCookSource if task == "youcook" else MSRVTTSource
     source = cls(csv_path, video_root, data_cfg, tokenizer,
                  num_clip=num_clip, decoder=decoder, max_words=max_words)
-    return evaluate_retrieval(model, source, device, batch_size=batch_size)
+    return evaluate_retrieval(model, source, device, batch_size=batch_size,
+                              process_group=process_group)

@@ -31,6 +31,7 @@ import os
 from datetime import timedelta
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -117,8 +118,7 @@ def initialize_distributed(cfg) -> Ranks:
     that does not come up raises: there is no fallback to gloo or the
     CPU.  ``parallel.num_devices`` is checked before any group forms.
     A collective or barrier of the group fails after
-    ``parallel.group_timeout_s``: long enough for rank 0's in-training
-    eval, which the other ranks wait out at a barrier."""
+    ``parallel.group_timeout_s``."""
     source = _source(cfg)
     _check_num_devices(cfg, source[1] if source else 1)
     if source is None:
@@ -237,6 +237,40 @@ def all_reduce_flat(tensors: list, group, mean: bool = False) -> None:
         offset += n
 
 
+class IssueQueue:
+    """Collectives issued in one fixed order, whatever order their inputs
+    become final in: ``ready(i)`` marks item ``i`` (a position in that
+    order) final and issues the ready prefix of the order as it grows;
+    :meth:`flush` issues the rest.  Every rank that builds the queue over
+    the same order issues the same collectives in the same sequence on
+    each communicator, which NCCL and gloo need (they match a group's
+    collectives by their position), even when the ranks see their inputs
+    become final in different orders."""
+
+    def __init__(self, n: int, issue):
+        self.n, self.issue = n, issue
+        self.reset()
+
+    def reset(self) -> None:
+        self._ready = [False] * self.n
+        self._next = 0
+
+    def ready(self, i: int) -> None:
+        self._ready[i] = True
+        while self._next < self.n and self._ready[self._next]:
+            self._next += 1
+            self.issue(self._next - 1)
+
+    def flush(self, present) -> None:
+        """Issue, in order, every item not issued yet for which
+        ``present(i)`` holds (an item with no input this time is skipped
+        on every rank alike)."""
+        while self._next < self.n:
+            self._next += 1
+            if self._ready[self._next - 1] or present(self._next - 1):
+                self.issue(self._next - 1)
+
+
 # ------------------------------------------------------------ host verdicts
 def _verdict_device(group) -> torch.device:
     """NCCL takes CUDA tensors only (on this rank's current card); gloo
@@ -279,3 +313,24 @@ def gather_floats(value: float, group) -> list:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return [float(p.item()) for p in parts]
+
+
+def gather_arrays(x: np.ndarray, group) -> list:
+    """Every rank's ``x`` (one shape and dtype on every rank) in rank
+    order, on every rank, as host arrays.  No group gives ``[x]``."""
+    if group is None:
+        return [x]
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(_verdict_device(group))
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return [p.cpu().numpy() for p in parts]
+
+
+def gather_objects(obj, group) -> list:
+    """Every rank's picklable ``obj`` in rank order, on every rank.  No
+    group gives ``[obj]``."""
+    if group is None:
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out

@@ -34,10 +34,44 @@ each sharded parameter's ``.data`` is this rank's slice of it (the
 optimizer steps those slices, so its moments are slices too);
 :meth:`~ShardedPlacement.gather_params` puts the full tensors back for a
 forward, :meth:`~ShardedPlacement.reduce_grads_2d` reduces the
-gradients and returns each sharded parameter to its slice.  A checkpoint
-holds full tensors and no layout: :meth:`~ShardedPlacement.full_state`
-gathers them, :meth:`~ShardedPlacement.load_full_state` slices them, so a
-1-D checkpoint opens on the grid and a 2-D one on 1-D or in one process.
+gradients and returns each sharded parameter to its slice.
+
+The reduction has the JAX step's two forms (``parallel.overlap_grad_reduce``,
+JAX ``_reduce_grads_2d(overlap=...)``).  Fused (``False``): after the
+backward, each sharded leaf is reduce-scattered then all-reduced over
+data, and the replicated leaves share one flat all-reduce.  Per leaf
+(``True``, the default): every leaf is a collective of its own, issued
+asynchronously as soon as its gradient is final, so it runs while the
+rest of the backward does.  A post-accumulate-grad hook on each trained
+parameter (the gathered full tensor, for a sharded leaf) marks its leaf
+final; the collectives go out in one fixed order, the reverse of the
+map's, the same on every rank (:class:`~milnce_tpu_torch.parallel.dist.
+IssueQueue`): the ready prefix as it grows, the rest after the backward.
+The hooks act only inside :meth:`~ShardedPlacement.reducing`, which the
+steps open around their last backward (the grad-cache step's last
+microbatch), so the gradients are reduced once a step.
+
+A collective over the whole group runs asynchronously: it shares one
+communicator, and on a card one NCCL stream, with the backward's own
+collectives (sync BatchNorm, the loss's gathers), which the backward
+issues in its graph's order, the same on every rank, so the device runs
+them all in the one order every rank issued them in.  A collective over
+a proper sub-group (the model axis of a grid with more than one data
+row, the data axis) is another communicator: NCCL orders no kernels
+across communicators, and two ranks whose kernels of two communicators
+reach the device in other orders wait on each other for ever (the first
+NCCL run of the per-leaf form hung so, the replicated leaves then on a
+group of their own).  So before such a collective the step waits for
+every collective in flight, then runs it with the backward's stream
+waiting on it: one communicator at a time is in flight.  On the (1 x M)
+grid the model axis is the whole group and every leaf overlaps the
+backward; on a grid with data rows the sharded leaves are reduced in
+the backward's stream, in the fixed order.
+
+A checkpoint holds full tensors and no layout:
+:meth:`~ShardedPlacement.full_state` gathers them,
+:meth:`~ShardedPlacement.load_full_state` slices them, so a 1-D
+checkpoint opens on the grid and a 2-D one on 1-D or in one process.
 """
 
 from __future__ import annotations
@@ -52,7 +86,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from milnce_tpu_torch.parallel.dist import all_reduce_flat
+from milnce_tpu_torch.parallel.dist import IssueQueue, all_reduce_flat
 from milnce_tpu_torch.train.state import load_optimizer_state
 from milnce_tpu_torch.utils.torch_convert import flax_location
 
@@ -194,8 +228,10 @@ class ShardedPlacement:
     ``n_sharded``) that the run records."""
 
     def __init__(self, model: torch.nn.Module, grid, group,
-                 min_size: int = DEFAULT_FSDP_MIN_SIZE, spec: str = ""):
+                 min_size: int = DEFAULT_FSDP_MIN_SIZE, spec: str = "",
+                 overlap: bool = True):
         self.model, self.grid, self.group = model, grid, group
+        self.overlap = overlap
         self.entries = build_param_map(model, grid.model_size, min_size,
                                        spec)
         self.summary = describe_map(self.entries, grid.model_axis)
@@ -213,6 +249,17 @@ class ShardedPlacement:
         with torch.no_grad():
             for p, d in self.sharded:
                 p.data = self._local(p.data, d).clone()
+        # the per-leaf reduction: the fixed issue order (the map's,
+        # reversed) and a hook a trained leaf
+        self._order = [params[e.name] for e in reversed(self.entries)
+                       if params[e.name].requires_grad]
+        self._queue = IssueQueue(len(self._order), self._issue)
+        self._armed = False
+        self._pending: list = []        # (param, work or None, (result,))
+        if overlap:
+            for i, p in enumerate(self._order):
+                p.register_post_accumulate_grad_hook(
+                    lambda _p, i=i: self._final(i))
 
     def _local(self, full: torch.Tensor, dim: int) -> torch.Tensor:
         return _slice(full, dim, self.grid.model_rank, self.grid.model_size)
@@ -250,15 +297,73 @@ class ShardedPlacement:
             p.grad = None
         self._shards = None
 
+    @contextlib.contextmanager
+    def reducing(self):
+        """The body's backward is the step's last: with ``overlap`` each
+        leaf's reduction is issued as its gradient becomes final in it
+        (module docstring); fused, nothing happens until
+        :meth:`reduce_grads_2d`."""
+        self._armed = self.overlap
+        try:
+            yield
+        finally:
+            self._armed = False
+
+    def _final(self, i: int) -> None:
+        """Leaf ``i``'s gradient is final (its post-accumulate-grad hook)."""
+        if self._armed:
+            self._queue.ready(i)
+
+    def _issue(self, i: int) -> None:
+        """Issue leaf ``i``'s reduction: one all-reduce over the whole
+        group (a replicated leaf), or a reduce-scatter over the model axis
+        then an all-reduce over data (a sharded one); asynchronously on
+        the whole group's communicator, else one communicator at a time
+        (module docstring).  A sharded leaf's full gradient lives on in
+        its collective alone, as the fused form frees it leaf by leaf."""
+        p = self._order[i]
+        g = p.grad
+        d = self._dims.get(id(p))
+        if d is None:
+            work = dist.all_reduce(g, group=self.group, async_op=True)
+            self._pending.append((p, work, (g,)))
+            return
+        p.grad = None
+        g = g.movedim(d, 0).contiguous()
+        out = g.new_empty((g.shape[0] // self.grid.model_size,) + g.shape[1:])
+        if self.grid.model_group is self.group:
+            work = dist.reduce_scatter_tensor(out, g, group=self.group,
+                                              async_op=True)
+            self._pending.append((p, work, (out,)))
+            return
+        self._drain()
+        dist.reduce_scatter_tensor(out, g, group=self.grid.model_group)
+        if self.grid.data_size > 1:
+            dist.all_reduce(out, group=self.grid.data_group)
+        self._pending.append((p, None, (out,)))
+
+    def _drain(self) -> None:
+        """Wait for every collective in flight (on a card: the current
+        stream waits on them)."""
+        for k, (p, work, out) in enumerate(self._pending):
+            if work is not None:
+                work.wait()
+                self._pending[k] = (p, None, out)
+
     def reduce_grads_2d(self, mean: bool) -> None:
         """The 2-D gradient reduction (JAX ``_reduce_grads_2d``): a
         sharded parameter's full gradient is reduce-scattered over the
         model axis along its dimension (this rank keeps its slice of the
         sum), then summed over the data axis, and the parameter returns
         to its slice with that gradient; the replicated gradients are
-        summed over both axes in one flat all-reduce.  ``mean`` (the DTW
-        family) divides by the number of ranks.  Collectives run in the
-        map's order on every rank."""
+        summed over both axes.  ``mean`` (the DTW family) divides by the
+        number of ranks.  With ``overlap`` every leaf not issued during
+        the backward is issued now, in the fixed order, and the step waits
+        on all of them; fused, the collectives run here in the map's order
+        and the replicated leaves share one flat all-reduce."""
+        if self.overlap:
+            self._reduce_overlapped(mean)
+            return
         world = dist.get_world_size(self.group)
         for (p, d), shard in zip(self.sharded, self._shards):
             g = p.grad
@@ -277,6 +382,25 @@ class ShardedPlacement:
         self._shards = None
         all_reduce_flat([p.grad for p in self.replicated
                          if p.grad is not None], self.group, mean=mean)
+
+    def _reduce_overlapped(self, mean: bool) -> None:
+        self._queue.flush(lambda i: self._order[i].grad is not None)
+        self._drain()
+        reduced = {id(p): out for p, _, (out,) in self._pending}
+        self._pending = []
+        self._queue.reset()
+        world = dist.get_world_size(self.group)
+        for (p, d), shard in zip(self.sharded, self._shards):
+            out = reduced.get(id(p))
+            p.data, p.grad = shard, None
+            if out is not None:
+                if mean:
+                    out /= world
+                p.grad = out.movedim(0, d).contiguous()
+        self._shards = None
+        grads = [p.grad for p in self.replicated if id(p) in reduced]
+        if mean and grads:
+            torch._foreach_div_(grads, world)
 
     @contextlib.contextmanager
     def full_params(self):

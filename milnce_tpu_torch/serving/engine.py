@@ -6,11 +6,12 @@ The engine packages the port's embed towers (``train/step.py``
 eval-mode entries offline eval uses, so served numbers ARE eval
 numbers) behind the JAX engine's discipline:
 
-- **a group of devices**: the engine serves on an ordered list of
-  devices in one process, as the JAX engine serves over its mesh's data
-  axis: one copy of the model on each, every bucket's rows split into
-  ``len(group)`` equal contiguous shards in order.  One device is the
-  group of one.  The list may name one card more than once.
+- **a group of devices** (``parallel/devices.py``): the engine serves on
+  an ordered list of devices in one process, as the JAX engine serves
+  over its mesh's data axis: one copy of the model on each, every
+  bucket's rows split into ``len(group)`` equal contiguous shards in
+  order.  One device is the group of one.  The list may name one card
+  more than once.
 - **bucket ladder**: batch entries exist only at a power-of-two ladder
   of batch sizes, each divisible by the group's size, so every bucket
   shards evenly.  Requests are padded UP to the smallest bucket that
@@ -42,7 +43,6 @@ raises, and nothing falls back to the CPU or narrows a group.
 
 from __future__ import annotations
 
-import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -51,6 +51,8 @@ import torch
 from milnce_tpu_torch.analysis.lockrt import make_lock
 from milnce_tpu_torch.models.precision import torch_dtype
 from milnce_tpu_torch.obs import spans as obs_spans
+from milnce_tpu_torch.parallel.devices import device_group as serving_group
+from milnce_tpu_torch.parallel.devices import place_replicas
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.serving.batcher import pad_rows
 from milnce_tpu_torch.train.step import make_text_embed_fn, make_video_embed_fn
@@ -71,32 +73,6 @@ class ReplicaDead(RuntimeError):
 # Created through make_lock so MILNCE_LOCK_SANITIZE=1 (set before
 # import) swaps in the order-checking SanitizedLock.
 DEVICE_DISPATCH_LOCK = make_lock("serving.device_dispatch")
-
-
-def serving_group(devices) -> list:
-    """One device, or an ordered list of them (a group; it may name one
-    card more than once), as a list of torch devices of one type.  Checked
-    before anything loads: ``cuda`` without a card raises instead of
-    falling back to the CPU, and so does a card that is not there; nothing
-    narrows the group."""
-    if isinstance(devices, (str, torch.device)):
-        devices = [devices]
-    group = [torch.device(d) for d in devices]
-    if not group:
-        raise ValueError("an empty device group")
-    cards = [d for d in group if d.type == "cuda"]
-    if cards and not torch.cuda.is_available():
-        raise RuntimeError(f"serving device {cards[0]} requested but no "
-                           "CUDA device is visible (pass device='cpu')")
-    count = torch.cuda.device_count() if cards else 0
-    missing = [str(d) for d in cards
-               if d.index is not None and d.index >= count]
-    if missing:
-        raise RuntimeError(f"serving devices {missing} requested but only "
-                           f"{count} CUDA devices are visible")
-    if len({d.type for d in group}) > 1:
-        raise ValueError(f"a device group mixes device types: {group}")
-    return group
 
 
 def refuse_two_groups(group: list, process_group) -> None:
@@ -235,9 +211,7 @@ class InferenceEngine:
             model = model.to(torch_dtype(cast_dtype))
         # one explicit move at boot, a copy a shard; steady state never
         # moves params
-        copies = [model] + [copy.deepcopy(model) for _ in self.group[1:]]
-        self.models = [m.to(dev).eval() for m, dev in zip(copies,
-                                                          self.group)]
+        self.models = place_replicas(model, self.group)
         self.model = self.models[0]
         self._fns = {"text": [make_text_embed_fn(m) for m in self.models],
                      "video": [make_video_embed_fn(m) for m in self.models]}

@@ -31,8 +31,10 @@ at the end the goodput ledger, ``GOODPUT.json`` (rank r:
 step's device work; the finite guard keeps its window on the device and
 the loop reads it at the display cadence, in the ``sync`` span.
 
-Across ranks, rank 0 logs, saves the checkpoints and runs the eval while
-the others wait at a barrier; every rank restores on resume and on a
+Across ranks, rank 0 logs and saves the checkpoints while the others
+wait at a barrier; every rank evaluates its share of the eval source on
+its card and gets the same metrics, as the JAX loop evaluates over its
+mesh (rank 0 logs them); every rank restores on resume and on a
 rollback.  Losses, skips and the displayed clips/s are global.
 
 ``train.grad_accum`` M > 1 runs the grad-cache step
@@ -206,6 +208,8 @@ class TrainResult:
     placement: Optional[ShardedPlacement] = None    # the 2-D layout: the
                                 # model's sharded parameters hold this
                                 # rank's slices
+    eval_metrics: Optional[dict] = None     # the last in-training eval's
+                                # metrics (every rank has them)
 
 
 def disable_tf32() -> str:
@@ -268,10 +272,13 @@ def stop_save_label_planned(epoch: int, opt_step: int, plan) -> tuple:
     return (epoch + 1 if done else epoch), (not done)
 
 
-def _in_training_eval(cfg: Config, model, device, log) -> None:
+def _in_training_eval(cfg: Config, model, device, log,
+                      group=None) -> dict:
     """Periodic downstream eval during training, dispatched through the
     eval CLI's runner; hermetic (synthetic) runs decode with the fake
-    decoder."""
+    decoder.  Every rank of ``group`` evaluates its share of the source
+    on its device and gets the metrics (returned); ``log`` is rank 0's
+    alone."""
     decoder = FakeDecoder() if cfg.data.synthetic else None
     task = cfg.train.eval_task
     tokenizer = (None if task == "hmdb" else
@@ -281,11 +288,12 @@ def _in_training_eval(cfg: Config, model, device, log) -> None:
         video_root=cfg.data.eval_video_root, tokenizer=tokenizer,
         num_clip=cfg.train.num_windows_test,
         batch_size=cfg.train.batch_size_val, decoder=decoder,
-        max_words=cfg.data.eval_max_words)
+        max_words=cfg.data.eval_max_words, process_group=group)
     if task == "hmdb":
         log(f"HMDB linear probe: {metrics}")
     else:
         log(f"{task} retrieval: {format_metrics(metrics)}")
+    return metrics
 
 
 def run_training(cfg: Config, log: Callable[[str], None] = print,
@@ -648,13 +656,17 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     grid = build_mesh(cfg.parallel, ranks.group)
     placement = None
     if grid is not None:
-        placement = ShardedPlacement(model, grid, ranks.group,
-                                     min_size=cfg.parallel.fsdp_min_size,
-                                     spec=cfg.parallel.sharding_map)
+        placement = ShardedPlacement(
+            model, grid, ranks.group, min_size=cfg.parallel.fsdp_min_size,
+            spec=cfg.parallel.sharding_map,
+            overlap=cfg.parallel.overlap_grad_reduce)
         log(f"sharding map: {placement.n_sharded}/{len(placement.summary)} "
             f"params sharded on '{grid.model_axis}' (threshold "
             f"{cfg.parallel.fsdp_min_size} elements, hash {placement.hash})"
-            f" | mesh {grid.shape}")
+            " | gradients reduced "
+            + ("a leaf at a time during the backward"
+               if placement.overlap else "after the backward, fused")
+            + f" | mesh {grid.shape}")
         if placement.n_sharded == 0:
             raise ValueError(
                 "sharding map shards no parameter: the 2-D layout would pay "
@@ -800,20 +812,22 @@ def _train_run(cfg: Config, ranks: Ranks, log, runlog: RunLogger, on_step,
     obs.set_stage(stage_idx, plan.stages[stage_idx])
     tick = time.time()
     timer = StepTimer(clips_per_step=plan.stages[stage_idx].batch_size)
+    eval_metrics = None
 
     def result(drained: bool = False) -> TrainResult:
         total = int(guard[2]) if guard_on else 0  # graftlint: disable=GL001(run end: read once, when the run returns)
         return TrainResult(steps, float(last), total, rollbacks, model,  # graftlint: disable=GL001(run end, as the line above)
-                           ranks.rank, stage_idx, drained, placement)
+                           ranks.rank, stage_idx, drained, placement,
+                           eval_metrics)
 
     for epoch in range(start_epoch, cfg.optim.epochs):
         if (cfg.train.evaluate and cfg.data.eval_video_root
                 and epoch % eval_every == 0):
+            # every rank its share, on its card: none waits for another
             with (placement.full_params() if placement is not None
                   else contextlib.nullcontext()):
-                if ranks.is_main:
-                    _in_training_eval(cfg, model, device, log)
-                ranks.barrier()
+                eval_metrics = _in_training_eval(cfg, model, device, log,
+                                                 ranks.group)
         for seg in plan.segments_for_epoch(epoch):
             # a resume skips the segments its restored step consumed and
             # starts the one holding it at its offset

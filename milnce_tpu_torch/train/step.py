@@ -57,11 +57,21 @@ replicated ones summed over both axes (SUM for MIL-NCE, MEAN for the DTW
 family, as in 1-D); the optimizer then steps the local slices only.
 Each model column's guard sees only its slices, so the finite verdict is
 agreed over the model axis (JAX ``_uniform_finite_verdict``): a NaN in
-one column's slice makes every rank skip.  ``inner_steps`` is not
-ported (a benchmark knob of the JAX step).
+one column's slice makes every rank skip.  The placement's ``overlap``
+(``parallel.overlap_grad_reduce``, JAX ``overlap_grad_reduce``) picks
+the reduction's form: per leaf, each leaf's collective issued during the
+step's last backward as its gradient becomes final (the grad-cache step:
+its last microbatch's), or fused after the backward
+(``parallel/sharding_map.py``); either way the step waits on every
+reduction before the ``grad.nonfinite`` poison, the guard and the
+optimizer.  The 1-D step keeps its one flat all-reduce, as JAX reads the
+knob on the 2-D mesh alone.  ``inner_steps`` is not ported (a benchmark
+knob of the JAX step).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -130,10 +140,11 @@ def _running_stats(model) -> list:
 
 class _Update:
     """What follows the backward in both steps, as the JAX step orders
-    it: the one all-reduce of the gradients over the group (SUM for
-    MIL-NCE, MEAN for the DTW family), the ``grad.nonfinite`` poison, the
-    finite guard, the optimizer and the schedule, then the BatchNorm
-    statistics averaged over the group.  It counts the optimizer steps
+    it: the reduction of the gradients over the group (SUM for MIL-NCE,
+    MEAN for the DTW family: one all-reduce on the 1-D layout, the
+    placement's on the 2-D one, waited on here), the ``grad.nonfinite``
+    poison, the finite guard, the optimizer and the schedule, then the
+    BatchNorm statistics averaged over the group.  It counts the optimizer steps
     (skipped ones too) from ``first_step``.
 
     The guard is the JAX ``_all_finite``/``_select_tree`` with no host
@@ -250,10 +261,11 @@ def make_train_step(model, optimizer, loss_cfg=None,
         t_seq = t_embd.reshape(b, -1, t_embd.shape[-1])      # (B, K, D)
         return _sequence_loss(loss_cfg, v_seq, t_seq, start, group)
 
-    def fwd_bwd(video_u8, text_ids, start):
+    def fwd_bwd(video_u8, text_ids, start, reducing=contextlib.nullcontext):
         model.train()
         loss = compute_loss(video_u8, text_ids, start)
-        loss.backward()
+        with reducing():
+            loss.backward()
         return loss
 
     return _assemble(fwd_bwd, update, optimizer, placement)
@@ -282,8 +294,10 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
        its slice of the cache's gradient; the parameter gradients
        accumulate in ``.grad``.
 
-    The gradients are reduced over the group once, after pass 2, never a
-    microbatch at a time (the JAX ``scan-reduction-free`` invariant).
+    The gradients are reduced over the group once a step, never a
+    microbatch at a time (the JAX ``scan-reduction-free`` invariant): on
+    the 2-D layout's per-leaf form, during the last microbatch's backward
+    of pass 2 alone, so the step's collectives are the plain step's.
 
     Each microbatch normalizes with its own BatchNorm statistics, a
     virtual data-parallel shard with local BN.  Its running statistics:
@@ -315,7 +329,7 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
         t_seq = t.reshape(v.shape[0], -1, t.shape[-1])       # (B, K, D)
         return _sequence_loss(loss_cfg, v, t_seq, start, group)
 
-    def fwd_bwd(video_u8, text_ids, start):
+    def fwd_bwd(video_u8, text_ids, start, reducing=contextlib.nullcontext):
         b = video_u8.shape[0]
         if b % micro_batches:
             raise ValueError(f"batch {b} does not split into "
@@ -346,11 +360,14 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
         t_all = torch.cat(t_mb).requires_grad_()
         loss = loss_of(v_all, t_all, start)
         g_v, g_t = torch.autograd.grad(loss, (v_all, t_all))
-        # pass 2: each microbatch again, its backward seeded by its slice
+        # pass 2: each microbatch again, its backward seeded by its slice;
+        # the gradients are final, and reduced, in the last one's alone
         with frozen_running_stats(model):
-            for vu8, tids, gv, gt in zip(vids, txts, g_v.split(bm),
-                                         g_t.split(rows)):
-                torch.autograd.backward(embed(vu8, tids), (gv, gt))
+            for i, (vu8, tids, gv, gt) in enumerate(zip(
+                    vids, txts, g_v.split(bm), g_t.split(rows))):
+                last = i == micro_batches - 1
+                with reducing() if last else contextlib.nullcontext():
+                    torch.autograd.backward(embed(vu8, tids), (gv, gt))
         return loss
 
     return _assemble(fwd_bwd, update, optimizer, placement)
@@ -358,10 +375,14 @@ def make_grad_cache_step(model, optimizer, micro_batches: int, loss_cfg=None,
 
 def _assemble(fwd_bwd, update: _Update, optimizer, placement):
     """The step of a forward-and-backward: zero the gradients, gather the
-    sharded parameters (2-D layout), forward and backward, then the
-    update, which reduces.  Its ``fwd_bwd`` attribute is the forward and
-    backward alone, leaving a 2-D layout's parameters as their slices
-    with no gradient."""
+    sharded parameters (2-D layout), forward and backward (the last
+    backward inside ``placement.reducing()``, where the per-leaf
+    reduction issues its collectives), then the update, which finishes
+    the reduction.  Its ``fwd_bwd`` attribute is the forward and backward
+    alone, reducing nothing and leaving a 2-D layout's parameters as
+    their slices with no gradient."""
+    reducing = (placement.reducing if placement is not None
+                else contextlib.nullcontext)
 
     def step(video_u8: torch.Tensor, text_ids: torch.Tensor,
              start: torch.Tensor):
@@ -369,7 +390,7 @@ def _assemble(fwd_bwd, update: _Update, optimizer, placement):
         optimizer.zero_grad(set_to_none=True)
         if placement is not None:
             placement.gather_params()
-        return update(fwd_bwd(video_u8, text_ids, start), saved)
+        return update(fwd_bwd(video_u8, text_ids, start, reducing), saved)
 
     def fwd_bwd_alone(video_u8, text_ids, start):
         if placement is None:

@@ -463,8 +463,8 @@ def test_run_training_at_two_ranks_streams_merge_under_one_run_id(
 
 
 def test_run_training_at_two_ranks_evaluates_on_rank_zero(trainer_runs):
-    """``train.evaluate``: rank 0 scores the task at epoch 0 while rank 1
-    waits at the barrier; both then train the step."""
+    """``train.evaluate``: at epoch 0 each rank scores its share of the
+    task and rank 0 alone logs the metrics; both then train the step."""
     _, (r0, r1) = trainer_runs
     shown = [m for m in r0["eval"]["lines"]
              if m.startswith("msrvtt retrieval: R@1: ")]

@@ -15,7 +15,8 @@ FSDP threshold 256 so that several kernels shard), the port in float64:
   the sharded parameters and their moments;
 - the grad-cache step at M = 2 on the 4 x 2 grid equals the 8-way 1-D
   layout's;
-- a NaN in one model column's slice makes every rank skip;
+- a NaN in one model column's slice makes every rank skip, under both
+  settings of ``parallel.overlap_grad_reduce``;
 - a model axis without a size (and the other 2-D refusals) is refused
   before the model is built;
 - ``run_training`` on a (1 x 2) grid for 2 steps holds real slices, and
@@ -67,8 +68,10 @@ def _cases(model_size, grad_cache):
         cases["gc-1d"] = dict(loss="milnce", model_size=0, micro_batches=2)
         cases["gc-2d"] = dict(loss="milnce", model_size=model_size,
                               micro_batches=2)
-        cases["nan-2d"] = dict(loss="milnce", model_size=model_size,
-                               nan_at=1)
+        for overlap in (True, False):
+            cases[f"nan-2d-{overlap}"] = dict(
+                loss="milnce", model_size=model_size, nan_at=1,
+                overlap=overlap)
     return cases
 
 
@@ -135,21 +138,26 @@ def test_grad_cache_2d_matches_1d(layouts):
         _close(two["moments"][name][1], v, f"exp_avg_sq {name}")
 
 
-def test_nan_in_one_model_column_makes_every_rank_skip(layouts):
+@pytest.mark.parametrize("overlap", [True, False],
+                         ids=["overlap", "fused"])
+def test_nan_in_one_model_column_makes_every_rank_skip(layouts, overlap):
     """Rank 0's NaN lands in the last model column's slice alone; the
     verdict agreed over the model axis skips step 2 on all 8 ranks, which
-    keep one model (step 1 ran at lr 0, so the initial weights)."""
+    keep one model (step 1 ran at lr 0, so the initial weights), whether
+    the gradients are reduced a leaf at a time during the backward
+    (``parallel.overlap_grad_reduce``) or fused after it."""
     ranks = layouts[8]
     init = ranks[0]["2d-milnce"]
+    label = f"nan-2d-{overlap}"
     for r in ranks:
-        got = r["nan-2d"]
+        got = r[label]
         assert got["skips"] == [0, 1]
         assert got["losses"][0] == init["losses"][0]
-        assert got["state_digest"] == ranks[0]["nan-2d"]["state_digest"]
+        assert got["state_digest"] == ranks[0][label]["state_digest"]
     variables = worker.load_jax_variables(
         worker.S3D(**DIMS).to(torch.float64), _variables())
     for name, p in variables.named_parameters():
-        np.testing.assert_array_equal(ranks[0]["nan-2d"]["state"][name],
+        np.testing.assert_array_equal(ranks[0][label]["state"][name],
                                       p.detach().numpy(), err_msg=name)
 
 

@@ -17,6 +17,7 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -310,20 +311,85 @@ def _grid(model_size, group):
                                      model_parallel_size=model_size), group)
 
 
+def _census(placement, events):
+    """Record into ``events``, while the returned context is open, each
+    backward's start and end (``("backward",)``, ``("backward_end",)``),
+    each leaf the placement issues (``("issue", name)``) and each
+    all-reduce or reduce-scatter, tagged ``"reduction"`` when the
+    placement's reduction issued it (inside its issue of a leaf or its
+    ``reduce_grads_2d``), else ``"other"`` (sync BatchNorm, the loss, the
+    guard's flag)."""
+    names = {id(p): n for n, p in placement.model.named_parameters()}
+    depth = [0]
+    real = (torch.autograd.backward, dist.all_reduce,
+            dist.reduce_scatter_tensor, placement._issue,
+            placement.reduce_grads_2d)
+
+    def tag():
+        return "reduction" if depth[0] else "other"
+
+    def backward(*args, **kw):
+        events.append(("backward",))
+        out = real[0](*args, **kw)
+        events.append(("backward_end",))
+        return out
+
+    def all_reduce(*args, **kw):
+        events.append(("all_reduce", tag()))
+        return real[1](*args, **kw)
+
+    def reduce_scatter(*args, **kw):
+        events.append(("reduce_scatter", tag()))
+        return real[2](*args, **kw)
+
+    def inside(fn):
+        def run(*args):
+            depth[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
+        return run
+
+    def issue(i):
+        events.append(("issue", names[id(placement._order[i])]))
+        return inside(real[3])(i)
+
+    @contextlib.contextmanager
+    def recording():
+        torch.autograd.backward, dist.all_reduce = backward, all_reduce
+        dist.reduce_scatter_tensor = reduce_scatter
+        placement._queue.issue = issue
+        placement.reduce_grads_2d = inside(real[4])
+        try:
+            yield
+        finally:
+            torch.autograd.backward, dist.all_reduce = real[:2]
+            dist.reduce_scatter_tensor = real[2]
+            placement._queue.issue = real[3]
+            del placement.reduce_grads_2d
+
+    return recording()
+
+
 def layout_run(rank, world, group, dims, variables, batches, loss,
-               model_size, micro_batches=1, min_size=256, nan_at=None):
+               model_size, micro_batches=1, min_size=256, nan_at=None,
+               overlap=True, census=False):
     """Steps of the float64 port trainer from the JAX ``variables`` with
     sync BatchNorm over the whole group (so every layout computes the
     one-process step), warmup 2 over 10 steps, the finite guard; the 1-D
     layout (``model_size`` 0) or the (world / model_size, model_size)
-    grid at the FSDP threshold ``min_size``; MIL-NCE dense or sdtw_3 on
-    the scan; ``make_grad_cache_step`` at ``micro_batches`` > 1.
-    ``nan_at`` (step index): rank 0 plants a NaN in the last element of
-    the first sharded parameter's full gradient before the reduction,
-    which lands in the last model column's slice alone.  Returns the
-    losses, the skips, the full state and moments after the steps, the
-    bytes of the sharded parameters plus their optimizer state on this
-    rank, and the map's summary and hash."""
+    grid at the FSDP threshold ``min_size``, its gradients reduced a leaf
+    at a time during the backward (``overlap``) or fused after it;
+    MIL-NCE dense or sdtw_3 on the scan; ``make_grad_cache_step`` at
+    ``micro_batches`` > 1.  ``nan_at`` (step index): rank 0 plants a NaN
+    in the last element of the first sharded parameter's full gradient
+    as it reaches the parameter (a tensor hook, before the reduction),
+    which lands in the last model column's slice alone.  ``census``: the
+    last step's events (:func:`_census`).  Returns the losses, the skips,
+    the full state and moments after the steps, the bytes of the sharded
+    parameters plus their optimizer state on this rank, the map's
+    summary and hash, and the census."""
     import hashlib
 
     from milnce_tpu_torch.parallel.sharding_map import ShardedPlacement
@@ -335,7 +401,7 @@ def layout_run(rank, world, group, dims, variables, batches, loss,
     placement = None
     if model_size:
         placement = ShardedPlacement(model, _grid(model_size, group), group,
-                                     min_size=min_size)
+                                     min_size=min_size, overlap=overlap)
     opt_cfg = OptimConfig(warmup_steps=2)
     optimizer, sched = build_optimizer(model, opt_cfg,
                                        build_schedule(opt_cfg, 10))
@@ -346,23 +412,28 @@ def layout_run(rank, world, group, dims, variables, batches, loss,
                                  **kwargs)
             if micro_batches > 1 else
             make_train_step(model, optimizer, cfg, **kwargs))
-    losses, skips = [], []
+    losses, skips, events = [], [], []
     for i, (video, text, start) in enumerate(batches):
         if group is not None:
             video, text, start = (_shard(x, rank, world)
                                   for x in (video, text, start))
+        hook = None
         if placement is not None and nan_at == i and rank == 0:
-            real = placement.reduce_grads_2d
+            def planted(g):
+                g = g.clone()
+                g.view(-1)[-1] = float("nan")
+                return g
 
-            def planted(mean, real=real):
-                p, _ = placement.sharded[0]
-                p.grad.view(-1)[-1] = float("nan")
-                placement.reduce_grads_2d = real
-                return real(mean)
-
-            placement.reduce_grads_2d = planted
-        loss_, skipped = step(torch.from_numpy(video), torch.from_numpy(text),
-                              torch.from_numpy(start))
+            hook = placement.sharded[0][0].register_hook(planted)
+        recording = (_census(placement, events)
+                     if census and i == len(batches) - 1 else
+                     contextlib.nullcontext())
+        with recording:
+            loss_, skipped = step(torch.from_numpy(video),
+                                  torch.from_numpy(text),
+                                  torch.from_numpy(start))
+        if hook is not None:
+            hook.remove()
         losses.append(float(loss_))
         skips.append(int(skipped))
     if placement is not None:
@@ -387,7 +458,7 @@ def layout_run(rank, world, group, dims, variables, batches, loss,
         blob.update(key.encode() + state[key].tobytes())
     out = dict(losses=losses, skips=skips, state_digest=blob.hexdigest(),
                sharded_bytes=local_state_bytes(model, optimizer, sharded),
-               summary=summary, hash=digest)
+               summary=summary, hash=digest, census=events)
     if rank == 0:       # the others' states are held equal by their digest
         out.update(state=state, moments=moments_)
     return out
@@ -602,3 +673,109 @@ if __name__ == "__main__":
     import sys
 
     raise SystemExit({"live_index_hammer": live_index_hammer}[sys.argv[1]]())
+
+
+# ------------------------------------------------------------ eval ranks
+class SeededEvalSource:
+    """An eval source of ``n`` samples made from their index alone (the
+    same in every process, unlike ``FakeDecoder``'s ``hash`` of a path):
+    ``windows`` uint8 clips of ``frames`` x ``size``^2, a caption of
+    ``words`` ids under ``vocab``, a class label and three split flags (1
+    train, 2 test).  ``decoded`` lists the indices it was asked for."""
+
+    def __init__(self, n, windows=2, frames=4, size=32, words=5, vocab=64):
+        self.n, self.windows, self.frames = n, windows, frames
+        self.size, self.words, self.vocab = size, words, vocab
+        self.decoded = []
+
+    def __len__(self):
+        return self.n
+
+    def sample(self, idx, rng=None):
+        self.decoded.append(idx)
+        gen = np.random.default_rng(1000 + idx)
+        return {"video": gen.integers(0, 255, (self.windows, self.frames,
+                                               self.size, self.size, 3),
+                                      dtype=np.uint8),
+                "text": gen.integers(1, self.vocab, (1, self.words)
+                                     ).astype(np.int32),
+                "label": f"class{idx % 3}",
+                "splits": np.array([1 if (idx + s) % 3 else 2
+                                    for s in range(3)], np.int32)}
+
+
+def eval_group_runs(rank, world, group, dims, variables, n, batch,
+                    devices):
+    """Retrieval and the linear probe of a float32 port model from the JAX
+    ``variables`` over this rank's ``devices`` and the ``group``, on a
+    :class:`SeededEvalSource` of ``n`` samples at retrieval batch
+    ``batch``.  Returns the embeddings, features, labels, splits, the
+    metrics (the probe's SVM seeded by ``np.random.seed(0)``) and the
+    indices each extraction decoded."""
+    from milnce_tpu_torch.eval.linear_probe import (evaluate_linear_probe,
+                                                    extract_probe_features)
+    from milnce_tpu_torch.eval.metrics import compute_retrieval_metrics
+    from milnce_tpu_torch.eval.retrieval import extract_retrieval_embeddings
+
+    model = load_jax_variables(S3D(**dims), variables)
+    src = SeededEvalSource(n, vocab=dims["vocab_size"])
+    t, v = extract_retrieval_embeddings(model, src, devices, batch,
+                                        process_group=group)
+    decoded_retrieval = sorted(set(src.decoded))
+    src.decoded.clear()
+    feats, labels, splits = extract_probe_features(model, src, devices,
+                                                   process_group=group)
+    decoded_probe = sorted(set(src.decoded))
+    np.random.seed(0)
+    accs = evaluate_linear_probe(model, src, devices, process_group=group)
+    return dict(t=t, v=v, metrics=compute_retrieval_metrics(t @ v.T),
+                feats=feats, labels=list(labels), splits=splits, accs=accs,
+                decoded_retrieval=decoded_retrieval,
+                decoded_probe=decoded_probe)
+
+
+def eval_train_runs(rank, world, _group, cfg):
+    """``run_training`` of ``cfg`` (its group through
+    ``parallel.coordinator_address``) at this rank, recording each
+    barrier the process meets and whether the in-training eval was
+    running then, and the indices the eval source decoded; then, in this
+    process alone, the eval of the run's initial model (the seed's) with
+    no group.  Returns the run's eval metrics, its log lines, the
+    barriers, the decoded indices and the one-process metrics."""
+    from milnce_tpu_torch.data import datasets
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.train import loop
+
+    barriers, decoded, inside = [], [], [False]
+    real_barrier, real_eval = dist.barrier, loop._in_training_eval
+    real_sample = datasets.MSRVTTSource.sample
+
+    def barrier(*args, **kw):
+        barriers.append(inside[0])
+        return real_barrier(*args, **kw)
+
+    def evaluate(*args, **kw):
+        inside[0] = True
+        try:
+            return real_eval(*args, **kw)
+        finally:
+            inside[0] = False
+
+    def sample(self, idx, rng=None):
+        decoded.append(idx)
+        return real_sample(self, idx, rng)
+
+    cfg.parallel.process_id = rank
+    lines = []
+    dist.barrier, loop._in_training_eval = barrier, evaluate
+    datasets.MSRVTTSource.sample = sample
+    try:
+        res = loop.run_training(cfg, log=lines.append)
+    finally:
+        dist.barrier, loop._in_training_eval = real_barrier, real_eval
+        datasets.MSRVTTSource.sample = real_sample
+    model = build_model(cfg.model, seed=cfg.train.seed)
+    alone = loop._in_training_eval(cfg, model, torch.device("cpu"),
+                                   lambda _m: None)
+    return dict(metrics=res.eval_metrics, lines=lines, barriers=barriers,
+                decoded=sorted(set(decoded)), alone=alone)

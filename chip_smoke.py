@@ -203,6 +203,22 @@ Phases, each fatal on failure:
                whole group quarantined, its request requeued, rankings
                identical).  Measured, in turns with one card: ms a
                bucket-16 video and text call, ms a query batch.
+   serve-hosts -- the same export and corpus over a grid of two ranks,
+               each serving on a group of two devices (two gloo rank
+               processes on the one card, each ``["cuda:0", "cuda:0"]``;
+               four shards, rank-major), rank 0 driving it through
+               ``serving/lockstep.py`` and the other rank replaying:
+               the grid engine's video and text calls at every rung
+               within 1e-5 + 1e-4 max|e| of the one-card engine's; ties
+               planted across a device and a rank boundary; the grid
+               index's top-10 equal to the one-card index's and the
+               float64 host ranking; a live index booted short of the
+               corpus ingesting past its rung, at generation 1 on both
+               ranks; ``milnce-serve-torch``'s ``main`` on two rank
+               processes (16 queries and one ingest over rank 0's front,
+               SIGTERM ending both with 0 after one snapshot).  Measured,
+               in turns: ms a bucket-16 video call and a query batch, the
+               grid against one card, rank 0's announcement a call.
    serve-live -- serving's second half on serve-full's export:
                ``milnce-serve-torch`` as a subprocess on 127.0.0.1 with a
                live index booted from a snapshot of 1,000,000 seeded unit
@@ -310,6 +326,10 @@ without a CUDA device or outside a checkout of the repository.
 ``python3 chip_smoke.py --serve-group``, on a machine with two cards or
 more, runs only the device phase and serve-group over ``["cuda:0",
 "cuda:1"]`` on a seeded full-width export (serving builds no kernel).
+``--serve-hosts``, on four cards (it refuses fewer), runs only the
+device phase and serve-hosts on a seeded full-width export over NCCL:
+two ranks of two cards each (``initialize_serving``'s own join), timed
+against one card and one process over the four cards.
 ``python3 chip_smoke.py --ddp-2``, on a machine with two cards or more,
 runs only the device, build and ddp-2 phases: ddp-2's comparison over
 NCCL with a rank a card beside its gloo one.  ``--fsdp-2d``, on two
@@ -317,7 +337,7 @@ cards or more, runs only the device, build and fsdp-2d phases, over
 NCCL with a rank a card: the (1 x 2) grid against the 2-way 1-D layout
 on two or three cards, the (2 x 2) grid against the 4-way one on four or
 more, each under both settings of ``parallel.overlap_grad_reduce``.
-None of the three prints a kernels line.
+None of the four prints a kernels line.
 """
 
 from __future__ import annotations
@@ -2566,6 +2586,10 @@ def phase_serve_full(ckpt_dir, workdir, card):
     log(f"== serve-group (serve-full's export and index over the device "
         f"group {list(SERVE_GROUP)}: one card named twice)")
     phase_serve_group(out, engine, index, corpus, host, q, SERVE_GROUP, card)
+    log(f"== serve-hosts (serve-full's export and corpus over "
+        f"{SERVE_HOSTS_WORLD} gloo ranks on the one card, each serving on "
+        f"{list(SERVE_GROUP)}; milnce-serve-torch over them)")
+    phase_serve_hosts(out, corpus, q, queries[:INDEX_QUERIES], workdir, card)
     del engine, index, corpus
     gc.collect()
     torch.cuda.empty_cache()
@@ -2684,15 +2708,11 @@ def phase_serve_group(export_dir, engine, index, corpus, host, q, group,
         one_fn = getattr(engine, f"embed_{entry}")
         grp_fn = getattr(eng, f"embed_{entry}")
         x = top[entry]
-        one_a, grp_a = _timed(lambda: one_fn(x), reps), _timed(
-            lambda: grp_fn(x), reps)
-        grp_b, one_b = _timed(lambda: grp_fn(x), reps), _timed(
-            lambda: one_fn(x), reps)
-        m[entry] = ((one_a + one_b) / 2 * 1e3, (grp_a + grp_b) / 2 * 1e3)
-        log(f"  bucket {eng.buckets[-1]} {entry}: ms a call one card "
-            f"{m[entry][0]:.3f} ({one_a * 1e3:.3f}, {one_b * 1e3:.3f}), "
-            f"group {m[entry][1]:.3f} ({grp_a * 1e3:.3f}, "
-            f"{grp_b * 1e3:.3f}), group/one {m[entry][1] / m[entry][0]:.3f}")
+        t = _abab(f"bucket {eng.buckets[-1]} {entry}",
+                  {"one card": lambda: one_fn(x),
+                   "group": lambda: grp_fn(x)}, reps)
+        m[entry] = (t["one card"], t["group"])
+        log(f"    group/one {m[entry][1] / m[entry][0]:.3f}")
 
     t0 = time.perf_counter()
     gidx = DeviceRetrievalIndex(corpus, k=INDEX_K,
@@ -2702,17 +2722,14 @@ def phase_serve_group(export_dir, engine, index, corpus, host, q, group,
     _, i_one = index.topk(q)
     checks["index = one card = host ranking"] = (
         np.array_equal(i_grp, i_one) and np.array_equal(i_grp, host))
-    one_a, grp_a = _timed(lambda: index.topk(q), 20, 3), _timed(
-        lambda: gidx.topk(q), 20, 3)
-    grp_b, one_b = _timed(lambda: gidx.topk(q), 20, 3), _timed(
-        lambda: index.topk(q), 20, 3)
-    m["index"] = ((one_a + one_b) / 2 * 1e3, (grp_a + grp_b) / 2 * 1e3)
     log(f"  index over {group}: {[c.shape[0] for c, _, _ in gidx._shards]} "
         f"rows a card, built in {t_index:.2f} s; top-{INDEX_K} of "
         f"{len(q)} queries equal the one-card index's and the host's: "
-        f"{checks['index = one card = host ranking']}; ms a batch one card "
-        f"{m['index'][0]:.3f} ({one_a * 1e3:.3f}, {one_b * 1e3:.3f}), group "
-        f"{m['index'][1]:.3f} ({grp_a * 1e3:.3f}, {grp_b * 1e3:.3f})")
+        f"{checks['index = one card = host ranking']}")
+    t = _abab(f"a batch of {len(q)} queries",
+              {"one card": lambda: index.topk(q),
+               "group": lambda: gidx.topk(q)}, 20, 3)
+    m["index"] = (t["one card"], t["group"])
     del eng
 
     # the live index over the group: booted short of the corpus, the rest
@@ -2831,6 +2848,459 @@ def phase_serve_group_cards(work, card, group=("cuda:0", "cuda:1")):
         raise AssertionError("serve-group: the one-card index failed")
     return phase_serve_group(out, engine, index, corpus, host, q, group,
                              card)
+
+
+SERVE_HOSTS_WORLD = 2        # serve-hosts: ranks, each serving on 2 devices
+SERVE_HOSTS_TIMEOUT = 300    # its process group's collective timeout, s
+SERVE_HOSTS_FRONT_INGEST = 8  # rows the front ingests over HTTP
+
+
+def _plant_across(corpus, scores, k, query, boundary, rows):
+    """Copy query ``query``'s k-th row onto a row of the neighbouring
+    shard across ``boundary`` ('device': the other device of its rank;
+    'rank': the other rank's first shard), outside every query's top
+    k + 1, with its score column, so the two tie across the k-th place
+    across that boundary.  Returns (lower row, higher row)."""
+    r = int(_host_ranking(scores[query:query + 1], k)[0][k - 1])
+    rank, dev = divmod(r // rows, 2)
+    target = (rank * 2 + 1 - dev if boundary == "device"
+              else (1 - rank) * 2)
+    taken = {int(x) for x in _host_ranking(scores, k + 1).ravel()}
+    p = next(p for p in range(target * rows, (target + 1) * rows)
+             if p not in taken)
+    corpus[p] = corpus[r]
+    scores[:, p] = scores[:, r]
+    order = _host_ranking(scores[query:query + 1], k + 1)[0]
+    if sorted(order[k - 1:k + 1].tolist()) != sorted([p, r]):
+        raise AssertionError(f"the {boundary} plant did not hold")
+    return min(p, r), max(p, r)
+
+
+def _hosts_join(rank, world, backend, store):
+    """serve-hosts' rank ``rank`` -> (Ranks, its device group).  ``nccl``:
+    ``initialize_serving`` itself (the coordinator knobs over a FileStore,
+    ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``: the visible cards split evenly);
+    ``gloo``: both ranks on one card, each with the group ``["cuda:0",
+    "cuda:0"]``, over gloo (a stand-in for ``initialize_serving``, whose
+    cuda ranks take NCCL, which wants a card a rank)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from milnce_tpu_torch.config import ParallelConfig
+    from milnce_tpu_torch.parallel.dist import Ranks, initialize_serving
+
+    if backend == "gloo":
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=timedelta(seconds=SERVE_HOSTS_TIMEOUT))
+        return Ranks(dist.group.WORLD, rank, world, 0), ["cuda:0", "cuda:0"]
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    return initialize_serving(ParallelConfig(
+        coordinator_address=f"file://{store}", num_processes=world,
+        process_id=rank, platform="cuda",
+        group_timeout_s=SERVE_HOSTS_TIMEOUT))
+
+
+def _abab(label, fns, reps, warm=1, leader=None):
+    """``fns`` {name: fn} timed in turns, in order and back (A B .. B A),
+    each a median of ``reps`` calls (``_timed``) -> {name: ms, the mean of
+    its two turns}; with ``leader``, the host's ms in its announcements a
+    call of the grid's turns (``grid`` in ``fns``)."""
+    names = list(fns)
+    turns = {n: [] for n in names}
+    sent = seconds = 0.0
+    for n in names + names[::-1]:
+        if n == "grid" and leader is not None:
+            s0, c0 = leader.seconds, leader.sent
+        turns[n].append(_timed(fns[n], reps, warm) * 1e3)
+        if n == "grid" and leader is not None:
+            seconds += leader.seconds - s0
+            sent += leader.sent - c0
+    ms = {n: sum(t) / 2 for n, t in turns.items()}
+    if leader is not None:
+        ms["announce"] = seconds / sent * 1e3
+    log(f"  {label}: ms a call " + ", ".join(
+        f"{n} {ms[n]:.3f} ({t[0]:.3f}, {t[1]:.3f})"
+        for n, t in turns.items())
+        + (f"; rank 0's announcement {ms['announce']:.3f} ms a call"
+           if leader is not None else ""))
+    return ms
+
+
+def _hosts_lead(pg, devices, eng, idx, export_dir, corpus, plan):
+    """serve-hosts on rank 0, the grid's other ranks replaying its calls
+    (``serving/lockstep.py``): the grid engine at every rung against the
+    one-card engine on the same rows, the grid index's top-k of the
+    queries against the one-card index's, then the grid in turns with one
+    card (and with one process over every card, ``plan['four']``)."""
+    from milnce_tpu_torch.serving import lockstep
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+
+    leader = lockstep.Leader(pg, SERVE_HOSTS_TIMEOUT)
+    eng.announce = idx.announce = leader.announce
+    res = {}
+    kw = dict(max_batch=SERVE_MAX_BATCH, min_bucket=1)
+    one = InferenceEngine.from_export(export_dir, device=devices[0], **kw)
+    one_idx = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                   query_buckets=one.buckets,
+                                   device=devices[0])
+    rng = np.random.default_rng(plan["seed"])
+    shape, words, vocab = plan["shape"], plan["words"], plan["vocab"]
+    res["engine"], top = [], {}
+    for b in eng.buckets:
+        rows = {"video": rng.integers(0, 256, (b,) + shape, dtype=np.uint8),
+                "text": rng.integers(1, vocab, (b, words), dtype=np.int32)}
+        for entry, x in rows.items():
+            got = getattr(eng, f"embed_{entry}")(x)
+            want = getattr(one, f"embed_{entry}")(x)
+            res["engine"].append((b, entry, float(np.abs(got - want).max()),
+                                  1e-5 + 1e-4 * float(np.abs(want).max())))
+            top[entry] = x
+    q = plan["q"]
+    res["index"] = (idx.topk(q)[1], one_idx.topk(q)[1])
+    video = {"one card": lambda: one.embed_video(top["video"]),
+             "grid": lambda: eng.embed_video(top["video"])}
+    query = {"one card": lambda: one_idx.topk(q),
+             "grid": lambda: idx.topk(q)}
+    if plan["four"]:
+        cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        four = InferenceEngine.from_export(export_dir, device=cards, **kw)
+        four_idx = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                        query_buckets=four.buckets,
+                                        device=cards)
+        res["index_four"] = four_idx.topk(q)[1]
+        video["one process"] = lambda: four.embed_video(top["video"])
+        query["one process"] = lambda: four_idx.topk(q)
+    res["ms_video"] = _abab(f"bucket {eng.buckets[-1]} video", video, 5,
+                            leader=leader)
+    res["ms_query"] = _abab(f"a batch of {len(q)} queries", query, 20, 3,
+                            leader=leader)
+    res["closed"] = leader.close()
+    return res
+
+
+def _serve_hosts_rank(rank, world, backend, store, export_dir, corpus_npz,
+                      plan, out):
+    """One rank of serve-hosts, in a process of its own: the grid engine
+    and index from ``export_dir`` and ``corpus_npz`` (``_hosts_lead`` on
+    rank 0, ``lockstep.follow`` on the others), then a live index over the
+    grid booted on all but the corpus's last SERVE_GROUP_INGEST rows, to
+    which rank 0 alone adds them and as many zero rows (past the rung),
+    the others replaying; every rank's generation and rung."""
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.serving import lockstep
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+    from milnce_tpu_torch.train.loop import disable_tf32
+
+    disable_tf32()
+    ranks, devices = _hosts_join(rank, world, backend, store)
+    pg = ranks.group
+    with np.load(corpus_npz) as z:
+        corpus = z["emb"]
+    res = {"devices": devices}
+    try:
+        t0 = time.perf_counter()
+        eng = InferenceEngine.from_export(
+            export_dir, device=devices, max_batch=SERVE_MAX_BATCH,
+            min_bucket=1, process_group=pg)
+        idx = DeviceRetrievalIndex(corpus, k=INDEX_K,
+                                   query_buckets=eng.buckets,
+                                   device=devices, group=pg)
+        res.update(boot_s=time.perf_counter() - t0, buckets=eng.buckets,
+                   shards=idx.grid.shards,
+                   rows=[int(c.shape[0]) for c, _, _ in idx._shards])
+        if rank == 0:
+            res.update(_hosts_lead(pg, devices, eng, idx, export_dir,
+                                   corpus, plan))
+        else:
+            res["replayed"] = lockstep.follow(pg, SERVE_HOSTS_TIMEOUT, eng,
+                                              idx)
+        del idx
+        live = LiveRetrievalIndex(corpus[:-SERVE_GROUP_INGEST], k=INDEX_K,
+                                  query_buckets=eng.buckets, device=devices,
+                                  group=pg)
+        try:
+            res["live_boot_rung"] = live.stats()["shard_rows"]
+            if rank == 0:
+                leader = lockstep.Leader(pg, SERVE_HOSTS_TIMEOUT)
+                live.announce = leader.announce
+                t0 = time.perf_counter()
+                live.add(np.concatenate([
+                    corpus[-SERVE_GROUP_INGEST:],
+                    np.zeros((SERVE_GROUP_INGEST, corpus.shape[1]),
+                             np.float32)]))
+                flushed = live.flush(timeout=600.0)
+                res["live_s"] = time.perf_counter() - t0
+                _, rows, gen = live.topk_with_gen(plan["q"])
+                res["live"] = dict(flushed=flushed, gen=gen, rows=rows,
+                                   closed=leader.close())
+            else:
+                res["live_replayed"] = lockstep.follow(
+                    pg, SERVE_HOSTS_TIMEOUT, eng, live)
+            st = live.stats()
+            res.update(live_gen=st["generation"], live_rung=st["shard_rows"])
+        finally:
+            live.close()
+        res["launches"] = sum({**ms.LAUNCHES, **sd.LAUNCHES}.values())
+    finally:
+        ranks.close()
+    torch.save(res, out)
+
+
+def _serve_hosts_cli(rank, world, backend, store, argv, log_path):
+    """One rank of ``milnce-serve-torch`` over serve-hosts' grid, in a
+    process of its own, its output in ``log_path``: ``main`` joins the
+    group itself over NCCL (``nccl``: the coordinator knobs and
+    ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``), or through ``_hosts_join``'s
+    gloo stand-in."""
+    import milnce_tpu_torch.parallel.dist as pdist
+    from milnce_tpu_torch.serving import service
+
+    sys.stdout = sys.stderr = open(log_path, "w", buffering=1)
+    if backend == "gloo":
+        pdist.initialize_serving = (
+            lambda _cfg: _hosts_join(rank, world, "gloo", store))
+    else:
+        os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+        argv = argv + ["--parallel.coordinator_address", f"file://{store}",
+                       "--parallel.num_processes", str(world),
+                       "--parallel.process_id", str(rank)]
+    service.main(argv)
+
+
+def _hosts_front(export_dir, corpus_npz, backend, tokens, host, grown_host,
+                 grow, work):
+    """``milnce-serve-torch`` on SERVE_HOSTS_WORLD rank processes over the
+    grid, a live index of ``corpus_npz``: rank 0's front answers the
+    ``tokens`` query (its top-k against ``host``) and one ingest of
+    ``grow`` (generation 1, then ``grown_host``); SIGTERM to rank 0 ends
+    both with 0 after one snapshot.  Returns the checks and figures."""
+    import torch.multiprocessing as mp
+
+    snap = f"{work}/hosts-snap"
+    argv = ["--preset", "full", "--serve.export_dir", export_dir,
+            "--serve.corpus_npz", corpus_npz, "--serve.port", "0",
+            "--serve.max_batch", str(SERVE_MAX_BATCH),
+            "--serve.topk", str(INDEX_K), "--serve.live_index", "true",
+            "--serve.index_snapshot_dir", snap,
+            "--parallel.group_timeout_s", str(SERVE_HOSTS_TIMEOUT)]
+    logs = [f"{work}/hosts-front-{r}.log" for r in range(SERVE_HOSTS_WORLD)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_serve_hosts_cli, args=(
+        r, SERVE_HOSTS_WORLD, backend, f"{work}/hosts-front-store", argv,
+        logs[r])) for r in range(SERVE_HOSTS_WORLD)]
+    out, checks = {}, {}
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        base = None
+        while time.perf_counter() - t0 < 600 and base is None:
+            text = Path(logs[0]).read_text() if os.path.exists(
+                logs[0]) else ""
+            m = re.search(r"listening on (http://\S+) ", text)
+            base = m.group(1) if m else None
+            if base is None and any(not p.is_alive() for p in procs):
+                break
+            time.sleep(0.2)
+        if base is None:
+            raise AssertionError("serve-hosts: the front did not boot:\n"
+                                 + "\n".join(Path(f).read_text()[-3000:]
+                                             for f in logs))
+        out["boot_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        code, body, _ = _http(base, "/v1/query",
+                              {"token_ids": tokens.tolist()})
+        out["query_ms"] = (time.perf_counter() - t1) * 1e3
+        got = np.asarray([r["indices"] for r in body["results"]]) \
+            if code == 200 else None
+        checks["front: 16 queries = host ranking"] = (
+            got is not None and np.array_equal(got, host))
+        code, body, _ = _http(base, "/v1/index/add", {
+            "embeddings": grow.tolist(), "wait": True})
+        added = code == 200 and body.get("live") and body["generation"] == 1
+        code, body, _ = _http(base, "/v1/query",
+                              {"token_ids": tokens.tolist()})
+        got = np.asarray([r["indices"] for r in body["results"]]) \
+            if code == 200 else None
+        checks["front: one ingest, generation 1 = host ranking"] = bool(
+            added and got is not None and np.array_equal(got, grown_host)
+            and body["index_generation"] == 1)
+        t1 = time.perf_counter()
+        os.kill(procs[0].pid, signal.SIGTERM)
+        for p in procs:
+            p.join(300)
+        out["stop_s"] = time.perf_counter() - t1
+        codes = [p.exitcode for p in procs]
+        with open(f"{snap}/index_meta.json") as fh:
+            meta = json.load(fh)
+        shutil.rmtree(snap)              # 2 GiB the later phases need not
+        checks["SIGTERM: every rank exits 0, one snapshot at generation 1"] \
+            = codes == [0] * SERVE_HOSTS_WORLD and meta["generation"] == 1
+        log(f"  front over {SERVE_HOSTS_WORLD} ranks ({backend}): booted in "
+            f"{out['boot_s']:.2f} s, the 16-row query {out['query_ms']:.3f} "
+            f"ms over HTTP; exit codes {codes} {out['stop_s']:.2f} s after "
+            f"SIGTERM; snapshot generation {meta['generation']}, "
+            f"{meta['size']} rows; rank 1: "
+            f"{Path(logs[1]).read_text().strip().splitlines()[-1]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return out, checks
+
+
+def phase_serve_hosts(export_dir, corpus, q, tokens, work, card,
+                      backend="gloo"):
+    """serve-hosts: serve-full's export and corpus over a grid of
+    SERVE_HOSTS_WORLD ranks, each serving on a group of two devices (four
+    shards, rank-major): ``gloo`` -- two rank processes on the one card,
+    each with ``["cuda:0", "cuda:0"]``; ``nccl`` -- two of two cards
+    each, ``initialize_serving``'s own join (``--serve-hosts``, four
+    cards).  Rank 0 drives the grid through ``serving/lockstep.py`` and
+    the other rank replays its calls.  Two ties planted across the k-th
+    place of queries 6 and 7, across a device boundary and across a rank
+    boundary of the grid's shards.  Checks, each fatal: the grid engine's
+    video and text calls at every rung within 1e-5 + 1e-4 max|e| of the
+    one-card engine's (the limit printed); the grid index's top-INDEX_K
+    of ``q`` equal to the one-card index's and the float64 host
+    ranking's; a live index over the grid booted on all but the last
+    SERVE_GROUP_INGEST rows, which rank 0 ingests with as many zero rows
+    past the rung, at generation 1 on every rank, its top-k the host
+    ranking's; ``milnce-serve-torch`` over the grid (``_hosts_front``);
+    no hand kernel launched.  Measured in turns (``_abab``): ms a
+    bucket-16 video call and a query batch, the grid against one card
+    (and, over NCCL, against one process over the four cards), rank 0's
+    ms in its announcements a call (a header, then an embed's rows
+    scattered or a query batch broadcast).  Returns the figures."""
+    import torch.multiprocessing as mp
+
+    from milnce_tpu_torch.ops import milnce_stream as ms
+    from milnce_tpu_torch.ops import softdtw_cuda as sd
+    from milnce_tpu_torch.serving.export import read_export_metadata
+
+    ms.reset_launches()
+    sd.reset_launches()
+    t0 = time.perf_counter()
+    corpus = corpus.copy()
+    scores = _host_scores(q, corpus)
+    rows = -(-len(corpus) // (2 * SERVE_HOSTS_WORLD))
+    plants = {kind: _plant_across(corpus, scores, INDEX_K, query, kind, rows)
+              for query, kind in ((6, "device"), (7, "rank"))}
+    host = _host_ranking(scores, INDEX_K)
+    grown_host = _host_ranking(np.concatenate(
+        [scores, np.zeros((len(q), SERVE_GROUP_INGEST))], axis=1), INDEX_K)
+    grow = (4.0 * q[:SERVE_HOSTS_FRONT_INGEST] / np.linalg.norm(
+        q[:SERVE_HOSTS_FRONT_INGEST], axis=1, keepdims=True)).astype(
+        np.float32)
+    front_host = _host_ranking(np.concatenate(
+        [scores, q.astype(np.float64) @ grow.astype(np.float64).T], axis=1),
+        INDEX_K)
+    del scores
+    npz = f"{work}/hosts-corpus.npz"
+    np.savez(npz, emb=corpus)
+    log(f"  planted ties across a device boundary {plants['device']} and a "
+        f"rank boundary {plants['rank']} ({rows} rows a shard); host "
+        f"rankings and the corpus file in {time.perf_counter() - t0:.2f} s")
+    meta = read_export_metadata(export_dir)
+    plan = dict(q=q, seed=26, shape=tuple(meta["video_shape"]),
+                words=meta["tokenizer"]["max_words"],
+                vocab=meta["model"]["vocab_size"], four=backend == "nccl")
+    outs = [f"{work}/hosts-{r}.pt" for r in range(SERVE_HOSTS_WORLD)]
+    _spawn_ranks(_serve_hosts_rank, [
+        (r, SERVE_HOSTS_WORLD, backend, f"{work}/hosts-store", export_dir,
+         npz, plan, outs[r]) for r in range(SERVE_HOSTS_WORLD)],
+        f"serve-hosts over {backend}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    lead = ranks[0]
+    checks = {}
+    worst = 0.0
+    for b, entry, err, limit in lead["engine"]:
+        worst = max(worst, err / limit)
+        log(f"  bucket {b:2d} {entry}: max |grid - one card| {err:.3e} "
+            f"(limit 1e-5 + 1e-4 max|e| = {limit:.3e})")
+    checks["every rung = the one-card engine"] = worst <= 1
+    i_grid, i_one = lead["index"]
+    checks["index = one card = host ranking"] = (
+        np.array_equal(i_grid, i_one) and np.array_equal(i_grid, host))
+    if backend == "nccl":
+        checks["index = one process over the cards"] = np.array_equal(
+            i_grid, lead["index_four"])
+    live = lead["live"]
+    checks["live: across a rung, generation 1 on every rank = host"] = (
+        live["flushed"] and live["closed"] and lead["closed"]
+        and np.array_equal(live["rows"], grown_host)
+        and [r["live_gen"] for r in ranks] == [1] * SERVE_HOSTS_WORLD
+        and all(r["live_rung"] == 2 * r["live_boot_rung"] for r in ranks))
+    checks["no hand kernel launched"] = not any(
+        r["launches"] for r in ranks) and not any(
+        {**ms.LAUNCHES, **sd.LAUNCHES}.values())
+    log(f"  grid {[r['devices'] for r in ranks]} over {backend}: buckets "
+        f"{lead['buckets']}, shards {[r['shards'] for r in ranks]} of "
+        f"{lead['rows']} rows, boot {[round(r['boot_s'], 2) for r in ranks]}"
+        f" s; rank 1 replayed {ranks[1]['replayed']} calls, then "
+        f"{ranks[1]['live_replayed']} of the live index's; live index "
+        f"{SERVE_GROUP_INGEST} + {SERVE_GROUP_INGEST} rows ingested in "
+        f"{lead['live_s']:.2f} s, rung {lead['live_boot_rung']} -> "
+        f"{lead['live_rung']}, generations {[r['live_gen'] for r in ranks]}")
+    front, front_checks = _hosts_front(export_dir, npz, backend, tokens,
+                                       host, front_host, grow, work)
+    checks.update(front_checks)
+    os.remove(npz)
+    m = dict(video=lead["ms_video"], query=lead["ms_query"], front=front)
+    log(f"  serve-hosts on {card} ({backend}): video "
+        f"{m['video']['grid']:.3f} ms a call at bucket {SERVE_MAX_BATCH} "
+        f"(one card {m['video']['one card']:.3f}"
+        + (f", one process {m['video']['one process']:.3f}"
+           if backend == "nccl" else "")
+        + f"; announcement {m['video']['announce']:.3f}), query batch "
+        f"{m['query']['grid']:.3f} (one card {m['query']['one card']:.3f}"
+        + (f", one process {m['query']['one process']:.3f}"
+           if backend == "nccl" else "")
+        + f"; announcement {m['query']['announce']:.3f}); checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"serve-hosts failed its checks: {checks}")
+    return m
+
+
+def phase_serve_hosts_cards(work, card, backend="nccl"):
+    """``--serve-hosts``: a seeded full-width model exported, its corpus
+    made as ``--serve-group``'s, served by :func:`phase_serve_hosts` over
+    ``backend`` (``nccl``: two ranks of two cards each)."""
+    from milnce_tpu_torch.config import full_preset
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.serving import export
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.utils.torch_convert import torch_state_dict_to_flax
+
+    cfg = full_preset()
+    d = cfg.data
+    shape = (d.num_frames, d.video_size, d.video_size, 3)
+    tree = torch_state_dict_to_flax({
+        k: v.numpy() for k, v in build_model(cfg.model, seed=0)
+        .state_dict().items()})
+    out = export.export_inference_checkpoint(
+        f"{work}/export", tree["params"], tree["batch_stats"], cfg.model,
+        max_words=d.max_words, video_shape=shape)
+    engine = InferenceEngine.from_export(out, device="cuda:0",
+                                         max_batch=SERVE_MAX_BATCH,
+                                         min_bucket=1)
+    rng = np.random.default_rng(16)
+    clip_emb = np.concatenate([engine.embed_video(rng.integers(
+        0, 256, (SERVE_MAX_BATCH,) + shape, dtype=np.uint8))
+        for _ in range(SERVE_CLIPS // SERVE_MAX_BATCH)])
+    tokens = rng.integers(1, cfg.model.vocab_size,
+                          (INDEX_QUERIES, d.max_words), dtype=np.int32)
+    q = engine.embed_text(tokens)
+    corpus, _, _ = _index_corpus(clip_emb, q)
+    del engine
+    return phase_serve_hosts(out, corpus, q, tokens, work, card, backend)
 
 
 def _serve_bf16(out, engine, index, corpus, words, rng, shape, card):
@@ -5079,6 +5549,17 @@ def main() -> int:
     t0 = time.perf_counter()
     log("== device")
     card = phase_device()
+    if sys.argv[1:] == ["--serve-hosts"]:
+        # serving launches no hand kernel: no build
+        if torch.cuda.device_count() < 2 * SERVE_HOSTS_WORLD:
+            raise SystemExit(f"--serve-hosts needs {2 * SERVE_HOSTS_WORLD} "
+                             "cards")
+        with tempfile.TemporaryDirectory() as work:
+            log(f"== serve-hosts (a seeded full-width export over "
+                f"{SERVE_HOSTS_WORLD} nccl ranks of two cards each, against "
+                "one card and one process over the four)")
+            phase_serve_hosts_cards(work, card)
+        return _finish(card, t0)
     if sys.argv[1:] == ["--serve-group"]:
         # serving launches no hand kernel: no build
         if torch.cuda.device_count() < 2:

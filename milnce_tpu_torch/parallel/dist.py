@@ -141,6 +141,62 @@ def initialize_distributed(cfg) -> Ranks:
     return Ranks(dist.group.WORLD, rank, world, local_rank)
 
 
+def names_a_group(cfg) -> bool:
+    """Whether ``cfg``'s coordinator knobs or the ``torchrun`` environment
+    name a process group (checked before any group forms)."""
+    return _source(cfg) is not None
+
+
+def initialize_serving(cfg) -> tuple:
+    """Join the process group that ``cfg`` (a ParallelConfig) or the
+    ``torchrun`` environment names, to serve on a grid
+    (``parallel/devices.py::Grid``): -> (:class:`Ranks`, this rank's
+    device group), or (``Ranks()``, None) with neither source.  A CUDA
+    rank holds G cards, :func:`~milnce_tpu_torch.parallel.devices.
+    rank_cards` of ``LOCAL_RANK`` among ``LOCAL_WORLD_SIZE`` (default 0
+    of 1: a rank a host, as the coordinator knobs start them), and sets
+    the first as its current card; a CPU rank holds one CPU device.
+    ``parallel.num_devices`` (0: no check) must equal W x G.  NCCL on
+    ``cuda``, gloo on ``cpu``; a collective fails after
+    ``parallel.group_timeout_s``.  The trainer's
+    :func:`initialize_distributed` (one rank a card) is not this."""
+    from milnce_tpu_torch.parallel.devices import rank_cards
+
+    source = _source(cfg)
+    if source is None:
+        return Ranks(), None
+    init_method, world, rank, _ = source
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    if cfg.platform == "cuda":
+        devices = rank_cards(local_rank,
+                             int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+        backend = "nccl"
+    elif cfg.platform == "cpu":
+        devices, backend = ["cpu"], "gloo"
+    else:
+        raise ValueError(f"unknown parallel.platform {cfg.platform!r} "
+                         "(expected cuda | cpu)")
+    n = int(cfg.num_devices or 0)
+    if n and n != world * len(devices):
+        raise ValueError(f"parallel.num_devices={n} differs from the grid's "
+                         f"{world} ranks x {len(devices)} devices")
+    if backend == "nccl":
+        torch.cuda.set_device(devices[0])
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=cfg.group_timeout_s))
+    return Ranks(dist.group.WORLD, rank, world, local_rank), devices
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(R, ...) on every rank -> (W*R, ...) in rank order, on ``x``'s
+    device, outside autograd: over NCCL from the card, over gloo through
+    the host."""
+    hop = (x.device if dist.get_backend(group) == "nccl"
+           else torch.device("cpu"))
+    return _gather_cat(x.to(hop), group).to(x.device)
+
+
 def broadcast_str(value: str, group=None, max_len: int = 64) -> str:
     """Every rank returns rank 0's ``value`` (utf-8, truncated to
     ``max_len`` bytes), over ``group`` (port of

@@ -227,6 +227,10 @@ class DynamicBatcher:
         # while the worker parks on busy lanes
         self._forming = 0                     # guarded-by: _forming_lock
         self._forming_lock = make_lock("serving.batcher.forming")
+        # held while one request's rows are queued (submit_many) and while
+        # the continuous worker drains the queue, so a drain takes all of
+        # a request's rows or none of them
+        self._submit_lock = make_lock("serving.batcher.submit")
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name=f"{name}-worker")
         self._worker.start()
@@ -253,6 +257,16 @@ class DynamicBatcher:
             # safe) so the future resolves either way
             self._drain_closed()
         return fut
+
+    def submit_many(self, payloads, timeout_ms: Optional[float] = None
+                    ) -> list:
+        """Enqueue one request's rows together -> a Future each.  The
+        continuous worker drains them in one go (up to the top bucket),
+        so the timing of the puts never splits a request over two
+        flushes: a request's answer does not depend in its last bits on
+        when the worker woke."""
+        with self._submit_lock:
+            return [self.submit(p, timeout_ms) for p in payloads]
 
     # ---- worker side ----------------------------------------------------
 
@@ -316,11 +330,12 @@ class DynamicBatcher:
     def _drain_into(self, batch: list) -> None:
         """Move whatever is queued RIGHT NOW into ``batch`` (up to the
         top bucket) without waiting — the continuous-mode accumulator."""
-        while len(batch) < self.max_batch:
-            try:
-                batch.append(self._q.get_nowait())
-            except queue.Empty:
-                return
+        with self._submit_lock:
+            while len(batch) < self.max_batch:
+                try:
+                    batch.append(self._q.get_nowait())
+                except queue.Empty:
+                    return
 
     def _release_lane(self) -> None:
         if self._lane_sem is not None:

@@ -6,12 +6,17 @@ The engine packages the port's embed towers (``train/step.py``
 eval-mode entries offline eval uses, so served numbers ARE eval
 numbers) behind the JAX engine's discipline:
 
-- **a group of devices** (``parallel/devices.py``): the engine serves on
+- **a grid of devices** (``parallel/devices.py``): the engine serves on
   an ordered list of devices in one process, as the JAX engine serves
   over its mesh's data axis: one copy of the model on each, every
   bucket's rows split into ``len(group)`` equal contiguous shards in
   order.  One device is the group of one.  The list may name one card
-  more than once.
+  more than once.  With a process group of W ranks, each holding G
+  devices, the mesh spans processes: every bucket splits into W x G
+  shards, rank r runs shards ``r * G .. r * G + G - 1`` on its devices,
+  and ONE all-gather of the embeddings over the ranks gives every rank
+  the whole bucket (every rank calls each entry with the same rows, see
+  ``serving/lockstep.py``).
 - **bucket ladder**: batch entries exist only at a power-of-two ladder
   of batch sizes, each divisible by the group's size, so every bucket
   shards evenly.  Requests are padded UP to the smallest bucket that
@@ -52,7 +57,8 @@ from milnce_tpu_torch.analysis.lockrt import make_lock
 from milnce_tpu_torch.models.precision import torch_dtype
 from milnce_tpu_torch.obs import spans as obs_spans
 from milnce_tpu_torch.parallel.devices import device_group as serving_group
-from milnce_tpu_torch.parallel.devices import place_replicas
+from milnce_tpu_torch.parallel.devices import place_replicas, serving_grid
+from milnce_tpu_torch.parallel.dist import all_gather_rows
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.serving.batcher import pad_rows
 from milnce_tpu_torch.train.step import make_text_embed_fn, make_video_embed_fn
@@ -73,16 +79,6 @@ class ReplicaDead(RuntimeError):
 # Created through make_lock so MILNCE_LOCK_SANITIZE=1 (set before
 # import) swaps in the order-checking SanitizedLock.
 DEVICE_DISPATCH_LOCK = make_lock("serving.device_dispatch")
-
-
-def refuse_two_groups(group: list, process_group) -> None:
-    """A process group of ranks AND a device group in each rank is
-    multi-host serving, which the port does not serve."""
-    if process_group is not None and len(group) > 1:
-        raise ValueError(
-            f"a device group of {len(group)} devices together with a "
-            "process group (group=) is multi-host serving, which is not "
-            "ported: pass one of the two")
 
 
 def bucket_ladder(n_dev: int, min_bucket: int, max_batch: int) -> tuple:
@@ -184,18 +180,26 @@ class InferenceEngine:
       other trailing shape are rejected.
     - ``dispatch_lock``: the lock serializing this engine's device work
       and copies; default the process-wide :data:`DEVICE_DISPATCH_LOCK`.
+    - ``process_group``: None, or a process group whose every rank holds
+      a device group of the same size (the module docstring); the ladder
+      then divides by W x G.
+
+    ``announce``, None unless ``serving/lockstep.py`` sets it, is called
+    under the dispatch lock with each bucket's rows before they run.
     """
 
     def __init__(self, model, variables=None, *, device="cuda",
                  text_words: int, video_shape: Sequence[int],
                  max_batch: int = 64, min_bucket: int = 0,
                  cast_dtype: Optional[str] = None, precompile: bool = True,
-                 dispatch_lock=None):
-        self.group = serving_group(device)
+                 dispatch_lock=None, process_group=None):
+        self.grid = serving_grid(device, process_group)
+        self.group = list(self.grid.devices)
         self.device = self.group[0]
+        self.announce = None
         self._dispatch_lock = (dispatch_lock if dispatch_lock is not None
                                else DEVICE_DISPATCH_LOCK)
-        self.buckets = bucket_ladder(len(self.group), min_bucket, max_batch)
+        self.buckets = bucket_ladder(self.grid.extent, min_bucket, max_batch)
         self.max_batch = self.buckets[-1]
         self.text_words = int(text_words)
         self.video_shape = tuple(int(d) for d in video_shape)
@@ -275,23 +279,48 @@ class InferenceEngine:
             self.kill()
             raise ReplicaDead("injected fault at serve.replica_dead — "
                               "this replica is now permanently dead")
-        # both legs of the request are explicit copies, next to its work:
-        # every shard goes up and every card's forward is launched before
-        # anything is read back, so the cards run side by side; the one
-        # sync of the call is the first read back below (reading shard i
-        # before shard i+1 is launched would run the cards one by one)
-        shards = np.split(rows, len(self.group))
+        shape = rows.shape
         with self._dispatch_lock:
-            outs = [fn(torch.from_numpy(x).to(dev)) for fn, x, dev in
-                    zip(self._fns[entry], shards, self.group)]
-            out = np.concatenate([o.to("cpu").float().numpy()
-                                  for o in outs])
+            if self.announce is not None:
+                rows = self.announce(entry, rows)
+            elif self.grid.group is not None:   # this rank's W-th
+                per = bucket // self.grid.world
+                rows = rows[self.grid.rank * per:(self.grid.rank + 1) * per]
+            out = self._launch(entry, rows)
         with self._stats_lock:
             self._calls[(entry, bucket)] = \
                 self._calls.get((entry, bucket), 0) + 1
-            self._shapes.add((entry, rows.shape))
+            self._shapes.add((entry, shape))
             self.embed_dim = int(out.shape[-1])
         return out[:n]
+
+    def _launch(self, entry: str, rows) -> np.ndarray:
+        """This rank's W-th of a bucket's rows (a host array, or a tensor
+        the lockstep scattered) through its G shards of the grid -> the
+        whole bucket's (bucket, D) float32 embeddings.  Both legs of the
+        request are explicit copies, next to its work: every shard goes up
+        and every card's forward is launched before anything is read back,
+        so the cards run side by side; the one sync of the call is the
+        first read back (reading shard i before shard i+1 is launched
+        would run the cards one by one)."""
+        g = len(self.group)
+        if isinstance(rows, np.ndarray):
+            shards = [torch.from_numpy(x) for x in np.split(rows, g)]
+        else:
+            shards = rows.tensor_split(g)
+        outs = [fn(x.to(dev)) for fn, x, dev in
+                zip(self._fns[entry], shards, self.group)]
+        if self.grid.group is None:
+            return np.concatenate([o.to("cpu").float().numpy()
+                                   for o in outs])
+        local = torch.cat([o.float().to(self.device) for o in outs])
+        return all_gather_rows(local, self.grid.group).to("cpu").numpy()
+
+    def replay(self, entry: str, rows) -> None:
+        """Run this rank's rows of a bucket another rank announced, its
+        result dropped."""
+        with self._dispatch_lock:
+            self._launch(entry, rows)
 
     # ---- warmup + recompile accounting -----------------------------------
 
@@ -352,17 +381,20 @@ class InferenceEngine:
     @classmethod
     def from_export(cls, export_dir: str, *, device="cuda", dtype: str = "",
                     max_batch: int = 64, min_bucket: int = 0,
-                    precompile: bool = True) -> "InferenceEngine":
+                    precompile: bool = True,
+                    process_group=None) -> "InferenceEngine":
         """Build model + engine from a ``milnce-export`` directory (either
         package's) on ``device``, one device or a group.  ``dtype``
         overrides the exported compute dtype ('bfloat16' builds the model
         at bf16 AND casts the frozen parameters and statistics; '' keeps
         the exported dtype); refusals as :func:`load_serving_model`, and a
-        missing card before anything loads."""
+        missing card before anything loads.  ``process_group`` as in the
+        constructor."""
         group = serving_group(device)
         model, variables, meta = load_serving_model(export_dir, dtype)
         return cls(model, variables, device=group,
                    text_words=meta["tokenizer"]["max_words"],
                    video_shape=meta["video_shape"],
                    max_batch=max_batch, min_bucket=min_bucket,
-                   cast_dtype=(dtype or None), precompile=precompile)
+                   cast_dtype=(dtype or None), precompile=precompile,
+                   process_group=process_group)

@@ -1,6 +1,6 @@
 """Device-resident retrieval index: corpus embeddings on the card (row
-shards over the cards of a device group, or over a process group's
-ranks), dot-product + exact top-k retrieval (port of
+shards over a grid: the cards of a device group on every rank of a
+process group), dot-product + exact top-k retrieval (port of
 ``milnce_tpu/serving/index.py``).
 
 Offline eval materializes the full T x V similarity matrix on host
@@ -16,14 +16,17 @@ The retrieval program (the JAX ``shard_map`` body, step for step):
 2. pad rows are masked to -inf and each shard takes a LOCAL top-k,
    shifted to global row indices by the shard's rank — per shard only
    (Q, k) survives, not (Q, R_local);
-3. the per-shard candidate lists meet on one device and a final top-k
-   over the ``n * k`` candidates is exact — every true global winner is
-   necessarily some shard's local winner.  Over a device group (the
-   JAX mesh's data axis, in one process: :func:`group_topk`) each card's
-   (Q, k) lists are copied to the group's first card and concatenated in
-   shard order; over a process group they ride ONE all-gather each for
-   scores and indices (``parallel/dist.py::all_gather_tiled``).  One
-   device and no process group is one shard.
+3. the per-shard candidate lists meet and a final top-k over the
+   ``n * k`` candidates is exact — every true global winner is
+   necessarily some shard's local winner.  On a grid of W ranks of G
+   devices (``parallel/devices.py::Grid``, the JAX mesh's data axis of
+   W x G: :func:`group_topk`) each card's (Q, k) lists are copied to the
+   rank's first card and concatenated in shard order, then ride ONE
+   all-gather each for scores and rows over the ranks
+   (``parallel/dist.py::all_gather_rows``: from the card over NCCL,
+   through the host over gloo) -- JAX's two collectives a query batch,
+   after the in-process hop.  One device and no process group is one
+   shard.
 
 Ties break by the lower row index, as ``lax.top_k`` breaks them:
 ``torch.topk`` promises no order among equal values, so the selection
@@ -45,10 +48,10 @@ import torch
 import torch.distributed as dist
 
 from milnce_tpu_torch.analysis.lockrt import make_lock
-from milnce_tpu_torch.parallel.dist import all_gather_tiled
+from milnce_tpu_torch.parallel.devices import serving_grid
+from milnce_tpu_torch.parallel.dist import all_gather_rows
 from milnce_tpu_torch.serving.batcher import pad_rows
-from milnce_tpu_torch.serving.engine import (DEVICE_DISPATCH_LOCK,
-                                             refuse_two_groups, serving_group)
+from milnce_tpu_torch.serving.engine import DEVICE_DISPATCH_LOCK
 
 
 def _order_key(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -69,52 +72,51 @@ def exact_topk(scores: torch.Tensor, rows: torch.Tensor, k: int):
     return scores.gather(1, j), rows.expand_as(scores).gather(1, j)
 
 
-def make_topk_fn(k: int, group=None):
-    """The retrieval program: ``fn(corpus_l (R, D), valid (1,), start (1,),
-    queries (Q, D)) -> ((Q, k) scores, (Q, k) global rows)`` for one
-    shard whose first global row is ``start``; with ``group`` the
-    shards' candidates are gathered and the exact global top-k taken."""
+def make_topk_fn(k: int):
+    """One shard's retrieval program: ``fn(corpus_l (R, D), valid (1,),
+    start (1,), queries (Q, D)) -> ((Q, k) scores, (Q, k) global rows)``
+    for a shard whose first global row is ``start``."""
 
     @torch.no_grad()
     def local_topk(corpus_l, valid_l, start, queries):
         scores = queries @ corpus_l.T                    # (Q, R_local)
         col = torch.arange(corpus_l.shape[0], device=corpus_l.device)
         scores = scores.masked_fill(col[None, :] >= valid_l, -torch.inf)
-        s, i = exact_topk(scores, col[None, :] + start, k)  # local winners
-        if group is None:
-            return s, i
-        world = dist.get_world_size(group)
-        hop = (s.device if dist.get_backend(group) == "nccl"
-               else torch.device("cpu"))
-        s_all = all_gather_tiled(s.to(hop), group).to(s.device)
-        i_all = all_gather_tiled(i.to(hop), group).to(i.device)
-        q = s.shape[0]                     # (W*Q, k) -> (Q, W*k), rank order
-        s_all = s_all.view(world, q, k).permute(1, 0, 2).reshape(q, -1)
-        i_all = i_all.view(world, q, k).permute(1, 0, 2).reshape(q, -1)
-        return exact_topk(s_all, i_all, k)               # exact global
+        return exact_topk(scores, col[None, :] + start, k)  # local winners
 
     return local_topk
 
 
-def group_topk(fn, shards, queries: np.ndarray, k: int
+def group_topk(fn, shards, queries, k: int, group=None
                ) -> tuple[np.ndarray, np.ndarray]:
-    """The JAX ``shard_map`` body over a device group, in one process:
+    """The JAX ``shard_map`` body over this rank's part of a grid:
     ``fn`` (one shard's program, :func:`make_topk_fn`) on every shard
     ``(corpus, valid, start)`` on its card, all launched before anything
-    is read back; with more than one shard, each one's (Q, k) candidates
-    are copied to the first shard's card, concatenated in shard order and
-    one exact top-k taken over the ``n * k`` (ties by the lower row,
-    across shard boundaries too).  Returns host ((Q, k) float32 scores,
-    (Q, k) int32 rows); the read back is the call's one sync."""
-    on = {c.device: torch.from_numpy(queries).to(c.device)
-          for c, _, _ in shards}
+    is read back; each one's (Q, k) candidates copied to the first
+    shard's card and concatenated in shard order; with a process
+    ``group``, those (Q, G * k) gathered over the ranks in rank order (one
+    all-gather for scores, one for rows); then one exact top-k over the
+    ``n * k`` (ties by the lower row, across shard and rank boundaries
+    too).  ``queries`` is a host array or a tensor.  Returns host ((Q, k)
+    float32 scores, (Q, k) int32 rows); the read back is the call's one
+    sync."""
+    q = (torch.from_numpy(queries) if isinstance(queries, np.ndarray)
+         else queries)
+    on = {c.device: q.to(c.device) for c, _, _ in shards}
     parts = [fn(c, v, s, on[c.device]) for c, v, s in shards]
-    if len(parts) > 1:
-        first = shards[0][0].device
-        parts = [exact_topk(torch.cat([s.to(first) for s, _ in parts], 1),
-                            torch.cat([i.to(first) for _, i in parts], 1),
-                            k)]
     scores, idx = parts[0]
+    if len(parts) > 1:
+        first = scores.device
+        scores = torch.cat([s.to(first) for s, _ in parts], 1)
+        idx = torch.cat([i.to(first) for _, i in parts], 1)
+    if group is not None:
+        world, n = dist.get_world_size(group), scores.shape[0]
+        # (W * Q, G * k) -> (Q, W * G * k): rank-major, then shard order
+        scores, idx = (all_gather_rows(x, group).view(world, n, -1)
+                       .permute(1, 0, 2).reshape(n, -1)
+                       for x in (scores, idx))
+    if len(parts) > 1 or group is not None:
+        scores, idx = exact_topk(scores, idx, k)
     return scores.to("cpu").numpy(), idx.to("cpu").numpy().astype(np.int32)
 
 
@@ -150,22 +152,29 @@ class DeviceRetrievalIndex:
     - ``embeddings``: (N, D) float32 video-corpus embeddings (built from
       ``InferenceEngine.embed_video`` or an offline extraction); with a
       ``group`` every rank passes the same full corpus and keeps its row
-      shard on its device;
+      shards on its devices;
     - ``k``: retrieval depth;
     - ``query_buckets``: the query-batch ladder to warm (share the
       engine's so batcher output feeds straight through);
     - ``device``: ``cuda`` unless the caller passes ``cpu``; a list of
-      devices is a device group, and shard r of ``max(ceil(N / n), k)``
-      rows lives on its r-th device, the JAX mesh's geometry.  A device
-      group together with ``group=`` is refused.
+      devices is a device group;
+    - ``group``: a process group whose every rank holds a device group
+      of the same size G (a grid of W x G shards; every rank calls each
+      query with the same rows, see ``serving/lockstep.py``).  Shard
+      ``rank * G + d`` of ``max(ceil(N / (W * G)), k)`` rows lives on
+      the rank's d-th device, the JAX mesh's geometry.
+
+    ``announce``, None unless ``serving/lockstep.py`` sets it, is called
+    under the dispatch lock with each query batch before it runs.
     """
 
     def __init__(self, embeddings: np.ndarray, *, k: int = 10,
                  query_buckets: Sequence[int] = (8,), device="cuda",
                  group=None, precompile: bool = True):
-        self.devices = serving_group(device)
-        refuse_two_groups(self.devices, group)
+        self.grid = serving_grid(device, group)
+        self.devices = list(self.grid.devices)
         self.device = self.devices[0]
+        self.announce = None
         emb = np.ascontiguousarray(embeddings, dtype=np.float32)
         if emb.ndim != 2:
             raise ValueError(f"expected (N, D) embeddings, got {emb.shape}")
@@ -174,16 +183,12 @@ class DeviceRetrievalIndex:
         if not 1 <= self.k <= self.size:
             raise ValueError(f"k={k} outside [1, corpus size {self.size}]")
         self.query_buckets = tuple(sorted(int(b) for b in query_buckets))
-        if group is None:
-            n_data, mine = len(self.devices), range(len(self.devices))
-        else:
-            n_data, mine = dist.get_world_size(group), [dist.get_rank(group)]
         # Pad the corpus so rows split evenly AND every shard holds at
         # least k rows (the local top-k needs k <= local extent).
-        rows = max(-(-self.size // n_data), self.k)
+        rows = max(-(-self.size // self.grid.extent), self.k)
         self._shards = [shard_tensors(emb, r, rows, dev)   # resident
-                        for r, dev in zip(mine, self.devices)]
-        self._fn = make_topk_fn(self.k, group)
+                        for r, dev in zip(self.grid.shards, self.devices)]
+        self._fn = make_topk_fn(self.k)
         # call accounting is hit straight off concurrent request threads
         # — its own lock, never the dispatch lock
         self._stats_lock = make_lock("serving.index.stats")
@@ -214,11 +219,23 @@ class DeviceRetrievalIndex:
         # serialized dispatch: see DEVICE_DISPATCH_LOCK in engine.py —
         # index queries come straight off request threads
         with DEVICE_DISPATCH_LOCK:
-            scores, idx = group_topk(self._fn, self._shards, q, self.k)
+            if self.announce is not None:
+                q = self.announce("query", q)
+            scores, idx = self._launch(q)
         with self._stats_lock:
             self._calls += 1
-            self._shapes.add(q.shape)
+            self._shapes.add(tuple(q.shape))
         return scores[:n], idx[:n]
+
+    def _launch(self, q):
+        return group_topk(self._fn, self._shards, q, self.k,
+                          self.grid.group)
+
+    def replay_query(self, q) -> None:
+        """Run a query batch another rank announced (padded, a host array
+        or a tensor), its result dropped."""
+        with DEVICE_DISPATCH_LOCK:
+            self._launch(q)
 
     # ---- warmup + observability -----------------------------------------
 

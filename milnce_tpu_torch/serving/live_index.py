@@ -48,12 +48,20 @@ corpus as ``corpus.npz`` + ``index_meta.json`` — the JAX package's
 files, so a snapshot opens in either package; :meth:`restore` boots a
 new index from one, generation counter preserved, bit-exact.
 
-``device`` may be a device group: the corpus rows shard over its
-cards as in ``DeviceRetrievalIndex`` (``shard_rung(size, n, k, floor)``
-rows a card, the JAX mesh's geometry).  With ``group=`` they shard over
-the group's ranks instead: every rank ingests the same rows, and a query
-is a collective, so the ranks must query the same generation (flush on
-every rank before querying).  The two together are refused.
+``device`` may be a device group, and ``group=`` a process group of
+ranks that each hold one of the same size: the corpus rows shard over
+the grid's W x G shards as in ``DeviceRetrievalIndex``
+(``shard_rung(size, W * G, k, floor)`` rows a shard, the JAX mesh's
+geometry).  A query over a process group is a collective, so every rank
+must query the same generation.  A caller that drives every rank itself
+ingests the same rows on each and flushes on each before querying.
+Under ``serving/lockstep.py`` rank 0 alone ingests: its builder
+announces each generation's new rows (``ingest``) before it copies them
+up and the swap (``swap``) when they are whole, both under the dispatch
+lock, and every other rank builds the same generation from the announced
+rows on its own builder thread and publishes it at the swap, so the swap
+happens at the same point of the call order on every rank and no query
+mixes generations across ranks.
 """
 
 from __future__ import annotations
@@ -64,15 +72,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from milnce_tpu_torch.analysis.lockrt import make_lock
 from milnce_tpu_torch.obs import metrics as obs_metrics
 from milnce_tpu_torch.obs import spans as obs_spans
+from milnce_tpu_torch.parallel.devices import serving_grid
 from milnce_tpu_torch.resilience import faults
 from milnce_tpu_torch.serving.batcher import pad_rows
-from milnce_tpu_torch.serving.engine import (DEVICE_DISPATCH_LOCK,
-                                             refuse_two_groups, serving_group)
+from milnce_tpu_torch.serving.engine import DEVICE_DISPATCH_LOCK
 from milnce_tpu_torch.serving.export import (export_corpus_snapshot,
                                              load_corpus_snapshot)
 from milnce_tpu_torch.serving.index import (group_topk, make_topk_fn,
@@ -143,7 +150,10 @@ class LiveRetrievalIndex:
     / ``restore``.  ``embeddings=None`` boots an EMPTY index (``dim``
     required); queries refuse until the corpus holds at least ``k`` rows,
     but ingest works from the first second.  ``device`` is ``cuda``
-    unless the caller passes ``cpu``, or a device group.
+    unless the caller passes ``cpu``, or a device group; ``group`` a
+    process group (the module docstring).  ``announce``, None unless
+    ``serving/lockstep.py`` sets it, is called under the dispatch lock
+    with each query batch, each generation's new rows and each swap.
     """
 
     def __init__(self, embeddings: Optional[np.ndarray] = None, *,
@@ -153,9 +163,10 @@ class LiveRetrievalIndex:
                  precompile: bool = True, group=None,
                  registry: Optional[obs_metrics.MetricsRegistry] = None,
                  recorder: Optional[obs_spans.SpanRecorder] = None):
-        self.devices = serving_group(device)
-        refuse_two_groups(self.devices, group)
+        self.grid = serving_grid(device, group)
+        self.devices = list(self.grid.devices)
         self.device = self.devices[0]
+        self.announce = None
         if embeddings is None:
             if dim is None:
                 raise ValueError("an empty live index needs dim= (the "
@@ -171,14 +182,10 @@ class LiveRetrievalIndex:
         if self.k < 1:
             raise ValueError(f"k={k} < 1")
         self.query_buckets = tuple(sorted(int(b) for b in query_buckets))
-        if group is None:
-            self._n_data = len(self.devices)
-            self._mine = range(self._n_data)
-        else:
-            self._n_data = dist.get_world_size(group)
-            self._mine = [dist.get_rank(group)]
+        self._n_data = self.grid.extent
+        self._mine = self.grid.shards
         self._min_shard_rows = int(min_shard_rows)
-        self._fn = make_topk_fn(self.k, group)
+        self._fn = make_topk_fn(self.k)
         # each card's generation copies run on a stream of its own (cuda)
         self._copy_streams = {dev: torch.cuda.Stream(dev)
                               for dev in dict.fromkeys(self.devices)
@@ -224,11 +231,23 @@ class LiveRetrievalIndex:
         self._swap_failures = 0                # guarded-by: _state_lock
         self._last_attempt = 0.0               # guarded-by: _state_lock
         self._warmed_rungs: set = set()        # guarded-by: _state_lock
+        # a replaying rank: the count of generations announced to it
+        # (0: none, the builder publishes what it builds) and what its
+        # builder made of the latest (the generation, or the exception
+        # its build raised), ``_staged_ready`` set once that is known
+        self._announced = 0                    # guarded-by: _state_lock
+        self._staged = None                    # guarded-by: _state_lock
+        self._staged_ready = threading.Event()
         # the published generation: written only under _state_lock (one
-        # reference assignment — the atomic swap); readers take the lock
-        # for the pointer read and hold the REFERENCE through device work
+        # reference assignment); readers take the lock for the pointer
+        # read.  ``_serving`` is the generation queries run on, written
+        # just before ``_gen`` under the dispatch lock (THE atomic swap):
+        # a query takes it under the lock it dispatches under and holds
+        # the REFERENCE through its device work, so no serving lock is
+        # ever taken inside another
         self._gen = self._make_generation(     # guarded-by: _state_lock
             int(generation), emb)
+        self._serving = self._gen      # guarded-by: DEVICE_DISPATCH_LOCK
         self._boot_size = self._gen.size
         self._work = threading.Event()
         self._closed = threading.Event()
@@ -303,26 +322,57 @@ class LiveRetrievalIndex:
             t.record_stream(query_stream)
         return tensors
 
-    def _dispatch(self, g: _Generation, q_padded: np.ndarray):
-        with DEVICE_DISPATCH_LOCK:
-            scores, idx = group_topk(self._fn, g.shards, q_padded, self.k)
+    def _launch(self, g: _Generation, q_padded):
+        """The top-k of ``g`` (the dispatch lock held)."""
+        return group_topk(self._fn, g.shards, q_padded, self.k,
+                          self.grid.group)
+
+    def _warm_queries(self, g: _Generation) -> list:
+        """One zero batch a query bucket if ``g``'s rung was never
+        warmed, else none (the same on every rank of a lockstep)."""
         with self._state_lock:
-            self._shapes.add((g.rows, q_padded.shape))
-        return scores, idx
+            if g.rows in self._warmed_rungs:
+                return []
+        return [np.zeros((b, self.dim), np.float32)
+                for b in self.query_buckets]
+
+    def _warmed(self, g: _Generation, queries: list) -> None:
+        """Record a warm of ``g``'s rung (no dispatch lock held) and
+        re-snapshot the shape baseline: rung warms are boot-equivalent
+        builder work, never a query-path event."""
+        if not queries:
+            return
+        self._m_builder_compiles.inc()
+        with self._state_lock:
+            self._shapes.update((g.rows, q.shape) for q in queries)
+            self._warmed_rungs.add(g.rows)
+            self._baseline = frozenset(self._shapes)
 
     def _warm_rung(self, g: _Generation) -> None:
         """Run the top-k for every query bucket at ``g``'s shape before
-        it serves, then re-snapshot the shape baseline: rung warms are
-        boot-equivalent builder work, never a query-path event."""
+        it serves, a dispatch each."""
+        queries = self._warm_queries(g)
+        for q in queries:
+            with DEVICE_DISPATCH_LOCK:
+                self._launch(g, q)
+        self._warmed(g, queries)
+
+    def _swap_in(self, g: _Generation, announce=None) -> None:
+        """Publish ``g`` at one point of the call order: under the
+        dispatch lock, announced to the other ranks first (``announce``),
+        its rung warmed there if it is new, then ``_serving``; ``_gen``
+        follows under the state lock."""
+        queries = self._warm_queries(g)
+        with DEVICE_DISPATCH_LOCK:
+            if announce is not None:
+                announce("swap", None, g.gen)
+            for q in queries:
+                self._launch(g, q)
+            self._serving = g             # THE atomic swap
+        self._warmed(g, queries)
         with self._state_lock:
-            if g.rows in self._warmed_rungs:
-                return
-        for b in self.query_buckets:
-            self._dispatch(g, np.zeros((b, self.dim), np.float32))
-        self._m_builder_compiles.inc()
-        with self._state_lock:
-            self._warmed_rungs.add(g.rows)
-            self._baseline = frozenset(self._shapes)
+            self._gen = g
+            self._swaps += 1
 
     # ---- query path ------------------------------------------------------
 
@@ -344,14 +394,20 @@ class LiveRetrievalIndex:
             raise ValueError(f"expected (n, {self.dim}) queries, "
                              f"got {q.shape}")
         with self._state_lock:
-            g = self._gen
-        if g.size < self.k:
-            raise ValueError(f"corpus holds {g.size} rows < k={self.k} — "
+            size = self._gen.size        # only grows
+        if size < self.k:
+            raise ValueError(f"corpus holds {size} rows < k={self.k} — "
                              "ingest more before querying")
         n = q.shape[0]
-        scores, idx = self._dispatch(g, pad_rows(q, self.bucket_for(n)))
+        q = pad_rows(q, self.bucket_for(n))
+        with DEVICE_DISPATCH_LOCK:
+            if self.announce is not None:
+                q = self.announce("query", q)
+            g = self._serving
+            scores, idx = self._launch(g, q)
         with self._state_lock:
             self._calls += 1
+            self._shapes.add((g.rows, tuple(q.shape)))
         return scores[:n], idx[:n], g.gen
 
     def topk(self, queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -444,13 +500,17 @@ class LiveRetrievalIndex:
             moved = self._pending_rows
             self._pending_rows = 0
             base = self._gen
+            seq = self._announced
             self._last_attempt = time.monotonic()
-        rec = self._recorder if self._recorder is not None \
-            else obs_spans.get_recorder()
+        rec = self._rec()
         try:
             with rec.span("index.build", rows=moved,
                           base_gen=base.gen) as span:
                 t0 = time.perf_counter()
+                if self.announce is not None:
+                    with DEVICE_DISPATCH_LOCK:
+                        self.announce("ingest", np.concatenate(pending),
+                                      base.gen + 1)
                 host = np.concatenate([base.host] + pending) \
                     if base.size else np.concatenate(pending)
                 t1 = time.perf_counter()
@@ -458,26 +518,95 @@ class LiveRetrievalIndex:
                 span["host_ms"] = round((t1 - t0) * 1e3, 4)
                 span["upload_ms"] = round((time.perf_counter() - t1) * 1e3,
                                           4)
-                self._warm_rung(g)
+                if self.announce is None and not seq:
+                    self._warm_rung(g)
                 # fault site: the publication step itself fails — must
                 # leave the old generation serving and the builder alive
                 faults.maybe_raise("index.swap_raise")
-                with self._state_lock:
-                    self._gen = g                 # THE atomic swap
-                    self._swaps += 1
-            self._m_swaps.inc()
-            rec.event("index.swap", generation=g.gen, size=g.size,
-                      shard_rows=g.rows)
+                if seq:
+                    # a replaying rank: rank 0's announced swap publishes
+                    # it (replay_swap), at that point of the call order
+                    self._stage_built(seq, g)
+                    return
+                # with an announce the other ranks warm the rung and swap
+                # at this point of the call order too
+                self._swap_in(g, self.announce)
+            self._swapped(g, rec)
         except Exception as exc:
             # failed build/swap: re-queue the drained rows at the FRONT;
-            # the old generation keeps serving and this thread runs on
+            # the old generation keeps serving and this thread runs on.
+            # A replaying rank re-queues nothing (rank 0 announces the
+            # rows again) and fails the swap that awaits this build.
             with self._state_lock:
-                self._pending = pending + self._pending
-                self._pending_rows += moved
+                if not seq:
+                    self._pending = pending + self._pending
+                    self._pending_rows += moved
                 self._swap_failures += 1
+            if seq:
+                self._stage_built(seq, exc)
             self._m_swap_failures.inc()
             rec.event("index.swap_fail", base_gen=base.gen, rows=moved,
                       error=type(exc).__name__)
+
+    def _rec(self) -> obs_spans.SpanRecorder:
+        return self._recorder if self._recorder is not None \
+            else obs_spans.get_recorder()
+
+    def _swapped(self, g: _Generation, rec) -> None:
+        self._m_swaps.inc()
+        rec.event("index.swap", generation=g.gen, size=g.size,
+                  shard_rows=g.rows)
+
+    # ---- replaying rank 0's calls (serving/lockstep.py) -----------------
+
+    def replay_query(self, q) -> None:
+        """Run a query batch rank 0 announced, its result dropped."""
+        with DEVICE_DISPATCH_LOCK:
+            self._launch(self._serving, q)
+
+    def replay_ingest(self, gen: int, rows) -> None:
+        """Rank 0 announced generation ``gen``: the live one plus
+        ``rows``.  They become the builder's whole input (a later
+        announcement of the same generation, after a failed swap there,
+        replaces it), and the builder stages what it builds for
+        :meth:`replay_swap`."""
+        rows = np.ascontiguousarray(torch.as_tensor(rows).cpu().numpy(),
+                                    dtype=np.float32)
+        with self._state_lock:
+            if gen != self._gen.gen + 1:
+                raise RuntimeError(
+                    f"generation {gen} announced over this rank's "
+                    f"generation {self._gen.gen}: the grid is out of step")
+            self._announced += 1
+            self._pending, self._pending_rows = [rows], rows.shape[0]
+            self._staged = None
+            self._staged_ready.clear()
+        self._work.set()
+
+    def _stage_built(self, seq: int, g) -> None:
+        """The builder made ``g`` (a generation or an exception) of
+        announcement ``seq``; a later announcement supersedes it."""
+        with self._state_lock:
+            if seq == self._announced:
+                self._staged = g
+                self._staged_ready.set()
+
+    def replay_swap(self, gen: int, timeout: float) -> None:
+        """Publish the generation rank 0 swapped in, once this rank's
+        builder has made it (within ``timeout`` seconds), at the same
+        point of the call order, the new rung warmed first as rank 0
+        warms it."""
+        ready = self._staged_ready.wait(timeout)
+        with self._state_lock:
+            g = self._staged if ready else None
+        if isinstance(g, Exception):
+            raise RuntimeError(f"generation {gen} announced for a swap "
+                               "failed to build on this rank") from g
+        if g is None or g.gen != gen:
+            raise RuntimeError(f"generation {gen} announced for a swap was "
+                               "not built on this rank")
+        self._swap_in(g)
+        self._swapped(g, self._rec())
 
     # ---- warmup + recompile accounting -----------------------------------
 

@@ -511,8 +511,9 @@ class RetrievalService:
             keys = [token_key(r) for r in rows]
             out: list[Optional[np.ndarray]] = [self.cache.get(k)
                                                for k in keys]
-            pending = [(i, self._batcher.submit(rows[i], timeout_ms))
-                       for i, hit in enumerate(out) if hit is None]
+            misses = [i for i, hit in enumerate(out) if hit is None]
+            pending = list(zip(misses, self._batcher.submit_many(
+                [rows[i] for i in misses], timeout_ms)))
             wait = self._result_wait_s(timeout_ms)
             for i, fut in pending:
                 try:
@@ -893,7 +894,22 @@ def main(argv=None) -> None:
     ``--serve.corpus_npz`` (a (N, D) float32 embedding matrix); without
     it the service starts embed-only (query requests 400 until an index
     exists).  SIGTERM/SIGINT shut down gracefully: the live index is
-    flushed, then snapshotted to ``--serve.index_snapshot_dir``."""
+    flushed, then snapshotted to ``--serve.index_snapshot_dir``.
+
+    Over ranks (``torchrun --nproc-per-node W`` or the coordinator knobs,
+    as the JAX ``milnce-serve`` joins its processes' mesh): every rank
+    joins the group (``parallel/dist.py::initialize_serving``: a CUDA
+    rank holds its host's visible cards split evenly by
+    ``LOCAL_WORLD_SIZE``, part ``LOCAL_RANK``), and the engine and the
+    index, frozen or live, span the grid of W ranks x G devices; every
+    rank boots the index from rank 0's snapshot or corpus, sent to it
+    (``lockstep.share_boot``), not from its own host's files.  Rank 0
+    alone runs the HTTP front, the batchers, the cache and admission;
+    every other rank replays rank 0's device calls in order
+    (``serving/lockstep.py``) and ignores SIGTERM/SIGINT.  SIGTERM on
+    rank 0 flushes the live index, writes the snapshot once, from rank
+    0, and ends every rank with exit 0.  A replica pool over a grid is
+    refused."""
     import os
 
     import torch
@@ -902,6 +918,10 @@ def main(argv=None) -> None:
     from milnce_tpu_torch.data.tokenizer import Tokenizer
     from milnce_tpu_torch.obs import runctx as obs_runctx
     from milnce_tpu_torch.obs.capture import OwnedCapture, ProfilerCapture
+    from milnce_tpu_torch.parallel.dist import (broadcast_str,
+                                                initialize_serving,
+                                                names_a_group)
+    from milnce_tpu_torch.serving import lockstep
     from milnce_tpu_torch.serving.engine import InferenceEngine
     from milnce_tpu_torch.serving.export import METADATA_FILE
     from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
@@ -916,13 +936,25 @@ def main(argv=None) -> None:
     # mesh over jax.devices()) unless --parallel.platform cpu; 'cuda'
     # without a card raises here, before anything loads
     device = resolve_device(cfg.parallel.platform)
-    group = ([device] if device.type == "cpu" else
-             [f"cuda:{i}" for i in range(torch.cuda.device_count())])
     edge = bool(s.edge_export_dir) and s.edge_replicas > 0
     if s.edge_replicas > 0 and not s.edge_export_dir:
         raise SystemExit("--serve.edge_replicas needs "
                          "--serve.edge_export_dir (the quantized/student "
                          "artifact the edge class serves)")
+    if names_a_group(cfg.parallel) and (s.replicas > 1 or edge):
+        raise SystemExit("a replica pool over a serving grid (--serve."
+                         "replicas > 1 or an edge tier under a process "
+                         "group) is not ported: ROADMAP.md Queue A, 'The "
+                         "replica pool over a grid'")
+    # over ranks, as JAX's main joins its processes before its mesh
+    ranks, rank_devices = initialize_serving(cfg.parallel)
+    pg = ranks.group
+    if pg is not None:
+        group = rank_devices
+    elif device.type == "cpu":
+        group = [device]
+    else:
+        group = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     if s.replicas > 1 or edge:
         from milnce_tpu_torch.serving.pool import ReplicaPool
 
@@ -943,7 +975,8 @@ def main(argv=None) -> None:
     else:
         engine = InferenceEngine.from_export(
             s.export_dir, device=group, dtype=s.dtype,
-            max_batch=s.max_batch, min_bucket=s.min_bucket)
+            max_batch=s.max_batch, min_bucket=s.min_bucket,
+            process_group=pg)
     # sentence requests need a vocab: --serve.token_dict_path wins, else
     # the path the export recorded; with neither, token_ids-only
     with open(os.path.join(s.export_dir, METADATA_FILE)) as fh:
@@ -961,47 +994,84 @@ def main(argv=None) -> None:
         if recorded and os.path.exists(recorded):
             tokenizer = Tokenizer.from_npy(recorded,
                                            max_words=engine.text_words)
-    corpus = None
-    if s.corpus_npz:
+    snap = s.index_snapshot_dir if s.live_index else ""
+
+    def boot_corpus():
+        """(generation, corpus or None) the index boots from: a live
+        index's snapshot resumes the ingesting service where it left off
+        (generation counter included; --serve.corpus_npz is ignored then
+        — the snapshot IS the corpus), else the corpus at generation 0."""
+        from milnce_tpu_torch.serving.export import (INDEX_METADATA_FILE,
+                                                     load_corpus_snapshot)
+
+        if snap and os.path.exists(os.path.join(snap, INDEX_METADATA_FILE)):
+            snap_meta, emb = load_corpus_snapshot(snap)
+            return snap_meta["generation"], emb
+        if not s.corpus_npz:
+            return 0, None
         with np.load(s.corpus_npz) as z:
             if "emb" in z.files:            # the documented contract
-                corpus = z["emb"]
-            elif len(z.files) == 1:
-                corpus = z[z.files[0]]
-            else:
-                raise SystemExit(
-                    f"--serve.corpus_npz {s.corpus_npz!r} holds "
-                    f"{z.files} — store the corpus under the 'emb' key "
-                    "(np.savez(..., emb=embeddings)) so the index can't "
-                    "silently build over the wrong array")
+                return 0, z["emb"]
+            if len(z.files) == 1:
+                return 0, z[z.files[0]]
+            raise SystemExit(
+                f"--serve.corpus_npz {s.corpus_npz!r} holds "
+                f"{z.files} — store the corpus under the 'emb' key "
+                "(np.savez(..., emb=embeddings)) so the index can't "
+                "silently build over the wrong array")
+
+    # over ranks, rank 0 alone decides the boot corpus and every rank
+    # boots from its rows and generation: the grid's ranks number their
+    # global rows from one geometry, whatever their hosts' files hold
+    # (rank 0 alone writes the snapshot)
+    generation, corpus = (boot_corpus() if pg is None else
+                          lockstep.share_boot(pg, boot_corpus))
     index = None
     if s.live_index:
-        from milnce_tpu_torch.serving.export import INDEX_METADATA_FILE
         from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
 
-        live_kwargs = dict(query_buckets=engine.buckets, device=group,
-                           min_shard_rows=s.index_min_shard_rows,
-                           registry=obs_metrics.registry())
-        snap = s.index_snapshot_dir
-        if snap and os.path.exists(os.path.join(snap,
-                                                INDEX_METADATA_FILE)):
-            # a snapshot resumes the ingesting service where it left off
-            # (generation counter included); --serve.corpus_npz is
-            # ignored then — the snapshot IS the corpus
-            index = LiveRetrievalIndex.restore(snap, k=s.topk,
-                                               **live_kwargs)
-        else:
-            index = LiveRetrievalIndex(corpus, k=s.topk,
-                                       dim=engine.embed_dim,
-                                       **live_kwargs)
+        index = LiveRetrievalIndex(corpus, k=s.topk, dim=engine.embed_dim,
+                                   generation=generation,
+                                   query_buckets=engine.buckets,
+                                   device=group, group=pg,
+                                   min_shard_rows=s.index_min_shard_rows,
+                                   registry=obs_metrics.registry())
     elif corpus is not None:
         index = DeviceRetrievalIndex(corpus, k=s.topk,
                                      query_buckets=engine.buckets,
-                                     device=group)
-    # run identity for every snapshot/event this process emits; the
-    # service joins no process group, so its rank is the launcher's
-    obs_runctx.set_run_context(obs_runctx.auto_run_id("serve-"),
-                               int(os.environ.get("RANK", 0)))
+                                     device=group, group=pg)
+    # run identity for every snapshot/event this process emits: rank 0's
+    # run id on every rank, and the group's rank, as JAX passes
+    # jax.process_index()
+    obs_runctx.set_run_context(
+        broadcast_str(obs_runctx.auto_run_id("serve-"), pg), ranks.rank)
+    import signal
+    import threading
+
+    if ranks.rank:
+        # a follower: rank 0's SIGTERM ends it, through close
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        print(f"milnce-serve-torch: rank {ranks.rank} of {ranks.world} "
+              f"replaying rank 0's calls (devices {group})", flush=True)
+        try:
+            calls = lockstep.follow(pg, cfg.parallel.group_timeout_s,
+                                    engine, index)
+        finally:
+            if index is not None and hasattr(index, "close"):
+                index.close()
+        # the group is destroyed after a clean close only: a lost peer
+        # may leave it unable to tear down, and the exit frees it anyway
+        ranks.close()
+        print(f"milnce-serve-torch: rank {ranks.rank} closed after "
+              f"{calls} calls", flush=True)
+        _exit_grid_rank()
+    leader = None
+    if pg is not None:
+        leader = lockstep.Leader(pg, cfg.parallel.group_timeout_s)
+        engine.announce = leader.announce
+        if index is not None:
+            index.announce = leader.announce
     if device.type == "cuda":
         _device_memory_gauges(obs_metrics.registry(), group)
     capture = None
@@ -1023,16 +1093,15 @@ def main(argv=None) -> None:
     # (live-index flush and snapshot, batcher/pool close) instead of
     # killing the process mid-write; shutdown() blocks until
     # serve_forever returns, so it runs OFF the main thread
-    import signal
-    import threading
-
     def _graceful(signum, frame):
         threading.Thread(target=server.shutdown, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
     print(f"milnce-serve-torch: listening on http://{s.host}:"
-          f"{server.server_address[1]} (devices {group}, buckets "
+          f"{server.server_address[1]} (devices {group}"
+          + (f" on rank 0 of {ranks.world}" if pg is not None else "")
+          + ", buckets "
           f"{engine.buckets}, replicas={s.replicas}"
           + (f"+{s.edge_replicas} edge" if edge else "") + ", "
           f"index={'none' if index is None else index.size}, "
@@ -1061,6 +1130,27 @@ def main(argv=None) -> None:
             index.close()
         if hasattr(engine, "pool_stats"):
             engine.close()
+        if leader is not None and leader.close():
+            ranks.close()
+    if pg is not None:
+        _exit_grid_rank()
+
+
+def _exit_grid_rank() -> None:
+    """End a grid rank's process after its clean shutdown, skipping the
+    interpreter's teardown.  The engine, the index and the metrics
+    registry hold the process group past ``destroy_process_group``, and
+    gloo's group can abort in its destructor when the interpreter frees
+    it at exit ("terminate called without an active exception", a few
+    exits in a hundred on the CPU), which would turn a clean SIGTERM into
+    a crash.  The output is flushed first; the port registers no atexit
+    work."""
+    import os
+    import sys
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

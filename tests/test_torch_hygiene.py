@@ -175,7 +175,7 @@ def test_console_scripts_of_the_port():
 
     with open(ROOT / "pyproject.toml", "rb") as fh:
         scripts = tomllib.load(fh)["project"]["scripts"]
-    for name in ("train", "eval", "export", "assets"):
+    for name in ("train", "eval", "export", "assets", "serve", "manifest"):
         target = scripts[f"milnce-{name}-torch"]
         assert target.startswith("milnce_tpu_torch.")
         module, _, func = target.partition(":")

@@ -268,6 +268,26 @@ def test_continuous_accumulates_into_bucket_slots_while_lane_busy():
         f"expected the 6 lane-busy arrivals to coalesce: {sizes}")
 
 
+def test_continuous_keeps_one_requests_rows_in_one_flush():
+    """``submit_many`` queues a request's rows together: the continuous
+    worker, its lane free throughout, flushes all 8 rows as one batch
+    even when each row's put is slow (without it the worker takes the
+    first row and flushes it alone)."""
+    eng = _FakeEngine()
+    b = _mk(eng, continuous=True)                    # max_batch 8
+    put = b._q.put
+
+    def slow_put(item, *args, **kwargs):
+        put(item, *args, **kwargs)
+        time.sleep(0.01)
+
+    b._q.put = slow_put
+    rows = [f.result(timeout=5) for f in b.submit_many(_rows(8))]
+    b.close()
+    assert [batch.shape[0] for batch in eng.batches] == [8]
+    assert np.array_equal(np.stack(rows), np.stack(_rows(8)) * 2.0)
+
+
 def test_continuous_deadline_expires_promptly_while_lane_busy():
     """Pipelined continuous mode: a request aging out while the worker
     is PARKED on a busy lane fails with DeadlineExpired at the

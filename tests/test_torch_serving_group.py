@@ -17,8 +17,9 @@ a mesh of conftest's virtual CPU devices.
   every generation; a query thread asking while each swap is staged
   (every card's copy slowed) gets answers of one generation only.
 - The fault sites fire once a group call; ``kill()`` kills the group; a
-  device group with a process group is refused; a card that is not there
-  is refused before anything loads.
+  card that is not there is refused before anything loads, and a device
+  group with a process group of one rank serves as the device group
+  alone.
 
 Weights: the tiny model's state drawn from a numpy seed, carried to the
 JAX package through ``utils/torch_convert.py``.
@@ -218,16 +219,35 @@ def test_missing_cards_and_two_groups_are_refused(tmp_path):
     with pytest.raises(ValueError, match="mixes device types"):
         DeviceRetrievalIndex(np.ones((8, _DIM), np.float32), k=2,
                              device=["cpu", "meta"])
-    emb = np.ones((8, _DIM), np.float32)
+    # a device group together with a process group is a grid, and serves
+    # (tests/test_torch_serving_hosts.py holds it over two ranks)
+    emb = np.random.default_rng(0).standard_normal((8, _DIM)).astype(
+        np.float32)
+    want = DeviceRetrievalIndex(emb, k=2, device="cpu").topk(emb[:3])[1]
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         for cls in (DeviceRetrievalIndex, LiveRetrievalIndex):
-            with pytest.raises(ValueError, match="multi-host serving"):
-                cls(emb, k=2, device=["cpu"] * 2, group=dist.group.WORLD)
+            idx = cls(emb, k=2, device=["cpu"] * 2, group=dist.group.WORLD)
+            try:
+                assert idx.grid.extent == 2 and idx.grid.shards == [0, 1]
+                assert np.array_equal(idx.topk(emb[:3])[1], want)
+            finally:
+                getattr(idx, "close", lambda: None)()
         one = DeviceRetrievalIndex(emb, k=2, device="cpu",
                                    group=dist.group.WORLD)
-        assert one.topk(emb[:1])[1].shape == (1, 2)
+        assert np.array_equal(one.topk(emb[:3])[1], want)
+        eng = InferenceEngine(build_model(ModelConfig(**_MODEL), seed=0),
+                              device=["cpu"] * 2, text_words=_WORDS,
+                              video_shape=_VIDEO, max_batch=4,
+                              process_group=dist.group.WORLD)
+        alone = InferenceEngine(build_model(ModelConfig(**_MODEL), seed=0),
+                                device=["cpu"] * 2, text_words=_WORDS,
+                                video_shape=_VIDEO, max_batch=4)
+        ids = np.arange(3 * _WORDS, dtype=np.int32).reshape(3, _WORDS) % 60
+        assert eng.buckets == alone.buckets == (2, 4)
+        np.testing.assert_allclose(eng.embed_text(ids),
+                                   alone.embed_text(ids), rtol=0, atol=0)
     finally:
         dist.destroy_process_group()
 

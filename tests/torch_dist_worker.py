@@ -570,6 +570,102 @@ def live_index_group_cases(rank, world, group, full, chunks, queries, k):
     return out
 
 
+# ------------------------------------------------------------ serving grid
+def serving_grid_cases(rank, world, group, dims, variables, engine_kw,
+                       ladders, engine_rows, index_cases, live, lockstep_live):
+    """Serving over the grid of this rank's ``["cpu", "cpu"]`` and the
+    group (W x 2 shards), the model of ``ModelConfig(**dims)``:
+
+    - ``ladders`` [(min_bucket, max_batch)]: each engine's ladder;
+    - ``engine_rows`` {n: (token ids, clips)}: both entries of an engine
+      from the JAX ``variables`` (``engine_kw``);
+    - ``index_cases`` [(emb, queries, k)]: ``DeviceRetrievalIndex``'s
+      top-k and this rank's shard rows and valid rows;
+    - ``live`` (full, chunks, queries, k): a ``LiveRetrievalIndex`` fed
+      the same chunks on every rank, each flushed before a query: per
+      generation the ranking, the generation and the rung;
+    - ``lockstep_live`` (full, chunks, queries, k, timeout): the same
+      under ``serving/lockstep.py``, rank 0 ingesting alone and the
+      other ranks replaying: rank 0's ranking and generation per chunk,
+      every rank's last generation, rung and replayed calls;
+
+    and a grid of unequal device groups (rank 0 two devices, the others
+    one): its refusal."""
+    from milnce_tpu_torch.config import ModelConfig
+    from milnce_tpu_torch.models.build import build_model
+    from milnce_tpu_torch.parallel.devices import serving_grid
+    from milnce_tpu_torch.serving import lockstep
+    from milnce_tpu_torch.serving.engine import InferenceEngine
+    from milnce_tpu_torch.serving.index import DeviceRetrievalIndex
+    from milnce_tpu_torch.serving.live_index import LiveRetrievalIndex
+
+    devices = ["cpu", "cpu"]
+    out = {"ladders": [InferenceEngine(
+        build_model(ModelConfig(**dims)), device=devices, process_group=group,
+        precompile=False, **dict(engine_kw, min_bucket=mb, max_batch=top)
+    ).buckets for mb, top in ladders]}
+    engine = InferenceEngine(build_model(ModelConfig(**dims)), variables,
+                             device=devices, process_group=group,
+                             **engine_kw)
+    out["engine"] = {n: (engine.embed_text(ids), engine.embed_video(clips))
+                     for n, (ids, clips) in engine_rows.items()}
+    out["index"] = []
+    for emb, queries, k in index_cases:
+        index = DeviceRetrievalIndex(emb, k=k, query_buckets=(8,),
+                                     device=devices, group=group)
+        scores, idx = index.topk(queries)
+        out["index"].append(dict(
+            scores=scores, idx=idx, shards=index.grid.shards,
+            rows=[int(c.shape[0]) for c, _, _ in index._shards],
+            valid=[int(v[0]) for _, v, _ in index._shards],
+            recompiles=index.recompiles()))
+    full, chunks, queries, k = live
+    index = LiveRetrievalIndex(full[:chunks[0]], k=k, query_buckets=(8,),
+                               device=devices, group=group)
+    out["live"], size = [], chunks[0]
+    try:
+        for n in [0] + list(chunks[1:]):
+            if n:
+                index.add(full[size:size + n])
+                assert index.flush(30.0)
+                size += n
+            _, idx, gen = index.topk_with_gen(queries)
+            out["live"].append((idx, gen, index.stats()["shard_rows"]))
+    finally:
+        index.close()
+    full, chunks, queries, k, timeout = lockstep_live
+    index = LiveRetrievalIndex(full[:chunks[0]], k=k, query_buckets=(8,),
+                               device=devices, group=group)
+    try:
+        if rank == 0:
+            leader = lockstep.Leader(group, timeout)
+            index.announce = leader.announce
+            answers, size = [], chunks[0]
+            for n in [0] + list(chunks[1:]):
+                if n:
+                    index.add(full[size:size + n])
+                    assert index.flush(30.0)
+                    size += n
+                _, idx, gen = index.topk_with_gen(queries)
+                answers.append((idx, gen))
+            closed = leader.close()
+            out["lockstep"] = dict(answers=answers, closed=closed,
+                                   sent=leader.sent)
+        else:
+            out["lockstep"] = dict(replayed=lockstep.follow(
+                group, timeout, None, index))
+        st = index.stats()
+        out["lockstep"].update(generation=st["generation"],
+                               shard_rows=st["shard_rows"])
+    finally:
+        index.close()
+    try:
+        serving_grid(devices[:1] if rank else devices, group)
+    except ValueError as exc:
+        out["unequal"] = str(exc)
+    return out
+
+
 def live_index_hammer() -> int:
     """16 threads — 12 querying, 4 ingesting — against one live index
     under ``MILNCE_LOCK_SANITIZE=1`` (set by the caller before this
